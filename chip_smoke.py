@@ -4,13 +4,14 @@
 Run from the root of a checkout, with one GPU visible:
 
     python3 chip_smoke.py            # every phase; last line is the result
-    python3 chip_smoke.py --quick    # phases 1-3 only (build + kernel check)
+    python3 chip_smoke.py --quick    # phases 1-3 and 6 (builds + kernels)
 
 Phases, each printed on its own line; the first failed check exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``); f32 matmuls
    must run in full f32 (``allow_tf32`` off).
-2. build: compile the CUDA kernel library from ``mxnet_tpu_torch/csrc``.
+2. build: compile the CUDA kernel libraries from ``mxnet_tpu_torch/csrc``,
+   one ``nvcc`` per source, all started together.
 3. kernel: the decode-attention kernel against its plain PyTorch version
    on the card at Llama-3-8B shapes (H=32, KV=8, D=128; f32 and int8 rings),
    with its time, its bound, the plain version's time and, for f32, the
@@ -20,6 +21,19 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    32 greedy tokens): every decode step of every layer must launch the
    kernel, no shape may be new after warmup, and the greedy tokens must be
    identical to a run with the plain attention forced.
+6. flash: the three flash-attention kernels (forward, dq, dk/dv) each
+   against its plain version at the training shape (B=2, H=32, T=2048,
+   D=128, causal), non-causal with valid lengths [0, 1000] (dead rows must
+   be exact zeros), causal with Tq != Tk, a ragged T=1000 and D=64; at the
+   training shape each kernel's time, bound and plain time, and the
+   ``scaled_dot_product_attention`` forward and backward as yardsticks;
+   then the forward kernel against the library forward at T=512..4096.
+7. train: Llama-3-8B width (units 4096, FFN 14336, 32 heads, 8 KV heads,
+   vocab 128256) at depth 4 with seeded weights, three Adam steps of
+   ``gluon.Trainer`` on one next-token batch (B=2, T=2048): every layer's
+   attention must launch each flash kernel once a step, the loss must be
+   finite and fall, and the losses and the parameters after three steps
+   must match the same steps with the plain attention forced.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, the result line. Without CUDA, or without the package next to
@@ -28,6 +42,7 @@ this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -45,6 +60,27 @@ ATOL, RTOL = 1e-5, 1e-4     # same f32 math, only the order of sums differs
 SPIN_CYCLES = 4_000_000     # about 2 ms of the card's clock: covers host work
 KERNEL_SOURCE = "mxnet_tpu_torch/csrc/decode_attention.cu"
 REPLACES = "mxnet_tpu/ops/pallas/decode_attention.py:173"
+FLASH_SOURCE = "mxnet_tpu_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {"fwd": "mxnet_tpu/ops/pallas/flash_attention.py:158",
+                  "bwd_dq": "mxnet_tpu/ops/pallas/flash_attention.py:262",
+                  "bwd_dkv": "mxnet_tpu/ops/pallas/flash_attention.py:350"}
+# (B, H, Tq, Tk, D, causal, valid_length); the first is the training shape
+FLASH_CASES = [(2, 32, 2048, 2048, 128, True, None),
+               (2, 32, 2048, 2048, 128, False, [0, 1000]),
+               (2, 32, 1024, 2048, 128, True, None),
+               (2, 32, 1000, 1000, 128, True, None),
+               (2, 32, 2048, 2048, 64, True, None)]
+SWEEP_T = (512, 1024, 2048, 4096)
+TRAIN_LAYERS, TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 4, 2, 2048, 3, 1e-4
+# kernel route against forced-plain route after three Adam steps. Losses
+# to 1e-4 (the attention differs by ~1e-6). The weights: each within 7 lr,
+# the most Adam can move a weight apart in three steps (about lr a step
+# each way) where a gradient within rounding of 0 takes the other sign on
+# the other route; and the norm of the routes' difference within 1e-2 of
+# the norm of how far the weights moved. Those sign flips alone gave
+# 1.2e-3 on an H100 (a few hundred of 1.92 B weights 2 lr apart); a wrong
+# attention gradient changes the update of every weight it reaches
+LOSS_ATOL, PARAM_ATOL, PARAM_RTOL = 1e-4, 7 * TRAIN_LR, 1e-2
 
 
 class CheckFailed(Exception):
@@ -182,6 +218,247 @@ def kernel_phase(torch, da, nn_ops, flush, dev):
     return results
 
 
+def pairs_kept(b, h, tq, tk, causal, vl):
+    """(query, key) pairs the masks keep: the work a flash kernel must do
+    on these inputs."""
+    off = tk - tq
+    total = 0
+    for kv in (vl if vl is not None else [tk] * b):
+        kv = max(0, min(kv, tk))
+        if causal:
+            # sum over q of min(kv, max(0, q + off + 1))
+            total += sum(min(kv, max(0, q + off + 1)) for q in range(tq))
+        else:
+            total += kv * tq
+    return total * h
+
+
+def flash_bound(kernel, b, h, tq, tk, d, causal, vl):
+    """Least time (ms) of one launch: its inputs read and outputs written
+    once over the memory rate, against its matrix-product flops on the
+    kept pairs (fwd 4 D, dq 6 D, dk/dv 8 D a pair) over the f32 rate."""
+    q_bytes, k_bytes = b * h * tq * d * 4, b * h * tk * d * 4
+    rows = b * h * tq * 4
+    nbytes = {"fwd": 2 * q_bytes + 2 * k_bytes + rows,
+              "bwd_dq": 3 * q_bytes + 2 * k_bytes + 2 * rows,
+              "bwd_dkv": 2 * q_bytes + 4 * k_bytes + 2 * rows}[kernel] + 4 * b
+    flops = {"fwd": 4, "bwd_dq": 6, "bwd_dkv": 8}[kernel] * d * pairs_kept(
+        b, h, tq, tk, causal, vl)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_phase(torch, fa, flush, dev):
+    """Phase 6: each flash kernel against its plain version on the card.
+    Returns {kernel: numbers at the training shape, max error}."""
+    import torch.nn.functional as F
+
+    results = {n: {"max_abs_err": 0.0} for n in fa.KERNELS}
+    for case_i, (b, h, tq, tk, d, causal, vl) in enumerate(FLASH_CASES):
+        gen = torch.Generator(device=dev).manual_seed(100 + case_i)
+
+        def rnd(t):
+            return torch.randn(b * h, t, d, device=dev, generator=gen)
+
+        q, k, v, g = rnd(tq), rnd(tk), rnd(tk), rnd(tq)
+        kvalid = fa.kvalid_of(None if vl is None else torch.tensor(vl), b,
+                              tk, dev)
+        args = (kvalid, causal, tk - tq, d ** -0.5)
+        out, lse = fa.flash_fwd(q, k, v, *args)
+        check(fa.last_path() == "cuda", "flash call did not take the kernel")
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_fwd_torch(q, k, v, *args)
+        delta = (g * ref_out).sum(-1)
+        dq = fa.flash_bwd_dq(q, k, v, g, ref_lse, delta, *args)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, g, ref_lse, delta, *args)
+        torch.cuda.synchronize()
+        ref_dq = fa.flash_bwd_dq_torch(q, k, v, g, ref_lse, delta, *args)
+        ref_dk, ref_dv = fa.flash_bwd_dkv_torch(q, k, v, g, ref_lse, delta,
+                                                *args)
+        errs = {}
+        for name, pairs in (("fwd", ((out, ref_out), (lse, ref_lse))),
+                            ("bwd_dq", ((dq, ref_dq),)),
+                            ("bwd_dkv", ((dk, ref_dk), (dv, ref_dv)))):
+            err = 0.0
+            for ours, ref in pairs:
+                check(bool(torch.isfinite(ours).all()),
+                      f"flash {name} output not finite")
+                diff = (ours - ref).abs()
+                check(bool((diff <= ATOL + RTOL * ref.abs()).all()),
+                      f"flash {name} disagrees with plain: max_abs_err="
+                      f"{float(diff.max())} (case {case_i})")
+                err = max(err, float(diff.max()))
+            errs[name] = err
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                               err)
+        dead = ref_lse <= -1e29
+        n_dead = int(dead.sum())
+        check(bool(torch.equal(lse <= -1e29, dead))
+              and bool((lse[dead] == -1e30).all())
+              and not bool(out[dead].any()) and not bool(dq[dead].any()),
+              f"flash dead rows are not exact zeros (case {case_i})")
+        if vl is not None and vl[0] == 0:
+            check(n_dead == h * tq and not bool(dk[:h].any())
+                  and not bool(dv[:h].any()),
+                  "flash: a batch row with valid length 0 has gradients")
+        check(bool(dq.abs().max() > 0) and bool(dk.abs().max() > 0),
+              "flash gradients are all zero")
+        say("flash", B=b, H=h, Tq=tq, Tk=tk, D=d, causal=causal,
+            valid_length=vl, dead_rows=n_dead,
+            **{f"{n}_max_abs_err": f"{e:.3e}" for n, e in errs.items()})
+        if case_i:
+            continue
+        # the training shape: times
+        calls = {"fwd": lambda: fa.flash_fwd(q, k, v, *args),
+                 "bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, g, ref_lse,
+                                                   delta, *args),
+                 "bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, g, ref_lse,
+                                                     delta, *args)}
+        plains = {"fwd": lambda: fa.flash_fwd_torch(q, k, v, *args),
+                  "bwd_dq": lambda: fa.flash_bwd_dq_torch(
+                      q, k, v, g, ref_lse, delta, *args),
+                  "bwd_dkv": lambda: fa.flash_bwd_dkv_torch(
+                      q, k, v, g, ref_lse, delta, *args)}
+        q4, k4, v4, g4 = (x.view(b, h, -1, d) for x in (q, k, v, g))
+        lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), flush)
+        qr, kr, vr = (x.detach().clone().requires_grad_()
+                      for x in (q4, k4, v4))
+        lib_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qr, kr, vr), g4, retain_graph=True), flush)
+
+        def lib_fwd_bwd():
+            o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+            torch.autograd.grad(o, (qr, kr, vr), g4)
+
+        lib_both = time_ms(torch, lib_fwd_bwd, flush)
+        for name in fa.KERNELS:
+            k_ms = time_ms(torch, calls[name], flush)
+            p_ms = time_ms(torch, plains[name], flush)
+            bound, bound_by = flash_bound(name, b, h, tq, tk, d, causal, vl)
+            lib_ms = lib_fwd if name == "fwd" else lib_bwd
+            results[name].update(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                                 bound_by=bound_by, library_ms=lib_ms)
+            say("flash", kernel=name, B=b, H=h, T=tq, D=d, causal=causal,
+                kernel_ms=f"{k_ms:.6f}", bound_ms=f"{bound:.6f}",
+                bound_by=bound_by, plain_ms=f"{p_ms:.6f}",
+                library_ms=f"{lib_ms:.6f}",
+                library=("sdpa_forward" if name == "fwd"
+                         else "sdpa_backward_dq_dk_dv"))
+        say("flash", library_fwd_bwd_ms=f"{lib_both:.6f}",
+            kernels_fwd_bwd_ms=f"{sum(results[n]['ms'] for n in fa.KERNELS):.6f}")
+        del qr, kr, vr, lib_out
+    # crossover record: forward kernel against the library forward
+    for t in SWEEP_T:
+        b, h, d = 2, 32, 128
+        gen = torch.Generator(device=dev).manual_seed(t)
+        q, k, v = (torch.randn(b * h, t, d, device=dev, generator=gen)
+                   for _ in range(3))
+        kvalid = fa.kvalid_of(None, b, t, dev)
+        k_ms = time_ms(torch, lambda: fa.flash_fwd(q, k, v, kvalid, True, 0,
+                                                   d ** -0.5), flush, reps=10)
+        q4, k4, v4 = (x.view(b, h, t, d) for x in (q, k, v))
+        l_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), flush, reps=10)
+        bound, _ = flash_bound("fwd", b, h, t, t, d, True, None)
+        say("flash sweep", B=b, H=h, T=t, D=d, causal=True,
+            kernel_ms=f"{k_ms:.6f}", library_ms=f"{l_ms:.6f}",
+            bound_ms=f"{bound:.6f}")
+    return results
+
+
+def train_run(torch, mt, fa, get_llama, Trainer, loss_mod, dev, route,
+              toks, keep_initial):
+    """Three Adam steps of the 4-layer Llama-3-8B-width model on ``toks``
+    with the attention on ``route`` (None: the kernels; "torch": plain).
+    Returns (losses, step ms, launches, peak bytes, params on the host,
+    initial params on the host or None)."""
+    mt.random.seed(0)
+    model = get_llama(CONFIG, device=dev, trainable=True,
+                      num_layers=TRAIN_LAYERS)
+    initial = ({n: p.detach().to("cpu", copy=True)
+                for n, p in model.named_parameters()}
+               if keep_initial else None)
+    trainer = Trainer(model.parameters(), "adam",
+                      {"learning_rate": TRAIN_LR})
+    loss_fn = loss_mod.SoftmaxCrossEntropyLoss()
+    x = torch.from_numpy(toks[:, :-1]).to(dev)
+    y = torch.from_numpy(toks[:, 1:]).to(dev)
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.force_path(route)
+    fa.reset_launch_count()
+    try:
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss = loss_fn(model(x), y)
+            loss.sum().backward()          # MXNet's loss.backward()
+            trainer.step(TRAIN_B)
+            losses.append(float(loss.detach().mean()))  # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        fa.force_path(None)
+    launches = fa.launch_count()
+    peak = torch.cuda.max_memory_allocated()
+    final = {n: p.detach().to("cpu", copy=True)
+             for n, p in model.named_parameters()}
+    del model, trainer, loss, x, y
+    torch.cuda.empty_cache()
+    return losses, step_ms, launches, peak, final, initial
+
+
+def train_phase(torch, np, mt, fa, get_llama, Trainer, loss_mod, dev, vocab):
+    """Phase 7: train Llama-3-8B width at depth 4 on the kernel route, then
+    the same steps with the plain attention forced; returns the kernel
+    route's launches."""
+    toks = np.random.RandomState(0).randint(
+        0, vocab, size=(TRAIN_B, TRAIN_T + 1)).astype(np.int64)
+    runs = {}
+    for route in (None, "torch"):
+        losses, step_ms, launches, peak, final, initial = train_run(
+            torch, mt, fa, get_llama, Trainer, loss_mod, dev, route, toks,
+            keep_initial=route is None)
+        label = "kernel" if route is None else "plain"
+        tok_s = TRAIN_B * TRAIN_T / (statistics.mean(step_ms[1:]) / 1e3)
+        say("train", route=label, layers=TRAIN_LAYERS, B=TRAIN_B,
+            T=TRAIN_T, losses=[f"{x:.6f}" for x in losses],
+            step_ms=[f"{x:.3f}" for x in step_ms],
+            tokens_s=f"{tok_s:.3f}", peak_mem_bytes=peak,
+            launches=launches)
+        check(all(np.isfinite(losses)), f"{label} route: loss not finite")
+        check(losses[-1] < losses[0], f"{label} route: loss did not fall "
+              f"({losses})")
+        runs[label] = (losses, launches, final, initial)
+    k_losses, k_launches, k_final, initial = runs["kernel"]
+    p_losses, p_launches, p_final, _ = runs["plain"]
+    want = TRAIN_LAYERS * TRAIN_STEPS
+    check(k_launches == dict.fromkeys(fa.KERNELS, want),
+          f"kernel route launched {k_launches}, want {want} of each")
+    check(p_launches == dict.fromkeys(fa.KERNELS, 0),
+          f"plain route launched the kernels: {p_launches}")
+    loss_diff = max(abs(a - b) for a, b in zip(k_losses, p_losses))
+    max_diff, diff_sq, moved_sq = 0.0, 0.0, 0.0
+    for name, pk in k_final.items():
+        pk, pp, p0 = (t.to(dev) for t in (pk, p_final[name], initial[name]))
+        max_diff = max(max_diff, float((pk - pp).abs().max()))
+        diff_sq += float(((pk - pp).double() ** 2).sum())
+        moved_sq += float(((pk - p0).double() ** 2).sum())
+    rel = (diff_sq / moved_sq) ** 0.5 if moved_sq else float("inf")
+    say("train", loss_max_diff=f"{loss_diff:.3e}",
+        param_max_abs_diff=f"{max_diff:.3e}",
+        param_diff_over_movement=f"{rel:.3e}",
+        params=sum(t.numel() for t in k_final.values()))
+    check(loss_diff <= LOSS_ATOL, f"losses differ from the plain route by "
+          f"{loss_diff} > {LOSS_ATOL}")
+    check(max_diff <= PARAM_ATOL and rel <= PARAM_RTOL,
+          f"parameters differ from the plain route: max {max_diff} "
+          f"(limit {PARAM_ATOL}), relative {rel} (limit {PARAM_RTOL})")
+    return k_launches
+
+
 def first_divergence(torch, da, gen, prompts, a, b):
     """Row and step of the first differing greedy token of the kernel run
     ``a`` and the plain run ``b``, with each route's logit gap between the
@@ -264,7 +541,7 @@ def serve_phase(torch, da, Generator, model, rung, prompts, n_layers, vocab):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
-                    help="run phases 1-3 only (build and kernel check)")
+                    help="run phases 1-3 and 6 only (builds and kernels)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -282,11 +559,14 @@ def main(argv=None):
     import numpy as np
 
     import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon import loss as loss_mod
     from mxnet_tpu_torch.models import get_llama
     from mxnet_tpu_torch.models.llama import _LLAMA_CONFIGS
     from mxnet_tpu_torch.ops import nn as nn_ops
     from mxnet_tpu_torch.ops.hopper import _build
     from mxnet_tpu_torch.ops.hopper import decode_attention as da
+    from mxnet_tpu_torch.ops.hopper import flash_attention as fa
     from mxnet_tpu_torch.serve import Generator
 
     dev = torch.device("cuda", 0)
@@ -301,25 +581,31 @@ def main(argv=None):
     check(torch.backends.cuda.matmul.allow_tf32 is False,
           "allow_tf32 is on: f32 matmuls would run in TF32")
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
+    sources = ("decode_attention", "flash_attention")
+    _build.build_many(sources)
     da.build()
-    log = _build.BUILD_LOGS.get("decode_attention")
+    fa.build()
+    for name in sources:
+        log = _build.BUILD_LOGS.get(name)
+        say("build", source=name,
+            seconds=f"{log['seconds']:.3f}" if log else "cached",
+            library=os.path.relpath(_build.library_path(name), root))
+        for line in (log["log"].splitlines() if log else []):
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
     say("build", seconds=f"{time.perf_counter() - t0:.3f}",
-        library=os.path.relpath(_build.library_path("decode_attention"),
-                                root),
         natural_block=da.natural_block())
-    for line in (log["log"].splitlines() if log else []):
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
 
     # 3. kernel vs plain
     flush = torch.empty(64 << 18, device=dev)  # 64 MiB > the 50 MB L2
     kres = kernel_phase(torch, da, nn_ops, flush, dev)
-    del flush
     if args.quick:
+        flash_phase(torch, fa, flush, dev)
         say("quick", seconds=f"{time.perf_counter() - t_start:.3f}")
         return 0
+    del flush
 
     # 4./5. serve llama3_8b on the pallas and int8 rungs
     cfg = _LLAMA_CONFIGS[CONFIG]
@@ -339,6 +625,20 @@ def main(argv=None):
         served[rung] = serve_phase(torch, da, Generator, model, rung, prompts,
                                    cfg["num_layers"], cfg["vocab_size"])
         torch.cuda.empty_cache()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. flash kernels vs plain
+    flush = torch.empty(64 << 18, device=dev)
+    fres = flash_phase(torch, fa, flush, dev)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. train llama3_8b width at depth 4 on both attention routes
+    train_launches = train_phase(torch, np, mt, fa, get_llama, Trainer,
+                                 loss_mod, dev, cfg["vocab_size"])
 
     kernels = []
     for variant, rung in (("f32", "pallas"), ("int8", "int8")):
@@ -347,6 +647,15 @@ def main(argv=None):
             "name": f"decode_attention_{variant}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
             "launches": served[rung]["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for name in fa.KERNELS:
+        r = fres[name]
+        kernels.append({
+            "name": f"flash_{name}", "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[name],
+            "launches": train_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -6,14 +6,18 @@ tensor code is PyTorch; every TPU kernel on a ported path is a kernel
 written by hand for ``sm_90a`` under ``csrc/``, built at first use. Entry
 points run on the GPU unless the caller passes ``device="cpu"``.
 
-Ported so far (the serving slice): ``models.llama`` (cache path),
-``ops.nn`` (the serving ops), ``ops.hopper.decode_attention`` (the CUDA
-decode-attention kernel) and ``serve`` (``Generator`` on the ``pallas``
-and ``int8`` rungs).
+Ported so far: serving (``serve.Generator`` on the ``pallas`` and
+``int8`` rungs, every decode step through the CUDA decode-attention
+kernel) and single-device training (``gluon.Trainer``, ``gluon.loss``,
+``optimizer``, ``lr_scheduler``; the cache-free Llama forward through the
+CUDA flash-attention kernels, forward and backward). ``models.llama`` has
+both paths; ``ops.nn`` holds the ops, ``ops.hopper`` the kernels.
 """
 from __future__ import annotations
 
-from . import config, device, models, random, serve
+from . import (config, device, gluon, lr_scheduler, models, optimizer,
+               random, serve)
 from .base import MXNetError
 
-__all__ = ["MXNetError", "config", "device", "models", "random", "serve"]
+__all__ = ["MXNetError", "config", "device", "gluon", "lr_scheduler",
+           "models", "optimizer", "random", "serve"]

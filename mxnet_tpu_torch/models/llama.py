@@ -1,18 +1,21 @@
 """Llama-family decoder LM as ``torch.nn`` modules (counterpart of
 ``mxnet_tpu/models/llama.py``).
 
-The serving slice: RMSNorm pre-normalization, rotary position embeddings
-on Q/K, grouped-query attention over per-layer KV rings through the
-decode-attention kernel module, SwiGLU feed-forward, weight-tied or
-separate LM head. Module and parameter names follow the JAX package's, so
+RMSNorm pre-normalization, rotary position embeddings on Q/K,
+grouped-query attention, SwiGLU feed-forward, weight-tied or separate LM
+head. Two paths, as in the JAX package:
+
+* the cache-free forward (training): causal attention over the whole
+  sequence through the flash-attention kernel module, K/V heads expanded
+  to the query heads;
+* the cache path (serving): attention over per-layer KV rings through the
+  decode-attention kernel module.
+
+Module and parameter names follow the JAX package's, so
 ``named_parameters()`` yields exactly its ``collect_params()`` names
 (``embed.weight``, ``layer{i}.attention.q_proj.weight``, ...), and
 :func:`load_reference_params` carries its weights across unchanged: Gluon's
 Dense keeps its weight as (out, in), which is ``nn.Linear``'s layout too.
-
-Only the cache path exists yet. The cache-free forward runs flash
-attention (the TPU kernel ``flash_attention._flash_fwd``), which a later
-slice ports; it raises ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -27,12 +30,6 @@ from .. import device as _device
 from .. import random as _rng
 from ..base import MXNetError
 from ..ops import nn as _ops
-
-_NO_FLASH = ("the cache-free forward needs flash attention (the TPU "
-             "kernel flash_attention._flash_fwd), which the port brings "
-             "in its next slice; serve through serve.Generator, which "
-             "runs the cache path")
-
 
 @functools.lru_cache(maxsize=64)
 def _rope_tables(t, dim, theta=10000.0):
@@ -115,11 +112,12 @@ class LlamaAttention(nn.Module):
         return x.reshape(b, t, n, self._head_dim).transpose(1, 2)
 
     def forward(self, x, cache=None, start_pos=None):
-        """Attention of ``x`` (B, T, units) at absolute positions
+        """Attention of ``x`` (B, T, units): causal over ``x`` itself when
+        ``cache`` is None (training), else at absolute positions
         ``start_pos[b] + t`` over ``cache`` (one layer's
         :class:`~mxnet_tpu_torch.serve.KVCache` slot)."""
         if cache is None:
-            raise NotImplementedError(_NO_FLASH)
+            return self._forward_full(x)
         if start_pos is None:
             raise MXNetError("cache= requires start_pos (the (B,) "
                              "absolute position of x[:, 0])")
@@ -129,6 +127,25 @@ class LlamaAttention(nn.Module):
                 "the baseline rung's stable_dense cache path is ported in a "
                 "later slice of the serving port")
         return self._forward_cached_fast(x, cache, start_pos, path)
+
+    def _forward_full(self, x):
+        """The cache-free forward: projections, RoPE from position 0, K/V
+        heads repeated to the query heads (``mnp.repeat(k, rep, axis=1)``
+        in the JAX package), then causal flash attention."""
+        b, t, _ = x.shape
+        q = self._heads_split(self.q_proj(x), self._heads)
+        k = self._heads_split(self.k_proj(x), self._kv_heads)
+        v = self._heads_split(self.v_proj(x), self._kv_heads)
+        cos, sin = _rope_tables_on(t, self._head_dim, self._theta, x.device)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        rep = self._heads // self._kv_heads
+        if rep > 1:
+            k = k.repeat_interleave(rep, dim=1)
+            v = v.repeat_interleave(rep, dim=1)
+        out = _ops.attention(q, k, v, causal=True)
+        out = out.transpose(1, 2).reshape(b, t, self._units)
+        return self.o_proj(out)
 
     def _forward_cached_fast(self, x, cache, start_pos, path):
         """Serving rungs ("pallas"/"int8"): gemm (or int8) projections, the
@@ -200,7 +217,8 @@ class LlamaBlock(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    """Decoder-only LM over per-layer KV rings."""
+    """Decoder-only LM: logits of a whole sequence (training), or through
+    per-layer KV rings (serving)."""
 
     def __init__(self, vocab_size=32000, units=4096, hidden_size=11008,
                  num_layers=32, num_heads=32, num_kv_heads=None,
@@ -220,18 +238,18 @@ class LlamaModel(nn.Module):
             self.lm_head = nn.Linear(units, vocab_size, bias=False)
 
     def forward(self, input_ids, cache=None, start_pos=None, last_idx=None):
-        """Logits of ``input_ids`` (B, T) at positions ``start_pos[b] + t``
-        through the KV rings of ``cache`` — (B, T, vocab), or (B, vocab)
-        at the positions ``last_idx`` (B,) when it is given. Picking the
-        rows before the final norm and LM head, instead of after them as
-        the JAX package does, gives the same values (both act per position)
-        and keeps a prefill from computing T x vocab logits it throws
-        away."""
-        if cache is None:
-            raise NotImplementedError(_NO_FLASH)
+        """Logits of ``input_ids`` (B, T): with no ``cache``, causal over
+        the sequence from position 0; with one, at positions
+        ``start_pos[b] + t`` through its KV rings. (B, T, vocab), or
+        (B, vocab) at the positions ``last_idx`` (B,) when it is given.
+        Picking the rows before the final norm and LM head, instead of
+        after them as the JAX package does, gives the same values (both act
+        per position) and keeps a prefill from computing T x vocab logits
+        it throws away."""
         x = self.embed(input_ids.to(torch.long))
         for i, blk in enumerate(self._blocks):
-            x = blk(x, cache=cache.layer(i), start_pos=start_pos)
+            x = blk(x, cache=None if cache is None else cache.layer(i),
+                    start_pos=start_pos)
         if last_idx is not None:
             x = _ops.gather_positions(x, last_idx)
         x = self.norm(x)
@@ -255,13 +273,16 @@ _LLAMA_CONFIGS = {
 _INIT_SCALE = 0.07  # MXNet's default initializer: Uniform(-0.07, 0.07)
 
 
-def get_llama(config="llama3_8b", device=None, **overrides):
+def get_llama(config="llama3_8b", device=None, trainable=False,
+              **overrides):
     """Build a :class:`LlamaModel` from a named config on ``device`` (the
     GPU unless ``"cpu"`` is asked for) with seeded random weights: every
     weight matrix uniform in [-0.07, 0.07] from the device's
     ``mxnet_tpu_torch.random`` stream, every norm gain 1. The parameters
     are made on the device directly, so an 8B model never passes through
-    host memory. The model is in eval mode with gradients off."""
+    host memory. The model is in eval mode with gradients off, for
+    serving; ``trainable=True`` gives it in train mode with gradients on,
+    for ``gluon.Trainer``."""
     if config not in _LLAMA_CONFIGS:
         raise MXNetError(f"unknown llama config {config!r}; options "
                          f"{sorted(_LLAMA_CONFIGS)}")
@@ -278,8 +299,8 @@ def get_llama(config="llama3_8b", device=None, **overrides):
                 p.fill_(1.0)
             else:
                 p.uniform_(-_INIT_SCALE, _INIT_SCALE, generator=gen)
-            p.requires_grad_(False)
-    return model.eval()
+            p.requires_grad_(trainable)
+    return model.train(trainable)
 
 
 def load_reference_params(model, params):

@@ -66,24 +66,42 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
     returns the library's path. Raises :class:`MXNetError` with the
     compiler's output when ``nvcc`` fails."""
-    out = library_path(name)
-    if out.exists():
-        return out
+    return build_many([name])[0]
+
+
+def build_many(names) -> list:
+    """Compile the libraries of ``names`` that are not built yet, one
+    ``nvcc`` process each, all started together; returns their paths in
+    order. Raises :class:`MXNetError` with the compiler's output if any
+    ``nvcc`` fails (after every process has ended)."""
+    outs = [library_path(n) for n in names]
+    todo = [(n, o) for n, o in zip(names, outs) if not o.exists()]
+    if not todo:
+        return outs
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise MXNetError(f"nvcc failed to build {name} "
-                         f"(exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    BUILD_LOGS[name] = {"seconds": seconds, "path": str(out), "log": log}
-    return out
+    procs = []
+    for name, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed to build {name} "
+                          f"(exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+        BUILD_LOGS[name] = {"seconds": time.perf_counter() - t0,
+                            "path": str(out), "log": log}
+    if failed:
+        raise MXNetError("\n".join(failed))
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,4 +1,4 @@
-"""Neural-network ops of the serving slice, as functions on tensors.
+"""Neural-network ops of the ported slices, as functions on tensors.
 
 Each mirrors its namesake in ``mxnet_tpu/ops/nn.py`` (same arguments, same
 layouts, same arithmetic), so the tests can feed one set of numpy inputs
@@ -12,6 +12,7 @@ import torch.nn.functional as F
 
 from ..base import MXNetError
 from .hopper import decode_attention as _da
+from .hopper import flash_attention as _fa
 
 
 def activation(data, act_type="relu"):
@@ -134,6 +135,18 @@ def cached_attention(query, key, value, start_pos, scale=None,
             "later slice of the serving port")
     return _da.decode_attention(query, key, value, start_pos, scale=scale,
                                 k_scale=k_scale, v_scale=v_scale)
+
+
+def attention(query, key, value, mask=None, causal=False, scale=None,
+              use_flash=True, valid_length=None):
+    """Scaled dot-product attention over (B, H, T, D) tensors, through the
+    flash-attention kernel module (``ops/hopper/flash_attention``): the
+    CUDA kernels forward and backward for CUDA tensors, their plain
+    versions on the CPU. ``valid_length`` (B,) key lengths are masked
+    inside the kernels; a dense ``mask`` takes the plain attention."""
+    return _fa.attention(query, key, value, mask=mask, causal=causal,
+                         scale=scale, use_flash=use_flash,
+                         valid_length=valid_length)
 
 
 def gather_positions(data, indices):

@@ -7,8 +7,8 @@ also runs on a GPU machine that has only PyTorch:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 (``--noconftest`` because the suite's ``conftest.py`` sets up JAX.) The CPU
-tests hold each plain version against the JAX package; these hold the
-kernel against the plain version on the same card, at atol 1e-5 / rtol
+tests hold each plain version against the JAX package; these hold each
+kernel against its plain version on the same card, at atol 1e-5 / rtol
 1e-4 as ``chip_smoke.py`` does: the same f32 math, summed in another order.
 """
 import copy
@@ -21,7 +21,10 @@ from mxnet_tpu_torch import random as trandom
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.models import get_llama
 from mxnet_tpu_torch.ops import nn as tops
+from mxnet_tpu_torch.gluon import Trainer
+from mxnet_tpu_torch.gluon import loss as tloss
 from mxnet_tpu_torch.ops.hopper import decode_attention as da
+from mxnet_tpu_torch.ops.hopper import flash_attention as fa
 from mxnet_tpu_torch.serve import Generator
 
 pytestmark = pytest.mark.cuda
@@ -201,3 +204,140 @@ def test_cuda_kv_cache_write_q_matches_cpu():
                                    new.to(dev), sp.to(dev))
     assert torch.equal(gq.cpu(), cq)
     assert torch.equal(gs.cpu(), cs)
+
+
+# (b, h, tq, tk, d, causal, valid_length): dead rows (valid length 0, and
+# Tq > Tk under the causal offset), ragged T, the three tile configurations
+FLASH_CASES = [
+    (2, 4, 128, 128, 64, True, None),
+    (2, 3, 100, 100, 16, False, [0, 60]),
+    (1, 2, 70, 130, 128, True, None),
+    (1, 2, 130, 70, 128, True, None),
+    (2, 2, 1000, 1000, 128, True, [1000, 999]),
+    (1, 2, 257, 257, 200, True, [200]),
+]
+
+
+def _flash_inputs(b, h, tq, tk, d, vl, dev, seed=0):
+    rng = np.random.RandomState(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+
+    q, k, v, g = t(b * h, tq, d), t(b * h, tk, d), t(b * h, tk, d), \
+        t(b * h, tq, d)
+    kvalid = fa.kvalid_of(None if vl is None else torch.tensor(vl), b, tk,
+                          dev)
+    return q, k, v, g, kvalid
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_kernels_match_plain(case):
+    """Each flash kernel against its plain version on the card; dead rows
+    give exact zeros and lse = -1e30; one launch counted per call."""
+    dev = _need_cuda()
+    b, h, tq, tk, d, causal, vl = case
+    q, k, v, g, kvalid = _flash_inputs(b, h, tq, tk, d, vl, dev)
+    args = (kvalid, causal, tk - tq, d ** -0.5)
+    n0 = fa.launch_count()
+    out, lse = fa.flash_fwd(q, k, v, *args)
+    ref_out, ref_lse = fa.flash_fwd_torch(q, k, v, *args)
+    delta = (g * ref_out).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, g, ref_lse, delta, *args)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, g, ref_lse, delta, *args)
+    torch.cuda.synchronize()
+    assert fa.last_path() == "cuda"
+    assert fa.launch_count() == {n: n0[n] + 1 for n in fa.KERNELS}
+    ref_dq = fa.flash_bwd_dq_torch(q, k, v, g, ref_lse, delta, *args)
+    ref_dk, ref_dv = fa.flash_bwd_dkv_torch(q, k, v, g, ref_lse, delta,
+                                            *args)
+    for ours, ref in ((out, ref_out), (lse, ref_lse), (dq, ref_dq),
+                      (dk, ref_dk), (dv, ref_dv)):
+        torch.testing.assert_close(ours, ref, atol=ATOL, rtol=RTOL)
+    dead = ref_lse <= -1e29
+    assert torch.equal(lse <= -1e29, dead)
+    assert not out[dead].any() and not dq[dead].any()
+    if vl is not None and vl[0] == 0:
+        assert bool(dead[:h].all()) and not dk[:h].any() and not dv[:h].any()
+
+
+def test_cuda_flash_attention_autograd_matches_cpu():
+    """``attention`` on CUDA tensors (``_FlashCore`` on the three kernels)
+    against the plain attention on the CPU, forward and gradients."""
+    dev = _need_cuda()
+    rng = np.random.RandomState(1)
+    arrays = [rng.randn(2, 4, 200, 64).astype(np.float32) for _ in range(4)]
+    vl = torch.tensor([200, 77], dtype=torch.int32)
+    cpu = [torch.from_numpy(a).requires_grad_() for a in arrays[:3]]
+    gpu = [torch.from_numpy(a).to(dev).requires_grad_() for a in arrays[:3]]
+    n0 = fa.launch_count()
+    out = fa.attention(*gpu, causal=True, valid_length=vl.to(dev))
+    assert fa.last_path() == "cuda"
+    grads = torch.autograd.grad(out, gpu, torch.from_numpy(arrays[3]).to(dev))
+    assert fa.launch_count() == {n: n0[n] + 1 for n in fa.KERNELS}
+    ref = fa.attention_torch(*cpu, causal=True, valid_length=vl)
+    ref_grads = torch.autograd.grad(ref, cpu, torch.from_numpy(arrays[3]))
+    torch.testing.assert_close(out.cpu(), ref, atol=ATOL, rtol=RTOL)
+    for a, b in zip(grads, ref_grads):
+        torch.testing.assert_close(a.cpu(), b, atol=ATOL, rtol=RTOL)
+
+
+def test_cuda_flash_refusals_and_forced_plain():
+    dev = _need_cuda()
+    q, k, v, g, kvalid = _flash_inputs(1, 2, 64, 64, 32, None, dev)
+    n0 = fa.launch_count()
+    with pytest.raises(MXNetError, match="int32"):
+        fa.flash_fwd(q, k, v, kvalid.long(), True, 0, 0.1)
+    with pytest.raises(MXNetError, match="contiguous"):
+        fa.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                     kvalid, True, 0, 0.1)
+    with pytest.raises(MXNetError, match="kvalid on cpu"):
+        fa.flash_fwd(q, k, v, kvalid.cpu(), True, 0, 0.1)
+    with pytest.raises(MXNetError, match="float32"):
+        fa.flash_fwd(q.double(), k.double(), v.double(), kvalid, True, 0,
+                     0.1)
+    with pytest.raises(MXNetError, match="head_dim"):
+        z = torch.zeros(1, 1, 4, 264, device=dev)
+        fa.attention(z, z, z)
+    fa.force_path("torch")
+    try:
+        fa.attention(q[None], k[None], v[None], causal=True)
+        assert fa.last_path() == "torch"
+    finally:
+        fa.force_path(None)
+    assert fa.launch_count() == n0
+
+
+def test_cuda_trainer_matches_cpu():
+    """Three SGD steps of ``llama_tiny_test`` on the card (every layer's
+    attention through the flash kernels) against the same steps on the
+    CPU: losses and parameters to 1e-5."""
+    dev = _need_cuda()
+    trandom.seed(0)
+    cpu_model = get_llama("llama_tiny_test", device="cpu", trainable=True)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, size=(2, 129)))
+    results = []
+    for model, d in ((cpu_model, "cpu"), (gpu_model, dev)):
+        tr = Trainer(model.parameters(), "sgd", {"learning_rate": 0.1,
+                                                 "momentum": 0.9})
+        x, y = toks[:, :-1].to(d), toks[:, 1:].to(d)
+        losses = []
+        n0 = fa.launch_count()
+        for _ in range(3):
+            loss = tloss.SoftmaxCrossEntropyLoss()(model(x), y)
+            loss.sum().backward()
+            tr.step(2)
+            losses.append(loss.detach().cpu())
+        launched = {n: fa.launch_count()[n] - n0[n] for n in fa.KERNELS}
+        results.append((losses, launched))
+    (cpu_losses, cpu_launched), (gpu_losses, gpu_launched) = results
+    assert cpu_launched == dict.fromkeys(fa.KERNELS, 0)
+    assert gpu_launched == dict.fromkeys(fa.KERNELS, 2 * 3)  # layers x steps
+    for a, b in zip(gpu_losses, cpu_losses):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    for (name, a), b in zip(gpu_model.named_parameters(),
+                            cpu_model.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=1e-5,
+                                   rtol=0, msg=name)

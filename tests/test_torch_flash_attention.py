@@ -1,0 +1,222 @@
+"""The port's flash-attention module against the JAX package's.
+
+The same numpy inputs go through the JAX package's ``attention`` with the
+Pallas kernels run by the interpreter (``use_interpret(True)``, so
+``_flash_core`` and its three TPU kernels run on the CPU), through its
+``_reference_attention``, and through the port's ``attention`` on CPU
+tensors, which is ``_FlashCore`` on the kernels' plain versions
+(``flash_fwd_torch``, ``flash_bwd_dq_torch``, ``flash_bwd_dkv_torch``),
+and its ``attention_torch``. Forward and gradients (``jax.vjp`` against
+``torch.autograd.grad`` with one cotangent) agree to atol 1e-5 / rtol 1e-5:
+the same f32 function, with sums taken in another order (measured ~1e-6).
+
+The CUDA kernels run only on a GPU: ``tests/test_torch_cuda.py`` holds each
+against its plain version there, and ``chip_smoke.py`` does so at the
+training shape.
+"""
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu.ops.pallas import flash_attention as jfa
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops import nn as tops
+from mxnet_tpu_torch.ops.hopper import flash_attention as fa
+
+ATOL, RTOL = 1e-5, 1e-5
+
+# (b, h, tq, tk, d, causal, valid_length)
+CASES = [
+    (2, 3, 70, 70, 16, True, None),
+    (2, 3, 70, 70, 16, False, [0, 33]),       # batch 0: every row dead
+    (2, 3, 70, 70, 16, True, [0, 33]),
+    (1, 2, 70, 130, 64, True, None),          # Tq < Tk: diagonal offset 60
+    (1, 2, 130, 70, 64, True, None),          # Tq > Tk: the first 60 rows dead
+    (2, 2, 96, 96, 64, False, [96, 50]),
+]
+IDS = ["causal-d16", "valid0-d16", "causal-valid0-d16", "tq<tk-d64",
+       "tq>tk-d64", "valid-d64"]
+
+
+def _inputs(b, h, tq, tk, d, seed=0):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, h, tq, d).astype(np.float32)
+    k = rng.randn(b, h, tk, d).astype(np.float32)
+    v = rng.randn(b, h, tk, d).astype(np.float32)
+    g = rng.randn(b, h, tq, d).astype(np.float32)
+    return q, k, v, g
+
+
+def _jax_attention(q, k, v, g, causal, vl, flash):
+    """Output and (dq, dk, dv) of the JAX package's attention: the Pallas
+    kernels through the interpreter when ``flash``, else
+    ``_reference_attention``."""
+    import jax
+    import jax.numpy as jnp
+
+    vlj = None if vl is None else jnp.asarray(np.array(vl, np.int32))
+    if flash:
+        jfa.use_interpret(True)
+    try:
+        def f(q_, k_, v_):
+            if flash:
+                return jfa.attention(q_, k_, v_, causal=causal,
+                                     valid_length=vlj)
+            return jfa._reference_attention(q_, k_, v_, causal=causal,
+                                            valid_length=vlj)
+
+        out, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+        if flash:
+            assert jfa.last_path() == "pallas"
+        grads = vjp(jnp.asarray(g))
+    finally:
+        jfa.use_interpret(False)
+    return np.asarray(out), [np.asarray(x) for x in grads]
+
+
+def _torch_attention(fn, q, k, v, g, causal, vl):
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    vlt = None if vl is None else torch.tensor(vl, dtype=torch.int32)
+    out = fn(qt, kt, vt, causal=causal, valid_length=vlt)
+    grads = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(g))
+    return out.detach().numpy(), [x.numpy() for x in grads]
+
+
+def _close(a, b):
+    np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_flash_core_matches_pallas_interpret_and_reference(case):
+    """``_FlashCore`` (the port's attention on CPU tensors) against the
+    Pallas kernels and against ``_reference_attention``, forward and
+    gradients; ``attention_torch`` against ``_reference_attention``."""
+    b, h, tq, tk, d, causal, vl = case
+    q, k, v, g = _inputs(b, h, tq, tk, d)
+    n0 = fa.launch_count()
+    out, grads = _torch_attention(fa.attention, q, k, v, g, causal, vl)
+    assert fa.last_path() == "torch" and fa.launch_count() == n0
+    pal_out, pal_grads = _jax_attention(q, k, v, g, causal, vl, flash=True)
+    ref_out, ref_grads = _jax_attention(q, k, v, g, causal, vl, flash=False)
+    _close(out, pal_out)
+    _close(out, ref_out)
+    for ours, pal, ref in zip(grads, pal_grads, ref_grads):
+        _close(ours, pal)
+        _close(ours, ref)
+    plain_out, plain_grads = _torch_attention(fa.attention_torch, q, k, v, g,
+                                              causal, vl)
+    _close(plain_out, ref_out)
+    for ours, ref in zip(plain_grads, ref_grads):
+        _close(ours, ref)
+    if vl is not None and vl[0] == 0:  # dead rows: exact zeros, zero grads
+        assert not out[0].any() and not plain_out[0].any()
+        assert not any(x[0].any() for x in grads)
+
+
+@pytest.mark.parametrize("case", CASES[:5], ids=IDS[:5])
+def test_flash_fwd_plain_lse_matches_pallas(case):
+    """``flash_fwd_torch`` on (BH, T, D) gives the Pallas forward's out and
+    per-row lse (-1e30 exactly on dead rows)."""
+    import jax.numpy as jnp
+
+    b, h, tq, tk, d, causal, vl = case
+    q, k, v, _ = _inputs(b, h, tq, tk, d)
+    vlj = None if vl is None else jnp.asarray(np.array(vl, np.int32))
+    jfa.use_interpret(True)
+    try:
+        ref_out, res = jfa._flash_core_fwd(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), vlj, causal, None)
+    finally:
+        jfa.use_interpret(False)
+    ref_lse = np.asarray(res[3])[:, :tq]
+    kvalid = fa.kvalid_of(None if vl is None else torch.tensor(vl), b, tk,
+                          torch.device("cpu"))
+    out, lse = fa.flash_fwd_torch(
+        torch.from_numpy(q.reshape(b * h, tq, d)),
+        torch.from_numpy(k.reshape(b * h, tk, d)),
+        torch.from_numpy(v.reshape(b * h, tk, d)), kvalid, causal, tk - tq,
+        1.0 / np.sqrt(d))
+    assert tuple(out.shape) == (b * h, tq, d) and tuple(lse.shape) == (b * h,
+                                                                       tq)
+    _close(out.reshape(b, h, tq, d).numpy(), np.asarray(ref_out))
+    _close(lse.numpy(), ref_lse)
+    dead = ref_lse <= -1e29
+    assert np.array_equal(lse.numpy() <= -1e29, dead)
+    assert (lse.numpy()[dead] == np.float32(-1e30)).all()
+
+
+def test_backward_plain_kernels_match_autograd_of_plain_attention():
+    """The two backward plain versions, fed the forward's lse and
+    ``delta = rowsum(g * out)``, give autograd's gradients of
+    ``attention_torch``."""
+    b, h, tq, tk, d = 2, 2, 40, 56, 16
+    q, k, v, g = _inputs(b, h, tq, tk, d, seed=3)
+    vl = [56, 20]
+    _, ref = _torch_attention(fa.attention_torch, q, k, v, g, True, vl)
+    q3, k3, v3, g3 = (torch.from_numpy(a.reshape(b * h, -1, d))
+                      for a in (q, k, v, g))
+    kvalid = fa.kvalid_of(torch.tensor(vl), b, tk, torch.device("cpu"))
+    sc, off = 1.0 / np.sqrt(d), tk - tq
+    out, lse = fa.flash_fwd_torch(q3, k3, v3, kvalid, True, off, sc)
+    delta = (g3 * out).sum(-1)
+    dq = fa.flash_bwd_dq_torch(q3, k3, v3, g3, lse, delta, kvalid, True,
+                               off, sc)
+    dk, dv = fa.flash_bwd_dkv_torch(q3, k3, v3, g3, lse, delta, kvalid, True,
+                                    off, sc)
+    for ours, want in zip((dq, dk, dv), ref):
+        _close(ours.reshape(want.shape).numpy(), want)
+
+
+def test_dense_mask_and_use_flash_false_take_plain_attention():
+    """A dense mask, or ``use_flash=False``, runs ``attention_torch`` (the
+    JAX package's XLA route), held against ``_reference_attention``."""
+    import jax.numpy as jnp
+
+    q, k, v, _ = _inputs(2, 2, 24, 24, 16, seed=1)
+    mask = np.random.RandomState(2).rand(2, 1, 24, 24) > 0.3
+    mask[0, :, 5] = False  # a dead row
+    ref = jfa._reference_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                   mask=jnp.asarray(mask))
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    out = tops.attention(qt, kt, vt, mask=torch.from_numpy(mask))
+    assert fa.last_path() == "torch"
+    _close(out.numpy(), np.asarray(ref))
+    assert not out[0, :, 5].any()
+    out2 = tops.attention(qt, kt, vt, causal=True, use_flash=False)
+    _close(out2.numpy(), fa.attention_torch(qt, kt, vt, causal=True).numpy())
+
+
+def test_routing_on_cpu_and_force_path():
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(1, 2, 8, 8, 16))
+    n0 = fa.launch_count()
+    fa.force_path("cuda")
+    try:
+        with pytest.raises(MXNetError, match="CUDA tensors"):
+            fa.attention(q, k, v, causal=True)
+    finally:
+        fa.force_path(None)
+    fa.force_path("torch")
+    try:
+        out = fa.attention(q, k, v, causal=True)
+        assert fa.last_path() == "torch"
+    finally:
+        fa.force_path(None)
+    _close(out.numpy(), fa.attention_torch(q, k, v, causal=True).numpy())
+    with pytest.raises(ValueError):
+        fa.force_path("pallas")
+    # head dim above the kernels' 256 on the CPU: the plain attention
+    qw = torch.randn(1, 1, 4, 264)
+    out = fa.attention(qw, qw, qw)
+    assert fa.last_path() == "torch"
+    assert fa.launch_count() == n0 == {"fwd": n0["fwd"],
+                                       "bwd_dq": n0["bwd_dq"],
+                                       "bwd_dkv": n0["bwd_dkv"]}
+    with pytest.raises(MXNetError, match="4-D"):
+        fa.attention(q[0], k[0], v[0])
+
+
+def test_kvalid_of_clamps_to_tk():
+    kv = fa.kvalid_of(torch.tensor([0, 5, 900]), 3, 64, torch.device("cpu"))
+    assert kv.dtype == torch.int32 and kv.tolist() == [0, 5, 64]
+    full = fa.kvalid_of(None, 2, 7, torch.device("cpu"))
+    assert full.tolist() == [7, 7]

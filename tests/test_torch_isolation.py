@@ -24,6 +24,19 @@ gen = Generator(get_llama("llama_tiny_test", device="cpu"), max_seq=32,
                 batch_buckets=(2,), prompt_buckets=(8,))
 out, info = gen.generate([[1, 2, 3], [4, 5]], max_new_tokens=4)
 assert [len(o) for o in out] == [4, 4], out
+import torch
+from mxnet_tpu_torch import gluon, lr_scheduler, optimizer
+from mxnet_tpu_torch.ops.hopper import flash_attention
+model = get_llama("llama_tiny_test", device="cpu", trainable=True)
+tr = gluon.Trainer(model.parameters(), "adamw",
+                   {"learning_rate": 1e-3,
+                    "lr_scheduler": lr_scheduler.FactorScheduler(2)})
+toks = torch.randint(0, 256, (2, 9))
+loss = gluon.loss.SoftmaxCrossEntropyLoss()(model(toks[:, :-1]), toks[:, 1:])
+loss.sum().backward()
+tr.step(2)
+assert flash_attention.last_path() == "torch"
+assert isinstance(tr.optimizer, optimizer.AdamW)
 assert not any(m == "jax" or m.startswith(("jax.", "mxnet_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ISOLATED_OK")
@@ -75,6 +88,8 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch):
     with pytest.raises(MXNetError, match="CUDA is not available"):
         get_llama("llama_tiny_test")
     with pytest.raises(MXNetError, match="CUDA is not available"):
+        get_llama("llama_tiny_test", trainable=True)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
         tdevice.resolve(None)
     assert tdevice.resolve("cpu") == torch.device("cpu")
     with pytest.raises(MXNetError, match="unsupported device"):
@@ -89,3 +104,31 @@ def test_chip_smoke_refuses_without_cuda():
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_trainer_keeps_parameters_where_they_are():
+    """``Trainer`` works on whatever device its parameters are on and never
+    moves them: the same tensors, storage and device after a step, with
+    their optimizer states beside them; a trainable model is in train
+    mode, a serving one in eval mode without gradients."""
+    from mxnet_tpu_torch.gluon import Trainer, loss
+    from mxnet_tpu_torch.models import get_llama
+
+    model = get_llama("llama_tiny_test", device="cpu", trainable=True)
+    assert model.training and all(p.requires_grad
+                                  for p in model.parameters())
+    serving = get_llama("llama_tiny_test", device="cpu")
+    assert not serving.training and not any(p.requires_grad
+                                            for p in serving.parameters())
+    before = [(p, p.data_ptr(), p.device) for p in model.parameters()]
+    tr = Trainer(model.parameters(), "sgd", {"learning_rate": 0.1,
+                                             "momentum": 0.9})
+    toks = torch.randint(0, 256, (2, 9))
+    out = loss.SoftmaxCrossEntropyLoss()(model(toks[:, :-1]), toks[:, 1:])
+    out.sum().backward()
+    tr.step(2)
+    after = list(model.parameters())
+    assert all(a is p and a.data_ptr() == ptr and a.device == dev
+               for (p, ptr, dev), a in zip(before, after))
+    assert all(s.device == p.device for p, st in zip(after, tr._states)
+               for s in st)

@@ -203,8 +203,11 @@ def test_unported_options_raise(monkeypatch):
     monkeypatch.delenv("MXNET_SERVE_STRICT_PARITY")
     monkeypatch.setenv("MXNET_SERVE_DECODE_PATH", "int8")
     assert Generator(port, **GEN_KW).decode_path == "int8"
-    with pytest.raises(NotImplementedError, match="flash attention"):
-        port(torch.zeros(1, 4, dtype=torch.long))
+    # the cache-free forward runs (flash attention, ported): full logits
+    with torch.no_grad():
+        logits = port(torch.zeros(1, 4, dtype=torch.long))
+    assert tuple(logits.shape) == (1, 4, port.embed.weight.shape[0])
+    assert bool(torch.isfinite(logits).all())
     with pytest.raises(MXNetError, match="decode_path"):
         Generator(port, decode_path="spec")
 
