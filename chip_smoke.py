@@ -4,12 +4,14 @@
 Run from the root of a checkout, with one GPU visible:
 
     python3 chip_smoke.py            # every phase; last line is the result
-    python3 chip_smoke.py --quick    # phases 1-3 and 6 (builds + kernels)
+    python3 chip_smoke.py --quick    # phases 1-3, 6 and 8 (builds + kernels)
 
 Phases, each printed on its own line; the first failed check exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``); f32 matmuls
-   must run in full f32 (``allow_tf32`` off).
+   must run in full f32 (``allow_tf32`` off), and so must the port's f32
+   convolutions (cuDNN's TF32 is on by default; ``ops.nn.convolution``
+   turns it off for its call): within 1e-5 of a float64 convolution.
 2. build: compile the CUDA kernel libraries from ``mxnet_tpu_torch/csrc``,
    one ``nvcc`` per source, all started together.
 3. kernel: the decode-attention kernel against its plain PyTorch version
@@ -34,6 +36,27 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    attention must launch each flash kernel once a step, the loss must be
    finite and fall, and the losses and the parameters after three steps
    must match the same steps with the plain attention forced.
+8. pair: the fused 1x1-pair kernel (``conv1x1_pair``) against its plain
+   version at ResNet-50's four block-boundary shapes (batch 32, 224 x 224;
+   residual and mid) in bf16 and f32, and on the no-residual and
+   residual-only variants, a ragged M and Cout != C1; per stage and dtype
+   the kernel's time, its bound, the plain version's time and, as the
+   yardstick, the ``use_pallas=False`` boundary (two ``torch.matmul`` in the
+   working dtype and the elementwise epilogue).
+9. resnet: ``resnet50_v1`` at full width and depth with seeded weights and
+   BatchNorm statistics from a seeded train-mode pass, fused by
+   ``fuse_resnet_v1(dtype="bfloat16", use_pallas=True)`` and served by
+   ``InferenceSession(batch_buckets=(1, 8, 32))``: warmup, then requests of
+   1, 5 and 32 images. Every forward must launch the pair kernel 12 times
+   (0 on the ``use_pallas=False`` arm), no shape may be new after warmup;
+   in f32 the kernel arm, the library arm and the unfused model agree to
+   1e-4 of the largest logit, and the card's unfused logits match the CPU's
+   to 1e-4; the bf16 kernel arm is within 5e-2 of the f32 logits. Then
+   img/s at batch 32 of the bf16 kernel arm, the bf16 library arm and the
+   unfused f32 model (three rounds in turns), and each one's device time
+   for a forward with the pair kernel's share of it (``torch.profiler``).
+   The JSON line's bf16 launches are the served run's; its f32 launches
+   are those of the f32 kernel arm's one forward, counted from 0.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, the result line. Without CUDA, or without the package next to
@@ -81,6 +104,29 @@ TRAIN_LAYERS, TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 4, 2, 2048, 3, 1e-4
 # 1.2e-3 on an H100 (a few hundred of 1.92 B weights 2 lr apart); a wrong
 # attention gradient changes the update of every weight it reaches
 LOSS_ATOL, PARAM_ATOL, PARAM_RTOL = 1e-4, 7 * TRAIN_LR, 1e-2
+BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
+PAIR_SOURCE = "mxnet_tpu_torch/csrc/conv1x1.cu"
+PAIR_REPLACES = "mxnet_tpu/ops/pallas/conv1x1.py:32"
+# ResNet-50's block boundaries at batch 32, 224 x 224, in kernel terms:
+# (stage, launches a forward, M = 32 * H * W, C1 = Cout = the block's mid
+# width, Cm = its output width)
+PAIR_STAGES = [(1, 2, 32 * 56 * 56, 64, 256), (2, 3, 32 * 28 * 28, 128, 512),
+               (3, 5, 32 * 14 * 14, 256, 1024), (4, 2, 32 * 7 * 7, 512, 2048)]
+# (M, C1, Cm, Cout, residual, return_mid): the other variants, a ragged M,
+# Cout != C1
+PAIR_EXTRA = [(6272, 256, 1024, 256, False, False),
+              (6272, 256, 1024, 256, True, False),
+              (33, 256, 1024, 256, True, True),
+              (1000, 256, 128, 192, True, True)]
+# f32: the same sums in another order; bf16: within 2e-2 of the plain
+# version's largest value (an h one bf16 rounding apart moves y by about an
+# ulp of h times w2)
+PAIR_F32_TOL, PAIR_BF16_TOL = 1e-4, 2e-2
+RESNET_HW = 224             # image height and width
+RESNET_BUCKETS = (1, 8, 32)
+RESNET_REQUESTS = (1, 5, 32)
+RESNET_PAIRS = 12           # block boundaries of one ResNet-50 forward
+LOGIT_F32_TOL, LOGIT_BF16_TOL = 1e-4, 5e-2
 
 
 class CheckFailed(Exception):
@@ -459,6 +505,306 @@ def train_phase(torch, np, mt, fa, get_llama, Trainer, loss_mod, dev, vocab):
     return k_launches
 
 
+def pair_bound(m, c1, cm, cout, elem, residual, mid):
+    """Least time (ms) of one pair launch: x, the residual, the weights and
+    affines read once and y and the mid written once, over the memory rate,
+    against its two products (2 M C1 Cm + 2 M Cm Cout flops) over the
+    tensor cores' bf16 rate or the f32 rate outside them."""
+    nbytes = (elem * (m * c1 + m * cout + c1 * cm + cm * cout
+                      + m * cm * (int(residual) + int(mid)))
+              + 4 * 2 * (cm + cout))
+    flops = 2 * m * cm * (c1 + cout)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (BF16_FLOP_PER_S if elem == 2 else F32_FLOP_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pair_phase(torch, c1x1, FusedResNetV1, flush, dev):
+    """Phase 8: the fused 1x1-pair kernel against its plain version. Returns
+    {dtype name: numbers summed over one ResNet-50 forward's 12 launches,
+    max error}."""
+    affine_relu = FusedResNetV1._affine_relu
+    results = {}
+    cases = [(m, c1, cm, c1, True, True, (stage, n))
+             for stage, n, m, c1, cm in PAIR_STAGES]
+    cases += [(*c, None) for c in PAIR_EXTRA]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        r = results[name] = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                             "bound_ms": 0.0, "library_ms": 0.0,
+                             "bound_by_ms": {"bytes": 0.0, "operations": 0.0}}
+        for i, (m, c1, cm, cout, residual, mid, stage) in enumerate(cases):
+            gen = torch.Generator(device=dev).manual_seed(200 + i)
+
+            def rnd(*shape, scale=1.0, shift=0.0):
+                return (torch.randn(*shape, device=dev, generator=gen)
+                        * scale + shift)
+
+            x = rnd(m, c1, scale=0.5).relu().to(dtype)
+            w1 = rnd(c1, cm, scale=(2.0 / c1) ** 0.5).to(dtype)
+            w2 = rnd(cm, cout, scale=(2.0 / cm) ** 0.5).to(dtype)
+            aff = [rnd(cm, scale=0.2, shift=1.0), rnd(cm, scale=0.1),
+                   rnd(cout, scale=0.2, shift=1.0), rnd(cout, scale=0.1)]
+            res = rnd(m, cm, scale=0.5).to(dtype) if residual else None
+
+            def kernel():
+                return c1x1.conv1x1_pair(x, w1, w2, *aff, residual=res,
+                                         return_mid=mid)
+
+            def plain():
+                return c1x1.conv1x1_pair_torch(x, w1, w2, *aff, residual=res,
+                                               return_mid=mid)
+
+            got = kernel()
+            check(c1x1.last_path() == "cuda", "pair call did not take the "
+                  "kernel")
+            torch.cuda.synchronize()
+            ref = plain()
+            got, ref = ((got, ref) if mid else ((got,), (ref,)))
+            err = 0.0
+            for ours, theirs in zip(got, ref):
+                check(bool(torch.isfinite(ours).all()),
+                      "pair kernel output not finite")
+                diff = (ours.float() - theirs.float()).abs()
+                if dtype == torch.float32:
+                    ok = bool((diff <= PAIR_F32_TOL
+                               + PAIR_F32_TOL * theirs.abs()).all())
+                else:
+                    ok = float(diff.max()) <= PAIR_BF16_TOL * float(
+                        theirs.float().abs().max())
+                check(ok, f"pair kernel disagrees with plain ({name}, M={m} "
+                      f"C1={c1} Cm={cm} Cout={cout} residual={residual} "
+                      f"mid={mid}): max_abs_err={float(diff.max())}")
+                err = max(err, float(diff.max()))
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            del got, ref
+            fields = dict(dtype=name, M=m, C1=c1, Cm=cm, Cout=cout,
+                          residual=residual, mid=mid,
+                          max_abs_err=f"{err:.3e}")
+            if stage is None:
+                say("pair", **fields)
+                continue
+            # a stage of the main path: times against the bound
+            ad = [a.to(dtype) for a in aff]  # the fused model's cast affines
+
+            def library():
+                y = affine_relu(x @ w1, (ad[0], ad[1]), relu=False)
+                h = torch.relu(y + res).to(dtype)
+                return affine_relu(h @ w2, (ad[2], ad[3])), h
+
+            k_ms = time_ms(torch, kernel, flush)
+            p_ms = time_ms(torch, plain, flush)
+            l_ms = time_ms(torch, library, flush)
+            bound, bound_by = pair_bound(m, c1, cm, cout, dtype.itemsize,
+                                         residual, mid)
+            n = stage[1]
+            r["ms"] += n * k_ms
+            r["plain_ms"] += n * p_ms
+            r["library_ms"] += n * l_ms
+            r["bound_ms"] += n * bound
+            r["bound_by_ms"][bound_by] += n * bound
+            say("pair", stage=stage[0], launches_per_forward=n, **fields,
+                kernel_ms=f"{k_ms:.6f}", bound_ms=f"{bound:.6f}",
+                bound_by=bound_by, plain_ms=f"{p_ms:.6f}",
+                library_ms=f"{l_ms:.6f}",
+                library="use_pallas_false_boundary_2_matmul_epilogue",
+                kernel_tflop_s=f"{2 * m * cm * (c1 + cout) / k_ms / 1e9:.3f}")
+        by = r.pop("bound_by_ms")
+        r["bound_by"] = max(by, key=by.get)
+        say("pair", dtype=name, forward_12_launches_kernel_ms=f"{r['ms']:.6f}",
+            bound_ms=f"{r['bound_ms']:.6f}", bound_by=r["bound_by"],
+            plain_ms=f"{r['plain_ms']:.6f}",
+            library_ms=f"{r['library_ms']:.6f}")
+    return results
+
+
+def resnet_burn_in(torch, np, model, dev):
+    """Move the BatchNorm running statistics off their initial values: one
+    train-mode pass over 8 seeded images (no gradients), as the JAX fuse
+    test does."""
+    x = torch.from_numpy(np.random.RandomState(1).uniform(
+        -1, 1, (8, 3, RESNET_HW, RESNET_HW)).astype(np.float32)).to(dev)
+    model.train()
+    with torch.no_grad():
+        model(x)
+    model.eval()
+
+
+def img_s(torch, sess, batch, reps=10):
+    """Images/s of ``sess.predict`` on one batch: CUDA events around each
+    call (host padding and copy included), median of ``reps`` after two
+    warm calls."""
+    for _ in range(2):
+        sess.predict(batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        sess.predict(batch)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    ms = statistics.median(times)
+    return batch.shape[0] / ms * 1e3, ms
+
+
+def device_profile(torch, module, x):
+    """(device ms of one forward of ``module`` on ``x``, of which in the
+    pair kernel), from a ``torch.profiler`` trace of one forward after a
+    warm one; None if the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        module(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            module(x)
+            torch.cuda.synchronize()
+    total = pair = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:  # kernels
+            total += ev.device_time_total
+            if "conv1x1_pair" in ev.key:
+                pair += ev.device_time_total
+    return (total / 1e3, pair / 1e3) if total else None
+
+
+def resnet_phase(torch, np, mt, c1x1, vision, fuse, Session, dev):
+    """Phase 9: ResNet-50 v1 fused and served through the pair kernel.
+    Returns the kernel's launches by dtype: bf16 over the served run, f32
+    over the f32 kernel arm's own forward (each counted from 0)."""
+    import copy
+
+    mt.random.seed(0)
+    t0 = time.perf_counter()
+    model = vision.get_resnet(1, 50, device=dev)
+    resnet_burn_in(torch, np, model, dev)
+    torch.cuda.synchronize()
+    n_weights = sum(p.numel() for p in model.parameters())
+    n_state = sum(t.numel() for t in model.state_dict().values())
+    say("resnet", model="resnet50_v1", params=n_weights,
+        params_and_bn_stats=n_state, init_s=f"{time.perf_counter() - t0:.3f}")
+    check(n_state == 25_610_152, f"resnet50_v1 holds {n_state} values")
+    rng = np.random.RandomState(0)
+    requests = [rng.uniform(-1, 1, (n, 3, RESNET_HW, RESNET_HW)).astype(
+        np.float32)
+                for n in RESNET_REQUESTS]
+    fused = fuse(model, dtype="bfloat16", use_pallas=True)
+    plain_fused = fuse(model, dtype="bfloat16", use_pallas=False)
+    forwards = []
+    fused.register_forward_pre_hook(lambda mod, a: forwards.append(
+        a[0].shape[0]))
+
+    # the main path: counts to 0, serve, read the counts
+    c1x1.reset_launch_count()
+    sess = Session(fused, batch_buckets=RESNET_BUCKETS, name="resnet50_v1")
+    t0 = time.perf_counter()
+    sigs = sess.warmup(requests[0])
+    warm_s = time.perf_counter() - t0
+    outs = [sess.predict(r) for r in requests]
+    torch.cuda.synchronize()
+    sess.assert_no_recompiles()
+    served = c1x1.launch_count(torch.bfloat16)
+    launches = {"bf16": sum(served.values())}
+    check(served == {"pair": 0, "pair_res": 0,
+                     "pair_res_mid": RESNET_PAIRS * len(forwards)},
+          f"{served} pair launches for {len(forwards)} forwards")
+    for r, o in zip(requests, outs):
+        check(tuple(o.shape) == (r.shape[0], 1000) and o.dtype ==
+              torch.float32, f"logits {tuple(o.shape)} {o.dtype}")
+        check(bool(torch.isfinite(o).all()), "served logits not finite")
+    say("resnet", arm="bf16_kernel", warmup_s=f"{warm_s:.3f}",
+        signatures=sigs, forwards=forwards, pair_launches=served)
+
+    # the library arm launches nothing
+    n0 = c1x1.launch_count()
+    lib_sess = Session(plain_fused, batch_buckets=RESNET_BUCKETS,
+                       name="resnet50_v1_library")
+    lib_sess.warmup(requests[0])
+    lib_outs = [lib_sess.predict(r) for r in requests]
+    lib_sess.assert_no_recompiles()
+    check(c1x1.launch_count() == n0, "use_pallas=False launched the kernel")
+    arm_diff = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(outs, lib_outs))
+    say("resnet", arm="bf16_library", pair_launches=0,
+        max_rel_diff_to_kernel_arm=f"{arm_diff:.3e}")
+
+    # f32 on 2 images: both arms and the unfused model, and the CPU
+    x2 = torch.from_numpy(requests[1][:2]).to(dev)
+    f32_fused = fuse(model, dtype="float32", use_pallas=True)
+    with torch.inference_mode():
+        unfused = model(x2)
+        f32_library = fuse(model, dtype="float32", use_pallas=False)(x2)
+        bf16_kernel = fused(x2)
+        # the f32 kernel arm's own run: counts to 0, one forward, read
+        c1x1.reset_launch_count()
+        f32_kernel = f32_fused(x2)
+        torch.cuda.synchronize()
+        launches["f32"] = sum(c1x1.launch_count(torch.float32).values())
+    check(launches["f32"] == RESNET_PAIRS and not any(
+        c1x1.launch_count(torch.bfloat16).values()),
+          f"f32 kernel arm launched {c1x1.launch_count()} for one forward")
+    say("resnet", arm="f32_kernel", images=2, forwards=1,
+        pair_launches=launches["f32"])
+    cpu_model = copy.deepcopy(model).cpu()
+    with torch.inference_mode():
+        cpu_logits = cpu_model(x2.cpu())
+    del cpu_model
+    scale = float(unfused.abs().max())
+    errs = {"f32_kernel_vs_unfused": f32_kernel,
+            "f32_library_vs_unfused": f32_library}
+    errs = {k: float((v - unfused).abs().max()) / scale
+            for k, v in errs.items()}
+    errs["card_unfused_vs_cpu"] = float(
+        (unfused.cpu() - cpu_logits).abs().max()) / float(
+            cpu_logits.abs().max())
+    bf16_err = float((bf16_kernel - unfused).abs().max()) / scale
+    say("resnet", **{k: f"{v:.3e}" for k, v in errs.items()},
+        bf16_kernel_vs_f32=f"{bf16_err:.3e}", max_abs_logit=f"{scale:.4f}")
+    for k, v in errs.items():
+        check(v < LOGIT_F32_TOL, f"{k}: {v} >= {LOGIT_F32_TOL}")
+    check(bf16_err < LOGIT_BF16_TOL, f"bf16 kernel arm vs f32: {bf16_err}")
+
+    # top-1 of the bf16 arm against f32 on the 32-image request
+    x32 = requests[2]
+    with torch.inference_mode():
+        f32_top = model(torch.from_numpy(x32).to(dev)).argmax(-1)
+    top1 = float((outs[2].argmax(-1) == f32_top).float().mean())
+    say("resnet", bf16_top1_agreement_with_f32=f"{top1:.4f}", images=32)
+
+    # throughput at batch 32, the arms in turns; then device time a forward
+    f32_sess = Session(model, batch_buckets=(32,), name="resnet50_v1_f32")
+    arms = (("bf16_kernel", sess, fused), ("bf16_library", lib_sess,
+                                           plain_fused),
+            ("f32_unfused", f32_sess, model))
+    rates = {label: [] for label, _, _ in arms}
+    for _ in range(3):
+        for label, s, _ in arms:
+            rates[label].append(img_s(torch, s, x32)[0])
+    say("resnet", batch=32, rounds=3, **{
+        f"{k}_img_s": [f"{r:.3f}" for r in v] for k, v in rates.items()},
+        **{f"{k}_img_s_median": f"{statistics.median(v):.3f}"
+           for k, v in rates.items()})
+    x32d = torch.from_numpy(x32).to(dev)
+    for label, _, module in arms:
+        prof = device_profile(torch, module, x32d)
+        if prof is None:
+            say("resnet", arm=label, forward_device_ms="not measured (no "
+                "device time in the profiler trace)")
+            continue
+        say("resnet", arm=label, batch=32, forward_device_ms=f"{prof[0]:.4f}",
+            pair_device_ms=f"{prof[1]:.4f}",
+            pair_share=f"{prof[1] / prof[0]:.4f}",
+            device_img_s=f"{32 / prof[0] * 1e3:.3f}")
+    del model, fused, plain_fused, sess, lib_sess, f32_sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def first_divergence(torch, da, gen, prompts, a, b):
     """Row and step of the first differing greedy token of the kernel run
     ``a`` and the plain run ``b``, with each route's logit gap between the
@@ -557,17 +903,22 @@ def main(argv=None):
         return 2
     sys.path.insert(0, root)
     import numpy as np
+    import torch.nn.functional as F
 
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.contrib.pallas_fuse import (FusedResNetV1,
+                                                     fuse_resnet_v1)
     from mxnet_tpu_torch.gluon import loss as loss_mod
+    from mxnet_tpu_torch.gluon.model_zoo import vision
     from mxnet_tpu_torch.models import get_llama
     from mxnet_tpu_torch.models.llama import _LLAMA_CONFIGS
     from mxnet_tpu_torch.ops import nn as nn_ops
     from mxnet_tpu_torch.ops.hopper import _build
+    from mxnet_tpu_torch.ops.hopper import conv1x1 as c1x1
     from mxnet_tpu_torch.ops.hopper import decode_attention as da
     from mxnet_tpu_torch.ops.hopper import flash_attention as fa
-    from mxnet_tpu_torch.serve import Generator
+    from mxnet_tpu_torch.serve import Generator, InferenceSession
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -580,13 +931,30 @@ def main(argv=None):
     print(f"nvidia-smi: {smi}", flush=True)
     check(torch.backends.cuda.matmul.allow_tf32 is False,
           "allow_tf32 is on: f32 matmuls would run in TF32")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cx = torch.randn(8, 64, 56, 56, device=dev, generator=gen)
+    cw = torch.randn(64, 64, 3, 3, device=dev, generator=gen)
+    c64 = F.conv2d(cx.double(), cw.double(), None, 1, 1)
+    conv_err = {label: float((out.double() - c64).abs().max()
+                             / c64.abs().max())
+                for label, out in (("port", nn_ops.convolution(cx, cw, None,
+                                                               1, 1)),
+                                   ("torch_default", F.conv2d(cx, cw, None,
+                                                              1, 1)))}
+    say("device", cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+        conv_f32_rel_err_port=f"{conv_err['port']:.3e}",
+        conv_f32_rel_err_torch_default=f"{conv_err['torch_default']:.3e}")
+    check(conv_err["port"] < 1e-5, "the port's f32 convolution is not full "
+          f"f32: {conv_err['port']} relative to float64")
+    del cx, cw, c64
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    sources = ("decode_attention", "flash_attention")
+    sources = ("decode_attention", "flash_attention", "conv1x1")
     _build.build_many(sources)
     da.build()
     fa.build()
+    c1x1.build()
     for name in sources:
         log = _build.BUILD_LOGS.get(name)
         say("build", source=name,
@@ -603,6 +971,7 @@ def main(argv=None):
     kres = kernel_phase(torch, da, nn_ops, flush, dev)
     if args.quick:
         flash_phase(torch, fa, flush, dev)
+        pair_phase(torch, c1x1, FusedResNetV1, flush, dev)
         say("quick", seconds=f"{time.perf_counter() - t_start:.3f}")
         return 0
     del flush
@@ -639,6 +1008,17 @@ def main(argv=None):
     # 7. train llama3_8b width at depth 4 on both attention routes
     train_launches = train_phase(torch, np, mt, fa, get_llama, Trainer,
                                  loss_mod, dev, cfg["vocab_size"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. the fused 1x1-pair kernel vs plain
+    flush = torch.empty(64 << 18, device=dev)
+    pres = pair_phase(torch, c1x1, FusedResNetV1, flush, dev)
+    del flush
+
+    # 9. resnet50_v1 fused and served through the pair kernel
+    pair_launches = resnet_phase(torch, np, mt, c1x1, vision,
+                                 fuse_resnet_v1, InferenceSession, dev)
 
     kernels = []
     for variant, rung in (("f32", "pallas"), ("int8", "int8")):
@@ -656,6 +1036,15 @@ def main(argv=None):
             "name": f"flash_{name}", "route": "cuda",
             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[name],
             "launches": train_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for name in ("bf16", "f32"):
+        r = pres[name]
+        kernels.append({
+            "name": f"conv1x1_pair_{name}", "route": "cuda",
+            "source": PAIR_SOURCE, "replaces": PAIR_REPLACES,
+            "launches": pair_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -5,6 +5,6 @@ sources live in ``mxnet_tpu_torch/csrc/`` and are built at first use by
 ``_build``. Importing builds nothing."""
 from __future__ import annotations
 
-from . import decode_attention, flash_attention
+from . import conv1x1, decode_attention, flash_attention
 
-__all__ = ["decode_attention", "flash_attention"]
+__all__ = ["conv1x1", "decode_attention", "flash_attention"]

@@ -16,11 +16,14 @@ from .hopper import flash_attention as _fa
 
 
 def activation(data, act_type="relu"):
-    """Elementwise activation; the slice needs only ``silu`` (Llama's
-    SwiGLU)."""
+    """Elementwise activation: ``relu`` (ResNet) and ``silu`` (Llama's
+    SwiGLU) are ported."""
+    if act_type == "relu":
+        return F.relu(data)
     if act_type == "silu":
         return F.silu(data)
-    raise MXNetError(f"activation {act_type!r} is not ported yet (silu)")
+    raise MXNetError(f"activation {act_type!r} is not ported yet (relu, "
+                     "silu)")
 
 
 def rms_norm(data, gamma, axis=-1, eps=1e-6):
@@ -154,3 +157,18 @@ def gather_positions(data, indices):
     (B,) -> (B, ...)."""
     rows = torch.arange(data.shape[0], device=data.device)
     return data[rows, indices.to(device=data.device, dtype=torch.long)]
+
+
+def convolution(data, weight, bias=None, stride=1, pad=0):
+    """2-D convolution, NCHW data and (O, I, kh, kw) weight, as
+    ``mxnet_tpu.ops.nn.convolution`` lays it out. A float32 convolution on
+    a CUDA tensor runs with cuDNN's TF32 off inside this call: PyTorch's
+    default (``torch.backends.cudnn.allow_tf32``) would keep about three
+    decimal digits. No flag changes outside the call."""
+    if data.is_cuda and data.dtype == torch.float32:
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic,
+                         allow_tf32=False):
+            return F.conv2d(data, weight, bias, stride, pad)
+    return F.conv2d(data, weight, bias, stride, pad)

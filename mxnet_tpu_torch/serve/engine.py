@@ -15,6 +15,7 @@ and serving metrics with ``serve/metrics.py``.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 
 import numpy as _onp
@@ -67,7 +68,8 @@ class InferenceSession:
     pad_value : scalar
         Fill for padded sequence positions (token id 0 by default).
     device : the device :meth:`predict` puts its inputs on; by default the
-        device of the block's parameters.
+        device of the block's parameters (or buffers, for a module such as
+        ``FusedResNetV1`` that holds its weights as buffers).
     """
 
     def __init__(self, block, batch_buckets=(1, 2, 4, 8), seq_buckets=None,
@@ -78,8 +80,9 @@ class InferenceSession:
                             if seq_buckets else None)
         self.pad_value = pad_value
         self.name = name or type(block).__name__
-        if device is None:
-            param = next(block.parameters(), None)
+        if device is None:  # where the weights are: parameters or buffers
+            param = next(itertools.chain(block.parameters(), block.buffers()),
+                         None)
             device = param.device if param is not None else None
         self.device = _device.resolve(device)
         self._signatures = set()

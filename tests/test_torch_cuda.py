@@ -9,7 +9,9 @@ also runs on a GPU machine that has only PyTorch:
 (``--noconftest`` because the suite's ``conftest.py`` sets up JAX.) The CPU
 tests hold each plain version against the JAX package; these hold each
 kernel against its plain version on the same card, at atol 1e-5 / rtol
-1e-4 as ``chip_smoke.py`` does: the same f32 math, summed in another order.
+1e-4 as ``chip_smoke.py`` does: the same f32 math, summed in another order
+(the fused 1x1 pair states its own bounds, in f32 and bf16, at
+``_close``).
 """
 import copy
 
@@ -19,10 +21,13 @@ import torch
 
 from mxnet_tpu_torch import random as trandom
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.contrib.pallas_fuse import fuse_resnet_v1
+from mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
 from mxnet_tpu_torch.models import get_llama
 from mxnet_tpu_torch.ops import nn as tops
 from mxnet_tpu_torch.gluon import Trainer
 from mxnet_tpu_torch.gluon import loss as tloss
+from mxnet_tpu_torch.ops.hopper import conv1x1 as c1x1
 from mxnet_tpu_torch.ops.hopper import decode_attention as da
 from mxnet_tpu_torch.ops.hopper import flash_attention as fa
 from mxnet_tpu_torch.serve import Generator
@@ -341,3 +346,150 @@ def test_cuda_trainer_matches_cpu():
                             cpu_model.parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=1e-5,
                                    rtol=0, msg=name)
+
+
+# (lead, c1, cm, cout, residual, return_mid): the ResNet-50 boundary at
+# stage 1 and 4 widths on a few rows, a ragged M, cout != c1, Cout above
+# one block's 512 columns (a second grid dimension), and channel counts
+# that are no multiple of 16 bytes (scalar loads)
+PAIR_CASES = [
+    ((2, 9, 9), 64, 256, 64, True, True),
+    ((1, 7, 7), 512, 2048, 512, True, True),
+    ((33,), 256, 128, 192, False, False),
+    ((100,), 128, 512, 128, True, False),
+    ((70,), 96, 160, 600, True, True),
+    ((45,), 20, 36, 12, True, True),
+]
+
+
+def _pair_inputs(lead, c1, cm, cout, residual, dtype, dev, seed=0):
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, scale=1.0, shift=0.0):
+        a = rng.randn(*shape) * scale + shift
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    x = t(*lead, c1, scale=0.5).to(dtype)
+    w1 = t(c1, cm, scale=(2.0 / c1) ** 0.5).to(dtype)
+    w2 = t(cm, cout, scale=(2.0 / cm) ** 0.5).to(dtype)
+    aff = [t(cm, scale=0.2, shift=1.0), t(cm, scale=0.1),
+           t(cout, scale=0.2, shift=1.0), t(cout, scale=0.1)]
+    res = t(*lead, cm, scale=0.5).to(dtype) if residual else None
+    return x, w1, w2, aff, res
+
+
+def _close(ours, ref, dtype):
+    """f32: atol/rtol 1e-4 (the same f32 sums in another order). bf16:
+    within 2e-2 of the plain version's largest value (an h a rounding step
+    apart in bf16 moves y by about one bf16 ulp of h times w2)."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(ours, ref, atol=1e-4, rtol=1e-4)
+    else:
+        diff = float((ours.float() - ref.float()).abs().max())
+        assert diff <= 2e-2 * float(ref.float().abs().max()), diff
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", PAIR_CASES)
+def test_cuda_conv1x1_pair_matches_plain(case, dtype):
+    """The fused 1x1-pair kernel against its plain version on the card, in
+    each variant it takes; one launch counted per call, by variant."""
+    dev = _need_cuda()
+    lead, c1, cm, cout, residual, return_mid = case
+    x, w1, w2, aff, res = _pair_inputs(lead, c1, cm, cout, residual, dtype,
+                                       dev)
+    n0 = c1x1.launch_count()
+    got = c1x1.conv1x1_pair(x, w1, w2, *aff, residual=res,
+                            return_mid=return_mid)
+    torch.cuda.synchronize()
+    assert c1x1.last_path() == "cuda"
+    variant = ("pair_res_mid" if return_mid else
+               "pair_res" if residual else "pair")
+    n1 = c1x1.launch_count()
+    assert {k: n1[k] - n0[k] for k in c1x1.KERNELS} == {
+        k: int(k == variant) for k in c1x1.KERNELS}
+    ref = c1x1.conv1x1_pair_torch(x, w1, w2, *aff, residual=res,
+                                  return_mid=return_mid)
+    got = got if return_mid else (got,)
+    ref = ref if return_mid else (ref,)
+    for ours, theirs in zip(got, ref):
+        assert ours.dtype == dtype and ours.shape == theirs.shape
+        assert bool(torch.isfinite(ours).all())
+        _close(ours, theirs, dtype)
+    if residual and not return_mid:  # no affines: 1 and 0
+        _close(c1x1.conv1x1_pair(x, w1, w2, residual=res),
+               c1x1.conv1x1_pair_torch(x, w1, w2, residual=res), dtype)
+
+
+def test_cuda_conv1x1_pair_refusals_and_launch_errors(monkeypatch):
+    dev = _need_cuda()
+    x, w1, w2, aff, res = _pair_inputs((40,), 64, 128, 64, True,
+                                       torch.float32, dev)
+    n0 = c1x1.launch_count()
+    with pytest.raises(ValueError, match="return_mid requires residual"):
+        c1x1.conv1x1_pair(x, w1, w2, *aff, return_mid=True)
+    with pytest.raises(MXNetError, match="float32 or bfloat16"):
+        c1x1.conv1x1_pair(x.double(), w1.double(), w2.double(), *aff)
+    with pytest.raises(MXNetError, match="w1 is torch.bfloat16"):
+        c1x1.conv1x1_pair(x, w1.bfloat16(), w2, *aff)
+    with pytest.raises(MXNetError, match="contiguous"):
+        c1x1.conv1x1_pair(x, w1.t().contiguous().t(), w2, *aff)
+    with pytest.raises(MXNetError, match="residual on cpu"):
+        c1x1.conv1x1_pair(x, w1, w2, *aff, residual=res.cpu())
+    with pytest.raises(MXNetError, match="chain"):
+        c1x1.conv1x1_pair(x, w2, w2, *aff)
+    c1x1.force_path("torch")
+    try:
+        c1x1.conv1x1_pair(x, w1, w2, *aff, residual=res)
+        assert c1x1.last_path() == "torch"
+    finally:
+        c1x1.force_path(None)
+    assert c1x1.launch_count() == n0
+    # a launch the runtime refuses surfaces as MXNetError and is not counted
+    lib = c1x1._lib()
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def mxtt_conv1x1_pair(*args):
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(c1x1, "_LIB", Refusing())
+    with pytest.raises(MXNetError, match="launch failed: invalid argument"):
+        c1x1.conv1x1_pair(x, w1, w2, *aff, residual=res)
+    assert c1x1.launch_count() == n0
+
+
+def test_cuda_fused_resnet_matches_cpu():
+    """``fuse_resnet_v1`` on the card, every block boundary through the
+    kernel (12 launches a forward), against the same model on the CPU: f32
+    logits of the kernel arm, the library arm and the unfused model within
+    1e-4 of the CPU's largest logit (cuDNN's TF32 would miss that); the
+    bf16 kernel arm within 5e-2 of the f32 logits."""
+    dev = _need_cuda()
+    trandom.seed(0)
+    cpu = get_resnet(1, 50, device="cpu")
+    gpu = copy.deepcopy(cpu).to(dev)
+    x = torch.from_numpy(np.random.RandomState(3).uniform(
+        -1, 1, (2, 3, 64, 64)).astype(np.float32))
+    with torch.no_grad():
+        ref = cpu(x)
+        scale = float(ref.abs().max())
+        outs = {"unfused": gpu(x.to(dev))}
+        for use_pallas in (True, False):
+            fused = fuse_resnet_v1(gpu, dtype="float32",
+                                   use_pallas=use_pallas)
+            n0 = c1x1.launch_count()["pair_res_mid"]
+            outs[use_pallas] = fused(x.to(dev))
+            torch.cuda.synchronize()
+            n = c1x1.launch_count()["pair_res_mid"] - n0
+            assert n == (12 if use_pallas else 0), n
+        bf = fuse_resnet_v1(gpu, use_pallas=True)(x.to(dev))
+    for name, out in outs.items():
+        err = float((out.cpu() - ref).abs().max()) / scale
+        assert err < 1e-4, (name, err)
+    assert bf.dtype == torch.float32
+    assert float((bf.cpu() - ref).abs().max()) / scale < 5e-2

@@ -37,6 +37,14 @@ loss.sum().backward()
 tr.step(2)
 assert flash_attention.last_path() == "torch"
 assert isinstance(tr.optimizer, optimizer.AdamW)
+from mxnet_tpu_torch.contrib.pallas_fuse import fuse_resnet_v1
+from mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+from mxnet_tpu_torch.ops.hopper import conv1x1
+from mxnet_tpu_torch.serve import InferenceSession
+sess = InferenceSession(fuse_resnet_v1(get_resnet(1, 50, device="cpu"),
+                                       use_pallas=True), batch_buckets=(2,))
+assert tuple(sess.predict(torch.rand(1, 3, 32, 32)).shape) == (1, 1000)
+assert conv1x1.last_path() == "torch"
 assert not any(m == "jax" or m.startswith(("jax.", "mxnet_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ISOLATED_OK")
@@ -82,6 +90,7 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch):
     """With no GPU and no explicit device="cpu", the port raises."""
     from mxnet_tpu_torch import device as tdevice
     from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
     from mxnet_tpu_torch.models import get_llama
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -89,6 +98,8 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch):
         get_llama("llama_tiny_test")
     with pytest.raises(MXNetError, match="CUDA is not available"):
         get_llama("llama_tiny_test", trainable=True)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        get_resnet(1, 50)
     with pytest.raises(MXNetError, match="CUDA is not available"):
         tdevice.resolve(None)
     assert tdevice.resolve("cpu") == torch.device("cpu")

@@ -126,3 +126,32 @@ def test_cached_attention_baseline_not_ported():
     with pytest.raises(NotImplementedError, match="later slice"):
         tops.cached_attention(z, z, z, torch.zeros(1, dtype=torch.int32),
                               path="baseline")
+
+
+def test_relu_activation():
+    x = np.random.RandomState(7).randn(4, 33).astype(np.float32)
+    ref = jops.activation(mnp.array(x), "relu")
+    out = tops.activation(torch.from_numpy(x), "relu")
+    np.testing.assert_array_equal(out.numpy(), _np(ref))
+
+
+@pytest.mark.parametrize("stride,pad,bias",
+                         [(1, 1, False), (2, 3, True), (2, 0, True)],
+                         ids=["3x3", "stem_like", "strided_unpadded"])
+def test_convolution_matches_jax(stride, pad, bias):
+    """NCHW data, (O, I, kh, kw) weight in both packages."""
+    rng = np.random.RandomState(8)
+    k = 7 if pad == 3 else 3
+    x = rng.randn(2, 4, 15, 13).astype(np.float32)
+    w = rng.randn(6, 4, k, k).astype(np.float32)
+    b = rng.randn(6).astype(np.float32) if bias else None
+    ref = jops.convolution(mnp.array(x), mnp.array(w),
+                           None if b is None else mnp.array(b),
+                           kernel=(k, k), stride=(stride, stride),
+                           pad=(pad, pad), num_filter=6,
+                           no_bias=b is None)
+    out = tops.convolution(torch.from_numpy(x), torch.from_numpy(w),
+                           None if b is None else torch.from_numpy(b),
+                           stride, pad)
+    assert tuple(out.shape) == _np(ref).shape
+    np.testing.assert_allclose(out.numpy(), _np(ref), atol=1e-5, rtol=1e-5)
