@@ -26,10 +26,17 @@ Phases, each printed on its own line; the first failed check exits non-zero:
 6. flash: the three flash-attention kernels (forward, dq, dk/dv) each
    against its plain version at the training shape (B=2, H=32, T=2048,
    D=128, causal), non-causal with valid lengths [0, 1000] (dead rows must
-   be exact zeros), causal with Tq != Tk, a ragged T=1000 and D=64; at the
-   training shape each kernel's time, bound and plain time, and the
-   ``scaled_dot_product_attention`` forward and backward as yardsticks;
-   then the forward kernel against the library forward at T=512..4096.
+   be exact zeros), causal with Tq != Tk, a ragged T=1000, D=64, and a
+   ragged T=333 at D=30 (4-byte copies) and D=256; at the training shape
+   each kernel's time, its bound (the forward's f32 products outside the
+   tensor cores; the backward's 3xTF32 products on them, with the f32
+   bound beside it), its plain time, and the
+   ``scaled_dot_product_attention`` forward and backward as yardsticks,
+   with the device kernels that the library backward launches
+   (``torch.profiler``) and the port's whole backward (the delta reduce,
+   dq and dk/dv, through autograd); then the forward kernel against the
+   library forward, and dq + dk/dv and the whole backward against the
+   library backward, at T=512..4096.
 7. train: Llama-3-8B width (units 4096, FFN 14336, 32 heads, 8 KV heads,
    vocab 128256) at depth 4 with seeded weights, three Adam steps of
    ``gluon.Trainer`` on one next-token batch (B=2, T=2048): every layer's
@@ -75,6 +82,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12    # H100 SXM TF32 tensor cores, dense
 CONFIG = "llama3_8b"
 PROMPT_LENS = (17, 64, 130, 250)
 NEW_TOKENS = 32
@@ -92,7 +100,9 @@ FLASH_CASES = [(2, 32, 2048, 2048, 128, True, None),
                (2, 32, 2048, 2048, 128, False, [0, 1000]),
                (2, 32, 1024, 2048, 128, True, None),
                (2, 32, 1000, 1000, 128, True, None),
-               (2, 32, 2048, 2048, 64, True, None)]
+               (2, 32, 2048, 2048, 64, True, None),
+               (2, 32, 333, 333, 30, True, None),
+               (2, 8, 333, 333, 256, True, [333, 200])]
 SWEEP_T = (512, 1024, 2048, 4096)
 TRAIN_LAYERS, TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 4, 2, 2048, 3, 1e-4
 # kernel route against forced-plain route after three Adam steps. Losses
@@ -282,7 +292,11 @@ def pairs_kept(b, h, tq, tk, causal, vl):
 def flash_bound(kernel, b, h, tq, tk, d, causal, vl):
     """Least time (ms) of one launch: its inputs read and outputs written
     once over the memory rate, against its matrix-product flops on the
-    kept pairs (fwd 4 D, dq 6 D, dk/dv 8 D a pair) over the f32 rate."""
+    kept pairs (fwd 4 D, dq 6 D, dk/dv 8 D a pair) over the rate of the
+    units that do them. The forward's products are f32 FMAs (the f32
+    rate); the backward's are 3xTF32 tensor-core products, each flop done
+    three times over at the TF32 rate. Returns (ms, "bytes" | "operations",
+    f32 ms, 3xTF32 ms): the bound and both rates' bounds beside it."""
     q_bytes, k_bytes = b * h * tq * d * 4, b * h * tk * d * 4
     rows = b * h * tq * 4
     nbytes = {"fwd": 2 * q_bytes + 2 * k_bytes + rows,
@@ -291,8 +305,26 @@ def flash_bound(kernel, b, h, tq, tk, d, causal, vl):
     flops = {"fwd": 4, "bwd_dq": 6, "bwd_dkv": 8}[kernel] * d * pairs_kept(
         b, h, tq, tk, causal, vl)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_f32 = flops / F32_FLOP_PER_S * 1e3
+    t_3x = 3 * flops / TF32_FLOP_PER_S * 1e3
+    t_ops = t_f32 if kernel == "fwd" else t_3x
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            max(t_bytes, t_f32), max(t_bytes, t_3x))
+
+
+def device_kernels(torch, fn):
+    """{device kernel name: device ms} of one call of ``fn``, from a
+    ``torch.profiler`` window after a warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.device_time_total / 1e3 for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def flash_phase(torch, fa, flush, dev):
@@ -374,45 +406,97 @@ def flash_phase(torch, fa, flush, dev):
         lib_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
         lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
             lib_out, (qr, kr, vr), g4, retain_graph=True), flush)
+        lib_kernels = device_kernels(torch, lambda: torch.autograd.grad(
+            lib_out, (qr, kr, vr), g4, retain_graph=True))
+        say("flash", library_backward_kernels=json.dumps(
+            {n: round(ms, 6) for n, ms in sorted(
+                lib_kernels.items(), key=lambda kv: -kv[1])}))
 
         def lib_fwd_bwd():
             o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
             torch.autograd.grad(o, (qr, kr, vr), g4)
 
         lib_both = time_ms(torch, lib_fwd_bwd, flush)
+        # the port's whole backward as training runs it: _FlashCore.backward
+        # computes delta = rowsum(dO * O) with a torch reduce, then launches
+        # dq and dk/dv; the library's timed backward holds its own pre-pass
+        core_bwd = core_backward_ms(torch, fa, q4, k4, v4, g4, flush)
+        delta_ms = time_ms(torch, lambda: torch.sum(g * ref_out, dim=-1),
+                           flush)
         for name in fa.KERNELS:
             k_ms = time_ms(torch, calls[name], flush)
             p_ms = time_ms(torch, plains[name], flush)
-            bound, bound_by = flash_bound(name, b, h, tq, tk, d, causal, vl)
+            bound, bound_by, bound_f32, bound_3x = flash_bound(
+                name, b, h, tq, tk, d, causal, vl)
             lib_ms = lib_fwd if name == "fwd" else lib_bwd
             results[name].update(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                                  bound_by=bound_by, library_ms=lib_ms)
+            rates = {} if name == "fwd" else {
+                "bound_f32_ms": f"{bound_f32:.6f}",
+                "bound_3xtf32_ms": f"{bound_3x:.6f}"}
             say("flash", kernel=name, B=b, H=h, T=tq, D=d, causal=causal,
                 kernel_ms=f"{k_ms:.6f}", bound_ms=f"{bound:.6f}",
-                bound_by=bound_by, plain_ms=f"{p_ms:.6f}",
+                bound_by=bound_by, **rates, plain_ms=f"{p_ms:.6f}",
                 library_ms=f"{lib_ms:.6f}",
                 library=("sdpa_forward" if name == "fwd"
                          else "sdpa_backward_dq_dk_dv"))
         say("flash", library_fwd_bwd_ms=f"{lib_both:.6f}",
-            kernels_fwd_bwd_ms=f"{sum(results[n]['ms'] for n in fa.KERNELS):.6f}")
+            kernels_fwd_bwd_ms=f"{sum(results[n]['ms'] for n in fa.KERNELS):.6f}",
+            kernels_bwd_ms=(
+                f"{results['bwd_dq']['ms'] + results['bwd_dkv']['ms']:.6f}"),
+            delta_ms=f"{delta_ms:.6f}", core_backward_ms=f"{core_bwd:.6f}",
+            library_backward_ms=f"{lib_bwd:.6f}")
         del qr, kr, vr, lib_out
-    # crossover record: forward kernel against the library forward
+    # crossover record: the forward kernel against the library forward, and
+    # the port's backward against the library backward
     for t in SWEEP_T:
         b, h, d = 2, 32, 128
         gen = torch.Generator(device=dev).manual_seed(t)
-        q, k, v = (torch.randn(b * h, t, d, device=dev, generator=gen)
-                   for _ in range(3))
+        q, k, v, g = (torch.randn(b * h, t, d, device=dev, generator=gen)
+                      for _ in range(4))
         kvalid = fa.kvalid_of(None, b, t, dev)
-        k_ms = time_ms(torch, lambda: fa.flash_fwd(q, k, v, kvalid, True, 0,
-                                                   d ** -0.5), flush, reps=10)
-        q4, k4, v4 = (x.view(b, h, t, d) for x in (q, k, v))
+        args = (kvalid, True, 0, d ** -0.5)
+        k_ms = time_ms(torch, lambda: fa.flash_fwd(q, k, v, *args), flush,
+                       reps=10)
+        q4, k4, v4, g4 = (x.view(b, h, t, d) for x in (q, k, v, g))
         l_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True), flush, reps=10)
-        bound, _ = flash_bound("fwd", b, h, t, t, d, True, None)
-        say("flash sweep", B=b, H=h, T=t, D=d, causal=True,
+        bound = flash_bound("fwd", b, h, t, t, d, True, None)[0]
+        say("flash sweep", direction="forward", B=b, H=h, T=t, D=d,
+            causal=True,
             kernel_ms=f"{k_ms:.6f}", library_ms=f"{l_ms:.6f}",
             bound_ms=f"{bound:.6f}")
+        out, lse = fa.flash_fwd(q, k, v, *args)
+        delta = (g * out).sum(-1)
+
+        def backward():
+            fa.flash_bwd_dq(q, k, v, g, lse, delta, *args)
+            fa.flash_bwd_dkv(q, k, v, g, lse, delta, *args)
+
+        kb_ms = time_ms(torch, backward, flush, reps=10)
+        core_bwd = core_backward_ms(torch, fa, q4, k4, v4, g4, flush, reps=10)
+        qr, kr, vr = (x.detach().clone().requires_grad_()
+                      for x in (q4, k4, v4))
+        lib_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+        lb_ms = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qr, kr, vr), g4, retain_graph=True), flush, reps=10)
+        bound = sum(flash_bound(n, b, h, t, t, d, True, None)[0]
+                    for n in ("bwd_dq", "bwd_dkv"))
+        say("flash sweep", direction="backward", B=b, H=h, T=t, D=d,
+            causal=True, kernels_ms=f"{kb_ms:.6f}",
+            core_backward_ms=f"{core_bwd:.6f}", library_ms=f"{lb_ms:.6f}",
+            bound_ms=f"{bound:.6f}")
+        del qr, kr, vr, lib_out
     return results
+
+
+def core_backward_ms(torch, fa, q4, k4, v4, g4, flush, reps=25):
+    """Device ms of the port's attention backward through autograd, as a
+    training step runs it: delta, then the dq and dk/dv kernels."""
+    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
+    out = fa.attention(qr, kr, vr, causal=True)
+    return time_ms(torch, lambda: torch.autograd.grad(
+        out, (qr, kr, vr), g4, retain_graph=True), flush, reps=reps)
 
 
 def train_run(torch, mt, fa, get_llama, Trainer, loss_mod, dev, route,
@@ -654,22 +738,11 @@ def device_profile(torch, module, x):
     """(device ms of one forward of ``module`` on ``x``, of which in the
     pair kernel), from a ``torch.profiler`` trace of one forward after a
     warm one; None if the trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     with torch.inference_mode():
-        module(x)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            module(x)
-            torch.cuda.synchronize()
-    total = pair = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:  # kernels
-            total += ev.device_time_total
-            if "conv1x1_pair" in ev.key:
-                pair += ev.device_time_total
-    return (total / 1e3, pair / 1e3) if total else None
+        ms = device_kernels(torch, lambda: module(x))
+    total = sum(ms.values())
+    pair = sum(t for name, t in ms.items() if "conv1x1_pair" in name)
+    return (total, pair) if total else None
 
 
 def resnet_phase(torch, np, mt, c1x1, vision, fuse, Session, dev):
@@ -887,7 +960,7 @@ def serve_phase(torch, da, Generator, model, rung, prompts, n_layers, vocab):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
-                    help="run phases 1-3 and 6 only (builds and kernels)")
+                    help="run phases 1-3, 6 and 8 only (builds and kernels)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -966,8 +1039,8 @@ def main(argv=None):
     say("build", seconds=f"{time.perf_counter() - t0:.3f}",
         natural_block=da.natural_block())
 
-    # 3. kernel vs plain
     flush = torch.empty(64 << 18, device=dev)  # 64 MiB > the 50 MB L2
+    # 3. kernel vs plain
     kres = kernel_phase(torch, da, nn_ops, flush, dev)
     if args.quick:
         flash_phase(torch, fa, flush, dev)

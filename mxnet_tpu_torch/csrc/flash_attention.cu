@@ -26,31 +26,82 @@
 // flops, dq 6 * D and dk/dv 8 * D. At the training shape (B = 2, H = 32,
 // T = 2048, D = 128, causal: 134 M kept pairs) that is 68.8 GFLOP for the
 // forward, about 1.03 ms at the card's 67 TFLOP/s of f32 outside the tensor
-// cores, against 268 MB of inputs and outputs, 0.08 ms at 3.35 TB/s.
+// cores, against 268 MB of inputs and outputs, 0.08 ms at 3.35 TB/s. The
+// backward's 240.6 GFLOP take at least 1.54 ms (dq) + 2.05 ms (dk/dv) on the
+// CUDA cores, or 0.62 + 0.83 ms as 3xTF32 on the tensor cores (three TF32
+// products per f32 product at 495 TFLOP/s).
 //
-// Design, against that bound:
-//  * f32 FMA on the CUDA cores, never TF32: the port computes in f32 as the
-//    reference does;
-//  * the TPU kernels carry m, l and the accumulators across a sequential
-//    ("arbitrary") grid axis; here that axis is a loop inside one block: one
-//    block of 256 threads per (bh, 64-row query tile) for fwd and dq, one per
-//    (bh, 64-row key tile) for dk/dv. Nothing carries over between blocks
-//    and there are no atomics;
+// Forward design (flash_fwd_kernel):
+//  * f32 FMA on the CUDA cores; the TPU kernels carry m, l and the
+//    accumulators across a sequential ("arbitrary") grid axis, here a loop
+//    inside one block of 256 threads per (bh, 64-row query tile);
 //  * the whole-tile skip of the TPU kernels is kept: the key loop stops at
-//    the last tile a row may see (kvalid, the causal diagonal), and dk/dv
-//    starts at the first query tile that sees its keys;
+//    the last tile a row may see (kvalid, the causal diagonal);
 //  * each thread owns a 4 x 4 patch of the 64 x 64 score tile and a
 //    4 x (D / 16) patch of the output, reading both operands from shared
 //    memory (rows padded to an odd pitch, so the 16 threads that read 16
-//    rows hit 16 banks); the softmax statistics of a row live in the 16
-//    threads of one half-warp and are reduced with shuffles;
-//  * nothing is padded in device memory: the ragged edge of T is zero-filled
-//    in shared memory and masked, and any D <= 256 is taken (64-row tiles up
-//    to D = 128, 32-row tiles above, so the dk/dv block fits the 227 KB).
-// Known weakness: operands come from shared memory at 2 FMAs per load in the
-// score loop and tiles are loaded before they are used, with no overlap, so
-// the kernels sit well below the f32 bound; wgmma (TF32 is not allowed, so
-// a 3xTF32 split or bf16 inputs), TMA and GQA-native K/V are later work.
+//    rows hit 16 banks); a row's softmax statistics live in the 16 threads
+//    of one half-warp and are reduced with shuffles;
+//  * the ragged edge of T is zero-filled in shared memory and masked, and any
+//    D <= 256 is taken (64-row tiles up to D = 128, 32-row tiles above).
+// It reads operands at 2 FMAs per shared load and loads each tile before it
+// is used, with no overlap: well below the f32 bound, redesigned next.
+//
+// Backward design (flash_bwd_dq_kernel, flash_bwd_dkv_kernel):
+//  * every product on the tensor cores, mma.sync m16n8k8 TF32 with f32
+//    accumulators, in 3xTF32: an f32 operand x splits in registers, as its
+//    fragment is loaded, into hi = tf32(x) and lo = tf32(x - hi), both
+//    rounded to nearest (cvt.rna's rounding), and a product is
+//    lo*hi + hi*lo + hi*hi, the two small cross terms first.
+//    x - (hi + lo) is below 2^-22 |x| and the dropped lo*lo term is below
+//    2^-22 |x y|, so a product keeps f32-class accuracy (one TF32 pass
+//    keeps 2^-11, about three decimal digits, which the port's f32
+//    tolerance does not allow). The tensor cores add into an accumulator
+//    with truncation, so sums are kept short: a score sums 4 (dq) or 2
+//    (dk/dv) k-steps at a time and an output tile's products one tile at a
+//    time, then join with f32 adds. Those sums are chains of dependent products; the output
+//    tiles are taken in groups under one guard, so that a group's chains
+//    overlap;
+//  * dq: one block of 8 warps per (bh, 128-row query tile) keeps q and dO
+//    resident and streams 32-key tiles of K and V; dk/dv: one block per
+//    (bh, 128-key tile) keeps K and V resident and streams 32-query tiles
+//    of q, dO, lse and delta. A warp skips a tile the mask hides from it. Tiles
+//    arrive by 16-byte cp.async into two stages, the next tile in flight
+//    while the current one is used, one barrier a tile; the ragged edge of
+//    T and the columns past D are zero-filled by the copy's src-size 0. A
+//    D that is not a multiple of 4 (or an operand not 16-byte aligned)
+//    takes the same kernel with 4-byte copies;
+//  * shared tiles are row-major with a row of P floats (D rounded up to
+//    64, 128 or 256) and 16-byte chunks XOR-swizzled by a permutation of
+//    row % 8, so that the fragment loads, row-wise (8-byte pairs) and
+//    column-wise (4 even or odd rows x 8 columns), are free of bank
+//    conflicts; a thread's load offsets are computed once;
+//  * dq: each warp computes S = (q K^T) * scale and dP = dO V^T for its 16
+//    query rows and the key tile, forms dS in its accumulators and adds
+//    dS K into its dq rows. dk/dv: each warp computes S^T and dP^T for its
+//    16 keys and the query tile, and adds P^T dO into dv and dS^T q into
+//    dk. Every product permutes its reduction index in
+//    A and B alike (slot t <-> 2t, slot t+4 <-> 2t+1): a thread's two
+//    values of a row are then adjacent (one 8-byte load), and an
+//    accumulator tile, whose thread holds columns 2t and 2t+1, is the A
+//    operand of the next product as it stands, through no shared memory
+//    and no shuffle;
+//  * no atomics: a warp owns its output rows (above D = 128, the warps
+//    that share rows add their partial sums through shared memory at the
+//    end, in a fixed order), so two calls give bitwise equal results. The
+//    whole-tile skip, kvalid, the causal offset
+//    and the longest-first order of dq's tiles are those of the forward;
+//    a dead row gets dq = 0 exactly, keys past kvalid dk = dv = 0;
+//  * 192 KB of shared memory and one block of 8 warps a SM at D <= 128
+//    (96 KB at D <= 64); above D = 128 the resident tiles hold 32 rows, two
+//    warps share them by key or query, and the output columns split across
+//    two more, which repeat the scores.
+// What holds it back: mma.sync reaches only part of the tensor cores' TF32
+// rate, and 3xTF32 triples the products; dq recomputes S and dP, which
+// dk/dv computes too (seven products where one fused pass with atomics
+// would need five); wgmma's TF32 wants both operands K-major in shared
+// memory, which the transposed products are not; dk/dv runs at the
+// 255-register limit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,6 +110,7 @@ namespace {
 constexpr int kThreads = 256;        // 16 x 16 threads
 constexpr float kNegInf = -1e30f;    // finite "minus infinity", as in the TPU kernels
 constexpr float kAliveMin = -5e29f;  // a row is dead while its max stays below this
+constexpr float kLog2e = 1.4426950408889634f;
 
 __host__ __device__ inline int pitch_of(int D) { return D | 1; }  // odd: no bank conflicts
 
@@ -86,14 +138,6 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
     const float* row = src + static_cast<size_t>(r0 + r) * D;
     for (int c = lane; c < D; c += 32) dst[r * P + c] = in ? __ldg(row + c) * mul : 0.f;
   }
-}
-
-// Per-row values [r0, r0 + BM) of a (T,) vector into shared memory; rows at
-// or past T get `fill`.
-template <int BM>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int r0,
-                                          int T, float fill) {
-  for (int r = threadIdx.x; r < BM; r += kThreads) dst[r] = r0 + r < T ? src[r0 + r] : fill;
 }
 
 // acc[i][j] += sum_d a[(ty + 16 i) * P + d] * b[(tx + 16 j) * P + d]: one
@@ -234,216 +278,572 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// dq: one block per (bh, query tile); grid (BH, ceil(Tq / BM))
-template <int BM, int NC>
-__global__ void __launch_bounds__(kThreads)
+// backward: 3xTF32 tensor-core products over cp.async-fed shared tiles
+
+// Tile shape of the backward kernels at row width P (D rounded up): R rows
+// resident (dq: queries, dk/dv: keys), S rows a streamed tile (dq: keys,
+// dk/dv: queries); WM x WN x WD warps, warp (wm, wn, wd) owning resident
+// rows [16 wm, 16 wm + 16), streamed rows [wn S / WN, (wn + 1) S / WN) and
+// output columns [wd P / WD, (wd + 1) P / WD).
+template <int P_>
+struct BwdTile {
+  static constexpr int R = P_ <= 128 ? 128 : 32;
+  static constexpr int S = 32;
+  static constexpr int WM = R / 16;
+  static constexpr int WD = P_ <= 128 ? 1 : 2;
+  static constexpr int WN = kThreads / 32 / (WM * WD);
+  static constexpr int P = P_;
+  static constexpr int RP = P + 8;  // pitch of the reduction buffer
+  static_assert(WM * WN * WD == kThreads / 32 && S % (8 * WN) == 0, "warp grid");
+  static_assert(P / WD % 64 == 0, "dq's output columns go in groups of 64");
+};
+
+// k-steps of a score product summed apart before they join the score: the
+// tensor cores add into the accumulator with truncation, so a long chain of
+// additions into one accumulator drifts; short chains joined by f32 adds
+// (round to nearest) keep the scores, and through exp the gradients, within
+// the port's f32 tolerance. The output products sum each tile apart, too.
+// dq runs faster with 4, dk/dv with 2 (measured on an H100).
+constexpr int kChunkDq = 4;
+constexpr int kChunkDkv = 2;
+
+// Element (r, c) of a swizzled (rows x P) tile: 16-byte chunk c / 4 of row r
+// sits at chunk (c / 4) ^ h(r), where h permutes r % 8 = (r2 r1 r0) into
+// (r1, r0 ^ r2, r0). That keeps the three fragment patterns free of bank
+// conflicts: 8-byte pairs of 4 rows x 4 column pairs (a half-warp), and
+// 4 even or 4 odd rows x 8 columns.
+__host__ __device__ __forceinline__ int swz_key(int r) {
+  return ((r & 2) << 1) | (((r ^ (r >> 2)) & 1) << 1) | (r & 1);
+}
+
+template <int P>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * P + ((((c >> 2) ^ swz_key(r)) << 2) | (c & 3));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + ROWS) of a row-major (T, D) matrix into a swizzled
+// (ROWS x P) tile, asynchronously; rows at or past T and columns at or past
+// D are zero-filled. VEC: 16-byte copies (D % 4 == 0, src 16-byte aligned).
+template <int ROWS, int P, bool VEC>
+__device__ __forceinline__ void load_async(float* dst, const float* __restrict__ src, int r0,
+                                           int T, int D) {
+  constexpr int W = VEC ? 4 : 1;
+  constexpr int PER_ROW = P / W;
+  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += kThreads) {
+    const int r = i / PER_ROW;
+    const int c = (i % PER_ROW) * W;
+    const bool in = r0 + r < T && c < D;
+    const float* s = in ? src + static_cast<size_t>(r0 + r) * D + c : src;
+    if (VEC)
+      cp_async16(dst + swz<P>(r, c), s, in);
+    else
+      cp_async4(dst + swz<P>(r, c), s, in);
+  }
+}
+
+// Values [r0, r0 + ROWS) of a (T,) vector into shared memory, asynchronously;
+// zeros at or past T.
+template <int ROWS>
+__device__ __forceinline__ void load_rows_async(float* dst, const float* __restrict__ src, int r0,
+                                                int T) {
+  for (int r = threadIdx.x; r < ROWS; r += kThreads) {
+    const bool in = r0 + r < T;
+    cp_async4(dst + r, in ? src + r0 + r : src, in);
+  }
+}
+
+// x rounded to TF32, to nearest with ties away from zero: the value
+// cvt.rna.tf32.f32 gives, formed with an integer add and mask (adding half
+// of the 13 dropped bits' range carries into the kept ones), which ran
+// faster on an H100 than the cvt.
+__device__ __forceinline__ uint32_t round_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, each a TF32 value.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = round_tf32(x);
+  lo = round_tf32(x - __uint_as_float(hi));
+}
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32: the two small cross terms, then the big one.
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.lo);
+  mma_tf32(d, a.hi, b.hi);
+}
+
+// The m16n8k8 fragments, lane = 4 g + t. A (16 x 8): a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4); B (8 x 8): b0 (t, g), b1 (t + 4, g);
+// C (16 x 8): c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
+// A product sums over its reduction index k in any order, so each product
+// below permutes k the same way in A and B: slot t is k = 2t and slot t + 4
+// is k = 2t + 1. A thread's two values of a row are then adjacent (one
+// 8-byte load), and an accumulator tile is an A operand as it stands.
+
+// A thread's offsets (floats) in a swizzled tile of pitch P for the
+// fragments of a k-step, by its phase b = (c0 / 8) % 4, c0 being the first
+// column (row: A and row-wise B) or the first output column (col:
+// column-wise B); the rest of c0, a multiple of 32, adds to the tile
+// pointer as it is. Computed once, so a fragment load is one address add.
+template <int P>
+struct FragOff {
+  int row[4];     // (g, c0 + 2t), from the fragment's first row
+  int col[2][4];  // (2t + o, c0 + g), from the fragment's first row
+  __device__ FragOff(int g, int t) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      row[b] = g * P + (((((t >> 1) ^ swz_key(g)) << 2) | ((t & 1) << 1)) ^ (8 * b));
+#pragma unroll
+      for (int o = 0; o < 2; ++o)
+        col[o][b] = (2 * t + o) * P +
+                    (((((g >> 2) ^ swz_key(2 * t + o)) << 2) | (g & 3)) ^ (8 * b));
+    }
+  }
+};
+
+// A = 16 rows x 8 columns from p (the first row, at the k-step's columns
+// rounded down to 32), off = FragOff::row of the phase.
+template <int P>
+__device__ __forceinline__ FragA frag_a(const float* p, int off) {
+  FragA f;
+  const float2 top = *reinterpret_cast<const float2*>(p + off);
+  const float2 bot = *reinterpret_cast<const float2*>(p + off + 8 * P);
+  split_tf32(top.x, f.hi[0], f.lo[0]);
+  split_tf32(bot.x, f.hi[1], f.lo[1]);
+  split_tf32(top.y, f.hi[2], f.lo[2]);
+  split_tf32(bot.y, f.hi[3], f.lo[3]);
+  return f;
+}
+
+// B[k][n] = X[n][k] over 8 rows of X from p: a product against the rows.
+__device__ __forceinline__ FragB frag_b_rows(const float* p, int off) {
+  FragB f;
+  const float2 x = *reinterpret_cast<const float2*>(p + off);
+  split_tf32(x.x, f.hi[0], f.lo[0]);
+  split_tf32(x.y, f.hi[1], f.lo[1]);
+  return f;
+}
+
+// A from a C accumulator tile (16 x 8) as it stands.
+__device__ __forceinline__ FragA frag_a_acc(const float (&c)[4]) {
+  FragA f;
+  split_tf32(c[0], f.hi[0], f.lo[0]);
+  split_tf32(c[2], f.hi[1], f.lo[1]);
+  split_tf32(c[1], f.hi[2], f.lo[2]);
+  split_tf32(c[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// B[k][n] = X[k][n] over 8 rows of X from p: rows 2t and 2t + 1 (offsets
+// FragOff::col[0] and col[1] of the phase).
+__device__ __forceinline__ FragB frag_b_cols(const float* p, int off0, int off1) {
+  FragB f;
+  split_tf32(p[off0], f.hi[0], f.lo[0]);
+  split_tf32(p[off1], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// Sum the partial (16 x P / WD) output tiles of the WN warps that share
+// resident rows, through red (R x RP floats, over tiles that are no longer
+// read), in the order wn = 0, 1, ...;
+// the last of them hands each sum, with its tile row and column, to
+// out(row, col, value).
+template <class C, int NO, class Out>
+__device__ __forceinline__ void reduce_rows(float* red, const float (&acc)[NO][4], int wm,
+                                            int wn, int wd, int g, int t, Out out) {
+  constexpr int P = C::P;
+  for (int w = 0; w < C::WN; ++w) {
+    if (wn == w) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const int col = wd * (P / C::WD) + n * 8 + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = wm * 16 + g + 8 * h;
+          float2* cell = reinterpret_cast<float2*>(red + row * C::RP + col);
+          float2 v = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+          if (w > 0) {
+            const float2 r = *cell;
+            v = make_float2(r.x + v.x, r.y + v.y);
+          }
+          if (w + 1 < C::WN) {
+            *cell = v;
+          } else {
+            out(row, col, v.x);
+            out(row, col + 1, v.y);
+          }
+        }
+      }
+    }
+    if (w + 1 < C::WN) __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dq: one block per (bh, query tile); grid (BH, ceil(Tq / R))
+template <int P, bool VEC>
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ g,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         const int* __restrict__ kvalid, float* __restrict__ dq, int H, int Tq,
                         int Tk, int D, int causal, int causal_off, float scale) {
-  constexpr int RM = BM / 16;
-  constexpr int SP = BM + 1;
-  extern __shared__ float smem[];
-  const int P = pitch_of(D);
-  float* q_s = smem;            // BM x P, q * scale
-  float* g_s = q_s + BM * P;    // BM x P, dO
-  float* kv_s = g_s + BM * P;   // BM x P, the V tile, then the K tile
-  float* ds_s = kv_s + BM * P;  // BM x SP
-  float* lse_s = ds_s + BM * SP;
-  float* dl_s = lse_s + BM;
+  using C = BwdTile<P>;
+  constexpr int BM = C::R;               // query rows of the block
+  constexpr int BN = C::S;               // keys of a streamed tile
+  constexpr int KW = BN / C::WN;         // keys of a warp
+  constexpr int NK = KW / 8;             // their n-tiles
+  constexpr int NO = P / C::WD / 8;      // output n-tiles of a warp
+  constexpr int STAGE = 2 * BN * P;      // K tile, then V tile
+  extern __shared__ float4 smem_v4[];
+  float* q_s = reinterpret_cast<float*>(smem_v4);  // BM x P, q
+  float* g_s = q_s + BM * P;                       // BM x P, dO
+  float* kv_s = g_s + BM * P;                      // two stages
 
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // longest causal rows first
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tc = lane & 3;
+  const int wm = warp % C::WM, wn = warp / C::WM % C::WN, wd = warp / (C::WM * C::WN);
+  const FragOff<P> fo(gr, tc);
   const int kv_len = kvalid[bh / H];
   const int k_end = key_end<BM>(q0, kv_len, causal, causal_off);
+  const int n_tiles = k_end > 0 ? (k_end + BN - 1) / BN : 0;
   const size_t qoff = static_cast<size_t>(bh) * Tq;
   const float* kb = k + static_cast<size_t>(bh) * Tk * D;
   const float* vb = v + static_cast<size_t>(bh) * Tk * D;
 
-  load_tile<BM>(q_s, q + qoff * D, q0, Tq, D, P, scale);
-  load_tile<BM>(g_s, g + qoff * D, q0, Tq, D, P, 1.f);
-  load_rows<BM>(lse_s, lse + qoff, q0, Tq, kNegInf);
-  load_rows<BM>(dl_s, delta + qoff, q0, Tq, 0.f);
-  float acc[RM][NC];
+  float acc[NO][4];
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
 
-  for (int k0 = 0; k0 < k_end; k0 += BM) {
-    __syncthreads();
-    load_tile<BM>(kv_s, vb, k0, Tk, D, P, 1.f);
-    __syncthreads();
-    float dp[RM][RM], s[RM][RM];
+  if (n_tiles > 0) {
+    load_async<BM, P, VEC>(q_s, q + qoff * D, q0, Tq, D);
+    load_async<BM, P, VEC>(g_s, g + qoff * D, q0, Tq, D);
+    load_async<BN, P, VEC>(kv_s, kb, 0, Tk, D);
+    load_async<BN, P, VEC>(kv_s + BN * P, vb, 0, Tk, D);
+    cp_async_commit();
+    // lse and delta of the thread's two rows (h = 0: row g, h = 1: g + 8)
+    float lr[2], dl[2];
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + wm * 16 + gr + 8 * h;
+      lr[h] = row < Tq ? lse[qoff + row] : kNegInf;
+      dl[h] = row < Tq ? delta[qoff + row] : 0.f;
+    }
+    const int kw = wn * KW;
+    for (int it = 0; it < n_tiles; ++it) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile it landed; every warp is done with tile it - 1
+      if (it + 1 < n_tiles) {
+        float* nxt = kv_s + ((it + 1) & 1) * STAGE;
+        load_async<BN, P, VEC>(nxt, kb, (it + 1) * BN, Tk, D);
+        load_async<BN, P, VEC>(nxt + BN * P, vb, (it + 1) * BN, Tk, D);
+        cp_async_commit();
+      }
+      const float* k_s = kv_s + (it & 1) * STAGE;
+      const float* v_s = k_s + BN * P;
+      const int k0 = it * BN;
+      // a warp whose keys of this tile are all masked for its rows adds 0
+      if (k0 + kw >= kv_len || (causal && k0 + kw > q0 + wm * 16 + 15 + causal_off)) continue;
+
+      // S = q K^T and dP = dO V^T for rows wm, keys [kw, kw + KW)
+      float s[NK][4], dp[NK][4];
 #pragma unroll
-      for (int j = 0; j < RM; ++j) dp[i][j] = s[i][j] = 0.f;
-    dot_patch<RM>(dp, g_s, kv_s, D, P, tx, ty);  // dP = dO . V^T
-    __syncthreads();
-    load_tile<BM>(kv_s, kb, k0, Tk, D, P, 1.f);
-    __syncthreads();
-    dot_patch<RM>(s, q_s, kv_s, D, P, tx, ty);  // S = (q * scale) . K^T
+      for (int j = 0; j < NK; ++j)
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = ty + 16 * i;
-      const float lr = lse_s[r];
-      const float dl = dl_s[r];
-      const bool alive = lr > kAliveMin;
+        for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
+      // all P columns, unguarded (past D they are zeros): one block of code
+      // for the scheduler, which measured faster here than a guarded loop
 #pragma unroll
-      for (int j = 0; j < RM; ++j) {
-        const bool keep = alive && kept(q0 + r, k0 + tx + 16 * j, kv_len, causal, causal_off);
-        const float p = keep ? expf(s[i][j] - lr) : 0.f;
-        ds_s[r * SP + tx + 16 * j] = p * (dp[i][j] - dl);
+      for (int kc = 0; kc < P; kc += 8 * kChunkDq) {
+        float ts[NK][4], tp[NK][4];
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) ts[j][c] = tp[j][c] = 0.f;
+#pragma unroll
+        for (int kk = kc; kk < kc + 8 * kChunkDq; kk += 8) {
+          const int ph = (kk >> 3) & 3, c32 = kk & ~31;
+          const FragA qa = frag_a<P>(q_s + wm * 16 * P + c32, fo.row[ph]);
+          const FragA ga = frag_a<P>(g_s + wm * 16 * P + c32, fo.row[ph]);
+#pragma unroll
+          for (int j = 0; j < NK; ++j) {
+            mma3(ts[j], qa, frag_b_rows(k_s + (kw + j * 8) * P + c32, fo.row[ph]));
+            mma3(tp[j], ga, frag_b_rows(v_s + (kw + j * 8) * P + c32, fo.row[ph]));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[j][c] += ts[j][c];
+            dp[j][c] += tp[j][c];
+          }
+      }
+      // dS = P * (dP - delta), P = exp(S scale - lse) on the kept pairs;
+      // full: the mask keeps every pair of the warp's tile
+      const int k_last = k0 + kw + KW - 1;
+      const bool full = k_last < kv_len && (!causal || k_last <= q0 + wm * 16 + causal_off);
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int h = c >> 1;
+          const int qpos = q0 + wm * 16 + gr + 8 * h;
+          const int kpos = k0 + kw + j * 8 + 2 * tc + (c & 1);
+          const bool keep =
+              lr[h] > kAliveMin && (full || kept(qpos, kpos, kv_len, causal, causal_off));
+          const float p = keep ? exp2f(fmaf(s[j][c], scale * kLog2e, -lr[h] * kLog2e)) : 0.f;
+          s[j][c] = p * (dp[j][c] - dl[h]);
+        }
+      // dq += dS K over the warp's keys
+      FragA da[NK];
+#pragma unroll
+      for (int j = 0; j < NK; ++j) da[j] = frag_a_acc(s[j]);
+      // output tiles go in groups of G under one guard, so that the G
+      // chains of dependent products of a group overlap on the tensor cores
+      constexpr int G = 8;
+#pragma unroll
+      for (int ng = 0; ng < NO; ng += G) {
+        if (wd * (P / C::WD) + ng * 8 >= D) break;
+        float part[G][4] = {};
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          const float* kj = k_s + (kw + j * 8) * P + wd * (P / C::WD);
+#pragma unroll
+          for (int n = 0; n < G; ++n) {  // tile ng + n: phase (ng + n) % 4
+            const int t = ng + n;
+            mma3(part[n], da[j], frag_b_cols(kj + (t & ~3) * 8, fo.col[0][t & 3], fo.col[1][t & 3]));
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < G; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[ng + n][c] += part[n][c];
       }
     }
     __syncthreads();
-    const int kn = min(BM, Tk - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      float dv[RM], kv[NC];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) dv[i] = ds_s[(ty + 16 * i) * SP + kk];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tx + 16 * c;
-        kv[c] = col < D ? kv_s[kk * P + col] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(dv[i], kv[c], acc[i][c]);
-    }
   }
 
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Tq) continue;
-    float* drow = dq + (qoff + row) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) drow[col] = acc[i][c] * scale;
-    }
-  }
+  float* dqb = dq + qoff * D;
+  reduce_rows<C, NO>(q_s, acc, wm, wn, wd, gr, tc, [&](int r, int c, float x) {
+    if (q0 + r < Tq && c < D) dqb[static_cast<size_t>(q0 + r) * D + c] = x * scale;
+  });
 }
 
 // ---------------------------------------------------------------------------
-// dk, dv: one block per (bh, key tile); grid (BH, ceil(Tk / BM))
-template <int BM, int NC>
-__global__ void __launch_bounds__(kThreads)
+// dk, dv: one block per (bh, key tile); grid (BH, ceil(Tk / R))
+template <int P, bool VEC>
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ g,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          const int* __restrict__ kvalid, float* __restrict__ dk,
                          float* __restrict__ dv, int H, int Tq, int Tk, int D, int causal,
                          int causal_off, float scale) {
-  constexpr int RM = BM / 16;
-  constexpr int SP = BM + 1;
-  extern __shared__ float smem[];
-  const int P = pitch_of(D);
-  float* k_s = smem;            // BM x P
-  float* v_s = k_s + BM * P;    // BM x P
-  float* q_s = v_s + BM * P;    // BM x P, q * scale
-  float* g_s = q_s + BM * P;    // BM x P, dO
-  float* p_s = g_s + BM * P;    // BM (query) x SP (key)
-  float* ds_s = p_s + BM * SP;  // BM (query) x SP (key)
-  float* lse_s = ds_s + BM * SP;
-  float* dl_s = lse_s + BM;
+  using C = BwdTile<P>;
+  constexpr int BN = C::R;               // keys of the block
+  constexpr int BM = C::S;               // queries of a streamed tile
+  constexpr int QW = BM / C::WN;         // queries of a warp
+  constexpr int NQ = QW / 8;             // their n-tiles
+  constexpr int NO = P / C::WD / 8;      // output n-tiles of a warp
+  constexpr int STAGE = 2 * BM * P + 2 * BM;  // q, dO, lse, delta
+  extern __shared__ float4 smem_v4[];
+  float* k_s = reinterpret_cast<float*>(smem_v4);  // BN x P
+  float* v_s = k_s + BN * P;                       // BN x P
+  float* st_s = v_s + BN * P;                      // two stages
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * BM;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const int k0 = blockIdx.y * BN;  // the longest causal key tiles come first
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tc = lane & 3;
+  const int wm = warp % C::WM, wn = warp / C::WM % C::WN, wd = warp / (C::WM * C::WN);
+  const FragOff<P> fo(gr, tc);
   const int kv_len = kvalid[bh / H];
+  // the first query tile whose last row sees key k0; a tile past kvalid
+  // gets no gradient
+  const int q_first = causal ? max(0, k0 - causal_off) / BM * BM : 0;
+  const int n_tiles = k0 < kv_len && q_first < Tq ? (Tq - q_first + BM - 1) / BM : 0;
   const size_t qoff = static_cast<size_t>(bh) * Tq;
   const size_t koff = static_cast<size_t>(bh) * Tk;
+  const float* qb = q + qoff * D;
+  const float* gb = g + qoff * D;
 
-  // rows of dk/dv: key ty + 16 i of the tile; columns tx + 16 c
-  float dk_acc[RM][NC], dv_acc[RM][NC];
+  float dk_acc[NO][4], dv_acc[NO][4];
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+    for (int c = 0; c < 4; ++c) dk_acc[n][c] = dv_acc[n][c] = 0.f;
 
-  if (k0 < kv_len) {  // a tile past kvalid gets no gradient
-    load_tile<BM>(k_s, k + koff * D, k0, Tk, D, P, 1.f);
-    load_tile<BM>(v_s, v + koff * D, k0, Tk, D, P, 1.f);
-    // the first query tile whose last row sees key k0
-    const int q_first = causal ? max(0, k0 - causal_off) / BM * BM : 0;
-    for (int q0 = q_first; q0 < Tq; q0 += BM) {
+  auto load_stage = [&](float* dst, int q0) {
+    load_async<BM, P, VEC>(dst, qb, q0, Tq, D);
+    load_async<BM, P, VEC>(dst + BM * P, gb, q0, Tq, D);
+    load_rows_async<BM>(dst + 2 * BM * P, lse + qoff, q0, Tq);
+    load_rows_async<BM>(dst + 2 * BM * P + BM, delta + qoff, q0, Tq);
+  };
+
+  if (n_tiles > 0) {
+    load_async<BN, P, VEC>(k_s, k + koff * D, k0, Tk, D);
+    load_async<BN, P, VEC>(v_s, v + koff * D, k0, Tk, D);
+    load_stage(st_s, q_first);
+    cp_async_commit();
+    const int qw = wn * QW;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int q0 = q_first + it * BM;
+      cp_async_wait<0>();
       __syncthreads();
-      load_tile<BM>(q_s, q + qoff * D, q0, Tq, D, P, scale);
-      load_tile<BM>(g_s, g + qoff * D, q0, Tq, D, P, 1.f);
-      load_rows<BM>(lse_s, lse + qoff, q0, Tq, kNegInf);
-      load_rows<BM>(dl_s, delta + qoff, q0, Tq, 0.f);
-      __syncthreads();
-      // patch: query rows ty + 16 i, key columns tx + 16 j
-      float s[RM][RM], dp[RM][RM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RM; ++j) s[i][j] = dp[i][j] = 0.f;
-      dot_patch<RM>(s, q_s, k_s, D, P, tx, ty);
-      dot_patch<RM>(dp, g_s, v_s, D, P, tx, ty);
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int r = ty + 16 * i;
-        const float lr = lse_s[r];
-        const float dl = dl_s[r];
-        const bool alive = lr > kAliveMin;
-#pragma unroll
-        for (int j = 0; j < RM; ++j) {
-          const bool keep = alive && kept(q0 + r, k0 + tx + 16 * j, kv_len, causal, causal_off);
-          const float p = keep ? expf(s[i][j] - lr) : 0.f;
-          p_s[r * SP + tx + 16 * j] = p;
-          ds_s[r * SP + tx + 16 * j] = p * (dp[i][j] - dl);
-        }
+      if (it + 1 < n_tiles) {
+        load_stage(st_s + ((it + 1) & 1) * STAGE, q0 + BM);
+        cp_async_commit();
       }
-      __syncthreads();
-      const int qn = min(BM, Tq - q0);  // query rows past Tq have p = ds = 0
-      for (int qq = 0; qq < qn; ++qq) {
-        float pv[RM], dsv[RM], gv[NC], qv[NC];
+      const float* q_s = st_s + (it & 1) * STAGE;
+      const float* g_s = q_s + BM * P;
+      const float* lse_s = g_s + BM * P;
+      const float* dl_s = lse_s + BM;
+      // a warp whose queries of this tile are all masked for its keys adds 0
+      if (q0 + qw >= Tq || k0 + wm * 16 >= kv_len ||
+          (causal && k0 + wm * 16 > q0 + qw + QW - 1 + causal_off))
+        continue;
+
+      // S^T = K q^T and dP^T = V dO^T for keys wm, queries [qw, qw + QW)
+      float s[NQ][4], dp[NQ][4];
 #pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          pv[i] = p_s[qq * SP + ty + 16 * i];
-          dsv[i] = ds_s[qq * SP + ty + 16 * i];
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < P; kc += 8 * kChunkDkv) {
+        if (kc >= D) break;
+        float ts[NQ][4], tp[NQ][4];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) ts[j][c] = tp[j][c] = 0.f;
+#pragma unroll
+        for (int kk = kc; kk < kc + 8 * kChunkDkv; kk += 8) {
+          const int ph = (kk >> 3) & 3, c32 = kk & ~31;
+          const FragA ka = frag_a<P>(k_s + wm * 16 * P + c32, fo.row[ph]);
+          const FragA va = frag_a<P>(v_s + wm * 16 * P + c32, fo.row[ph]);
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            mma3(ts[j], ka, frag_b_rows(q_s + (qw + j * 8) * P + c32, fo.row[ph]));
+            mma3(tp[j], va, frag_b_rows(g_s + (qw + j * 8) * P + c32, fo.row[ph]));
+          }
         }
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int col = tx + 16 * c;
-          gv[c] = col < D ? g_s[qq * P + col] : 0.f;
-          qv[c] = col < D ? q_s[qq * P + col] : 0.f;
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[j][c] += ts[j][c];
+            dp[j][c] += tp[j][c];
+          }
+      }
+      // P^T into s, dS^T into dp; a query's lse and delta are per column.
+      // full: the mask keeps every pair of the warp's tile
+      const int k_last = k0 + wm * 16 + 15;
+      const bool full = k_last < kv_len && q0 + qw + QW <= Tq &&
+                        (!causal || k_last <= q0 + qw + causal_off);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = qw + j * 8 + 2 * tc + (c & 1);
+          const int qpos = q0 + col;
+          const int kpos = k0 + wm * 16 + gr + 8 * (c >> 1);
+          const float lq = lse_s[col];
+          const bool keep = lq > kAliveMin && (full || (qpos < Tq && kept(qpos, kpos, kv_len,
+                                                                          causal, causal_off)));
+          const float p = keep ? exp2f(fmaf(s[j][c], scale * kLog2e, -lq * kLog2e)) : 0.f;
+          s[j][c] = p;
+          dp[j][c] = p * (dp[j][c] - dl_s[col]);
+        }
+      // dv += P^T dO, dk += dS^T q over the warp's queries
+      FragA pa[NQ], da[NQ];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        pa[j] = frag_a_acc(s[j]);
+        da[j] = frag_a_acc(dp[j]);
+      }
+      // output tiles in groups of G under one guard, as in dq (G chains
+      // each for dv and dk; a larger G spills at 255 registers)
+      constexpr int G = 2;
+#pragma unroll
+      for (int ng = 0; ng < NO; ng += G) {
+        if (wd * (P / C::WD) + ng * 8 >= D) break;
+        float pv[G][4] = {}, pk[G][4] = {};
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          const int o = (qw + j * 8) * P + wd * (P / C::WD);
+#pragma unroll
+          for (int n = 0; n < G; ++n) {  // tile ng + n: phase (ng + n) % 4
+            const int t = ng + n, on = o + (t & ~3) * 8;
+            mma3(pv[n], pa[j], frag_b_cols(g_s + on, fo.col[0][t & 3], fo.col[1][t & 3]));
+            mma3(pk[n], da[j], frag_b_cols(q_s + on, fo.col[0][t & 3], fo.col[1][t & 3]));
+          }
         }
 #pragma unroll
-        for (int i = 0; i < RM; ++i)
+        for (int n = 0; n < G; ++n)
 #pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            dv_acc[i][c] = fmaf(pv[i], gv[c], dv_acc[i][c]);
-            dk_acc[i][c] = fmaf(dsv[i], qv[c], dk_acc[i][c]);
+          for (int c = 0; c < 4; ++c) {
+            dv_acc[ng + n][c] += pv[n][c];
+            dk_acc[ng + n][c] += pk[n][c];
           }
       }
     }
+    __syncthreads();
   }
 
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row >= Tk) continue;
-    float* dkr = dk + (koff + row) * D;
-    float* dvr = dv + (koff + row) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) {
-        dkr[col] = dk_acc[i][c];
-        dvr[col] = dv_acc[i][c];
-      }
-    }
-  }
+  float* dkb = dk + koff * D;
+  float* dvb = dv + koff * D;
+  float* red = k_s;  // two R x RP buffers over K, V and the stages
+  reduce_rows<C, NO>(red, dk_acc, wm, wn, wd, gr, tc, [&](int r, int c, float x) {
+    if (k0 + r < Tk && c < D) dkb[static_cast<size_t>(k0 + r) * D + c] = x * scale;
+  });
+  reduce_rows<C, NO>(red + BN * C::RP, dv_acc, wm, wn, wd, gr, tc, [&](int r, int c, float x) {
+    if (k0 + r < Tk && c < D) dvb[static_cast<size_t>(k0 + r) * D + c] = x;
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -451,18 +851,30 @@ __global__ void __launch_bounds__(kThreads)
 
 enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// Tile rows at head dim D: 64 up to D = 128, 32 above (the dk/dv block's
-// four (rows x D) tiles must fit in shared memory).
+// Forward tile rows at head dim D: 64 up to D = 128, 32 above.
 inline int block_rows(int D) { return D <= 128 ? 64 : 32; }
 
+// Row width P of the backward tiles: D rounded up to 64, 128 or 256.
+inline int bwd_width(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
+
+// Floats of shared memory of a backward block: the resident pair of tiles
+// and two stages (dq: K, V; dk/dv: q, dO, lse, delta).
+template <int P>
+constexpr size_t bwd_floats(int kernel) {
+  using C = BwdTile<P>;
+  return 2 * C::R * P + 2 * (2 * C::S * P + (kernel == kDkv ? 2 * C::S : 0));
+}
+
 inline size_t smem_bytes(int kernel, int D) {
-  const size_t bm = block_rows(D);
-  const size_t tile = bm * pitch_of(D);
-  const size_t prob = bm * (bm + 1);
-  size_t floats = 0;
-  if (kernel == kFwd) floats = 2 * tile + prob;
-  if (kernel == kDq) floats = 3 * tile + prob + 2 * bm;
-  if (kernel == kDkv) floats = 4 * tile + 2 * prob + 2 * bm;
+  size_t floats;
+  if (kernel == kFwd) {
+    const size_t bm = block_rows(D);
+    floats = 2 * bm * pitch_of(D) + bm * (bm + 1);
+  } else {
+    const int p = bwd_width(D);
+    floats = p == 64 ? bwd_floats<64>(kernel)
+                     : p == 128 ? bwd_floats<128>(kernel) : bwd_floats<256>(kernel);
+  }
   return floats * sizeof(float);
 }
 
@@ -475,34 +887,52 @@ struct Args {
 };
 
 template <int BM, int NC>
-cudaError_t launch_cfg(int kernel, const Args& a, cudaStream_t st) {
+cudaError_t launch_fwd(const Args& a, cudaStream_t st) {
+  const size_t smem = smem_bytes(kFwd, a.D);
+  const dim3 grid(a.BH, (a.Tq + BM - 1) / BM);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<BM, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel<BM, NC><<<grid, kThreads, smem, st>>>(a.q, a.k, a.v, a.kvalid, a.o0, a.o1, a.H,
+                                                         a.Tq, a.Tk, a.D, a.causal, a.causal_off,
+                                                         a.scale);
+  return cudaGetLastError();
+}
+
+template <int P, bool VEC>
+cudaError_t launch_bwd(int kernel, const Args& a, cudaStream_t st) {
   const size_t smem = smem_bytes(kernel, a.D);
   const int rows = kernel == kDkv ? a.Tk : a.Tq;
-  const dim3 grid(a.BH, (rows + BM - 1) / BM);
+  const int tile = BwdTile<P>::R;  // both kernels: R resident rows
+  const dim3 grid(a.BH, (rows + tile - 1) / tile);
   cudaError_t err;
-  if (kernel == kFwd) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<BM, NC>,
+  if (kernel == kDq) {
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<P, VEC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    flash_fwd_kernel<BM, NC><<<grid, kThreads, smem, st>>>(a.q, a.k, a.v, a.kvalid, a.o0, a.o1,
-                                                           a.H, a.Tq, a.Tk, a.D, a.causal,
-                                                           a.causal_off, a.scale);
-  } else if (kernel == kDq) {
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<BM, NC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_kernel<BM, NC><<<grid, kThreads, smem, st>>>(
+    flash_bwd_dq_kernel<P, VEC><<<grid, kThreads, smem, st>>>(
         a.q, a.k, a.v, a.g, a.lse, a.delta, a.kvalid, a.o0, a.H, a.Tq, a.Tk, a.D, a.causal,
         a.causal_off, a.scale);
   } else {
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<BM, NC>,
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<P, VEC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    flash_bwd_dkv_kernel<BM, NC><<<grid, kThreads, smem, st>>>(
+    flash_bwd_dkv_kernel<P, VEC><<<grid, kThreads, smem, st>>>(
         a.q, a.k, a.v, a.g, a.lse, a.delta, a.kvalid, a.o0, a.o1, a.H, a.Tq, a.Tk, a.D,
         a.causal, a.causal_off, a.scale);
   }
   return cudaGetLastError();
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// 16-byte copies where every row of q, k, v, dO starts on 16 bytes, else
+// the same kernel with 4-byte copies.
+template <int P>
+cudaError_t launch_bwd_width(int kernel, const Args& a, cudaStream_t st) {
+  const bool vec = a.D % 4 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+                   aligned16(a.g);
+  return vec ? launch_bwd<P, true>(kernel, a, st) : launch_bwd<P, false>(kernel, a, st);
 }
 
 int launch(int kernel, const Args& a, void* stream) {
@@ -510,12 +940,22 @@ int launch(int kernel, const Args& a, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (a.D <= 64)
-    err = launch_cfg<64, 4>(kernel, a, st);
-  else if (a.D <= 128)
-    err = launch_cfg<64, 8>(kernel, a, st);
-  else
-    err = launch_cfg<32, 16>(kernel, a, st);
+  if (kernel == kFwd) {
+    if (a.D <= 64)
+      err = launch_fwd<64, 4>(a, st);
+    else if (a.D <= 128)
+      err = launch_fwd<64, 8>(a, st);
+    else
+      err = launch_fwd<32, 16>(a, st);
+  } else {
+    const int p = bwd_width(a.D);
+    if (p == 64)
+      err = launch_bwd_width<64>(kernel, a, st);
+    else if (p == 128)
+      err = launch_bwd_width<128>(kernel, a, st);
+    else
+      err = launch_bwd_width<256>(kernel, a, st);
+  }
   return static_cast<int>(err);
 }
 

@@ -212,7 +212,11 @@ def test_cuda_kv_cache_write_q_matches_cpu():
 
 
 # (b, h, tq, tk, d, causal, valid_length): dead rows (valid length 0, and
-# Tq > Tk under the causal offset), ragged T, the three tile configurations
+# Tq > Tk under the causal offset), ragged T, the three tile configurations;
+# T = 333 spans three 128-row resident tiles and eleven 32-row streamed
+# tiles of each backward kernel, the last ones ragged, at D = 128, at D = 30
+# (not a multiple of 4: the backward kernels' 4-byte copies) and at D = 256
+# (32-row resident tiles)
 FLASH_CASES = [
     (2, 4, 128, 128, 64, True, None),
     (2, 3, 100, 100, 16, False, [0, 60]),
@@ -220,6 +224,9 @@ FLASH_CASES = [
     (1, 2, 130, 70, 128, True, None),
     (2, 2, 1000, 1000, 128, True, [1000, 999]),
     (1, 2, 257, 257, 200, True, [200]),
+    (2, 2, 333, 333, 128, True, None),
+    (2, 2, 333, 333, 30, True, [333, 150]),
+    (2, 2, 333, 333, 256, True, [333, 290]),
 ]
 
 
@@ -264,6 +271,25 @@ def test_cuda_flash_kernels_match_plain(case):
     assert not out[dead].any() and not dq[dead].any()
     if vl is not None and vl[0] == 0:
         assert bool(dead[:h].all()) and not dk[:h].any() and not dv[:h].any()
+
+
+@pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (1, 4, 7, 8)])
+def test_cuda_flash_backward_repeats_bitwise(case):
+    """Each backward kernel launched twice on the same inputs gives bitwise
+    equal outputs: no atomics, every sum in a fixed order."""
+    dev = _need_cuda()
+    b, h, tq, tk, d, causal, vl = case
+    q, k, v, g, kvalid = _flash_inputs(b, h, tq, tk, d, vl, dev, seed=3)
+    args = (kvalid, causal, tk - tq, d ** -0.5)
+    out, lse = fa.flash_fwd(q, k, v, *args)
+    delta = (g * out).sum(-1)
+    first = [fa.flash_bwd_dq(q, k, v, g, lse, delta, *args),
+             *fa.flash_bwd_dkv(q, k, v, g, lse, delta, *args)]
+    again = [fa.flash_bwd_dq(q, k, v, g, lse, delta, *args),
+             *fa.flash_bwd_dkv(q, k, v, g, lse, delta, *args)]
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, again):
+        assert torch.equal(a, b_)
 
 
 def test_cuda_flash_attention_autograd_matches_cpu():

@@ -220,3 +220,78 @@ def test_kvalid_of_clamps_to_tk():
     assert kv.dtype == torch.int32 and kv.tolist() == [0, 5, 64]
     full = fa.kvalid_of(None, 2, 7, torch.device("cpu"))
     assert full.tolist() == [7, 7]
+
+
+def _tf32(x):
+    """``x`` (f32) rounded to TF32, to nearest with ties away from zero on
+    the 13 dropped mantissa bits: what ``cvt.rna.tf32.f32`` computes."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_matmul(a, b, passes):
+    """a @ b with the backward kernels' operand split, emulated in f32:
+    each operand split into hi = tf32(x) and lo = tf32(x - hi), the
+    products lo.hi + hi.lo + hi.hi summed in f32 (``passes=3``), or hi.hi
+    alone (``passes=1``, single-pass TF32). Only the split is emulated: the
+    CPU matmul accumulates with round-to-nearest, where the tensor cores
+    truncate, so the kernels' short accumulation chains are held by the
+    card's tests (``test_torch_cuda.py``, D=256 among them), not here."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if passes == 1:
+        return torch.matmul(a_hi, b_hi)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)
+            + torch.matmul(a_hi, b_hi))
+
+
+def test_tf32_rounding_matches_round_to_nearest():
+    """``_tf32`` keeps 10 mantissa bits, rounds the 13 dropped ones to
+    nearest with ties away from zero, and leaves TF32 values alone."""
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12, -(1.0 + 2.0 ** -11),
+                      1.0 + 3 * 2.0 ** -11, 3.0e-3, -7.5], dtype=torch.float32)
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0, -(1.0 + 2.0 ** -10),
+                         1.0 + 2 * 2.0 ** -10], dtype=torch.float32)
+    got = _tf32(x)
+    assert torch.equal(got[:5], want)
+    assert ((got.view(torch.int32) & 0x1FFF) == 0).all()
+    assert torch.equal(_tf32(got), got)
+    assert float((got[5] - x[5]).abs()) <= 2.0 ** -11 * float(x[5].abs())
+    assert float(got[6]) == -7.5
+
+
+def test_three_tf32_products_keep_backward_within_f32_tolerance():
+    """The dq and dk/dv products of the backward kernels (scores, dP,
+    dq = dS.K, dv = P^T.dO, dk = dS^T.q) with the 3xTF32 operand split,
+    emulated in f32 on the CPU, held to the plain f32 versions at the
+    kernels' tolerances (atol 1e-5, rtol 1e-4); single-pass TF32 misses by
+    at least ten times as much, which is why the kernels split."""
+    b, h, tq, tk, d, causal, vl = CASES[3]
+    q, k, v, g = (torch.from_numpy(a.reshape(b * h, -1, d))
+                  for a in _inputs(b, h, tq, tk, d, seed=5))
+    kvalid = fa.kvalid_of(vl, b, tk, torch.device("cpu"))
+    sc, off = 1.0 / np.sqrt(d), tk - tq
+    out, lse = fa.flash_fwd_torch(q, k, v, kvalid, causal, off, sc)
+    delta = (g * out).sum(-1)
+    args = (kvalid, causal, off, sc)
+    want = [fa.flash_bwd_dq_torch(q, k, v, g, lse, delta, *args),
+            *fa.flash_bwd_dkv_torch(q, k, v, g, lse, delta, *args)]
+    keep = fa._keep_mask(kvalid, b * h, tq, tk, causal, off,
+                         torch.device("cpu"))
+    keep = keep & (lse > -5e29)[:, :, None]
+    errs = {}
+    for passes in (3, 1):
+        s = _split_matmul(q, k.transpose(1, 2), passes) * sc
+        p = torch.where(keep, torch.exp(s - lse[:, :, None]),
+                        torch.zeros(()))
+        ds = p * (_split_matmul(g, v.transpose(1, 2), passes)
+                  - delta[:, :, None])
+        got = [_split_matmul(ds, k, passes) * sc,
+               _split_matmul(ds.transpose(1, 2), q, passes) * sc,
+               _split_matmul(p.transpose(1, 2), g, passes)]
+        if passes == 3:
+            for ours, ref in zip(got, want):
+                torch.testing.assert_close(ours, ref, atol=1e-5, rtol=1e-4)
+        errs[passes] = max(float((ours - ref).abs().max())
+                           for ours, ref in zip(got, want))
+    assert errs[1] >= 10 * errs[3], errs
