@@ -13,7 +13,8 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    convolutions (cuDNN's TF32 is on by default; ``ops.nn.convolution``
    turns it off for its call): within 1e-5 of a float64 convolution.
 2. build: compile the CUDA kernel libraries from ``mxnet_tpu_torch/csrc``,
-   one ``nvcc`` per source, all started together.
+   one ``nvcc`` per source, all started together; each kernel's registers
+   and spills as ``ptxas -v`` reports them, under the kernel's name.
 3. kernel: the decode-attention kernel against its plain PyTorch version
    on the card at Llama-3-8B shapes (H=32, KV=8, D=128; f32 and int8 rings),
    with its time, its bound, the plain version's time and, for f32, the
@@ -28,9 +29,8 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    D=128, causal), non-causal with valid lengths [0, 1000] (dead rows must
    be exact zeros), causal with Tq != Tk, a ragged T=1000, D=64, and a
    ragged T=333 at D=30 (4-byte copies) and D=256; at the training shape
-   each kernel's time, its bound (the forward's f32 products outside the
-   tensor cores; the backward's 3xTF32 products on them, with the f32
-   bound beside it), its plain time, and the
+   each kernel's time, its bound (its 3xTF32 products on the tensor cores,
+   with the f32 bound beside it), its plain time, and the
    ``scaled_dot_product_attention`` forward and backward as yardsticks,
    with the device kernels that the library backward launches
    (``torch.profiler``) and the port's whole backward (the delta reduce,
@@ -293,10 +293,10 @@ def flash_bound(kernel, b, h, tq, tk, d, causal, vl):
     """Least time (ms) of one launch: its inputs read and outputs written
     once over the memory rate, against its matrix-product flops on the
     kept pairs (fwd 4 D, dq 6 D, dk/dv 8 D a pair) over the rate of the
-    units that do them. The forward's products are f32 FMAs (the f32
-    rate); the backward's are 3xTF32 tensor-core products, each flop done
-    three times over at the TF32 rate. Returns (ms, "bytes" | "operations",
-    f32 ms, 3xTF32 ms): the bound and both rates' bounds beside it."""
+    units that do them: every kernel's products are 3xTF32 tensor-core
+    products, each flop done three times over at the TF32 rate. Returns
+    (ms, "bytes" | "operations", f32 ms): the bound and, beside it, the
+    bound at the f32 rate outside the tensor cores."""
     q_bytes, k_bytes = b * h * tq * d * 4, b * h * tk * d * 4
     rows = b * h * tq * 4
     nbytes = {"fwd": 2 * q_bytes + 2 * k_bytes + rows,
@@ -307,9 +307,8 @@ def flash_bound(kernel, b, h, tq, tk, d, causal, vl):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_f32 = flops / F32_FLOP_PER_S * 1e3
     t_3x = 3 * flops / TF32_FLOP_PER_S * 1e3
-    t_ops = t_f32 if kernel == "fwd" else t_3x
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            max(t_bytes, t_f32), max(t_bytes, t_3x))
+    return (max(t_bytes, t_3x), "bytes" if t_bytes >= t_3x else "operations",
+            max(t_bytes, t_f32))
 
 
 def device_kernels(torch, fn):
@@ -426,17 +425,15 @@ def flash_phase(torch, fa, flush, dev):
         for name in fa.KERNELS:
             k_ms = time_ms(torch, calls[name], flush)
             p_ms = time_ms(torch, plains[name], flush)
-            bound, bound_by, bound_f32, bound_3x = flash_bound(
+            bound, bound_by, bound_f32 = flash_bound(
                 name, b, h, tq, tk, d, causal, vl)
             lib_ms = lib_fwd if name == "fwd" else lib_bwd
             results[name].update(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                                  bound_by=bound_by, library_ms=lib_ms)
-            rates = {} if name == "fwd" else {
-                "bound_f32_ms": f"{bound_f32:.6f}",
-                "bound_3xtf32_ms": f"{bound_3x:.6f}"}
             say("flash", kernel=name, B=b, H=h, T=tq, D=d, causal=causal,
                 kernel_ms=f"{k_ms:.6f}", bound_ms=f"{bound:.6f}",
-                bound_by=bound_by, **rates, plain_ms=f"{p_ms:.6f}",
+                bound_by=bound_by, bound_f32_ms=f"{bound_f32:.6f}",
+                bound_3xtf32_ms=f"{bound:.6f}", plain_ms=f"{p_ms:.6f}",
                 library_ms=f"{lib_ms:.6f}",
                 library=("sdpa_forward" if name == "fwd"
                          else "sdpa_backward_dq_dk_dv"))
@@ -461,11 +458,11 @@ def flash_phase(torch, fa, flush, dev):
         q4, k4, v4, g4 = (x.view(b, h, t, d) for x in (q, k, v, g))
         l_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True), flush, reps=10)
-        bound = flash_bound("fwd", b, h, t, t, d, True, None)[0]
+        bound, _, bound_f32 = flash_bound("fwd", b, h, t, t, d, True, None)
         say("flash sweep", direction="forward", B=b, H=h, T=t, D=d,
             causal=True,
             kernel_ms=f"{k_ms:.6f}", library_ms=f"{l_ms:.6f}",
-            bound_ms=f"{bound:.6f}")
+            bound_ms=f"{bound:.6f}", bound_f32_ms=f"{bound_f32:.6f}")
         out, lse = fa.flash_fwd(q, k, v, *args)
         delta = (g * out).sum(-1)
 
@@ -1034,7 +1031,8 @@ def main(argv=None):
             seconds=f"{log['seconds']:.3f}" if log else "cached",
             library=os.path.relpath(_build.library_path(name), root))
         for line in (log["log"].splitlines() if log else []):
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("Function properties", "registers",
+                                       "spill")):
                 print(f"  ptxas: {line.strip()}", flush=True)
     say("build", seconds=f"{time.perf_counter() - t0:.3f}",
         natural_block=da.natural_block())

@@ -23,31 +23,15 @@
 // package computes it in XLA (_flash_core_bwd).
 //
 // Bound: operations. Per kept (query, key) pair the forward does 4 * D
-// flops, dq 6 * D and dk/dv 8 * D. At the training shape (B = 2, H = 32,
-// T = 2048, D = 128, causal: 134 M kept pairs) that is 68.8 GFLOP for the
-// forward, about 1.03 ms at the card's 67 TFLOP/s of f32 outside the tensor
-// cores, against 268 MB of inputs and outputs, 0.08 ms at 3.35 TB/s. The
-// backward's 240.6 GFLOP take at least 1.54 ms (dq) + 2.05 ms (dk/dv) on the
-// CUDA cores, or 0.62 + 0.83 ms as 3xTF32 on the tensor cores (three TF32
-// products per f32 product at 495 TFLOP/s).
+// flops, dq 6 * D and dk/dv 8 * D, all as 3xTF32 products on the tensor
+// cores (three TF32 products per f32 product at 495 TFLOP/s). At the
+// training shape (B = 2, H = 32, T = 2048, D = 128, causal: 134 M kept
+// pairs) the forward's 68.8 GFLOP take at least 0.42 ms (1.03 ms at the
+// card's 67 TFLOP/s of f32 outside the tensor cores), against 268 MB of
+// inputs and outputs, 0.08 ms at 3.35 TB/s; the backward's 240.6 GFLOP at
+// least 0.62 ms (dq) + 0.83 ms (dk/dv), or 1.54 + 2.05 ms in f32.
 //
-// Forward design (flash_fwd_kernel):
-//  * f32 FMA on the CUDA cores; the TPU kernels carry m, l and the
-//    accumulators across a sequential ("arbitrary") grid axis, here a loop
-//    inside one block of 256 threads per (bh, 64-row query tile);
-//  * the whole-tile skip of the TPU kernels is kept: the key loop stops at
-//    the last tile a row may see (kvalid, the causal diagonal);
-//  * each thread owns a 4 x 4 patch of the 64 x 64 score tile and a
-//    4 x (D / 16) patch of the output, reading both operands from shared
-//    memory (rows padded to an odd pitch, so the 16 threads that read 16
-//    rows hit 16 banks); a row's softmax statistics live in the 16 threads
-//    of one half-warp and are reduced with shuffles;
-//  * the ragged edge of T is zero-filled in shared memory and masked, and any
-//    D <= 256 is taken (64-row tiles up to D = 128, 32-row tiles above).
-// It reads operands at 2 FMAs per shared load and loads each tile before it
-// is used, with no overlap: well below the f32 bound, redesigned next.
-//
-// Backward design (flash_bwd_dq_kernel, flash_bwd_dkv_kernel):
+// Design:
 //  * every product on the tensor cores, mma.sync m16n8k8 TF32 with f32
 //    accumulators, in 3xTF32: an f32 operand x splits in registers, as its
 //    fragment is loaded, into hi = tf32(x) and lo = tf32(x - hi), both
@@ -57,15 +41,18 @@
 //    2^-22 |x y|, so a product keeps f32-class accuracy (one TF32 pass
 //    keeps 2^-11, about three decimal digits, which the port's f32
 //    tolerance does not allow). The tensor cores add into an accumulator
-//    with truncation, so sums are kept short: a score sums 4 (dq) or 2
-//    (dk/dv) k-steps at a time and an output tile's products one tile at a
-//    time, then join with f32 adds. Those sums are chains of dependent products; the output
-//    tiles are taken in groups under one guard, so that a group's chains
-//    overlap;
-//  * dq: one block of 8 warps per (bh, 128-row query tile) keeps q and dO
-//    resident and streams 32-key tiles of K and V; dk/dv: one block per
-//    (bh, 128-key tile) keeps K and V resident and streams 32-query tiles
-//    of q, dO, lse and delta. A warp skips a tile the mask hides from it. Tiles
+//    with truncation, so sums are kept short: a score sums 4 (forward, dq)
+//    or 2 (dk/dv) k-steps at a time and an output tile's products one tile
+//    at a time, then join with f32 adds. Those sums are chains of dependent
+//    products; the output tiles are taken in groups under one guard (the
+//    forward: all of a warp's tiles), so that a group's chains overlap;
+//  * forward and dq: one block of 8 warps per (bh, 128-row query tile)
+//    keeps q (the forward: q * scale; dq: q and dO) resident and streams
+//    32-key tiles of K and V; dk/dv: one block per (bh, 128-key tile) keeps
+//    K and V resident and streams 32-query tiles of q, dO, lse and delta.
+//    The longest causal query tiles go first. A warp skips a tile the mask
+//    hides from it, and the key loop stops at the last tile a row may see
+//    (kvalid, the causal diagonal), the TPU kernels' whole-tile skip. Tiles
 //    arrive by 16-byte cp.async into two stages, the next tile in flight
 //    while the current one is used, one barrier a tile; the ragged edge of
 //    T and the columns past D are zero-filled by the copy's src-size 0. A
@@ -76,7 +63,13 @@
 //    row % 8, so that the fragment loads, row-wise (8-byte pairs) and
 //    column-wise (4 even or odd rows x 8 columns), are free of bank
 //    conflicts; a thread's load offsets are computed once;
-//  * dq: each warp computes S = (q K^T) * scale and dP = dO V^T for its 16
+//  * forward: each warp computes S = (q scale) K^T for its 16 query rows
+//    and the key tile. A row's scores then lie in the four threads of a
+//    quad, which hold its max m and sum l after two shuffles each: the
+//    online softmax of the TPU kernel (its dead-row rule included) forms
+//    P = exp(S - m) in the accumulators and rescales the warp's output
+//    rows by exp(m_old - m), and P V adds the tile's product, summed apart.
+//    dq: each warp computes S = (q K^T) * scale and dP = dO V^T for its 16
 //    query rows and the key tile, forms dS in its accumulators and adds
 //    dS K into its dq rows. dk/dv: each warp computes S^T and dP^T for its
 //    16 keys and the query tile, and adds P^T dO into dv and dS^T q into
@@ -87,76 +80,34 @@
 //    operand of the next product as it stands, through no shared memory
 //    and no shuffle;
 //  * no atomics: a warp owns its output rows (above D = 128, the warps
-//    that share rows add their partial sums through shared memory at the
-//    end, in a fixed order), so two calls give bitwise equal results. The
-//    whole-tile skip, kvalid, the causal offset
-//    and the longest-first order of dq's tiles are those of the forward;
-//    a dead row gets dq = 0 exactly, keys past kvalid dk = dv = 0;
-//  * 192 KB of shared memory and one block of 8 warps a SM at D <= 128
-//    (96 KB at D <= 64); above D = 128 the resident tiles hold 32 rows, two
-//    warps share them by key or query, and the output columns split across
-//    two more, which repeat the scores.
-// What holds it back: mma.sync reaches only part of the tensor cores' TF32
-// rate, and 3xTF32 triples the products; dq recomputes S and dP, which
-// dk/dv computes too (seven products where one fused pass with atomics
-// would need five); wgmma's TF32 wants both operands K-major in shared
-// memory, which the transposed products are not; dk/dv runs at the
-// 255-register limit.
+//    that share rows split the forward's output columns, or add the
+//    backward's partial sums through shared memory at the end, in a fixed
+//    order), so two calls give bitwise equal results. A dead row gets
+//    out = 0 and dq = 0 exactly, keys past kvalid dk = dv = 0;
+//  * 128 KB (forward) or 192 KB (backward) of shared memory and one block
+//    of 8 warps a SM at D <= 128 (64 or 96 KB at D <= 64). Above D = 128
+//    the forward keeps 64 query rows and two warps share them, each with
+//    half the output columns, repeating the scores; the backward's
+//    resident tiles hold 32 rows, two warps share them by key or query,
+//    and the output columns split across two more, which repeat the scores.
+// What holds them back: mma.sync reaches only part of the tensor cores'
+// TF32 rate, and 3xTF32 triples the products and adds the splits' integer
+// work: each of the forward's 8 warps splits every K and V fragment of a
+// tile, and q's fragments again for every key tile (they would not fit in
+// registers beside the output rows); dq recomputes S and dP, which dk/dv
+// computes too (seven products where one fused pass with atomics would
+// need five); wgmma's TF32 wants both operands K-major in shared memory,
+// which the transposed products are not; dk/dv runs at the 255-register
+// limit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;        // 16 x 16 threads
+constexpr int kThreads = 256;        // 8 warps
 constexpr float kNegInf = -1e30f;    // finite "minus infinity", as in the TPU kernels
 constexpr float kAliveMin = -5e29f;  // a row is dead while its max stays below this
 constexpr float kLog2e = 1.4426950408889634f;
-
-__host__ __device__ inline int pitch_of(int D) { return D | 1; }  // odd: no bank conflicts
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Rows [r0, r0 + BM) of a row-major (T, D) matrix into a (BM, P) shared tile,
-// times mul; rows at or past T are zeros. One warp per row, 32 columns a step.
-template <int BM>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int r0,
-                                          int T, int D, int P, float mul) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int r = warp; r < BM; r += kThreads / 32) {
-    const bool in = r0 + r < T;
-    const float* row = src + static_cast<size_t>(r0 + r) * D;
-    for (int c = lane; c < D; c += 32) dst[r * P + c] = in ? __ldg(row + c) * mul : 0.f;
-  }
-}
-
-// acc[i][j] += sum_d a[(ty + 16 i) * P + d] * b[(tx + 16 j) * P + d]: one
-// thread's RM x RM patch of a (BM x BM) product of two row-major tiles.
-template <int RM>
-__device__ __forceinline__ void dot_patch(float (&acc)[RM][RM], const float* a, const float* b,
-                                          int D, int P, int tx, int ty) {
-  for (int d = 0; d < D; ++d) {
-    float av[RM], bv[RM];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) av[i] = a[(ty + 16 * i) * P + d];
-#pragma unroll
-    for (int j = 0; j < RM; ++j) bv[j] = b[(tx + 16 * j) * P + d];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RM; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
 
 __device__ __forceinline__ bool kept(int qpos, int kpos, int kv_len, int causal, int causal_off) {
   return kpos < kv_len && (!causal || kpos <= qpos + causal_off);
@@ -169,116 +120,7 @@ __device__ __forceinline__ int key_end(int q0, int kv_len, int causal, int causa
 }
 
 // ---------------------------------------------------------------------------
-// forward: one block per (bh, query tile); grid (BH, ceil(Tq / BM))
-template <int BM, int NC>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const int* __restrict__ kvalid,
-                     float* __restrict__ out, float* __restrict__ lse, int H, int Tq, int Tk,
-                     int D, int causal, int causal_off, float scale) {
-  constexpr int RM = BM / 16;
-  constexpr int SP = BM + 1;  // pitch of the probability tile
-  extern __shared__ float smem[];
-  const int P = pitch_of(D);
-  float* q_s = smem;            // BM x P, q * scale
-  float* kv_s = q_s + BM * P;   // BM x P, the K tile, then the V tile
-  float* p_s = kv_s + BM * P;   // BM x SP, probabilities of the tile
-
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // longest causal rows first
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int kv_len = kvalid[bh / H];
-  const int k_end = key_end<BM>(q0, kv_len, causal, causal_off);
-  const float* kb = k + static_cast<size_t>(bh) * Tk * D;
-  const float* vb = v + static_cast<size_t>(bh) * Tk * D;
-
-  load_tile<BM>(q_s, q + static_cast<size_t>(bh) * Tq * D, q0, Tq, D, P, scale);
-  float m[RM], l[RM], acc[RM][NC];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < k_end; k0 += BM) {
-    __syncthreads();  // the previous tile's readers of kv_s and p_s are done
-    load_tile<BM>(kv_s, kb, k0, Tk, D, P, 1.f);
-    __syncthreads();
-    float s[RM][RM];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RM; ++j) s[i][j] = 0.f;
-    dot_patch<RM>(s, q_s, kv_s, D, P, tx, ty);
-
-    // online softmax; row ty + 16 i lives in the 16 threads of a half-warp
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < RM; ++j) {
-        if (!kept(qpos, k0 + tx + 16 * j, kv_len, causal, causal_off)) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      // a row with every score dropped so far: exp(-1e30 - -1e30) would be
-      // 1, so its probabilities are zeroed and l stays 0
-      const bool alive = m_new > kAliveMin;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < RM; ++j) {
-        const float p = alive ? expf(s[i][j] - m_new) : 0.f;
-        p_s[(ty + 16 * i) * SP + tx + 16 * j] = p;
-        sum += p;
-      }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + half_warp_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();  // done reading K; p_s complete
-    load_tile<BM>(kv_s, vb, k0, Tk, D, P, 1.f);
-    __syncthreads();
-    const int kn = min(BM, Tk - k0);  // V rows past Tk are zeros with p = 0
-    for (int kk = 0; kk < kn; ++kk) {
-      float pv[RM], vv[NC];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) pv[i] = p_s[(ty + 16 * i) * SP + kk];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tx + 16 * c;
-        vv[c] = col < D ? kv_s[kk * P + col] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Tq) continue;
-    const float lsafe = l[i] == 0.f ? 1.f : l[i];
-    float* orow = out + (static_cast<size_t>(bh) * Tq + row) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) orow[col] = acc[i][c] / lsafe;
-    }
-    if (tx == 0)
-      lse[static_cast<size_t>(bh) * Tq + row] = l[i] == 0.f ? kNegInf : m[i] + logf(lsafe);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward: 3xTF32 tensor-core products over cp.async-fed shared tiles
+// 3xTF32 tensor-core products over cp.async-fed shared tiles
 
 // Tile shape of the backward kernels at row width P (D rounded up): R rows
 // resident (dq: queries, dk/dv: keys), S rows a streamed tile (dq: keys,
@@ -298,12 +140,27 @@ struct BwdTile {
   static_assert(P / WD % 64 == 0, "dq's output columns go in groups of 64");
 };
 
+// Tile shape of the forward at row width P: R query rows resident, S keys a
+// streamed tile; WM x WD warps, warp (wm, wd) owning query rows
+// [16 wm, 16 wm + 16) across the whole key tile (so a row's softmax
+// statistics stay in one warp) and output columns [wd P / WD, (wd + 1) P / WD).
+template <int P_>
+struct FwdTile {
+  static constexpr int R = P_ <= 128 ? 128 : 64;
+  static constexpr int S = 32;
+  static constexpr int WM = R / 16;
+  static constexpr int WD = kThreads / 32 / WM;
+  static constexpr int P = P_;
+  static_assert(WM * WD == kThreads / 32 && P / WD % 32 == 0, "warp grid");
+};
+
 // k-steps of a score product summed apart before they join the score: the
 // tensor cores add into the accumulator with truncation, so a long chain of
 // additions into one accumulator drifts; short chains joined by f32 adds
 // (round to nearest) keep the scores, and through exp the gradients, within
 // the port's f32 tolerance. The output products sum each tile apart, too.
-// dq runs faster with 4, dk/dv with 2 (measured on an H100).
+// dq runs faster with 4, dk/dv with 2 (measured on an H100); the forward's
+// score is dq's.
 constexpr int kChunkDq = 4;
 constexpr int kChunkDkv = 2;
 
@@ -513,6 +370,186 @@ __device__ __forceinline__ void reduce_rows(float* red, const float (&acc)[NO][4
       }
     }
     if (w + 1 < C::WN) __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward: one block per (bh, query tile); grid (BH, ceil(Tq / R))
+template <int P, bool VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const int* __restrict__ kvalid,
+                     float* __restrict__ out, float* __restrict__ lse, int H, int Tq, int Tk,
+                     int D, int causal, int causal_off, float scale) {
+  using C = FwdTile<P>;
+  constexpr int BM = C::R;             // query rows of the block
+  constexpr int BN = C::S;             // keys of a streamed tile
+  constexpr int NK = BN / 8;           // their n-tiles
+  constexpr int NO = P / C::WD / 8;    // output n-tiles of a warp
+  constexpr int STAGE = 2 * BN * P;    // K tile, then V tile
+  extern __shared__ float4 smem_v4[];
+  float* q_s = reinterpret_cast<float*>(smem_v4);  // BM x P, q * scale
+  float* kv_s = q_s + BM * P;                      // two stages
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // longest causal rows first
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tc = lane & 3;
+  const int wm = warp % C::WM, wd = warp / C::WM;
+  const int r0 = q0 + wm * 16;         // the warp's first query row
+  const int c0 = wd * (P / C::WD);     // its first output column
+  const FragOff<P> fo(gr, tc);
+  const int kv_len = min(kvalid[bh / H], Tk);
+  const int k_end = key_end<BM>(q0, kv_len, causal, causal_off);
+  const int n_tiles = k_end > 0 ? (k_end + BN - 1) / BN : 0;
+  const size_t qoff = static_cast<size_t>(bh) * Tq;
+  const float* kb = k + static_cast<size_t>(bh) * Tk * D;
+  const float* vb = v + static_cast<size_t>(bh) * Tk * D;
+
+  // the output rows, their running max and sum (h = 0: row gr, h = 1: gr + 8)
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  if (n_tiles > 0) {
+    load_async<BM, P, VEC>(q_s, q + qoff * D, q0, Tq, D);
+    cp_async_commit();
+    load_async<BN, P, VEC>(kv_s, kb, 0, Tk, D);
+    load_async<BN, P, VEC>(kv_s + BN * P, vb, 0, Tk, D);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // q landed: scale it in place, as the TPU kernel does
+    for (int i = threadIdx.x; i < BM * P; i += kThreads) q_s[i] *= scale;
+    for (int it = 0; it < n_tiles; ++it) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile it landed; every warp is done with tile it - 1
+      if (it + 1 < n_tiles) {
+        float* nxt = kv_s + ((it + 1) & 1) * STAGE;
+        load_async<BN, P, VEC>(nxt, kb, (it + 1) * BN, Tk, D);
+        load_async<BN, P, VEC>(nxt + BN * P, vb, (it + 1) * BN, Tk, D);
+        cp_async_commit();
+      }
+      const float* k_s = kv_s + (it & 1) * STAGE;
+      const float* v_s = k_s + BN * P;
+      const int k0 = it * BN;
+      // a warp whose rows see no key of this tile leaves m, l and its rows
+      // as they are, which is what the softmax of a dropped tile gives
+      if (causal && k0 > r0 + 15 + causal_off) continue;
+
+      // S = (q scale) K^T for the warp's rows and the tile's keys, all P
+      // columns (past D they are zeros), as dq's
+      float s[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < P; kc += 8 * kChunkDq) {
+        float ts[NK][4];
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) ts[j][c] = 0.f;
+#pragma unroll
+        for (int kk = kc; kk < kc + 8 * kChunkDq; kk += 8) {
+          const int ph = (kk >> 3) & 3, c32 = kk & ~31;
+          const FragA qa = frag_a<P>(q_s + wm * 16 * P + c32, fo.row[ph]);
+#pragma unroll
+          for (int j = 0; j < NK; ++j)
+            mma3(ts[j], qa, frag_b_rows(k_s + j * 8 * P + c32, fo.row[ph]));
+        }
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[j][c] += ts[j][c];
+      }
+      // the online softmax: dropped scores to -1e30, the rows' new max over
+      // the quad, P = exp(S - m) on the alive rows (0 on a row whose every
+      // score so far was dropped), l and the output rows rescaled by
+      // alpha = exp(m_old - m); full: the mask keeps every pair of the tile
+      const int k_last = k0 + BN - 1;
+      const bool full = k_last < kv_len && (!causal || k_last <= r0 + causal_off);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int h = c >> 1;
+          if (!full && !kept(r0 + gr + 8 * h, k0 + j * 8 + 2 * tc + (c & 1), kv_len, causal,
+                             causal_off))
+            s[j][c] = kNegInf;
+          mx[h] = fmaxf(mx[h], s[j][c]);
+        }
+      float alpha[2], mb[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        alpha[h] = exp2f((m[h] - m_new) * kLog2e);
+        m[h] = m_new;
+        mb[h] = m_new * kLog2e;
+      }
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int h = c >> 1;
+          const float p = m[h] > kAliveMin ? exp2f(fmaf(s[j][c], kLog2e, -mb[h])) : 0.f;
+          s[j][c] = p;
+          sum[h] += p;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        l[h] = l[h] * alpha[h] + sum[h];
+      }
+      // out = out alpha + P V over the tile's keys, the tile's product
+      // summed apart; all the warp's output tiles in one group, so that
+      // their NO chains of dependent products overlap (faster on an H100
+      // than groups of 8 under a guard each, as dq takes them)
+      FragA pa[NK];
+#pragma unroll
+      for (int j = 0; j < NK; ++j) pa[j] = frag_a_acc(s[j]);
+      float part[NO][4] = {};
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        const float* vj = v_s + j * 8 * P + c0;
+#pragma unroll
+        for (int n = 0; n < NO; ++n)  // tile n: phase n % 4
+          mma3(part[n], pa[j], frag_b_cols(vj + (n & ~3) * 8, fo.col[0][n & 3], fo.col[1][n & 3]));
+      }
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[n][c] = fmaf(acc[n][c], alpha[c >> 1], part[n][c]);
+    }
+  }
+
+  // out = acc / l (l = 0 on a dead row, whose acc is 0), lse = m + log l
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + gr + 8 * h;
+    if (row >= Tq) continue;
+    const float lsafe = l[h] == 0.f ? 1.f : l[h];
+    float* orow = out + (qoff + row) * D;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int col = c0 + n * 8 + 2 * tc;
+      const float x = acc[n][2 * h] / lsafe, y = acc[n][2 * h + 1] / lsafe;
+      if (VEC) {  // D % 4 == 0: col and col + 1 are both in or both out
+        if (col < D) *reinterpret_cast<float2*>(orow + col) = make_float2(x, y);
+      } else {
+        if (col < D) orow[col] = x;
+        if (col + 1 < D) orow[col + 1] = y;
+      }
+    }
+    if (wd == 0 && tc == 0) lse[qoff + row] = l[h] == 0.f ? kNegInf : m[h] + logf(lsafe);
   }
 }
 
@@ -851,30 +888,23 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// Forward tile rows at head dim D: 64 up to D = 128, 32 above.
-inline int block_rows(int D) { return D <= 128 ? 64 : 32; }
+// Row width P of the tiles: D rounded up to 64, 128 or 256.
+inline int tile_width(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
 
-// Row width P of the backward tiles: D rounded up to 64, 128 or 256.
-inline int bwd_width(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
-
-// Floats of shared memory of a backward block: the resident pair of tiles
-// and two stages (dq: K, V; dk/dv: q, dO, lse, delta).
+// Floats of shared memory of a block: the resident tiles and two stages
+// (forward: q; K, V. dq: q, dO; K, V. dk/dv: K, V; q, dO, lse, delta).
 template <int P>
-constexpr size_t bwd_floats(int kernel) {
+constexpr size_t smem_floats(int kernel) {
+  if (kernel == kFwd) return FwdTile<P>::R * P + 2 * (2 * FwdTile<P>::S * P);
   using C = BwdTile<P>;
   return 2 * C::R * P + 2 * (2 * C::S * P + (kernel == kDkv ? 2 * C::S : 0));
 }
 
 inline size_t smem_bytes(int kernel, int D) {
-  size_t floats;
-  if (kernel == kFwd) {
-    const size_t bm = block_rows(D);
-    floats = 2 * bm * pitch_of(D) + bm * (bm + 1);
-  } else {
-    const int p = bwd_width(D);
-    floats = p == 64 ? bwd_floats<64>(kernel)
-                     : p == 128 ? bwd_floats<128>(kernel) : bwd_floats<256>(kernel);
-  }
+  const int p = tile_width(D);
+  const size_t floats = p == 64    ? smem_floats<64>(kernel)
+                        : p == 128 ? smem_floats<128>(kernel)
+                                   : smem_floats<256>(kernel);
   return floats * sizeof(float);
 }
 
@@ -886,36 +916,33 @@ struct Args {
   float scale;
 };
 
-template <int BM, int NC>
-cudaError_t launch_fwd(const Args& a, cudaStream_t st) {
-  const size_t smem = smem_bytes(kFwd, a.D);
-  const dim3 grid(a.BH, (a.Tq + BM - 1) / BM);
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<BM, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  flash_fwd_kernel<BM, NC><<<grid, kThreads, smem, st>>>(a.q, a.k, a.v, a.kvalid, a.o0, a.o1, a.H,
-                                                         a.Tq, a.Tk, a.D, a.causal, a.causal_off,
-                                                         a.scale);
-  return cudaGetLastError();
+template <class F>
+cudaError_t set_smem(F* fn, size_t smem) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 template <int P, bool VEC>
-cudaError_t launch_bwd(int kernel, const Args& a, cudaStream_t st) {
+cudaError_t launch_tiles(int kernel, const Args& a, cudaStream_t st) {
   const size_t smem = smem_bytes(kernel, a.D);
   const int rows = kernel == kDkv ? a.Tk : a.Tq;
-  const int tile = BwdTile<P>::R;  // both kernels: R resident rows
+  const int tile = kernel == kFwd ? FwdTile<P>::R : BwdTile<P>::R;  // resident rows
   const dim3 grid(a.BH, (rows + tile - 1) / tile);
   cudaError_t err;
-  if (kernel == kDq) {
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<P, VEC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (kernel == kFwd) {
+    err = set_smem(flash_fwd_kernel<P, VEC>, smem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_kernel<P, VEC><<<grid, kThreads, smem, st>>>(a.q, a.k, a.v, a.kvalid, a.o0, a.o1,
+                                                           a.H, a.Tq, a.Tk, a.D, a.causal,
+                                                           a.causal_off, a.scale);
+  } else if (kernel == kDq) {
+    err = set_smem(flash_bwd_dq_kernel<P, VEC>, smem);
     if (err != cudaSuccess) return err;
     flash_bwd_dq_kernel<P, VEC><<<grid, kThreads, smem, st>>>(
         a.q, a.k, a.v, a.g, a.lse, a.delta, a.kvalid, a.o0, a.H, a.Tq, a.Tk, a.D, a.causal,
         a.causal_off, a.scale);
   } else {
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<P, VEC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    err = set_smem(flash_bwd_dkv_kernel<P, VEC>, smem);
     if (err != cudaSuccess) return err;
     flash_bwd_dkv_kernel<P, VEC><<<grid, kThreads, smem, st>>>(
         a.q, a.k, a.v, a.g, a.lse, a.delta, a.kvalid, a.o0, a.o1, a.H, a.Tq, a.Tk, a.D,
@@ -926,36 +953,24 @@ cudaError_t launch_bwd(int kernel, const Args& a, cudaStream_t st) {
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// 16-byte copies where every row of q, k, v, dO starts on 16 bytes, else
-// the same kernel with 4-byte copies.
+// 16-byte copies where every row of q, k, v, dO (and the forward's out,
+// stored in 8-byte pairs) starts on 16 bytes, else the same kernel with
+// 4-byte copies.
 template <int P>
-cudaError_t launch_bwd_width(int kernel, const Args& a, cudaStream_t st) {
+cudaError_t launch_width(int kernel, const Args& a, cudaStream_t st) {
   const bool vec = a.D % 4 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
-                   aligned16(a.g);
-  return vec ? launch_bwd<P, true>(kernel, a, st) : launch_bwd<P, false>(kernel, a, st);
+                   aligned16(a.g) && (kernel != kFwd || aligned16(a.o0));
+  return vec ? launch_tiles<P, true>(kernel, a, st) : launch_tiles<P, false>(kernel, a, st);
 }
 
 int launch(int kernel, const Args& a, void* stream) {
   if (a.D < 1 || a.D > 256 || a.BH < 1 || a.H < 1 || a.Tq < 1 || a.Tk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (kernel == kFwd) {
-    if (a.D <= 64)
-      err = launch_fwd<64, 4>(a, st);
-    else if (a.D <= 128)
-      err = launch_fwd<64, 8>(a, st);
-    else
-      err = launch_fwd<32, 16>(a, st);
-  } else {
-    const int p = bwd_width(a.D);
-    if (p == 64)
-      err = launch_bwd_width<64>(kernel, a, st);
-    else if (p == 128)
-      err = launch_bwd_width<128>(kernel, a, st);
-    else
-      err = launch_bwd_width<256>(kernel, a, st);
-  }
+  const int p = tile_width(a.D);
+  const cudaError_t err = p == 64    ? launch_width<64>(kernel, a, st)
+                          : p == 128 ? launch_width<128>(kernel, a, st)
+                                     : launch_width<256>(kernel, a, st);
   return static_cast<int>(err);
 }
 

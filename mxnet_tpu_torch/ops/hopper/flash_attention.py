@@ -7,10 +7,9 @@ the JAX package's ``_flash_core`` custom VJP. Its forward launches the
 hand-written CUDA kernel ``flash_fwd`` and its backward the kernels
 ``flash_bwd_dq`` and ``flash_bwd_dkv`` (all three in
 ``mxnet_tpu_torch/csrc/flash_attention.cu``, the ports of the TPU kernels
-``_flash_fwd``, ``_flash_bwd_dq`` and ``_flash_bwd_dkv``). The forward
-runs on the CUDA cores in f32; the two backward kernels run every product
-on the tensor cores in 3xTF32 (each f32 operand split into two TF32 parts,
-three products summed in f32), which keeps f32 accuracy.
+``_flash_fwd``, ``_flash_bwd_dq`` and ``_flash_bwd_dkv``). All three run
+every product on the tensor cores in 3xTF32 (each f32 operand split into
+two TF32 parts, three products summed in f32), which keeps f32 accuracy.
 
 Each kernel has a plain PyTorch version with the kernel's own signature
 (:func:`flash_fwd_torch`, :func:`flash_bwd_dq_torch`,

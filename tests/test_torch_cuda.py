@@ -292,6 +292,21 @@ def test_cuda_flash_backward_repeats_bitwise(case):
         assert torch.equal(a, b_)
 
 
+@pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (1, 4, 7, 8)])
+def test_cuda_flash_forward_repeats_bitwise(case):
+    """The forward kernel launched twice on the same inputs gives bitwise
+    equal out and lse: no atomics, every sum in a fixed order."""
+    dev = _need_cuda()
+    b, h, tq, tk, d, causal, vl = case
+    q, k, v, _, kvalid = _flash_inputs(b, h, tq, tk, d, vl, dev, seed=4)
+    args = (kvalid, causal, tk - tq, d ** -0.5)
+    out, lse = fa.flash_fwd(q, k, v, *args)
+    out2, lse2 = fa.flash_fwd(q, k, v, *args)
+    torch.cuda.synchronize()
+    assert fa.last_path() == "cuda"
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
 def test_cuda_flash_attention_autograd_matches_cpu():
     """``attention`` on CUDA tensors (``_FlashCore`` on the three kernels)
     against the plain attention on the CPU, forward and gradients."""

@@ -295,3 +295,40 @@ def test_three_tf32_products_keep_backward_within_f32_tolerance():
         errs[passes] = max(float((ours - ref).abs().max())
                            for ours, ref in zip(got, want))
     assert errs[1] >= 10 * errs[3], errs
+
+
+@pytest.mark.parametrize("case", [CASES[3], CASES[4]],
+                         ids=["tq<tk-d64", "tq>tk-d64"])
+def test_three_tf32_products_keep_forward_within_f32_tolerance(case):
+    """The forward kernel's two products, S = (q.scale) K^T and P.V, with
+    the 3xTF32 operand split, emulated in f32 on the CPU, and the softmax
+    between them formed as ``flash_fwd_torch`` forms it, held to
+    ``flash_fwd_torch`` at the kernels' tolerances (atol 1e-5, rtol 1e-4);
+    single-pass TF32 misses by at least ten times as much. Only the operand
+    split is emulated, not the tensor cores' truncating accumulation (see
+    ``_split_matmul``)."""
+    b, h, tq, tk, d, causal, vl = case
+    q, k, v, _ = (torch.from_numpy(a.reshape(b * h, -1, d))
+                  for a in _inputs(b, h, tq, tk, d, seed=6))
+    kvalid = fa.kvalid_of(vl, b, tk, torch.device("cpu"))
+    sc, off = 1.0 / np.sqrt(d), tk - tq
+    want = fa.flash_fwd_torch(q, k, v, kvalid, causal, off, sc)
+    keep = fa._keep_mask(kvalid, b * h, tq, tk, causal, off,
+                         torch.device("cpu"))
+    neg = torch.tensor(-1e30)
+    errs = {}
+    for passes in (3, 1):
+        s = torch.where(keep, _split_matmul(q * sc, k.transpose(1, 2),
+                                            passes), neg)
+        m = torch.amax(s, dim=-1, keepdim=True)
+        p = torch.where(m > -5e29, torch.exp(s - m), torch.zeros(()))
+        l = p.sum(dim=-1, keepdim=True)
+        lsafe = torch.where(l == 0, torch.ones_like(l), l)
+        got = [_split_matmul(p, v, passes) / lsafe,
+               torch.where(l == 0, neg, m + torch.log(lsafe))[..., 0]]
+        if passes == 3:
+            for ours, ref in zip(got, want):
+                torch.testing.assert_close(ours, ref, atol=1e-5, rtol=1e-4)
+        errs[passes] = max(float((ours - ref).abs().max())
+                           for ours, ref in zip(got, want))
+    assert errs[1] >= 10 * errs[3], errs
