@@ -14,7 +14,8 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    turns it off for its call): within 1e-5 of a float64 convolution.
 2. build: compile the CUDA kernel libraries from ``mxnet_tpu_torch/csrc``,
    one ``nvcc`` per source, all started together; each kernel's registers
-   and spills as ``ptxas -v`` reports them, under the kernel's name.
+   and spills as ``ptxas -v`` reports them, under the kernel's name (no
+   ``conv1x1_pair`` kernel may spill).
 3. kernel: the decode-attention kernel against its plain PyTorch version
    on the card at Llama-3-8B shapes (H=32, KV=8, D=128; f32 and int8 rings),
    with its time, its bound, the plain version's time and, for f32, the
@@ -46,10 +47,15 @@ Phases, each printed on its own line; the first failed check exits non-zero:
 8. pair: the fused 1x1-pair kernel (``conv1x1_pair``) against its plain
    version at ResNet-50's four block-boundary shapes (batch 32, 224 x 224;
    residual and mid) in bf16 and f32, and on the no-residual and
-   residual-only variants, a ragged M and Cout != C1; per stage and dtype
-   the kernel's time, its bound, the plain version's time and, as the
-   yardstick, the ``use_pallas=False`` boundary (two ``torch.matmul`` in the
-   working dtype and the elementwise epilogue).
+   residual-only variants, a ragged M, Cout != C1 and an x tile too wide to
+   stay in shared memory; two calls must repeat bit for bit. Per stage its
+   grid (``split_plan``: Cm slices S, blocks, workspace bytes; stages 3-4
+   must split and give at least a block a SM) and shared-memory layout,
+   and per stage and dtype the kernel's time, its bound, the plain
+   version's time and, as the yardstick, the ``use_pallas=False`` boundary
+   (two ``torch.matmul`` in the working dtype and the elementwise
+   epilogue); then stages 3-4 timed with the grid aimed at 1, 2 and 3
+   blocks a SM.
 9. resnet: ``resnet50_v1`` at full width and depth with seeded weights and
    BatchNorm statistics from a seeded train-mode pass, fused by
    ``fuse_resnet_v1(dtype="bfloat16", use_pallas=True)`` and served by
@@ -127,7 +133,9 @@ PAIR_STAGES = [(1, 2, 32 * 56 * 56, 64, 256), (2, 3, 32 * 28 * 28, 128, 512),
 PAIR_EXTRA = [(6272, 256, 1024, 256, False, False),
               (6272, 256, 1024, 256, True, False),
               (33, 256, 1024, 256, True, True),
-              (1000, 256, 128, 192, True, True)]
+              (1000, 256, 128, 192, True, True),
+              (1000, 1024, 128, 64, True, True)]
+PAIR_SWEEP_BLOCKS_PER_SM = (1, 2, 3)  # grids timed at stages 3-4
 # f32: the same sums in another order; bf16: within 2e-2 of the plain
 # version's largest value (an h one bf16 rounding apart moves y by about an
 # ulp of h times w2)
@@ -605,6 +613,21 @@ def pair_phase(torch, c1x1, FusedResNetV1, flush, dev):
     {dtype name: numbers summed over one ResNet-50 forward's 12 launches,
     max error}."""
     affine_relu = FusedResNetV1._affine_relu
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for stage, _, m, c1, cm in PAIR_STAGES:
+        plan = c1x1.split_plan(m, cm, c1, sms)
+        layouts = {name: c1x1.smem_layout(dt, plan, c1)
+                   for name, dt in (("bf16", torch.bfloat16),
+                                    ("f32", torch.float32))}
+        say("pair", stage=stage, sms=sms, slices=plan.slices,
+            slice_cols=plan.slice_cols, grid=list(plan.grid),
+            blocks=plan.blocks, workspace_bytes=plan.workspace_bytes,
+            tile=f"{plan.block_rows}x{plan.block_cols}",
+            **{f"{k}_{f}": v for k, lay in layouts.items()
+               for f, v in lay.items()})
+        if stage >= 3:
+            check(plan.slices > 1 and plan.blocks >= sms,
+                  f"stage {stage} grid {plan.grid} does not fill {sms} SMs")
     results = {}
     cases = [(m, c1, cm, c1, True, True, (stage, n))
              for stage, n, m, c1, cm in PAIR_STAGES]
@@ -639,9 +662,14 @@ def pair_phase(torch, c1x1, FusedResNetV1, flush, dev):
             got = kernel()
             check(c1x1.last_path() == "cuda", "pair call did not take the "
                   "kernel")
+            again = kernel()
             torch.cuda.synchronize()
             ref = plain()
-            got, ref = ((got, ref) if mid else ((got,), (ref,)))
+            got, again, ref = ((got, again, ref) if mid else
+                               ((got,), (again,), (ref,)))
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"pair kernel does not repeat bit for bit ({name}, M={m} "
+                  f"C1={c1} Cm={cm} Cout={cout})")
             err = 0.0
             for ours, theirs in zip(got, ref):
                 check(bool(torch.isfinite(ours).all()),
@@ -658,10 +686,11 @@ def pair_phase(torch, c1x1, FusedResNetV1, flush, dev):
                       f"mid={mid}): max_abs_err={float(diff.max())}")
                 err = max(err, float(diff.max()))
             r["max_abs_err"] = max(r["max_abs_err"], err)
-            del got, ref
+            del got, again, ref
             fields = dict(dtype=name, M=m, C1=c1, Cm=cm, Cout=cout,
                           residual=residual, mid=mid,
-                          max_abs_err=f"{err:.3e}")
+                          slices=c1x1.split_plan(m, cm, cout, sms).slices,
+                          repeats_bitwise=True, max_abs_err=f"{err:.3e}")
             if stage is None:
                 say("pair", **fields)
                 continue
@@ -690,12 +719,29 @@ def pair_phase(torch, c1x1, FusedResNetV1, flush, dev):
                 library_ms=f"{l_ms:.6f}",
                 library="use_pallas_false_boundary_2_matmul_epilogue",
                 kernel_tflop_s=f"{2 * m * cm * (c1 + cout) / k_ms / 1e9:.3f}")
+            if stage[0] < 3:
+                continue
+            # the grid aimed at more blocks a SM, in turns with the default
+            sweep = {}
+            default = c1x1.BLOCKS_PER_SM
+            try:
+                for per_sm in PAIR_SWEEP_BLOCKS_PER_SM * 2:
+                    c1x1.BLOCKS_PER_SM = per_sm
+                    sweep.setdefault(per_sm, []).append(
+                        (c1x1.split_plan(m, cm, cout, sms).slices,
+                         time_ms(torch, kernel, flush)))
+            finally:
+                c1x1.BLOCKS_PER_SM = default
+            say("pair sweep", stage=stage[0], dtype=name, **{
+                f"blocks_per_sm_{k}": f"S={v[0][0]}:"
+                f"{v[0][1]:.6f},{v[1][1]:.6f}" for k, v in sweep.items()})
         by = r.pop("bound_by_ms")
         r["bound_by"] = max(by, key=by.get)
         say("pair", dtype=name, forward_12_launches_kernel_ms=f"{r['ms']:.6f}",
             bound_ms=f"{r['bound_ms']:.6f}", bound_by=r["bound_by"],
             plain_ms=f"{r['plain_ms']:.6f}",
-            library_ms=f"{r['library_ms']:.6f}")
+            library_ms=f"{r['library_ms']:.6f}",
+            kernel_under_library=r["ms"] < r["library_ms"])
     return results
 
 
@@ -1025,15 +1071,23 @@ def main(argv=None):
     da.build()
     fa.build()
     c1x1.build()
+    spills = []  # conv1x1_pair kernels that spill
     for name in sources:
         log = _build.BUILD_LOGS.get(name)
         say("build", source=name,
             seconds=f"{log['seconds']:.3f}" if log else "cached",
             library=os.path.relpath(_build.library_path(name), root))
+        function = ""
         for line in (log["log"].splitlines() if log else []):
+            if "Function properties for" in line:
+                function = line.split("for", 1)[1].strip()
             if any(w in line for w in ("Function properties", "registers",
                                        "spill")):
                 print(f"  ptxas: {line.strip()}", flush=True)
+            if ("spill" in line and "conv1x1_pair" in function and
+                    " 0 bytes spill stores, 0 bytes spill loads" not in line):
+                spills.append(function)
+    check(not spills, f"conv1x1_pair kernels spill: {spills}")
     say("build", seconds=f"{time.perf_counter() - t0:.3f}",
         natural_block=da.natural_block())
 

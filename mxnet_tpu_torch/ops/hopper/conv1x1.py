@@ -19,7 +19,10 @@ The TPU's facts are not copied: ``block_rows`` is accepted and changes
 nothing (the kernel picks its own row tile and masks the ragged edge, so
 there is no padding copy), outputs are fresh tensors (no
 ``input_output_aliases``), and the affines are (C,) vectors, not the (1, C)
-blocks VMEM asks for.
+blocks VMEM asks for. Where row tiles alone give the card fewer blocks than
+it has SMs, :func:`split_plan` splits Cm across blocks: each writes a
+partial y to an f32 workspace, and a second kernel sums the partials in a
+fixed order (no atomics: two calls give bitwise equal outputs).
 
 ``last_path()`` says which version the last call took ("cuda" | "torch");
 ``launch_count()`` counts launches by variant (``KERNELS``: no residual,
@@ -29,6 +32,7 @@ launch returns ``cudaSuccess``.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -41,6 +45,11 @@ _LAST_PATH = None  # "cuda" | "torch": the version the last call took
 _FORCE_PATH = None
 _LAUNCHES = {(k, d): 0 for k in KERNELS for d in _DTYPES}
 _LIB = None
+_SM_COUNT = {}  # device index -> multiprocessors
+
+CHUNK = 64            # Cm columns of one chunk: a slice holds whole chunks
+TILES = {64: 64, 128: 64, 256: 64, 512: 32}  # a block's y columns -> its rows
+BLOCKS_PER_SM = 2     # a split grid aims for at least this many blocks a SM
 
 
 def force_path(path) -> None:
@@ -105,6 +114,63 @@ def conv1x1_pair_torch(x, w1, w2, scale1=None, bias1=None, scale2=None,
     return y
 
 
+# -- the grid ------------------------------------------------------------------
+
+
+class SplitPlan(NamedTuple):
+    """How one launch covers (M, Cout) and splits Cm: a tile of
+    ``block_rows`` x ``block_cols`` of y a block, ``slices`` slices of
+    ``slice_cols`` Cm columns each (the last may be narrower), ``grid`` the
+    (row tiles, Cout slabs, slices) of blocks, ``workspace_bytes`` the f32
+    partial y (0 at one slice)."""
+    block_rows: int
+    block_cols: int
+    slices: int
+    slice_cols: int
+    grid: tuple
+    workspace_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def _block_tile(cout: int) -> tuple:
+    """(rows, columns) of a block's tile of y: the narrowest of ``TILES``
+    that covers Cout, else 512-column slabs (at most 80 accumulators a
+    thread, h's and y's)."""
+    cols = next((c for c in TILES if cout <= c), 512)
+    return TILES[cols], cols
+
+
+def split_plan(m, cm, cout, sm_count) -> SplitPlan:
+    """The grid of one launch: one slice where row tiles and Cout slabs
+    alone give each of the card's ``sm_count`` SMs a block; else the fewest
+    Cm slices (whole 64-wide chunks, none empty) that give ``BLOCKS_PER_SM``
+    blocks a SM, or one slice a chunk where even that gives fewer."""
+    bm, bn = _block_tile(cout)
+    grid = (-(-m // bm), -(-cout // bn))
+    tiles = grid[0] * grid[1]
+    chunks = -(-cm // CHUNK)
+    per = chunks
+    if tiles < sm_count:
+        for s in range(2, chunks + 1):
+            per = -(-chunks // s)
+            if tiles * -(-chunks // per) >= sm_count * BLOCKS_PER_SM:
+                break
+    slices = -(-chunks // per)  # no empty slice
+    return SplitPlan(bm, bn, slices, per * CHUNK, (*grid, slices),
+                     slices * m * cout * 4 if slices > 1 else 0)
+
+
+def _sm_count(dev) -> int:
+    n = _SM_COUNT.get(dev.index)
+    if n is None:
+        n = _SM_COUNT[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
+
+
 # -- the CUDA kernel ------------------------------------------------------------
 
 
@@ -115,12 +181,14 @@ def _lib():
 
         lib = load("conv1x1")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mxtt_conv1x1_pair.argtypes = [i32, i32] + [ptr] * 10 + [i32] * 4 \
+        lib.mxtt_conv1x1_pair.argtypes = [i32, i32] + [ptr] * 11 + [i32] * 7 \
             + [ptr]
         lib.mxtt_conv1x1_pair.restype = i32
-        lib.mxtt_conv1x1_block_rows.argtypes = [i32]
-        lib.mxtt_conv1x1_block_rows.restype = i32
-        lib.mxtt_conv1x1_smem_bytes.argtypes = [i32, i32]
+        lib.mxtt_conv1x1_pair_reduce.argtypes = [i32] + [ptr] * 4 + [i32] * 3 \
+            + [ptr]
+        lib.mxtt_conv1x1_pair_reduce.restype = i32
+        lib.mxtt_conv1x1_smem_bytes.argtypes = [i32] * 4 \
+            + [ctypes.POINTER(i32)] * 2
         lib.mxtt_conv1x1_smem_bytes.restype = ctypes.c_longlong
         lib.mxtt_conv1x1_error_string.argtypes = [i32]
         lib.mxtt_conv1x1_error_string.restype = ctypes.c_char_p
@@ -132,6 +200,18 @@ def build() -> None:
     """Build and load the kernel library now (it is otherwise built at the
     first launch)."""
     _lib()
+
+
+def smem_layout(dtype, plan, c1) -> dict:
+    """The kernel's shared-memory layout for a block of ``plan`` at ``c1``
+    input channels: its bytes, whether the x tile stays resident, and the
+    ring's stages (builds the library)."""
+    xres, stages = ctypes.c_int(), ctypes.c_int()
+    nbytes = _lib().mxtt_conv1x1_smem_bytes(
+        _DTYPES[dtype], plan.block_rows, plan.block_cols, c1,
+        ctypes.byref(xres), ctypes.byref(stages))
+    return {"smem_bytes": nbytes, "x_resident": bool(xres.value),
+            "stages": stages.value}
 
 
 def _use_kernel(x):
@@ -181,6 +261,22 @@ def _check(x, w1, w2, residual):
                          "elements")
 
 
+def _raise_if(err, which, x, w1, w2, plan):
+    """Raise :class:`MXNetError` for a launch that returned ``err`` != 0."""
+    if err == 0:
+        return
+    lib = _lib()
+    layout = smem_layout(x.dtype, plan, w1.shape[0])
+    raise MXNetError(
+        f"conv1x1_pair{which} kernel launch failed: "
+        f"{lib.mxtt_conv1x1_error_string(err).decode()} (cudaError {err}; x "
+        f"{tuple(x.shape)} {x.dtype}, w1 {tuple(w1.shape)}, w2 "
+        f"{tuple(w2.shape)}, {plan.block_rows} x {plan.block_cols} tiles, "
+        f"grid {plan.grid}, "
+        f"{plan.slices} Cm slices, workspace {plan.workspace_bytes} B, shared "
+        f"memory {layout['smem_bytes']} B)")
+
+
 def conv1x1_pair(x, w1, w2, scale1=None, bias1=None, scale2=None,
                  bias2=None, residual=None, *, block_rows=1024,
                  return_mid=False):
@@ -216,22 +312,26 @@ def conv1x1_pair(x, w1, w2, scale1=None, bias1=None, scale2=None,
            if return_mid else None)
     if m:  # an empty batch launches nothing
         variant = 0 if residual is None else 2 if return_mid else 1
+        plan = split_plan(m, cm, cout, _sm_count(dev))
+        ws = (torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
+                          device=dev) if plan.slices > 1 else None)
         lib = _lib()
-        ptrs = [x, residual, w1, w2, *affines, mid, out]
+        dt = _DTYPES[x.dtype]
+        ptrs = [x, residual, w1, w2, *affines, mid, out, ws]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.mxtt_conv1x1_pair(
-                _DTYPES[x.dtype], variant,
+                dt, variant,
                 *[None if t is None else t.data_ptr() for t in ptrs],
-                m, c1, cm, cout, stream)
-        if err != 0:
-            raise MXNetError(
-                f"conv1x1_pair kernel launch failed: "
-                f"{lib.mxtt_conv1x1_error_string(err).decode()} (cudaError "
-                f"{err}; x {tuple(x.shape)} {x.dtype}, w1 {tuple(w1.shape)}, "
-                f"w2 {tuple(w2.shape)}, {lib.mxtt_conv1x1_block_rows(cout)}"
-                f"-row tiles, shared memory "
-                f"{lib.mxtt_conv1x1_smem_bytes(_DTYPES[x.dtype], cout)} B)")
+                m, c1, cm, cout, plan.block_rows, plan.block_cols,
+                plan.slices, stream)
+            _raise_if(err, "", x, w1, w2, plan)
+            if ws is not None:
+                err = lib.mxtt_conv1x1_pair_reduce(
+                    dt, ws.data_ptr(), affines[2].data_ptr(),
+                    affines[3].data_ptr(), out.data_ptr(), m, cout,
+                    plan.slices, stream)
+                _raise_if(err, " reduce", x, w1, w2, plan)
         _LAUNCHES[KERNELS[variant], x.dtype] += 1
     if return_mid:
         return out, mid

@@ -141,3 +141,81 @@ def test_bf16_close_to_f32_oracle():
         theirs = np.asarray(theirs, np.float32)
         diff = np.abs(ours.float().numpy() - theirs).max()
         assert diff <= 2e-2 * np.abs(theirs).max(), diff
+
+
+# ResNet-50's block boundaries at batch 32, 224 x 224: (M, C1 = Cout, Cm)
+STAGES = [(32 * 56 * 56, 64, 256), (32 * 28 * 28, 128, 512),
+          (32 * 14 * 14, 256, 1024), (32 * 7 * 7, 512, 2048)]
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3, 4])
+def test_split_plan_fills_an_h100(stage):
+    """On 132 SMs: one slice where row tiles already fill the card (stages
+    1-2); at stages 3-4 the fewest slices that give ``BLOCKS_PER_SM`` blocks
+    a SM (at least one); slices of whole 64-wide chunks but the last; an
+    f32 partial y a slice."""
+    m, c, cm = STAGES[stage - 1]
+    plan = conv1x1.split_plan(m, cm, c, sm_count=132)
+    assert plan.blocks >= 132
+    assert plan.block_cols >= c
+    assert plan.grid[:2] == (-(-m // plan.block_rows), 1)
+    if stage <= 2:
+        assert plan.slices == 1 and plan.workspace_bytes == 0
+    else:
+        assert plan.slices > 1
+        assert plan.workspace_bytes == plan.slices * m * c * 4
+        # the fewest slices that give BLOCKS_PER_SM blocks a SM
+        assert plan.grid[0] * (plan.slices - 1) < 132 * conv1x1.BLOCKS_PER_SM
+    widths = [min(plan.slice_cols, cm - z * plan.slice_cols)
+              for z in range(plan.slices)]
+    assert sum(widths) == cm and min(widths) > 0
+    assert all(w % 64 == 0 for w in widths[:-1])
+
+
+def test_split_plan_ragged_last_slice():
+    plan = conv1x1.split_plan(4000, 1000, 256, sm_count=132)
+    assert plan.slices > 1 and plan.slice_cols % 64 == 0
+    last = 1000 - (plan.slices - 1) * plan.slice_cols
+    assert 0 < last < plan.slice_cols and last % 64  # not whole chunks
+
+
+def _split_sums(x, w1, w2, aff, res, plan):
+    """The kernel's order of sums, in torch: h a 64-wide chunk at a time
+    with its epilogue, rounded to x's dtype; each slice's partial y in f32,
+    chunk after chunk; the partials added in slice order; then the affine.
+    Returns (y, mid)."""
+    f32 = torch.float32
+    s1, b1, s2, b2 = [torch.from_numpy(a) for a in aff]
+    xt, w1t, w2t, rt = [torch.from_numpy(a) for a in (x, w1, w2, res)]
+    cm = w1t.shape[1]
+    partials, mids = [], []
+    for z in range(plan.slices):
+        part = torch.zeros(xt.shape[0], w2t.shape[1])
+        for c0 in range(z * plan.slice_cols,
+                        min(cm, (z + 1) * plan.slice_cols), 64):
+            ch = slice(c0, min(cm, c0 + 64))
+            h = (xt.to(f32) @ w1t[:, ch].to(f32)) * s1[ch] + b1[ch] + rt[:, ch]
+            h = torch.relu(h).to(xt.dtype)
+            mids.append(h)
+            part = part + h.to(f32) @ w2t[ch].to(f32)
+        partials.append(part)
+    acc = partials[0]
+    for part in partials[1:]:
+        acc = acc + part
+    y = torch.relu(acc * s2 + b2).to(xt.dtype)
+    return y.numpy(), torch.cat(mids, 1).numpy()
+
+
+@pytest.mark.parametrize("sm_count", [132, 4], ids=["32_slices", "4_slices"])
+def test_split_order_matches_jax_kernel(sm_count):
+    """Stage-4 widths (C1 512, Cm 2048, Cout 512) at M = 49: the split
+    kernel's order of sums stays within the kernel's f32 tolerance (1e-4,
+    as on the card) of the JAX kernel in interpret mode. One chunk a slice
+    on 132 SMs, eight on 4."""
+    x, w1, w2, aff, res = _inputs((49,), 512, 2048, 512, True, True, seed=3)
+    plan = conv1x1.split_plan(49, 2048, 512, sm_count)
+    assert plan.slices == {132: 32, 4: 4}[sm_count]
+    got = _split_sums(x, w1, w2, aff, res, plan)
+    want = _jax(x, w1, w2, aff, res, True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)

@@ -391,8 +391,11 @@ def test_cuda_trainer_matches_cpu():
 
 # (lead, c1, cm, cout, residual, return_mid): the ResNet-50 boundary at
 # stage 1 and 4 widths on a few rows, a ragged M, cout != c1, Cout above
-# one block's 512 columns (a second grid dimension), and channel counts
-# that are no multiple of 16 bytes (scalar loads)
+# one block's 512 columns (a second grid dimension), channel counts that
+# are no multiple of 16 bytes (scalar loads); then Cm split across blocks
+# with a ragged last slice (5 x 192 and 40 columns on 132 SMs), split with
+# scalar loads, stage 3 at batch 1 (S = 16), and an x tile too wide to stay
+# in shared memory (x streams with w1)
 PAIR_CASES = [
     ((2, 9, 9), 64, 256, 64, True, True),
     ((1, 7, 7), 512, 2048, 512, True, True),
@@ -400,6 +403,10 @@ PAIR_CASES = [
     ((100,), 128, 512, 128, True, False),
     ((70,), 96, 160, 600, True, True),
     ((45,), 20, 36, 12, True, True),
+    ((4000,), 256, 1000, 256, True, True),
+    ((50,), 22, 300, 14, True, True),
+    ((1, 14, 14), 256, 1024, 256, True, True),
+    ((40,), 1024, 128, 64, True, False),
 ]
 
 
@@ -463,6 +470,60 @@ def test_cuda_conv1x1_pair_matches_plain(case, dtype):
                c1x1.conv1x1_pair_torch(x, w1, w2, residual=res), dtype)
 
 
+def _pair_plan(case, dev):
+    lead, c1, cm, cout = case[:4]
+    return c1x1.split_plan(int(np.prod(lead)), cm, cout, c1x1._sm_count(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [PAIR_CASES[i] for i in (0, 4, 6, 7)])
+def test_cuda_conv1x1_pair_repeats_bitwise(case, dtype):
+    """Two calls on the same inputs give bitwise equal y and mid: the split
+    partials are summed in slice order, with no atomics."""
+    dev = _need_cuda()
+    lead, c1, cm, cout, residual, return_mid = case
+    x, w1, w2, aff, res = _pair_inputs(lead, c1, cm, cout, residual, dtype,
+                                       dev, seed=5)
+    first = c1x1.conv1x1_pair(x, w1, w2, *aff, residual=res,
+                              return_mid=return_mid)
+    again = c1x1.conv1x1_pair(x, w1, w2, *aff, residual=res,
+                              return_mid=return_mid)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [PAIR_CASES[i] for i in (4, 6, 7, 8)])
+def test_cuda_conv1x1_pair_split_writes_every_element(case, dtype):
+    """On the split path every element of y and mid is written: both
+    outputs land in memory that held NaN (a NaN-filled tensor of each size,
+    freed just before the call, which the caching allocator hands back: with
+    its cache emptied first, those are its only free blocks)."""
+    dev = _need_cuda()
+    lead, c1, cm, cout, residual, return_mid = case
+    assert _pair_plan(case, dev).slices > 1
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    x, w1, w2, aff, res = _pair_inputs(lead, c1, cm, cout, residual, dtype,
+                                       dev, seed=6)
+    nan_y = torch.full((*lead, cout), float("nan"), dtype=dtype, device=dev)
+    nan_mid = torch.full((*lead, cm), float("nan"), dtype=dtype, device=dev)
+    ptrs = (nan_y.data_ptr(), nan_mid.data_ptr())
+    del nan_y, nan_mid
+    y, mid = c1x1.conv1x1_pair(x, w1, w2, *aff, residual=res,
+                               return_mid=True)
+    torch.cuda.synchronize()
+    assert (y.data_ptr(), mid.data_ptr()) == ptrs
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(mid).all())
+    ref = c1x1.conv1x1_pair_torch(x, w1, w2, *aff, residual=res,
+                                  return_mid=True)
+    for ours, theirs in zip((y, mid), ref):
+        _close(ours, theirs, dtype)
+
+
 def test_cuda_conv1x1_pair_refusals_and_launch_errors(monkeypatch):
     dev = _need_cuda()
     x, w1, w2, aff, res = _pair_inputs((40,), 64, 128, 64, True,
@@ -500,6 +561,22 @@ def test_cuda_conv1x1_pair_refusals_and_launch_errors(monkeypatch):
 
     monkeypatch.setattr(c1x1, "_LIB", Refusing())
     with pytest.raises(MXNetError, match="launch failed: invalid argument"):
+        c1x1.conv1x1_pair(x, w1, w2, *aff, residual=res)
+    assert c1x1.launch_count() == n0
+
+    # so is a refused launch of the reduce that follows a split launch
+    class RefusingReduce:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def mxtt_conv1x1_pair_reduce(*args):
+            return 1
+
+    assert _pair_plan(((40,), 64, 128, 64), dev).slices > 1
+    monkeypatch.setattr(c1x1, "_LIB", RefusingReduce())
+    with pytest.raises(MXNetError, match="conv1x1_pair reduce kernel launch "
+                       "failed: invalid argument"):
         c1x1.conv1x1_pair(x, w1, w2, *aff, residual=res)
     assert c1x1.launch_count() == n0
 
