@@ -15,11 +15,19 @@ Phases, each printed on its own line; the first failed check exits non-zero:
 2. build: compile the CUDA kernel libraries from ``mxnet_tpu_torch/csrc``,
    one ``nvcc`` per source, all started together; each kernel's registers
    and spills as ``ptxas -v`` reports them, under the kernel's name (no
-   ``conv1x1_pair`` kernel may spill).
+   ``conv1x1_pair`` kernel may spill, nor a ``decode_attention`` kernel for
+   D <= 128).
 3. kernel: the decode-attention kernel against its plain PyTorch version
    on the card at Llama-3-8B shapes (H=32, KV=8, D=128; f32 and int8 rings),
-   with its time, its bound, the plain version's time and, for f32, the
-   time of one ``scaled_dot_product_attention`` call as a yardstick.
+   each case with its grid (``split_plan``: splits, blocks, workspace) and
+   two calls that must repeat bit for bit; at the main path's shape its
+   time, its bound, the plain version's time, the time of the same grid
+   with no live position (the launch pair's floor) and, for f32, the time
+   of one ``scaled_dot_product_attention`` call as a yardstick. Then a
+   context sweep (S = 1024-8192, B = 1 and 4, every row at start_pos =
+   S - 1; each point checked against the plain version, timed against its
+   bound and, in f32, the library) and a split-aim sweep (the grid aimed at
+   1, 2 and 4 blocks a SM, at the main shape and at B=4, S=8192).
 4. serve pallas / 5. serve int8: Llama-3-8B at full width and depth with
    seeded random weights, served by ``Generator`` (warmup, then 4 prompts x
    32 greedy tokens): every decode step of every layer must launch the
@@ -95,6 +103,10 @@ NEW_TOKENS = 32
 MAX_SEQ = 1024
 ATOL, RTOL = 1e-5, 1e-4     # same f32 math, only the order of sums differs
 SPIN_CYCLES = 4_000_000     # about 2 ms of the card's clock: covers host work
+DECODE_SWEEP_S = (1024, 2048, 4096, 8192)   # ring lengths of the context sweep
+DECODE_SWEEP_B = (1, 4)
+DECODE_AIMS = (1, 2, 4)     # blocks a SM the split-aim sweep aims the grid at
+DECODE_LONG_S = 8192        # the split-aim sweep's long ring (Llama-3-8B's context)
 KERNEL_SOURCE = "mxnet_tpu_torch/csrc/decode_attention.cu"
 REPLACES = "mxnet_tpu/ops/pallas/decode_attention.py:173"
 FLASH_SOURCE = "mxnet_tpu_torch/csrc/flash_attention.cu"
@@ -207,40 +219,90 @@ def kernel_bound(b_sp, kv, g, d, elem, quant):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def decode_inputs(torch, nn_ops, dev, quant, b, s, seed, h=32, kv=8, d=128):
+    """Seeded q and rings at Llama-3-8B heads; int8 rings quantized on the
+    card as the serving path writes them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, 1, d, device=dev, generator=gen)
+    kf = torch.randn(b, kv, s, d, device=dev, generator=gen)
+    vf = torch.randn(b, kv, s, d, device=dev, generator=gen)
+    if not quant:
+        return q, kf, vf, None, None
+    zero = torch.zeros(b, dtype=torch.int32, device=dev)
+    k = torch.zeros(b, kv, s, d, dtype=torch.int8, device=dev)
+    v = torch.zeros_like(k)
+    ks = torch.zeros(b, kv, s, device=dev)
+    vs = torch.zeros_like(ks)
+    nn_ops.kv_cache_write_q(k, ks, kf, zero)
+    nn_ops.kv_cache_write_q(v, vs, vf, zero)
+    return q, k, v, ks, vs
+
+
+def plan_fields(da, b, s, sms, h=32, kv=8, d=128):
+    """The grid ``split_plan`` gives a launch at these shapes."""
+    plan = da.split_plan(b, kv, s, h // kv, d, sms)
+    return {"splits": plan.splits, "blocks": plan.blocks,
+            "workspace_bytes": plan.workspace_bytes}
+
+
+def decode_check(torch, da, q, k, v, sp, ks, vs, what):
+    """Two kernel calls against the plain version: they must agree to
+    ATOL / RTOL and repeat bit for bit, and a row with no live position
+    (start_pos < 0) must give zeros, as the Pallas kernel does (the plain
+    version, like ``_xla_decode``, averages V there). Returns the max
+    error."""
+    out = da.decode_attention(q, k, v, sp, k_scale=ks, v_scale=vs)
+    check(da.last_path() == "cuda", "kernel call did not take the kernel")
+    again = da.decode_attention(q, k, v, sp, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    ref = da.decode_attention_torch(q, k, v, sp, k_scale=ks, v_scale=vs)
+    live = sp >= 0
+    err = (out[live] - ref[live]).abs()
+    max_err = float(err.max())
+    check(bool(torch.isfinite(out).all()), f"kernel output not finite ({what})")
+    check(bool((err <= ATOL + RTOL * ref[live].abs()).all()),
+          f"kernel disagrees with plain: max_abs_err={max_err} ({what})")
+    check(not bool(out[~live].any()), f"a dead row is not zeros ({what})")
+    check(torch.equal(out, again), f"kernel does not repeat bit for bit "
+          f"({what})")
+    return max_err
+
+
 def kernel_phase(torch, da, nn_ops, flush, dev):
-    """Phase 3: kernel vs plain at Llama-3-8B attention shapes. Returns
-    {variant: numbers at the main path's last decode step, max error}."""
+    """Phase 3: kernel vs plain at Llama-3-8B attention shapes, then the
+    context and split-aim sweeps. Returns {variant: numbers at the main
+    path's last decode step, max error over every case and sweep point}."""
     import torch.nn.functional as F
 
     h, kv, d = 32, 8, 128
     g = h // kv
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     main_sp = [n + NEW_TOKENS - 2 for n in PROMPT_LENS]
     cases = []
     for quant in (False, True):
         for s in (1024, 1000):
             cases.append((quant, 1, s, [s - 1]))
             cases.append((quant, 4, s, [0, 100, s // 2 + 3, s - 1]))
+            cases.append((quant, 4, s, [-1, 31, 32, 33]))
         cases.append((quant, 4, MAX_SEQ, main_sp))
     results = {}
     seed = 0
     for quant, b, s, sps in cases:
         seed += 1
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        q = torch.randn(b, h, 1, d, device=dev, generator=gen)
-        kf = torch.randn(b, kv, s, d, device=dev, generator=gen)
-        vf = torch.randn(b, kv, s, d, device=dev, generator=gen)
+        q, k, v, ks, vs = decode_inputs(torch, nn_ops, dev, quant, b, s, seed)
         sp = torch.tensor(sps, dtype=torch.int32, device=dev)
-        if quant:
-            zero = torch.zeros(b, dtype=torch.int32, device=dev)
-            k = torch.zeros(b, kv, s, d, dtype=torch.int8, device=dev)
-            v = torch.zeros_like(k)
-            ks = torch.zeros(b, kv, s, device=dev)
-            vs = torch.zeros_like(ks)
-            nn_ops.kv_cache_write_q(k, ks, kf, zero)
-            nn_ops.kv_cache_write_q(v, vs, vf, zero)
-        else:
-            k, v, ks, vs = kf, vf, None, None
-
+        variant = "int8" if quant else "f32"
+        plan = plan_fields(da, b, s, sms)
+        max_err = decode_check(torch, da, q, k, v, sp, ks, vs,
+                               f"{variant} B={b} S={s} start_pos={sps}")
+        fields = dict(variant=variant, B=b, S=s, start_pos=sps, **plan,
+                      max_abs_err=f"{max_err:.3e}", repeats_bitwise=True)
+        r = results.setdefault(variant, {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], max_err)
+        if not (b == 4 and s == MAX_SEQ and sps == main_sp):
+            say("kernel", **fields)
+            continue
+        # the main path's last decode step: times against the bound
         def kernel():
             return da.decode_attention(q, k, v, sp, k_scale=ks, v_scale=vs)
 
@@ -248,38 +310,104 @@ def kernel_phase(torch, da, nn_ops, flush, dev):
             return da.decode_attention_torch(q, k, v, sp, k_scale=ks,
                                              v_scale=vs)
 
-        out = kernel()
-        check(da.last_path() == "cuda", "kernel call did not take the kernel")
-        torch.cuda.synchronize()
-        ref = plain()
-        err = (out - ref).abs()
-        max_err = float(err.max())
-        check(bool(torch.isfinite(out).all()), "kernel output not finite")
-        check(bool((err <= ATOL + RTOL * ref.abs()).all()),
-              f"kernel disagrees with plain: max_abs_err={max_err} "
-              f"(quant={quant} B={b} S={s} start_pos={sps})")
+        dead = torch.full_like(sp, -1)
         k_ms = time_ms(torch, kernel, flush)
         p_ms = time_ms(torch, plain, flush)
-        lib_ms = None
-        if not quant:
-            valid = (torch.arange(s, device=dev)[None, :]
-                     <= sp[:, None].long())[:, None, None, :]
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=valid, enable_gqa=True), flush)
+        empty_ms = time_ms(torch, lambda: da.decode_attention(
+            q, k, v, dead, k_scale=ks, v_scale=vs), flush)
+        lib_ms = None if quant else library_ms(torch, F, q, k, v, sp, flush)
         bound, bound_by = kernel_bound(sps, kv, g, d, 1 if quant else 4,
                                        quant)
-        variant = "int8" if quant else "f32"
-        say("kernel", variant=variant, B=b, S=s, start_pos=sps,
-            max_abs_err=f"{max_err:.3e}", kernel_ms=f"{k_ms:.6f}",
+        say("kernel", **fields, kernel_ms=f"{k_ms:.6f}",
             bound_ms=f"{bound:.6f}", bound_by=bound_by,
-            plain_ms=f"{p_ms:.6f}",
+            plain_ms=f"{p_ms:.6f}", empty_ms=f"{empty_ms:.6f}",
             library_ms="null" if lib_ms is None else f"{lib_ms:.6f}")
-        r = results.setdefault(variant, {"max_abs_err": 0.0})
-        r["max_abs_err"] = max(r["max_abs_err"], max_err)
-        if b == 4 and s == MAX_SEQ and sps == main_sp:
-            r.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-                     bound_by=bound_by, library_ms=lib_ms)
+        r.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
+                 library_ms=lib_ms)
+    context_sweep(torch, F, da, nn_ops, flush, dev, sms, results)
+    aim_sweep(torch, da, nn_ops, flush, dev, sms, main_sp)
     return results
+
+
+def library_ms(torch, F, q, k, v, sp, flush, reps=25):
+    """One ``scaled_dot_product_attention`` call on the same inputs."""
+    s = k.shape[2]
+    valid = (torch.arange(s, device=q.device)[None, :]
+             <= sp[:, None].long())[:, None, None, :]
+    return time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=valid, enable_gqa=True), flush, reps=reps)
+
+
+def context_sweep(torch, F, da, nn_ops, flush, dev, sms, results):
+    """Every row at start_pos = S - 1: the kernel against the plain version
+    and timed against its bound and (f32) the library, per ring length."""
+    kv, g, d = 8, 4, 128
+    for quant in (False, True):
+        variant = "int8" if quant else "f32"
+        for b in DECODE_SWEEP_B:
+            for s in DECODE_SWEEP_S:
+                q, k, v, ks, vs = decode_inputs(torch, nn_ops, dev, quant, b,
+                                                s, 1000 + s + b)
+                sps = [s - 1] * b
+                sp = torch.tensor(sps, dtype=torch.int32, device=dev)
+                err = decode_check(torch, da, q, k, v, sp, ks, vs,
+                                   f"sweep {variant} B={b} S={s}")
+                results[variant]["max_abs_err"] = max(
+                    results[variant]["max_abs_err"], err)
+                k_ms = time_ms(torch, lambda: da.decode_attention(
+                    q, k, v, sp, k_scale=ks, v_scale=vs), flush, reps=15)
+                lib = (None if quant else
+                       library_ms(torch, F, q, k, v, sp, flush, reps=15))
+                bound, bound_by = kernel_bound(sps, kv, g, d,
+                                               1 if quant else 4, quant)
+                say("kernel sweep", variant=variant, B=b, S=s,
+                    start_pos="S-1", **plan_fields(da, b, s, sms),
+                    max_abs_err=f"{err:.3e}", kernel_ms=f"{k_ms:.6f}",
+                    bound_ms=f"{bound:.6f}", bound_by=bound_by,
+                    bound_share=f"{bound / k_ms:.4f}",
+                    library_ms="null" if lib is None else f"{lib:.6f}")
+                del q, k, v, ks, vs
+    torch.cuda.empty_cache()
+
+
+def aim_sweep(torch, da, nn_ops, flush, dev, sms, main_sp):
+    """The grid aimed at DECODE_AIMS blocks a SM, in turns, at the main
+    path's shape (its time also over a generate's 32 x 31 launches) and at
+    B=4, S=DECODE_LONG_S with every row full."""
+    default = da.BLOCKS_PER_SM
+    for quant in (False, True):
+        variant = "int8" if quant else "f32"
+        for s, sps in ((MAX_SEQ, main_sp), (DECODE_LONG_S,
+                                            [DECODE_LONG_S - 1] * 4)):
+            q, k, v, ks, vs = decode_inputs(torch, nn_ops, dev, quant, 4, s,
+                                            2000 + s)
+            sp = torch.tensor(sps, dtype=torch.int32, device=dev)
+            sweep = {}
+            try:
+                for aim in DECODE_AIMS * 2:
+                    da.BLOCKS_PER_SM = aim
+                    decode_check(torch, da, q, k, v, sp, ks, vs,
+                                 f"aim {aim} {variant} S={s}")
+                    sweep.setdefault(aim, []).append(time_ms(
+                        torch, lambda: da.decode_attention(
+                            q, k, v, sp, k_scale=ks, v_scale=vs), flush,
+                        reps=15))
+            finally:
+                da.BLOCKS_PER_SM = default
+            fields = {}
+            for aim, ms in sweep.items():
+                da.BLOCKS_PER_SM = aim
+                fields[f"blocks_per_sm_{aim}"] = (
+                    f"splits={plan_fields(da, 4, s, sms)['splits']}:"
+                    f"{ms[0]:.6f},{ms[1]:.6f}")
+                if s == MAX_SEQ:
+                    fields[f"generate_ms_{aim}"] = (
+                        f"{32 * (NEW_TOKENS - 1) * statistics.mean(ms):.4f}")
+            da.BLOCKS_PER_SM = default
+            say("kernel aim", variant=variant, B=4, S=s, start_pos=sps,
+                default=default, **fields)
+            del q, k, v, ks, vs
+    torch.cuda.empty_cache()
 
 
 def pairs_kept(b, h, tq, tk, causal, vl):
@@ -1071,7 +1199,7 @@ def main(argv=None):
     da.build()
     fa.build()
     c1x1.build()
-    spills = []  # conv1x1_pair kernels that spill
+    spills = []  # gated kernels that spill
     for name in sources:
         log = _build.BUILD_LOGS.get(name)
         say("build", source=name,
@@ -1084,10 +1212,14 @@ def main(argv=None):
             if any(w in line for w in ("Function properties", "registers",
                                        "spill")):
                 print(f"  ptxas: {line.strip()}", flush=True)
-            if ("spill" in line and "conv1x1_pair" in function and
+            # the pair kernels, and the decode kernels for D <= 128 (NC = 1,
+            # the main path's; D > 128 instantiations may spill a few bytes)
+            gated = "conv1x1_pair" in function or (
+                "decode_attention" in function and "ELi2EE" not in function)
+            if ("spill" in line and gated and
                     " 0 bytes spill stores, 0 bytes spill loads" not in line):
                 spills.append(function)
-    check(not spills, f"conv1x1_pair kernels spill: {spills}")
+    check(not spills, f"kernels spill: {spills}")
     say("build", seconds=f"{time.perf_counter() - t0:.3f}",
         natural_block=da.natural_block())
 

@@ -22,37 +22,54 @@ on their values:
 yardstick the kernel is held against on the card); ``force_path("cuda")``
 insists on the kernel and raises for CPU tensors. ``last_path()`` says
 which version the last call took, and ``launch_count()`` counts kernel
-launches, so a run can show that it went through the kernel.
+calls (one per call, the combine pass included), so a run can show that it
+went through the kernel.
 
 Layout: GQA is native. ``k``/``v`` are the *unexpanded* (B, KV, S, D)
 rings, f32 or int8 with (B, KV, S) f32 ``k_scale``/``v_scale``; the G =
 H // KV query heads of a group share each K/V tile. ``start_pos`` (B,)
 int32 stays on the device and is read by the kernel, so one launch
 configuration serves every position.
+
+The kernel splits each row's live positions across ``n_split`` blocks
+(flash-decoding) and merges their partials in split order in a second
+kernel. :func:`split_plan` picks ``n_split`` from the shapes and the SM
+count alone, so nothing is read back from the device and one call can be
+captured in a CUDA graph and replayed at every position.
+:func:`decode_attention_split_torch` is the plain PyTorch mirror of that
+split and merge, for the tests.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from ...base import MXNetError
 
 _NEG_INF = -1e30  # finite "minus infinity": keeps fully-masked rows NaN-free
-_BLOCK = 64       # KV positions per tile of the CUDA kernel (kBlockK)
+_BLOCK = 32       # KV positions per tile of the CUDA kernel (kTile)
+_GROUP = 4        # query heads one block carries (kGroup)
 _MAX_D = 256
+# a split grid aims for at least this many blocks a SM: chip_smoke.py's
+# split-aim sweep found 1 faster than 2 and 4 summed over a generate's
+# launches (at long rings 4 is faster; see PERF.md)
+BLOCKS_PER_SM = 1
 
 _LAST_PATH = None  # "cuda" | "torch": the version the last call took
 _FORCE_PATH = None
 _LAUNCHES = 0
 _LIB = None
+_SM_COUNT = {}  # device index -> multiprocessors
 
 
 def natural_block() -> int:
-    """The CUDA kernel's KV tile width (``kBlockK`` in the source): the
-    kernel stops at the tile holding ``start_pos``, so a page of this many
-    positions is the unit of work a row pays for."""
+    """The CUDA kernel's KV tile width (``kTile`` in the source): a row's
+    work is split in whole tiles and stops at the tile holding
+    ``start_pos``, so a page of this many positions is the unit of work a
+    row pays for."""
     return _BLOCK
 
 
@@ -80,6 +97,12 @@ def reset_launch_count() -> None:
     _LAUNCHES = 0
 
 
+def _widen(x, x_scale):
+    """A ring as f32, an int8 one scaled per position."""
+    xf = x.to(torch.float32)
+    return xf if x_scale is None else xf * x_scale[..., None].to(torch.float32)
+
+
 def decode_attention_torch(q, k, v, start_pos, scale=None, k_scale=None,
                            v_scale=None):
     """Plain PyTorch decode attention, any T (the counterpart of
@@ -90,12 +113,7 @@ def decode_attention_torch(q, k, v, start_pos, scale=None, k_scale=None,
     kv, s = k.shape[1], k.shape[2]
     g = h // kv
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
-    kf = k.to(torch.float32)
-    vf = v.to(torch.float32)
-    if k_scale is not None:
-        kf = kf * k_scale[..., None].to(torch.float32)
-    if v_scale is not None:
-        vf = vf * v_scale[..., None].to(torch.float32)
+    kf, vf = _widen(k, k_scale), _widen(v, v_scale)
     qg = q.to(torch.float32).reshape(b, kv, g, t, d)
     scores = torch.einsum("bngtd,bnsd->bngts", qg, kf) * sc
     pos = (start_pos.to(device=q.device, dtype=torch.int32)[:, None]
@@ -110,28 +128,136 @@ def decode_attention_torch(q, k, v, start_pos, scale=None, k_scale=None,
     return out.reshape(b, h, t, d).to(q.dtype)
 
 
+def _shares(n, n_split):
+    """[start, end) positions of each split's share of ``n`` live
+    positions: equal counts of whole tiles, the last tile ragged, trailing
+    splits empty where there are fewer tiles than splits (the kernel's
+    arithmetic)."""
+    tiles = -(-n // _BLOCK)
+    per = -(-tiles // n_split) * _BLOCK
+    return [(min(i * per, n), min((i + 1) * per, n)) for i in range(n_split)]
+
+
+def decode_attention_split_torch(q, k, v, start_pos, n_split, scale=None,
+                                 k_scale=None, v_scale=None):
+    """Plain PyTorch mirror of the CUDA kernel's split and merge at T == 1:
+    each of ``n_split`` splits of a row attends over its share of the live
+    positions (:func:`_shares`) and yields (m, l, acc), the running max,
+    the sum of exp(score - m) and the unnormalised P.V; the splits are then
+    merged in split order, skipping empty ones (l == 0), and a row whose
+    sum stays 0 gives zeros. For the tests; nothing on the serving path
+    calls it."""
+    b, h, t, d = q.shape
+    if t != 1:
+        raise ValueError(f"decode_attention_split_torch: T must be 1, got {t}")
+    kv, s = k.shape[1], k.shape[2]
+    g = h // kv
+    sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    kf, vf = _widen(k, k_scale), _widen(v, v_scale)
+    qg = q.to(torch.float32).reshape(b, kv, g, d)
+    scores = torch.einsum("bngd,bnsd->bngs", qg, kf) * sc
+    pos = torch.arange(s)
+    share = torch.zeros(b, n_split, s, dtype=torch.bool)
+    for r, sp in enumerate(start_pos.detach().cpu().tolist()):
+        for i, (lo, hi) in enumerate(_shares(min(max(sp + 1, 0), s),
+                                             n_split)):
+            share[r, i] = (pos >= lo) & (pos < hi)
+    share = share.to(q.device)[:, :, None, None, :]      # (B, NS, 1, 1, S)
+    masked = torch.where(share, scores[:, None], torch.tensor(
+        _NEG_INF, dtype=torch.float32, device=q.device))  # (B, NS, KV, G, S)
+    m = masked.max(-1).values
+    p = torch.where(share, torch.exp(masked - m[..., None]),
+                    torch.zeros((), device=q.device))
+    l = p.sum(-1)
+    acc = torch.einsum("bings,bnsd->bingd", p, vf)
+    live = l > 0
+    mb = torch.where(live, m, torch.full_like(m, _NEG_INF)).max(1).values
+    wt = torch.where(live, torch.exp(m - mb[:, None]), torch.zeros_like(m))
+    lb = torch.zeros_like(mb)
+    ab = torch.zeros(b, kv, g, d, device=q.device)
+    for i in range(n_split):                               # in split order
+        lb = lb + wt[:, i] * l[:, i]
+        ab = ab + wt[:, i, ..., None] * acc[:, i]
+    out = torch.where(lb[..., None] > 0,
+                      ab / torch.where(lb > 0, lb, 1.0)[..., None],
+                      torch.zeros_like(ab))
+    return out.reshape(b, h, 1, d).to(q.dtype)
+
+
+class SplitPlan(NamedTuple):
+    """How one launch covers the rings: ``groups`` blocks of up to 4 query
+    heads per (batch row, KV head), ``splits`` shares of each row's live
+    positions, ``tiles`` of ``natural_block()`` positions in the ring, and
+    ``workspace_bytes`` of f32 partials (0 at one split, where the kernel
+    writes the output itself)."""
+    groups: int
+    splits: int
+    tiles: int
+    grid: tuple
+    workspace_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+def split_plan(b, kv, s, g, d, sm_count) -> SplitPlan:
+    """The grid of one launch, from shapes and the SM count alone (never
+    from ``start_pos``): one split where the (batch row, KV head, head
+    group) blocks alone give each of the card's ``sm_count`` SMs a block;
+    else the fewest splits that give ``BLOCKS_PER_SM`` blocks a SM, but no
+    more splits than the ring has tiles."""
+    groups = -(-g // _GROUP)
+    rows = b * kv * groups
+    tiles = max(1, -(-s // _BLOCK))
+    splits = 1
+    if rows < sm_count:
+        splits = min(tiles, -(-sm_count * BLOCKS_PER_SM // rows))
+    return SplitPlan(groups, splits, tiles, (rows, splits),
+                     _workspace_bytes(b * kv * g, splits, d))
+
+
+def _workspace_bytes(bh, splits, d) -> int:
+    """f32 partials (m, l and D accumulators) of ``bh`` (batch row, head)
+    rows at ``splits`` splits; none at one split."""
+    return bh * splits * (d + 2) * 4 if splits > 1 else 0
+
+
+def _sm_count(dev) -> int:
+    n = _SM_COUNT.get(dev.index)
+    if n is None:
+        n = _SM_COUNT[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
+
+
 def _lib():
     global _LIB
     if _LIB is None:
         from ._build import load
 
         lib = load("decode_attention")
-        fn = lib.mxtt_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.mxtt_decode_attention_block.argtypes = []
-        lib.mxtt_decode_attention_block.restype = ctypes.c_int
-        lib.mxtt_decode_attention_smem_bytes.argtypes = [ctypes.c_int,
-                                                         ctypes.c_int]
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.mxtt_decode_attention.argtypes = ([ptr] * 9 + [i32] * 6
+                                              + [ctypes.c_float, i32, i32,
+                                                 ptr])
+        lib.mxtt_decode_attention.restype = i32
+        lib.mxtt_decode_attention_combine.argtypes = [ptr] * 3 + [i32] * 3 \
+            + [ptr]
+        lib.mxtt_decode_attention_combine.restype = i32
+        for name in ("block", "group"):
+            getattr(lib, f"mxtt_decode_attention_{name}").argtypes = []
+            getattr(lib, f"mxtt_decode_attention_{name}").restype = i32
+        lib.mxtt_decode_attention_smem_bytes.argtypes = [i32, i32]
         lib.mxtt_decode_attention_smem_bytes.restype = ctypes.c_longlong
-        lib.mxtt_error_string.argtypes = [ctypes.c_int]
+        lib.mxtt_error_string.argtypes = [i32]
         lib.mxtt_error_string.restype = ctypes.c_char_p
-        block = lib.mxtt_decode_attention_block()
-        if block != _BLOCK:
-            raise MXNetError(f"decode_attention.cu tiles {block} positions "
-                             f"but the wrapper reports {_BLOCK}")
+        got = (lib.mxtt_decode_attention_block(),
+               lib.mxtt_decode_attention_group())
+        if got != (_BLOCK, _GROUP):
+            raise MXNetError(f"decode_attention.cu tiles {got[0]} positions "
+                             f"and {got[1]} heads a block, but the wrapper "
+                             f"assumes {_BLOCK} and {_GROUP}")
         _LIB = lib
     return _LIB
 
@@ -193,17 +319,31 @@ def _check_launch(q, k, v, start_pos, k_scale, v_scale):
                          f"got {start_pos.dtype} {tuple(start_pos.shape)}")
 
 
-def _launch(q, k, v, start_pos, scale, k_scale, v_scale):
+def _launch(q, k, v, start_pos, scale, k_scale, v_scale, n_split=None):
+    """Launch the kernel (and, at more than one split, the combine); the
+    split count is ``split_plan``'s unless ``n_split`` forces one."""
     global _LAUNCHES
     _check_launch(q, k, v, start_pos, k_scale, v_scale)
     lib = _lib()
     b, h, _, d = q.shape
     kv, s = k.shape[1], k.shape[2]
+    g = h // kv
+    plan = split_plan(b, kv, s, g, d, _sm_count(q.device))
+    if n_split is not None:
+        plan = plan._replace(splits=n_split, grid=(plan.grid[0], n_split),
+                             workspace_bytes=_workspace_bytes(b * h, n_split,
+                                                              d))
     quant = k_scale is not None
     elem = k.element_size()
     vec = int((d * elem) % 16 == 0 and k.data_ptr() % 16 == 0
               and v.data_ptr() % 16 == 0)
     out = torch.empty_like(q)
+    ws_ml = ws_acc = None
+    if plan.splits > 1:
+        ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
+                         device=q.device)
+        ws_ml, ws_acc = ws.split([b * h * plan.splits * 2,
+                                  b * h * plan.splits * d])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mxtt_decode_attention(
@@ -211,13 +351,22 @@ def _launch(q, k, v, start_pos, scale, k_scale, v_scale):
             k_scale.data_ptr() if quant else None,
             v_scale.data_ptr() if quant else None,
             start_pos.data_ptr(), out.data_ptr(),
-            b, kv, s, d, h // kv, float(scale), int(quant), vec, stream)
+            None if ws_ml is None else ws_ml.data_ptr(),
+            None if ws_acc is None else ws_acc.data_ptr(),
+            b, kv, s, d, g, plan.splits, float(scale), int(quant), vec,
+            stream)
+        what = "decode_attention kernel"
+        if err == 0 and plan.splits > 1:
+            what = "decode_attention combine kernel"
+            err = lib.mxtt_decode_attention_combine(
+                ws_ml.data_ptr(), ws_acc.data_ptr(), out.data_ptr(), b * h,
+                plan.splits, d, stream)
     if err != 0:
         raise MXNetError(
-            f"decode_attention kernel launch failed: "
-            f"{lib.mxtt_error_string(err).decode()} (cudaError {err}; "
-            f"q {tuple(q.shape)}, k {tuple(k.shape)}, {k.dtype}, shared "
-            f"memory {lib.mxtt_decode_attention_smem_bytes(d, h // kv)} B)")
+            f"{what} launch failed: {lib.mxtt_error_string(err).decode()} "
+            f"(cudaError {err}; q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"{k.dtype}, vec {vec}, plan {plan}, shared memory "
+            f"{lib.mxtt_decode_attention_smem_bytes(d, int(quant))} B)")
     _LAUNCHES += 1
     return out
 

@@ -38,6 +38,7 @@ ATOL, RTOL = 1e-5, 1e-4
 # (b, h, kv, s, d): D = 24 streams f32 as 16-byte vectors and int8 as
 # scalars, D = 18 streams both as scalars, D = 128 is Llama-3-8B's head
 SHAPES = [(3, 8, 2, 40, 24), (2, 6, 3, 70, 18), (2, 32, 8, 300, 128)]
+LONG = (2, 32, 8, 4096, 128)  # a long ring: 128 tiles, split 8 ways
 
 
 def _need_cuda():
@@ -82,7 +83,7 @@ def test_cuda_kernel_matches_plain(quant):
     """The CUDA kernel against the plain version on the card, at T == 1,
     every shape; plus the launch count and the wrapper's refusals."""
     dev = _need_cuda()
-    for shape in SHAPES:
+    for shape in SHAPES + [LONG]:
         q, k, v, sp, ks, vs = _inputs(*shape, quant=quant, dev=dev)
         n0 = da.launch_count()
         out = da.decode_attention(q, k, v, sp, k_scale=ks, v_scale=vs)
@@ -117,6 +118,125 @@ def test_cuda_kernel_scalar_loads_on_misaligned_rings():
     out = da.decode_attention(q, km, vm, sp)
     ref = da.decode_attention_torch(q, k, v, sp)
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_cuda_kernel_forced_splits(quant):
+    """Every split count, from one (the block writes out) to more splits
+    than the ring has tiles, against the plain version and the plain mirror
+    of the split; rows so short that most splits lie past start_pos, and a
+    dead row (start_pos -1), which gives zeros. G = 8 and G = 2 take two
+    and one half-empty head groups a block."""
+    dev = _need_cuda()
+    for shape, sps in (((3, 8, 2, 300, 128), [-1, 5, 299]),
+                       ((2, 16, 2, 100, 24), [40, 99]),
+                       ((2, 6, 3, 70, 18), [0, 33])):
+        q, k, v, _, ks, vs = _inputs(*shape, quant=quant, dev=dev)
+        sp = torch.tensor(sps, dtype=torch.int32, device=dev)
+        live = sp >= 0
+        ref = da.decode_attention_torch(q, k, v, sp, k_scale=ks, v_scale=vs)
+        for n_split in (1, 2, 3, 5, 16, 40):
+            n0 = da.launch_count()
+            out = da._launch(q, k, v, sp, shape[-1] ** -0.5, ks, vs,
+                             n_split=n_split)
+            torch.cuda.synchronize()
+            assert da.launch_count() == n0 + 1
+            torch.testing.assert_close(out[live], ref[live], atol=ATOL,
+                                       rtol=RTOL)
+            assert not bool(out[~live].any())
+            mirror = da.decode_attention_split_torch(
+                q, k, v, sp, n_split, k_scale=ks, v_scale=vs)
+            torch.testing.assert_close(out, mirror, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_cuda_kernel_repeats_bitwise(quant):
+    """The partials merge in split order, with no atomics: two calls give
+    bitwise equal outputs, split or not."""
+    dev = _need_cuda()
+    for shape in (SHAPES[-1], LONG):
+        q, k, v, sp, ks, vs = _inputs(*shape, quant=quant, dev=dev)
+        for n_split in (None, 1):
+            a = da._launch(q, k, v, sp, shape[-1] ** -0.5, ks, vs, n_split)
+            b = da._launch(q, k, v, sp, shape[-1] ** -0.5, ks, vs, n_split)
+            assert torch.equal(a, b)
+
+
+def test_cuda_kernel_makes_no_host_sync():
+    """The plan comes from shapes alone: a call never waits for the device
+    (start_pos is not read on the host)."""
+    dev = _need_cuda()
+    for quant in (False, True):
+        q, k, v, sp, ks, vs = _inputs(*SHAPES[-1], quant=quant, dev=dev)
+        da.decode_attention(q, k, v, sp, k_scale=ks, v_scale=vs)  # build
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = da.decode_attention(q, k, v, sp, k_scale=ks, v_scale=vs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert da.last_path() == "cuda"
+        torch.testing.assert_close(out, da.decode_attention_torch(
+            q, k, v, sp, k_scale=ks, v_scale=vs), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_cuda_kernel_replays_in_a_cuda_graph(quant):
+    """One call (split kernel and combine) captured in a CUDA graph and
+    replayed after start_pos changes in place matches the plain version at
+    each position: the contract multi-step decode needs."""
+    dev = _need_cuda()
+    shape = SHAPES[-1]
+    q, k, v, _, ks, vs = _inputs(*shape, quant=quant, dev=dev)
+    sp = torch.tensor([3, 140], dtype=torch.int32, device=dev)
+    assert da.split_plan(2, 8, 300, 4, 128, torch.cuda.get_device_properties(
+        dev).multi_processor_count).splits > 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.decode_attention(q, k, v, sp, k_scale=ks, v_scale=vs)  # warm
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n0 = da.launch_count()
+    with torch.cuda.graph(graph):
+        out = da.decode_attention(q, k, v, sp, k_scale=ks, v_scale=vs)
+    assert da.launch_count() == n0 + 1
+    for sps in ([3, 140], [-1, 299], [64, 65], [200, 0]):
+        sp.copy_(torch.tensor(sps, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = da.decode_attention_torch(q, k, v, sp, k_scale=ks, v_scale=vs)
+        live = sp >= 0
+        torch.testing.assert_close(out[live], ref[live], atol=ATOL,
+                                   rtol=RTOL)
+        assert not bool(out[~live].any())
+
+
+def test_cuda_kernel_launch_errors_raise(monkeypatch):
+    """A launch the runtime refuses, of the split kernel or of the combine
+    after it, surfaces as MXNetError naming the plan and is not counted."""
+    dev = _need_cuda()
+    q, k, v, sp, _, _ = _inputs(*SHAPES[-1], quant=False, dev=dev)
+    lib = da._lib()
+    n0 = da.launch_count()
+    for entry, what in (("mxtt_decode_attention", "decode_attention kernel"),
+                        ("mxtt_decode_attention_combine",
+                         "decode_attention combine kernel")):
+        class Refusing:
+            def __getattr__(self, name):
+                if name == entry:
+                    return lambda *args: 1  # cudaErrorInvalidValue
+                return getattr(lib, name)
+
+        monkeypatch.setattr(da, "_LIB", Refusing())
+        with pytest.raises(MXNetError, match=f"{what} launch failed: invalid "
+                           "argument .*plan SplitPlan"):
+            da.decode_attention(q, k, v, sp)
+        assert da.launch_count() == n0
+    monkeypatch.setattr(da, "_LIB", lib)
+    with pytest.raises(MXNetError, match="invalid argument"):
+        da._launch(q, k, v, sp, 0.1, None, None, n_split=0)
+    assert da.launch_count() == n0
 
 
 def test_cuda_wrapper_routing_and_refusals():
