@@ -33,6 +33,22 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    32 greedy tokens): every decode step of every layer must launch the
    kernel, no shape may be new after warmup, and the greedy tokens must be
    identical to a run with the plain attention forced.
+5a. multistep pallas / multistep int8: the same model and prompts through
+   ``Generator(multistep=True, decode_steps=8)``, batch buckets (1, 4):
+   ``warmup()`` captures every super-step CUDA graph (its signatures,
+   graphs and capture seconds printed), then three 32-token greedy
+   generates, each timed. The tokens must be identical to that rung's
+   single-step phase; a generate must take 4 host visits and launch the
+   kernel 32 layers x 8 iterations x 4 visits = 1024 times (counted at
+   every graph replay); no graph may be captured after warmup. Then a run
+   with the plain attention forced (its graphs are captured on that route)
+   must give the same tokens and launch no kernel. Printed: decode ms a
+   token, tokens/s, host visits a token, peak memory.
+5b. paged: on both rungs the same prompts through ``paged=True``, single-
+   and multi-step, must give the ring run's tokens; then two prompts
+   sharing a 64-token prefix go through ``prefix_cache=True`` (multi-step)
+   twice: the second run must match a nonzero prefix, and both runs must
+   give the tokens of a ring run of the same prompts.
 6. flash: the three flash-attention kernels (forward, dq, dk/dv) each
    against its plain version at the training shape (B=2, H=32, T=2048,
    D=128, causal), non-causal with valid lengths [0, 1000] (dead rows must
@@ -100,6 +116,8 @@ TF32_FLOP_PER_S = 495e12    # H100 SXM TF32 tensor cores, dense
 CONFIG = "llama3_8b"
 PROMPT_LENS = (17, 64, 130, 250)
 NEW_TOKENS = 32
+DECODE_STEPS = 8            # iterations a multi-step super-step runs
+PREFIX_LEN, PREFIX_TAILS = 64, (20, 45)   # phase 5b's shared-prefix prompts
 MAX_SEQ = 1024
 ATOL, RTOL = 1e-5, 1e-4     # same f32 math, only the order of sums differs
 SPIN_CYCLES = 4_000_000     # about 2 ms of the card's clock: covers host work
@@ -1125,7 +1143,139 @@ def serve_phase(torch, da, Generator, model, rung, prompts, n_layers, vocab):
     say(phase, tokens_identical_to_plain=True,
         plain_decode_ms_per_token=f"{info_plain['decode_ms'] / steps:.3f}",
         first_tokens=[o[:4] for o in out])
-    return {"launches": launches, "info": info}
+    return {"launches": launches, "info": info, "out": out}
+
+
+def free_cuda(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def multistep_phase(torch, da, Generator, model, rung, prompts, n_layers,
+                    single_out):
+    """Phase 5a on one rung: the super-step's CUDA graphs against the
+    single-step phase's tokens, with replay-aware launch counts."""
+    phase = f"multistep {rung}"
+    torch.cuda.reset_peak_memory_stats()
+    gen = Generator(model, max_seq=MAX_SEQ, batch_buckets=(1, 4),
+                    prompt_buckets=(64, 256), decode_path=rung,
+                    multistep=True, decode_steps=DECODE_STEPS,
+                    name=f"llama3_8b_{rung}_multi")
+    da.force_path(None)
+    w = gen.warmup()
+    say(phase, warmup_s=f"{w['wall_s']:.3f}", signatures=w["signatures"],
+        graphs_captured=w["captures"], capture_s=f"{w['capture_s']:.3f}")
+    check(w["captures"] == 2 * 4, f"{w['captures']} graphs captured")
+    captures = gen._msession.captures
+    visits = -(-(NEW_TOKENS - 1) // DECODE_STEPS)
+    expect = n_layers * DECODE_STEPS * visits
+    runs = []
+    for rep in range(3):
+        da.reset_launch_count()
+        out, info = gen.generate(prompts, max_new_tokens=NEW_TOKENS)
+        launches = da.launch_count()
+        check(out == single_out, f"{rung}: multi-step tokens differ from "
+              "the single-step phase's")
+        check(info["decode_visits"] == visits,
+              f"{info['decode_visits']} host visits, expected {visits}")
+        check(info["decode_steps"] == NEW_TOKENS - 1,
+              f"{info['decode_steps']} decode iterations settled")
+        check(launches == expect,
+              f"{launches} kernel launches for {visits} visits x "
+              f"{DECODE_STEPS} iterations x {n_layers} layers (expected "
+              f"{expect})")
+        runs.append(info)
+    check(gen._msession.captures == captures,
+          "a graph was captured after warmup")
+    gen.assert_no_recompiles()
+    ms_tok = [r["decode_ms"] / r["decode_steps"] for r in runs]
+    say(phase, decode_ms_per_token=[f"{x:.3f}" for x in ms_tok],
+        tokens_s=[f"{r['tokens_s']:.3f}" for r in runs],
+        host_visits_per_token=f"{visits / (NEW_TOKENS - 1):.4f}",
+        decode_visits=visits, kernel_launches=launches,
+        launches_per_replay=gen._msession.launches(
+            (4, DECODE_STEPS, False, None)),
+        prefill_ms=f"{runs[-1]['prefill_ms']:.3f}",
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+    da.force_path("torch")
+    try:
+        da.reset_launch_count()
+        out_plain, info_plain = gen.generate(prompts,
+                                             max_new_tokens=NEW_TOKENS)
+        plain_launches = da.launch_count()
+    finally:
+        da.force_path(None)
+    check(plain_launches == 0,
+          f"the forced-plain multi-step run launched the kernel "
+          f"{plain_launches} times")
+    check(out_plain == out, f"{rung}: forced-plain multi-step tokens "
+          "differ")
+    say(phase, tokens_identical_to_plain=True,
+        plain_graphs_captured=gen._msession.captures - captures,
+        plain_decode_ms_per_token=(
+            f"{info_plain['decode_ms'] / info_plain['decode_steps']:.3f}"))
+    del gen
+    free_cuda(torch)
+    return {"launches": launches, "decode_ms_per_token": ms_tok}
+
+
+def paged_phase(torch, np, da, Generator, model, prompts, n_layers, vocab,
+                served):
+    """Phase 5b: paged pools (single- and multi-step) against the ring
+    runs, and the prefix cache's second pass against a ring run."""
+    rng = np.random.RandomState(1)
+    shared = [int(t) for t in rng.randint(1, vocab, size=PREFIX_LEN)]
+    px_prompts = [shared + [int(t) for t in rng.randint(1, vocab, size=n)]
+                  for n in PREFIX_TAILS]
+    kw = dict(max_seq=MAX_SEQ, batch_buckets=(1, 4),
+              prompt_buckets=(64, 256))
+    for rung in ("pallas", "int8"):
+        for multistep in (False, True):
+            gen = Generator(model, decode_path=rung, paged=True,
+                            multistep=multistep, decode_steps=DECODE_STEPS,
+                            name=f"llama3_8b_{rung}_paged", **kw)
+            w = gen.warmup()
+            da.reset_launch_count()
+            out, info = gen.generate(prompts, max_new_tokens=NEW_TOKENS)
+            launches = da.launch_count()
+            check(out == served[rung]["out"], f"{rung}: paged "
+                  f"(multistep={multistep}) tokens differ from the ring "
+                  "run's")
+            check(launches == n_layers * info["decode_visits"] * (
+                DECODE_STEPS if multistep else 1),
+                f"{launches} launches in a paged run")
+            gen.assert_no_recompiles()
+            say("paged", rung=rung, multistep=multistep,
+                page_size=gen._fresh_cache(4).page_size,
+                pool_bytes=gen.kv_cache_bytes(),
+                signatures=w["signatures"], kernel_launches=launches,
+                decode_ms_per_token=(
+                    f"{info['decode_ms'] / info['decode_steps']:.3f}"),
+                tokens_identical_to_ring=True)
+            del gen
+            free_cuda(torch)
+        ring = Generator(model, decode_path=rung, **kw)
+        want, _ = ring.generate(px_prompts, max_new_tokens=NEW_TOKENS)
+        del ring
+        gen = Generator(model, decode_path=rung, prefix_cache=True,
+                        multistep=True, decode_steps=DECODE_STEPS, **kw)
+        gen.warmup()
+        first, _ = gen.generate(px_prompts, max_new_tokens=NEW_TOKENS)
+        again, info = gen.generate(px_prompts, max_new_tokens=NEW_TOKENS)
+        st = gen.stats()["prefix"][4]
+        check(st["tokens_matched"] > 0, "the second prefix run matched no "
+              "prefix")
+        check(first == want and again == want,
+              f"{rung}: prefix-cache tokens differ from the ring run's")
+        gen.assert_no_recompiles()
+        say("prefix", rung=rung, shared_prefix=PREFIX_LEN,
+            tokens_matched=st["tokens_matched"], hits=st["hits"],
+            pages_held=st["pages_held"],
+            prefill_ms_second_run=f"{info['prefill_ms']:.3f}",
+            tokens_identical_to_ring=True)
+        del gen
+        free_cuda(torch)
 
 
 def main(argv=None):
@@ -1251,6 +1401,13 @@ def main(argv=None):
         served[rung] = serve_phase(torch, da, Generator, model, rung, prompts,
                                    cfg["num_layers"], cfg["vocab_size"])
         torch.cuda.empty_cache()
+    # 5a. multi-step decode through CUDA graphs; 5b. paged KV and prefix
+    for rung in ("pallas", "int8"):
+        served[rung]["multistep"] = multistep_phase(
+            torch, da, Generator, model, rung, prompts, cfg["num_layers"],
+            served[rung]["out"])
+    paged_phase(torch, np, da, Generator, model, prompts, cfg["num_layers"],
+                cfg["vocab_size"], served)
     del model
     gc.collect()
     torch.cuda.empty_cache()

@@ -61,3 +61,46 @@ register_flag(
     "auto (default): off in the port, as the JAX package keeps it off "
     "everywhere but a TPU; 1/0 force it on/off. The KV-cache rings stay "
     "int8 either way.", str)
+register_flag(
+    "MXNET_SERVE_KV_PAGED", False,
+    "Back serve.Generator KV state with the paged block pool "
+    "(serve.kv_blocks.PagedKVPool, fully assigned) instead of contiguous "
+    "per-bucket rings. The continuous-batching engine, which is always "
+    "paged, is not ported yet.", _bool)
+register_flag(
+    "MXNET_SERVE_KV_PAGE_SIZE", 0,
+    "KV page width in tokens for the paged block allocator. 0 (default): "
+    "the decode-attention kernel's natural block (32, its KV tile) clamped "
+    "to max_seq, so a row's work stops at a whole page. max_seq must be a "
+    "whole number of pages.", int)
+register_flag(
+    "MXNET_SERVE_KV_PAGES", 0,
+    "Paged-KV pool capacity in pages (including the reserved null page). "
+    "0 (default): auto-size to full capacity — every slot can hold "
+    "max_seq and exhaustion is impossible. Smaller values oversubscribe: "
+    "admission raises PoolExhausted (503) until retirements recycle "
+    "pages.", int)
+register_flag(
+    "MXNET_SERVE_PREFIX_CACHE", False,
+    "Cross-request KV prefix reuse (serve.prefix_cache.PrefixCache): a "
+    "radix trie over prompt token ids maps matched prefixes to "
+    "refcounted pages in the paged KV pool, so admission skips the "
+    "matched portion of prefill. Shared pages are read-only "
+    "(copy-on-extend at page granularity); LRU eviction reclaims cached "
+    "prefixes only under pool pressure. Greedy outputs stay "
+    "token-identical to a cache-off run.", _bool)
+register_flag(
+    "MXNET_SERVE_MULTISTEP", False,
+    "Run the decode loop as device-side multi-step super-steps: one "
+    "CUDA-graph replay executes up to MXNET_SERVE_DECODE_STEPS decode "
+    "iterations (model forward + on-device sampling + stop/budget "
+    "freezing) per host visit, and the host settles the returned "
+    "(slots, N) token block in one pass. Off (default): one host visit "
+    "per token.", _bool)
+register_flag(
+    "MXNET_SERVE_DECODE_STEPS", 8,
+    "Decode iterations per multi-step super-step (N, the captured "
+    "graph's trip count). The host can lower a visit to 1 iteration "
+    "through a second graph per batch bucket — tight deadlines "
+    "auto-degrade to single-step so 504 retirement latency stays "
+    "bounded by one iteration.", int)

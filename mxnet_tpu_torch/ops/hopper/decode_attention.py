@@ -21,9 +21,13 @@ on their values:
 ``force_path("torch")`` takes the plain version for CUDA tensors too (the
 yardstick the kernel is held against on the card); ``force_path("cuda")``
 insists on the kernel and raises for CPU tensors. ``last_path()`` says
-which version the last call took, and ``launch_count()`` counts kernel
-calls (one per call, the combine pass included), so a run can show that it
-went through the kernel.
+which version the last call took, and ``launch_count()`` counts the
+kernel calls the card ran (one per call, the combine pass included), so a
+run can show that it went through the kernel. A call made while a CUDA
+graph is being captured only records the launch: it counts in
+``captured_count()`` instead, and whoever replays the graph adds the
+launches it holds with ``count_replays(n)`` (``serve.engine.GraphSession``
+does), so the count stays what the card executed.
 
 Layout: GQA is native. ``k``/``v`` are the *unexpanded* (B, KV, S, D)
 rings, f32 or int8 with (B, KV, S) f32 ``k_scale``/``v_scale``; the G =
@@ -60,7 +64,8 @@ BLOCKS_PER_SM = 1
 
 _LAST_PATH = None  # "cuda" | "torch": the version the last call took
 _FORCE_PATH = None
-_LAUNCHES = 0
+_LAUNCHES = 0     # launches the card ran: eager calls and graph replays
+_CAPTURED = 0     # launches recorded into CUDA graphs while capturing
 _LIB = None
 _SM_COUNT = {}  # device index -> multiprocessors
 
@@ -83,18 +88,40 @@ def force_path(path) -> None:
     _FORCE_PATH = path
 
 
+def forced_path():
+    """The routing override :func:`force_path` set (``None`` when routing
+    goes by device and shape). A captured CUDA graph keeps the route it
+    was captured on, so graph owners key their graphs by it."""
+    return _FORCE_PATH
+
+
 def last_path():
     return _LAST_PATH
 
 
 def launch_count() -> int:
-    """Kernel launches since import (or the last reset)."""
+    """Kernel launches the card ran since import (or the last reset):
+    eager calls plus the launches of replayed graphs
+    (:func:`count_replays`)."""
     return _LAUNCHES
 
 
 def reset_launch_count() -> None:
     global _LAUNCHES
     _LAUNCHES = 0
+
+
+def captured_count() -> int:
+    """Kernel launches recorded into CUDA graphs since import: a graph
+    owner reads it before and after a capture to learn how many launches
+    one replay of that graph makes."""
+    return _CAPTURED
+
+
+def count_replays(n) -> None:
+    """Add ``n`` launches run by a graph replay to :func:`launch_count`."""
+    global _LAUNCHES
+    _LAUNCHES += int(n)
 
 
 def _widen(x, x_scale):
@@ -120,9 +147,9 @@ def decode_attention_torch(q, k, v, start_pos, scale=None, k_scale=None,
            + torch.arange(t, dtype=torch.int32, device=q.device))
     valid = (torch.arange(s, dtype=torch.int32, device=q.device)[None, None, :]
              <= pos[:, :, None])                                   # (B, T, S)
-    scores = torch.where(valid[:, None, None], scores,
-                         torch.tensor(_NEG_INF, dtype=scores.dtype,
-                                      device=scores.device))
+    # masked_fill takes the fill as a kernel argument: no host-to-device
+    # copy, so the plain version can be captured in a CUDA graph too
+    scores = scores.masked_fill(~valid[:, None, None], _NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bngts,bnsd->bngtd", w, vf)
     return out.reshape(b, h, t, d).to(q.dtype)
@@ -322,7 +349,7 @@ def _check_launch(q, k, v, start_pos, k_scale, v_scale):
 def _launch(q, k, v, start_pos, scale, k_scale, v_scale, n_split=None):
     """Launch the kernel (and, at more than one split, the combine); the
     split count is ``split_plan``'s unless ``n_split`` forces one."""
-    global _LAUNCHES
+    global _LAUNCHES, _CAPTURED
     _check_launch(q, k, v, start_pos, k_scale, v_scale)
     lib = _lib()
     b, h, _, d = q.shape
@@ -367,7 +394,10 @@ def _launch(q, k, v, start_pos, scale, k_scale, v_scale, n_split=None):
             f"(cudaError {err}; q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"{k.dtype}, vec {vec}, plan {plan}, shared memory "
             f"{lib.mxtt_decode_attention_smem_bytes(d, int(quant))} B)")
-    _LAUNCHES += 1
+    if torch.cuda.is_current_stream_capturing():
+        _CAPTURED += 1
+    else:
+        _LAUNCHES += 1
     return out
 
 

@@ -3,7 +3,9 @@
 Each mirrors its namesake in ``mxnet_tpu/ops/nn.py`` (same arguments, same
 layouts, same arithmetic), so the tests can feed one set of numpy inputs
 through both packages. The JAX package's ops are pure; the KV-cache writes
-here update the ring in place (see :func:`kv_cache_write`).
+and the paged scatter here update the ring or pool in place (see
+:func:`kv_cache_write`, :func:`paged_kv_scatter`). None of them reads a
+device value on the host, so each can run inside a captured CUDA graph.
 """
 from __future__ import annotations
 
@@ -83,8 +85,9 @@ def int8_scale(amax):
     magnitude is ``amax``. The divisor is a tensor on ``amax``'s device:
     PyTorch's CUDA division by a Python number multiplies by its
     reciprocal, one ulp away from the true quotient that ``jnp`` and the
-    CPU give."""
-    return torch.clamp(amax / amax.new_tensor(127.0), min=1e-8)
+    CPU give. It is filled on the device (``new_full``), not copied from
+    the host, so the op can be captured in a CUDA graph."""
+    return torch.clamp(amax / amax.new_full((), 127.0), min=1e-8)
 
 
 def kv_cache_write_q(cache_q, cache_scale, new, start_pos):
@@ -172,3 +175,155 @@ def convolution(data, weight, bias=None, stride=1, pad=0):
                          allow_tf32=False):
             return F.conv2d(data, weight, bias, stride, pad)
     return F.conv2d(data, weight, bias, stride, pad)
+
+
+# ---------------------------------------------------------------------------
+# On-device sampling for the multi-step decode super-step
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9  # 2**32 / golden ratio: spreads consecutive counters
+
+
+def _mul32(x, c):
+    """``(x * c) mod 2**32`` for int64 ``x`` in [0, 2**32) and a 32-bit
+    constant ``c``, in two 16-bit halves so that every product stays below
+    2**49: int64 never overflows, on the CPU or the GPU."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """A bijective 32-bit integer finalizer (the "lowbias32" xorshift-
+    multiply chain) on int64 tensors holding values in [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def counter_uniform(key, seeds, positions, vocab):
+    """(B, vocab) float64 uniforms in (0, 1), a pure function of the
+    (2,) base ``key`` (two 32-bit words in int32 or int64), each row's
+    stream ``seeds[b]``, its ``positions[b]`` and the vocabulary index:
+    integer hashing only, so the CPU and the GPU give the same bits and no
+    ``torch.Generator`` state is read or advanced."""
+    k = key.to(torch.int64) & _M32
+    h = _mix32(k[0] ^ (seeds.to(torch.int64) & _M32))
+    h = _mix32(h ^ k[1])
+    h = _mix32((h ^ (positions.to(torch.int64) & _M32)) + _GOLDEN & _M32)
+    v = _mul32(torch.arange(vocab, dtype=torch.int64, device=h.device),
+               _GOLDEN)
+    bits = _mix32((_mix32(h[:, None] ^ v[None, :]) + _GOLDEN) & _M32)
+    return ((bits >> 8).to(torch.float64) + 0.5) * (1.0 / (1 << 24))
+
+
+def sample_step(logits, temperature, top_k, seeds, positions, key_bits):
+    """Next-token choice inside the multi-step decode super-step
+    (counterpart of ``mxnet_tpu.ops.nn.sample_step``).
+
+    ``logits`` (B, V) f32; per-row ``temperature`` (B,) f32 (<= 0 means
+    greedy argmax, ties to the lowest id), ``top_k`` (B,) int32 (0 or >= V
+    means no truncation; otherwise values >= the k-th largest survive, ties
+    included), ``seeds`` (B,) int32 (one stream per serving slot),
+    ``positions`` (B,) int32 (the absolute position whose successor is
+    drawn) and ``key_bits`` (2,) the base key.
+
+    Keying is counter-based, as in the JAX package: row ``b``'s draw is a
+    pure function of (key, seed, position, vocabulary index)
+    (:func:`counter_uniform`), so N iterations per super-step and one give
+    identical streams. The bits are not JAX's threefry bits: the draw is
+    Gumbel-max over the top-k-masked ``logits / temperature``, the same
+    distribution as ``jax.random.categorical``. The Gumbel noise is
+    computed in float64 and rounded to float32, so the CPU and the GPU
+    agree on it. Every branch is a tensor expression (no host read), so
+    the op can be captured in a CUDA graph; the JAX op's ``lax.cond`` that
+    spares an all-greedy batch the sampled branch is the caller's choice
+    here (``serve.generate`` captures a greedy graph without it).
+
+    Returns (B,) int32 token ids.
+    """
+    b, v = logits.shape
+    lg = logits.to(torch.float32)
+    greedy = torch.argmax(lg, dim=-1).to(torch.int32)
+    temp = temperature.to(device=lg.device, dtype=torch.float32)
+    scaled = lg / torch.clamp(temp, min=1e-6)[:, None]
+    k = top_k.to(device=lg.device, dtype=torch.int64)
+    srt = torch.sort(scaled, dim=-1, descending=True).values
+    kth = torch.gather(srt, 1, (torch.clamp(k, 1, v) - 1)[:, None])
+    keep = (scaled >= kth) | ~((k > 0) & (k < v))[:, None]
+    u = counter_uniform(key_bits.to(lg.device), seeds.to(lg.device),
+                        positions.to(lg.device), v)
+    gumbel = (-torch.log(-torch.log(u))).to(torch.float32)
+    sampled = torch.argmax(scaled.masked_fill(~keep, float("-inf"))
+                           + gumbel, dim=-1).to(torch.int32)
+    return torch.where(temp > 0.0, sampled, greedy)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV-cache ops (serve.kv_blocks)
+#
+# Each slot's KV rows live in one page pool per layer — (P, KV, page, D)
+# for the rings, (P, KV, page) for the int8 scale pools — and a (B, N)
+# page table maps slot b's logical page i to a pool page id; id 0 is the
+# reserved null page. Both ops are pure data movement (index_select and
+# an index_put copy, never an arithmetic merge), so gather -> the
+# unchanged cache path -> scatter reads and writes exactly the bytes the
+# ring path would.
+# ---------------------------------------------------------------------------
+
+
+def paged_kv_gather(pool, page_table):
+    """Materialize per-slot contiguous KV rings from a paged pool.
+
+    ``pool`` is (P, KV, page, D) — or (P, KV, page) for a scale pool — and
+    ``page_table`` (B, N) int maps slot ``b``'s logical page ``i`` to a pool
+    page id (0 = the null page, kept zeroed by :func:`paged_kv_scatter`).
+    Returns a new contiguous (B, KV, N*page, D) ring (or (B, KV, N*page)):
+    an exact copy. Positions the slot does not own read null-page zeros;
+    the attention position mask never admits them before they are
+    written."""
+    b, n = page_table.shape
+    g = torch.index_select(pool, 0, page_table.reshape(-1)
+                           .to(device=pool.device, dtype=torch.long))
+    g = g.reshape((b, n) + tuple(pool.shape[1:]))   # (B, N, KV, pg[, D])
+    g = g.transpose(1, 2)                           # (B, KV, N, pg[, D])
+    return g.reshape((b, pool.shape[1], n * pool.shape[2])
+                     + tuple(pool.shape[3:]))
+
+
+def paged_kv_scatter(pool, page_table, ring, start_pos, length):
+    """Write the ``length`` ring rows at positions ``start_pos[b] +
+    [0..length)`` of ``ring`` (B, KV, S, D) — or a (B, KV, S) scale ring —
+    into ``pool`` through ``page_table`` (B, N); returns ``pool``.
+
+    The write is **in place** (an ``index_put_`` copy), where the JAX
+    package returns a new pool: a rebuilt pool would copy every layer's
+    pages per step, and a captured CUDA graph needs the pool where it was.
+    Written elements are copied, not merged, so the result equals the JAX
+    op's bit for bit. Positions are clipped to the ring and page indices
+    to the table, as in the JAX op; slots whose table rows are null (dead
+    lanes) write page 0, which is re-zeroed at the end, so the null page
+    always reads as zeros."""
+    page = pool.shape[2]
+    n_pages = page_table.shape[1]
+    s_len = ring.shape[2]
+    dev = pool.device
+    pos = (start_pos.to(device=dev, dtype=torch.long)[:, None]
+           + torch.arange(length, device=dev))                    # (B, L)
+    pos = torch.clamp(pos, 0, s_len - 1)
+    pid = torch.gather(page_table.to(device=dev, dtype=torch.long), 1,
+                       torch.clamp(pos // page, 0, n_pages - 1))  # (B, L)
+    off = pos % page
+    b, kv = ring.shape[:2]
+    if ring.dim() == 4:
+        d = ring.shape[3]
+        rows = torch.gather(ring, 2,
+                            pos[:, None, :, None].expand(b, kv, length, d))
+        vals = rows.permute(0, 2, 1, 3)                   # (B, L, KV, D)
+    else:
+        rows = torch.gather(ring, 2, pos[:, None, :].expand(b, kv, length))
+        vals = rows.permute(0, 2, 1)                      # (B, L, KV)
+    pool[pid, :, off] = vals.to(pool.dtype)
+    pool[0].zero_()
+    return pool

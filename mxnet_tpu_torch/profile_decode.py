@@ -2,6 +2,7 @@
 one GPU.
 
     python -m mxnet_tpu_torch.profile_decode [--rung pallas|int8] [--steps N]
+        [--multistep]
 
 For each rung: warm the generator up, then
 
@@ -12,13 +13,21 @@ For each rung: warm the generator up, then
   sum the device time by kernel name, giving the device busy share of the
   step and the kernels that fill it.
 
-Prints one JSON object per rung. Weights are random (seeded); the batch is
+With ``--multistep``, also a multi-step ``Generator``
+(``MXNET_SERVE_DECODE_STEPS`` iterations a visit, default 8, on CUDA
+graphs): ``--steps`` super-steps after one prefill, each timed on the
+device (CUDA events around the graph replay) and on the host (from the
+input copy to the host read of the token block), giving device ms a visit
+and a token, host wall ms a visit, and the busy share (device over host).
+
+Prints one JSON object per rung and mode. Weights are random (seeded); the batch is
 4 prompts of lengths 17, 64, 130 and 250 in a 1024-position ring, as in
 ``chip_smoke.py``. Needs a CUDA GPU.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import sys
@@ -110,10 +119,50 @@ def run(rung, steps, model, prompts):
     }
 
 
+def run_multistep(rung, visits, model, prompts):
+    """Per-visit device and host times of ``visits`` greedy super-steps
+    after one prefill."""
+    gen = Generator(model, max_seq=1024, batch_buckets=(4,),
+                    prompt_buckets=(256,), decode_path=rung, multistep=True)
+    steps = gen.decode_steps
+    w = gen.warmup()
+    toks, lens, bb = gen._pad_prompts(prompts)
+    logits, cache = gen.prefill(toks, lens, gen._fresh_cache(bb))
+    ids = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+    pos = lens.copy()
+    zeros = np.zeros(bb, np.int32)
+    stops = np.full((bb, 8), -1, np.int32)
+    walls, events = [], []
+    n0 = da.launch_count()
+    for _ in range(visits):
+        t0 = time.perf_counter()
+        block, valid, _, cache = gen.decode_super(
+            ids, pos, steps, np.full(bb, 1 << 20, np.int32), zeros,
+            np.zeros(bb, np.float32), zeros, stops, np.zeros(2, np.uint32),
+            cache, events=events)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        ids = block[:, -1].copy()
+        pos = pos + steps
+    device = [a.elapsed_time(b) for a, b in events]
+    dev_ms, wall_ms = statistics.median(device), statistics.median(walls)
+    return {
+        "rung": rung, "mode": "multistep", "decode_steps": steps,
+        "visits": visits, "graphs_captured": w["captures"],
+        "capture_s": w["capture_s"],
+        "visit_device_ms": dev_ms, "visit_wall_ms": wall_ms,
+        "device_ms_per_token_step": dev_ms / steps,
+        "wall_ms_per_token_step": wall_ms / steps,
+        "device_busy_share": dev_ms / wall_ms,
+        "kernel_launches_per_visit": (da.launch_count() - n0) / visits,
+        "device": torch.cuda.get_device_name(0),
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rung", choices=("pallas", "int8"), action="append")
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--multistep", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: needs a CUDA GPU", file=sys.stderr)
@@ -127,6 +176,11 @@ def main(argv=None):
     for rung in args.rung or ("pallas", "int8"):
         print(json.dumps(run(rung, args.steps, model, prompts)), flush=True)
         torch.cuda.empty_cache()
+        if args.multistep:
+            print(json.dumps(run_multistep(rung, args.steps, model,
+                                           prompts)), flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
     return 0
 
 

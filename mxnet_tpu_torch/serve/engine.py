@@ -12,6 +12,10 @@ brings a new signature.
 This is the lean first cut. The circuit breaker, execution watchdog and
 fault sites of the JAX session arrive with the port of ``resilience/``,
 and serving metrics with ``serve/metrics.py``.
+
+:class:`GraphSession` is the counterpart of the compiled executables the
+JAX package keeps per signature: on a GPU it captures one CUDA graph per
+signature key and replays it, with the same signature accounting.
 """
 from __future__ import annotations
 
@@ -32,6 +36,19 @@ class ServeError(MXNetError):
     #: back-off hint (ms) for overload-shaped rejects; ``None`` on
     #: structural failures a retry won't fix
     retry_after_ms = None
+
+
+class ServiceUnavailable(ServeError):
+    """Fast-reject: the server cannot take the request now (503)."""
+
+    status = 503
+
+
+class PoolExhausted(ServiceUnavailable):
+    """The paged KV block pool has no free pages for a new admission
+    (503-shaped: capacity frees as in-flight requests retire and their
+    pages recycle). Raised by :class:`~mxnet_tpu_torch.serve.kv_blocks.
+    PagedKVPool`, with a ``retry_after_ms`` hint."""
 
 
 def pick_bucket(n, buckets):
@@ -184,6 +201,138 @@ class InferenceSession:
             raise ServeError(
                 f"serve session {self.name!r} ran new shape signatures "
                 f"after warmup: {sorted(new)!r}")
+
+    def signature_count(self):
+        with self._lock:
+            return len(self._signatures)
+
+
+class _Captured:
+    """One captured graph, the outputs it writes, and the kernel launches
+    one replay of it makes, per counter."""
+
+    __slots__ = ("graph", "outputs", "launches")
+
+    def __init__(self, graph, outputs, launches):
+        self.graph = graph
+        self.outputs = outputs
+        self.launches = launches
+
+
+class GraphSession:
+    """One CUDA graph per signature key, captured at first use and replayed
+    after (the port's counterpart of a compiled executable per signature).
+
+    :meth:`run` takes a key and a body: a function of no arguments that
+    reads the caller's static input tensors, writes whatever persistent
+    state it owns in place, and returns its output tensors. On a CUDA
+    device the first call with a key runs the body once eagerly on a side
+    stream (so lazily built state — cuBLAS handles and workspaces, cached
+    tables, a kernel library and its attributes — exists before capture),
+    then captures it into a graph and replays it; every later call only
+    replays. The caller refills the static inputs in place between calls.
+    Captures run under ``torch.cuda.set_sync_debug_mode("error")``, so a
+    body that reads a device value on the host fails to capture, and a
+    capture or replay error raises: nothing falls back to eager execution.
+    On the CPU the body runs eagerly every call, with the same signature
+    accounting.
+
+    ``counters`` are kernel modules with ``captured_count()`` and
+    ``count_replays(n)`` (``ops.hopper.decode_attention``): a capture
+    records how many launches each counter saw go into the graph, and
+    each replay adds them, so launch counts stay what the card executed.
+
+    All graphs of one session share a memory pool: they run one at a time
+    on one stream, and each replay's outputs are read before the next
+    replay, so one graph may reuse another's intermediate memory.
+    Outputs are valid until the next :meth:`run`.
+    """
+
+    def __init__(self, name, device, counters=()):
+        self.name = name
+        self.device = _device.resolve(device)
+        self._counters = tuple(counters)
+        self._graphs = {}
+        self._signatures = set()
+        self._warm_signatures = None
+        self._captures = 0
+        self._pool = None
+        self._stream = None
+        self._lock = threading.Lock()
+
+    @property
+    def graphs(self):
+        """True when the session captures and replays CUDA graphs."""
+        return self.device.type == "cuda"
+
+    def run(self, key, body):
+        """Run the body for signature ``key``: capture on first use, then
+        replay (CUDA); or run it eagerly (CPU). Returns its outputs."""
+        with self._lock:
+            self._signatures.add(key)
+        if not self.graphs:
+            with torch.inference_mode():
+                return body()
+        cap = self._graphs.get(key)
+        if cap is None:
+            cap = self._graphs[key] = self._capture(body)
+        cap.graph.replay()
+        for counter, n in zip(self._counters, cap.launches):
+            counter.count_replays(n)
+        return cap.outputs
+
+    def _capture(self, body):
+        torch.cuda.set_device(self.device)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        side, main = self._stream, torch.cuda.current_stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side), torch.inference_mode():
+            body()  # eager warm-up: real launches, counted as such
+        main.wait_stream(side)
+        before = [c.captured_count() for c in self._counters]
+        graph = torch.cuda.CUDAGraph()
+        with torch.inference_mode(), torch.cuda.graph(
+                graph, pool=self._pool, stream=side):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                outputs = body()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        self._captures += 1
+        return _Captured(graph, outputs,
+                         [c.captured_count() - n
+                          for c, n in zip(self._counters, before)])
+
+    def launches(self, key):
+        """Kernel launches one replay of ``key``'s graph makes, per
+        counter (``None`` before it is captured)."""
+        cap = self._graphs.get(key)
+        return None if cap is None else list(cap.launches)
+
+    @property
+    def captures(self):
+        """Graphs captured so far."""
+        return self._captures
+
+    # -- signature accounting (as InferenceSession) -------------------------
+    def freeze_signatures(self):
+        with self._lock:
+            self._warm_signatures = frozenset(self._signatures)
+
+    def assert_no_recompiles(self):
+        """Raise :class:`ServeError` if any key was run (on a GPU:
+        captured) since :meth:`freeze_signatures`."""
+        if self._warm_signatures is None:
+            raise ServeError("assert_no_recompiles called before warmup()")
+        with self._lock:
+            new = self._signatures - self._warm_signatures
+        if new:
+            raise ServeError(
+                f"graph session {self.name!r} ran new signatures after "
+                f"warmup: {sorted(new, key=repr)!r}")
 
     def signature_count(self):
         with self._lock:

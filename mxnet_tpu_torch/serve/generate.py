@@ -14,10 +14,15 @@ bucket, one prefill signature per (batch, prompt) bucket; after
 :meth:`Generator.warmup` a decode stream of any admitted shape brings no
 new signature.
 
-Ported so far: the ring-mode :class:`Generator` on the ``pallas`` and
-``int8`` rungs. The strict ``baseline`` rung, paged KV, the prefix cache
-and multi-step decode raise ``NotImplementedError`` until their slices
-land.
+Options, as in the JAX package: ``paged=`` backs the KV state with a
+:class:`~.kv_blocks.PagedKVPool` per batch bucket, ``prefix_cache=`` adds
+a radix trie (:class:`~.prefix_cache.PrefixCache`) over it, and
+``multistep=`` runs the token loop as super-steps of up to
+``decode_steps`` iterations per host visit (:class:`_MultiStepForward`):
+on a GPU each super-step is one replay of a CUDA graph captured per batch
+bucket, with sampling and stop/budget checks on the device and one
+(B, N) token block read back per visit. The strict ``baseline`` rung
+raises ``NotImplementedError`` until its slice lands.
 """
 from __future__ import annotations
 
@@ -30,8 +35,11 @@ from torch import nn
 from .. import config
 from .. import random as _rng
 from ..base import MXNetError
+from ..ops import nn as _ops
+from ..ops.hopper import decode_attention as _da
 from ..ops.nn import int8_scale
-from .engine import InferenceSession, pick_bucket
+from .engine import GraphSession, InferenceSession, PoolExhausted, \
+    pick_bucket
 
 
 class _LayerKV:
@@ -206,24 +214,42 @@ class _CacheForward(nn.Module):
     side table is held here: the JAX package threads it through its
     compiled step as two packed call arguments, which eager PyTorch does
     not need.
+
+    ``paged=True`` switches the cache-state convention from rings to page
+    pools: the call grows a ``page_table`` (B, N) argument after
+    ``last_idx``, the per-layer tensors are (P, KV, page, D) pools, and the
+    step brackets the UNCHANGED model cache path with
+    ``ops.nn.paged_kv_gather`` (pool -> per-slot ring) and
+    ``ops.nn.paged_kv_scatter`` (the T freshly written rows -> pool, in
+    place), as the JAX package's fast rungs do.
     """
 
     def __init__(self, model, max_seq, path="pallas", quant=None,
-                 quant_weights=None):
+                 quant_weights=None, paged=False):
         super().__init__()
         self.model = model
         self._max_seq = int(max_seq)
         self._path = path
         self._quant = quant
         self._quant_weights = quant_weights or None
+        self._paged = bool(paged)
 
-    def forward(self, tokens, start_pos, last_idx, *flat_cache):
+    def forward(self, tokens, start_pos, last_idx, *rest):
+        flat_cache = rest
+        if self._paged:
+            page_table, pools = rest[0], rest[1:]
+            flat_cache = [_ops.paged_kv_gather(p, page_table) for p in pools]
         cache = KVCache.from_flat(flat_cache, self._max_seq,
                                   quant=self._quant)
         cache.path = self._path
         cache.quant_weights = self._quant_weights
         last = self.model(tokens, cache=cache, start_pos=start_pos,
                           last_idx=last_idx)
+        if self._paged:
+            t_len = tokens.shape[1]
+            return (last,) + tuple(
+                _ops.paged_kv_scatter(p, page_table, r, start_pos, t_len)
+                for p, r in zip(pools, cache.flat()))
         return (last,) + tuple(cache.flat())
 
 
@@ -249,6 +275,187 @@ def sample_tokens(logits, temperature=0.0, top_k=None):
     ids = torch.multinomial(probs, 1,
                             generator=_rng.generator(logits.device))[:, 0]
     return ids.to(torch.int32).cpu().numpy()
+
+
+# stop-token matrix width of the multi-step super-step: per-lane stop
+# sets are padded/truncated to this many int32 entries (-1 = unused).
+# Requests with more stop ids than this still stop correctly — the host
+# settle checks the FULL stop set — the device loop just cannot freeze the
+# lane early on the overflowed ids (extra iterations, never wrong output).
+_STOP_WIDTH = 8
+
+
+def _stop_matrix(rows, stop_sets):
+    """(rows, _STOP_WIDTH) int32 stop matrix, padded with -1."""
+    m = _onp.full((rows, _STOP_WIDTH), -1, _onp.int32)
+    for i, st in enumerate(stop_sets):
+        ids = sorted(int(t) for t in st)[:_STOP_WIDTH]
+        m[i, :len(ids)] = ids
+    return m
+
+
+def _fresh_key_bits():
+    """(2,) uint32 base key of a sampled super-step stream, drawn from
+    ``mxnet_tpu_torch.random``'s seeded host stream (see
+    ``ops.nn.sample_step``): reproducible under ``random.seed(n)``."""
+    gen = _rng.generator("cpu")
+    return torch.randint(0, 1 << 32, (2,), dtype=torch.int64,
+                         generator=gen).numpy().astype(_onp.uint32)
+
+
+class _MultiStepForward(nn.Module):
+    """The decode super-step: ``steps`` decode iterations in one call,
+    which a GPU Generator captures as one CUDA graph per (batch bucket,
+    steps, sampled, routing) and replays once per host visit.
+
+    Calling convention::
+
+        (tokens (S,1), start_pos (S,), remaining (S,), seeds (S,),
+         temps (S,), top_ks (S,), stops (S, _STOP_WIDTH), key_bits (2,),
+         page_table (S,P) or None, *rings or *pools, steps=, sampled=)
+        -> (S, steps + 2) int32: the token block, then per lane the count
+           of valid tokens and the done flag
+
+    Each iteration feeds each lane's pending token through the UNCHANGED
+    model cache path (the single-step decode's layers and kernels, the
+    decode-attention kernel in every layer), picks the successor on the
+    device (argmax, or ``ops.nn.sample_step`` when ``sampled``), records
+    it in the block, and advances. The JAX package's loop is a
+    ``lax.while_loop`` with a traced ``steps_limit`` that exits as soon as
+    every lane is done; a graph has no early exit, so ``steps`` is static
+    (the host asks for N or 1) and a visit always runs all of its
+    iterations. The waste is bounded: at most N - 1 iterations of a
+    generate's last visit (1 of 32 at 32 tokens and N = 8).
+
+    Finished lanes FREEZE instead of masking, as in the JAX package: a lane
+    that hit a stop id or its token budget (``remaining``) stops advancing
+    (token, position), so each further iteration recomputes and rewrites
+    byte-identical K/V at its frozen position. Lanes with ``remaining``
+    0 (padding lanes, stopped rows) are done from the start.
+
+    Paged mode hoists the brackets, as the JAX package does: ONE
+    ``paged_kv_gather`` before the loop, ONE ``paged_kv_scatter`` of
+    ``steps`` rows after it. Rows past a lane's write extent scatter back
+    the bytes the gather produced, and positions past its pages land on
+    the null page, which the scatter re-zeroes.
+
+    Nothing here reads a device value on the host, so the whole body
+    captures into a graph.
+    """
+
+    def __init__(self, model, max_seq, path="pallas", quant=None,
+                 quant_weights=None, paged=False):
+        super().__init__()
+        self.model = model
+        self._max_seq = int(max_seq)
+        self._path = path
+        self._quant = quant
+        self._quant_weights = quant_weights or None
+        self._paged = bool(paged)
+
+    def forward(self, tokens, start_pos, remaining, seeds, temps, top_ks,
+                stops, key_bits, page_table, *flat, steps, sampled):
+        rings = list(flat)
+        if self._paged:
+            pools = rings
+            rings = [_ops.paged_kv_gather(p, page_table) for p in pools]
+        lanes = tokens.shape[0]
+        last_idx = torch.zeros(lanes, dtype=torch.int32,
+                               device=tokens.device)
+        cur, pos = tokens, start_pos
+        done = remaining <= 0
+        emitted = torch.zeros_like(remaining)
+        cols = []
+        for _ in range(int(steps)):
+            cache = KVCache.from_flat(rings, self._max_seq,
+                                      quant=self._quant)
+            cache.path = self._path
+            cache.quant_weights = self._quant_weights
+            logits = self.model(cur, cache=cache, start_pos=pos,
+                                last_idx=last_idx)
+            if sampled:
+                nxt = _ops.sample_step(logits, temps, top_ks, seeds, pos,
+                                       key_bits)
+            else:  # sample_step's greedy branch, without the sampled one
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            active = ~done
+            cols.append(torch.where(active, nxt, -1))
+            emitted = emitted + active.to(torch.int32)
+            is_stop = torch.any(stops == nxt[:, None], dim=1)
+            done = done | (active & is_stop) | (emitted >= remaining)
+            # advance only lanes still alive AFTER this emission: newly
+            # finished lanes freeze at their last written position
+            adv = active & ~done
+            cur = torch.where(adv[:, None], nxt[:, None], cur)
+            pos = torch.where(adv, pos + 1, pos)
+        if self._paged:
+            for p, r in zip(pools, rings):
+                _ops.paged_kv_scatter(p, page_table, r, start_pos, steps)
+        return torch.cat([torch.stack(cols, dim=1), emitted[:, None],
+                          done[:, None].to(torch.int32)], dim=1)
+
+
+class _SuperInputs:
+    """The static buffers of one batch bucket's super-step: every input
+    packed into one int32 buffer (``temps`` as float32 bits, the key as
+    two 32-bit words), so a visit fills a host copy and moves it to the
+    device in ONE copy, and the output block comes back in one copy. On a
+    GPU the host side is pinned and the device side is what the graphs
+    were captured on; on the CPU both sides are one buffer."""
+
+    def __init__(self, lanes, pages, steps, device):
+        self.lanes, self.pages = int(lanes), int(pages)
+        sizes = [("tokens", lanes), ("start_pos", lanes),
+                 ("remaining", lanes), ("seeds", lanes), ("temps", lanes),
+                 ("top_ks", lanes), ("stops", lanes * _STOP_WIDTH),
+                 ("key_bits", 2), ("page_table", lanes * pages)]
+        self._slices, off = {}, 0
+        for name, n in sizes:
+            self._slices[name] = (off, off + n)
+            off += n
+        cuda = device.type == "cuda"
+        self.host = torch.zeros(off, dtype=torch.int32, pin_memory=cuda)
+        self.dev = (torch.zeros(off, dtype=torch.int32, device=device)
+                    if cuda else self.host)
+        self.out_host = torch.zeros(lanes * (steps + 2), dtype=torch.int32,
+                                    pin_memory=cuda)
+
+    def views(self):
+        """The device-side inputs in ``_MultiStepForward``'s order."""
+        def v(name):
+            a, b = self._slices[name]
+            return self.dev[a:b]
+
+        s = self.lanes
+        return (v("tokens").view(s, 1), v("start_pos"), v("remaining"),
+                v("seeds"), v("temps").view(torch.float32), v("top_ks"),
+                v("stops").view(s, _STOP_WIDTH), v("key_bits"),
+                v("page_table").view(s, self.pages) if self.pages else None)
+
+    def fill(self, **arrays):
+        """Write host arrays into the host buffer and, on a GPU, start its
+        one copy to the device (ordered before the replay on the
+        stream)."""
+        h = self.host.numpy()
+        for name, x in arrays.items():
+            a, b = self._slices[name]
+            if name == "temps":
+                h[a:b].view(_onp.float32)[:] = _onp.asarray(
+                    x, _onp.float32).reshape(-1)
+            else:
+                h[a:b] = _onp.asarray(x).astype(_onp.int64).reshape(
+                    -1).astype(_onp.uint32).view(_onp.int32)
+        if self.dev is not self.host:
+            self.dev.copy_(self.host, non_blocking=True)
+
+    def read(self, out):
+        """The (S, steps + 2) output block as host numpy, in one copy."""
+        if not out.is_cuda:
+            return out.numpy().copy()
+        host = self.out_host[:out.numel()].view(out.shape)
+        host.copy_(out, non_blocking=True)
+        torch.cuda.current_stream(out.device).synchronize()
+        return host.numpy().copy()
 
 
 _DECODE_PATHS = ("baseline", "pallas", "int8")
@@ -316,10 +523,6 @@ def _quantize_serving_weights(model):
     return table
 
 
-_LATER = ("serve/kv_blocks.py, serve/prefix_cache.py and the multi-step "
-          "super-step are ported in later slices of the serving port")
-
-
 class Generator:
     """Bucketed KV-cache generation server for decoder LMs.
 
@@ -337,24 +540,39 @@ class Generator:
         :func:`resolve_decode_path`): "pallas" routes every decode step's
         attention through the CUDA decode-attention kernel; "int8" adds
         int8 KV rings and, when ``MXNET_SERVE_DECODE_INT8_WEIGHTS`` asks
-        for it, int8 projection weights. "baseline" is not ported yet.
-    paged / prefix_cache / multistep : not ported yet; a true value raises
-        ``NotImplementedError``.
+        for it, int8 projection weights. "baseline" is not ported yet and
+        raises ``NotImplementedError``.
+    paged : back the KV state with a :class:`~.kv_blocks.PagedKVPool` per
+        batch bucket instead of contiguous rings (``None`` reads
+        ``MXNET_SERVE_KV_PAGED``). Without the prefix cache the pool is
+        fully assigned with identity page tables.
+    page_size / kv_pages : pool geometry overrides (see
+        :class:`~.kv_blocks.PagedKVPool`).
+    prefix_cache : a radix trie per batch bucket over its pool (``None``
+        reads ``MXNET_SERVE_PREFIX_CACHE``; implies ``paged``): each
+        prompt's longest cached prefix arrives as shared pages and skips
+        prefill; clean retirements adopt their prompt pages into the trie.
+    multistep / decode_steps : run the token loop as super-steps of up to
+        ``decode_steps`` (N) iterations per host visit (``None`` reads
+        ``MXNET_SERVE_MULTISTEP`` / ``MXNET_SERVE_DECODE_STEPS``; see
+        :class:`_MultiStepForward`). On a GPU every super-step replays a
+        CUDA graph, captured per batch bucket and key (N or 1 steps,
+        greedy or sampled, attention routing) by :meth:`warmup` or at
+        first use; a capture or replay error raises. On the CPU the same
+        body runs as a plain loop.
 
-    The rings of each batch bucket are allocated once and written in place
-    by every request, so one Generator serves one ``generate`` call at a
-    time. Stale ring contents between requests are never read: prefill
-    overwrites every position its attention reads, and the position mask
-    admits no position the current request has not written.
+    The rings or pools of each batch bucket are allocated once and written
+    in place by every request, so one Generator serves one ``generate``
+    call at a time. Stale contents between requests are never read:
+    prefill overwrites every position its attention reads, and the
+    position mask admits no position the current request has not written.
     """
 
     def __init__(self, model, max_seq=128, batch_buckets=(1, 2, 4),
                  prompt_buckets=None, pad_id=0, name="llama_decode",
-                 decode_path=None, paged=None, prefix_cache=None,
-                 multistep=None):
-        if paged or prefix_cache or multistep:
-            raise NotImplementedError(
-                f"Generator(paged=, prefix_cache=, multistep=): {_LATER}")
+                 decode_path=None, paged=None, page_size=None,
+                 kv_pages=None, prefix_cache=None, multistep=None,
+                 decode_steps=None):
         self.model = model
         self.device = next(model.parameters()).device
         self.max_seq = int(max_seq)
@@ -380,28 +598,79 @@ class Generator:
         self._qweights = {}
         if self._quant and _int8_weights_enabled():
             self._qweights = _quantize_serving_weights(model)
+        if prefix_cache is None:
+            prefix_cache = bool(config.get("MXNET_SERVE_PREFIX_CACHE"))
+        self._prefix_on = bool(prefix_cache)
+        if self._prefix_on and paged is False:
+            raise MXNetError(
+                "prefix_cache requires the paged KV pool (prefix pages "
+                "are shared pool pages); don't pass paged=False with "
+                "prefix_cache on")
+        self._paged = (bool(config.get("MXNET_SERVE_KV_PAGED"))
+                       if paged is None else bool(paged)) or self._prefix_on
+        self._page_size = page_size
+        self._kv_pages = kv_pages
+        self._prefix = {}  # batch bucket -> PrefixCache over its pool
         self._step = _CacheForward(model, self.max_seq,
                                    path=self.decode_path, quant=self._quant,
-                                   quant_weights=self._qweights)
+                                   quant_weights=self._qweights,
+                                   paged=self._paged)
         self.session = InferenceSession(
             self._step, batch_buckets=self.batch_buckets,
             seq_buckets=self.prompt_buckets, pad_value=self.pad_id,
             name=name, device=self.device)
-        self._zero_caches = {}  # batch bucket -> its rings
+        self._zero_caches = {}  # batch bucket -> its rings or pool
+        if multistep is None:
+            multistep = bool(config.get("MXNET_SERVE_MULTISTEP"))
+        self._multistep = bool(multistep)
+        if decode_steps is None:
+            decode_steps = int(config.get("MXNET_SERVE_DECODE_STEPS"))
+        self.decode_steps = max(1, int(decode_steps))
+        self._msession = None
+        self._itl_est = None  # EMA seconds per decode iteration
+        if self._multistep:
+            self._mstep = _MultiStepForward(
+                model, self.max_seq, path=self.decode_path,
+                quant=self._quant, quant_weights=self._qweights,
+                paged=self._paged)
+            self._msession = GraphSession(f"{name}_multi", self.device,
+                                          counters=(_da,))
+            self._inputs = {}  # batch bucket -> _SuperInputs
 
     def _fresh_cache(self, batch_bucket):
         """The rings of one batch bucket, allocated zeroed on first use and
-        reused by every later request (see the class docstring)."""
+        reused by every later request (see the class docstring).
+
+        Paged mode returns the bucket's persistent
+        :class:`~.kv_blocks.PagedKVPool` instead: fully assigned with
+        identity page tables (slot ``s`` owns pages ``[1 + s*N,
+        1 + (s+1)*N)``), or, with the prefix cache, assigned per
+        ``generate`` and paired with the bucket's trie."""
         cache = self._zero_caches.get(batch_bucket)
-        if cache is None:
-            cache = self._zero_caches.setdefault(
-                batch_bucket,
-                KVCache.alloc(self.model, batch_bucket, self.max_seq,
-                              quant=self._quant, device=self.device))
-        return cache
+        if cache is not None:
+            return cache
+        if self._paged:
+            from .kv_blocks import PagedKVPool
+            from .prefix_cache import PrefixCache
+
+            cache = PagedKVPool(self.model, batch_bucket, self.max_seq,
+                                page_size=self._page_size,
+                                num_pages=self._kv_pages, quant=self._quant,
+                                device=self.device)
+            if self._prefix_on:
+                self._prefix[batch_bucket] = PrefixCache(
+                    cache, name=f"{self.session.name}_prefix")
+            else:
+                for s in range(batch_bucket):
+                    cache.assign(s, self.max_seq)
+        else:
+            cache = KVCache.alloc(self.model, batch_bucket, self.max_seq,
+                                  quant=self._quant, device=self.device)
+        return self._zero_caches.setdefault(batch_bucket, cache)
 
     def kv_cache_bytes(self):
-        """Bytes held by the rings of every batch bucket allocated so far."""
+        """Bytes held by the rings or pools of every batch bucket allocated
+        so far."""
         return sum(c.nbytes() for c in self._zero_caches.values())
 
     # -- phase helpers (also the parity-test surface) -----------------------
@@ -410,8 +679,12 @@ class Generator:
             return torch.as_tensor(_onp.asarray(x, _onp.int32),
                                    device=self.device)
 
-        out = self.session.run(dev(tokens), dev(start_pos), dev(last_idx),
-                               *cache.flat())
+        args = (dev(tokens), dev(start_pos), dev(last_idx))
+        if self._paged:
+            out = self.session.run(*args, cache.table_nd(), *cache.flat())
+            cache.update_from_flat(out[1:])
+            return out[0], cache
+        out = self.session.run(*args, *cache.flat())
         logits, flat = out[0], out[1:]
         return logits, KVCache.from_flat(flat, self.max_seq,
                                          quant=self._quant)
@@ -435,6 +708,65 @@ class Generator:
         return self._run(toks, _onp.asarray(positions, _onp.int32),
                          zeros, cache)
 
+    def decode_super(self, tokens, positions, steps_limit, remaining,
+                     seeds, temps, top_ks, stops, key_bits, cache,
+                     events=None):
+        """One multi-step super-step of ``steps_limit`` (N or 1) decode
+        iterations (see :class:`_MultiStepForward`). Inputs are host
+        arrays, one entry per lane of the batch bucket. Copies them into
+        the bucket's static buffers in one host-to-device copy, replays
+        the graph of (bucket, steps, sampled, routing) — capturing it
+        first if this is its first use — and reads the block back in one
+        copy. Returns ``(block, valid, done, cache)`` as host numpy: the
+        (B, steps) token block (-1 where a lane was done), per-lane valid
+        counts and done flags.
+
+        ``events``: optional list; on a GPU one (start, end) pair of CUDA
+        events recorded around the replay is appended (its device
+        time)."""
+        if self._msession is None:
+            raise MXNetError(
+                "decode_super needs multistep=True (or "
+                "MXNET_SERVE_MULTISTEP=1) at construction")
+        steps = int(steps_limit)
+        if steps not in (1, self.decode_steps):
+            raise MXNetError(f"decode_super: steps_limit {steps} is neither "
+                             f"1 nor decode_steps ({self.decode_steps})")
+        b = len(positions)
+        temps = _onp.asarray(temps, _onp.float32)
+        sampled = bool((temps > 0).any())
+        inp = self._inputs.get(b)
+        if inp is None:
+            pages = cache.pages_per_slot if self._paged else 0
+            inp = self._inputs[b] = _SuperInputs(b, pages, self.decode_steps,
+                                                 self.device)
+        arrays = dict(tokens=tokens, start_pos=positions,
+                      remaining=remaining, seeds=seeds, temps=temps,
+                      top_ks=top_ks, stops=stops,
+                      key_bits=_onp.asarray(key_bits, _onp.uint32))
+        if self._paged:
+            arrays["page_table"] = cache.table()
+        inp.fill(**arrays)
+        flat = cache.flat()
+
+        def body():
+            return self._mstep(*inp.views(), *flat, steps=steps,
+                               sampled=sampled)
+
+        timed = events is not None and self.device.type == "cuda"
+        if timed:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+        out = self._msession.run((b, steps, sampled, _da.forced_path()),
+                                 body)
+        if timed:
+            e1.record()
+            events.append((e0, e1))
+        packed = inp.read(out)
+        return (packed[:, :steps], packed[:, steps], packed[:, steps + 1],
+                cache)
+
     # -- the serving API ----------------------------------------------------
     def _pad_prompts(self, prompts):
         lens = _onp.asarray([len(p) for p in prompts], _onp.int32)
@@ -451,21 +783,91 @@ class Generator:
         toks[len(prompts):, 0] = toks[0, 0]
         return toks, full_lens, b_bucket
 
+    # -- prefix-cache plumbing ------------------------------------------------
+    def _prefix_begin(self, prompts, toks, lens, b_bucket, max_new):
+        """Reserve the batch's slots in the bucket's pool. With the
+        prefix trie on, each real row's longest cached prefix arrives as
+        shared (refcounted) pages at the front of its table row and its
+        ``matched`` count says how many prompt tokens skip prefill; pool
+        pressure LRU-evicts cached prefixes (never the pages just
+        matched) before surfacing :class:`PoolExhausted`. Returns
+        ``(cache, matched)``; otherwise the persistent rings or
+        fully-assigned pool and all-zero ``matched``."""
+        cache = self._fresh_cache(b_bucket)
+        matched = _onp.zeros(b_bucket, _onp.int32)
+        if not self._prefix_on:
+            return cache, matched
+        trie = self._prefix[b_bucket]
+        try:
+            for s in range(b_bucket):
+                if s < len(prompts):
+                    row = [int(t) for t in prompts[s]]
+                    m, pages = trie.match(row)
+                else:  # dead padding lane: 1-token prompt, never cached
+                    row, m, pages = [int(toks[s, 0])], 0, ()
+                budget = min(len(row) + int(max_new), self.max_seq)
+                try:
+                    cache.assign_with_prefix(s, budget, pages)
+                except PoolExhausted:
+                    shortfall = (cache.pages_for(budget) - len(pages)
+                                 - cache.pages_free)
+                    if trie.reclaim(max(shortfall, 1),
+                                    exclude=pages) == 0:
+                        raise
+                    cache.assign_with_prefix(s, budget, pages)
+                matched[s] = m
+        except BaseException:
+            for s in range(b_bucket):
+                cache.release(s)
+            raise
+        return cache, matched
+
+    def _prefix_prefill(self, toks, lens, matched, cache):
+        """Prefill only each row's un-cached tail: row ``s``'s tokens
+        ``[matched[s]:lens[s]]`` at ``start_pos=matched[s]``. The tail
+        bucket comes from the same prompt lattice warmup ran — no new
+        signature. All-miss batches take the unchanged full path."""
+        if not matched.any():
+            return self.prefill(toks, lens, cache)
+        tail_lens = (_onp.asarray(lens, _onp.int32)
+                     - _onp.asarray(matched, _onp.int32))
+        t_bucket = pick_bucket(int(tail_lens.max()), self.prompt_buckets)
+        tails = _onp.full((len(lens), t_bucket), self.pad_id, _onp.int32)
+        for s in range(len(lens)):
+            tails[s, :tail_lens[s]] = toks[s, matched[s]:lens[s]]
+        return self._run(tails, matched, tail_lens - 1, cache)
+
+    def _prefix_release(self, prompts, b_bucket, cache, ok):
+        """Retire the batch's slots. On a clean run the trie first adopts
+        each real prompt's full pages (increfs while the slot still pins
+        them); then every slot's references drop — pages the trie kept
+        survive, the rest recycle."""
+        if not self._prefix_on:
+            return
+        trie = self._prefix[b_bucket]
+        if ok:
+            table = cache.table()
+            for s, p in enumerate(prompts):
+                trie.insert([int(t) for t in p], table[s])
+        for s in range(b_bucket):
+            cache.release(s)
+
     def generate(self, prompts, max_new_tokens=32, temperature=0.0,
                  top_k=None, stop_ids=(), deadlines=None):
         """Generate continuations for a batch of prompts (lists of ids).
 
         ``deadlines`` (optional) carries absolute ``time.monotonic()``
         deadlines — one scalar for the whole batch or one per prompt. A
-        row whose deadline passes is **retired between decode steps**: it
-        stops consuming decode work, keeps the tokens generated so far,
-        and lands in ``info["deadline_expired"]``. When every live row has
-        expired the decode loop exits early.
+        row whose deadline passes is **retired between decode steps** (or
+        super-steps): it stops consuming decode work, keeps the tokens
+        generated so far, and lands in ``info["deadline_expired"]``. When
+        every live row has expired the decode loop exits early.
 
         Returns ``(outputs, info)``: per-prompt generated id lists (stop
         token excluded) and a stats dict (tokens/s, per-phase wall time,
-        expired row indices). Every phase ends in a host read of the
-        sampled ids, so the wall times cover the device work.
+        decode iterations and host visits, expired row indices). Every
+        phase ends in a host read of the sampled ids, so the wall times
+        cover the device work.
         """
         t_start = time.perf_counter()
         toks, lens, b_bucket = self._pad_prompts(prompts)
@@ -484,17 +886,65 @@ class Generator:
                 raise MXNetError(
                     f"generate() got {len(deadlines)} deadlines for "
                     f"{n_real} prompts")
-        cache = self._fresh_cache(b_bucket)
-        logits, cache = self.prefill(toks, lens, cache)
-        next_ids = sample_tokens(logits, temperature=temperature,
-                                 top_k=top_k)
-        t_prefill = time.perf_counter()
+        cache, matched = self._prefix_begin(prompts, toks, lens, b_bucket,
+                                            max_new)
+        run_ok = False
+        try:
+            logits, cache = self._prefix_prefill(toks, lens, matched, cache)
+            next_ids = sample_tokens(logits, temperature=temperature,
+                                     top_k=top_k)
+            t_prefill = time.perf_counter()
 
-        out = [[] for _ in range(n_real)]
-        stopped = [False] * n_real
-        expired = [False] * n_real
-        positions = lens.copy()  # next write position per row
-        stop = set(int(s) for s in stop_ids)
+            out = [[] for _ in range(n_real)]
+            stopped = [False] * n_real
+            expired = [False] * n_real
+            positions = lens.copy()  # next write position per row
+            stop = set(int(s) for s in stop_ids)
+            if self._multistep:
+                n_decoded, n_visits = self._decode_loop_multi(
+                    next_ids, positions, out, stopped, expired, stop,
+                    max_new, temperature, top_k, deadlines, cache,
+                    n_real, b_bucket)
+            else:
+                n_decoded = self._decode_loop(
+                    next_ids, positions, out, stopped, expired, stop,
+                    max_new, temperature, top_k, deadlines, cache, n_real)
+                n_visits = n_decoded
+            run_ok = True
+        finally:
+            self._prefix_release(prompts, b_bucket, cache, run_ok)
+        t_done = time.perf_counter()
+        decode_s = t_done - t_prefill
+        n_tokens = sum(len(o) for o in out)
+        info = {
+            "prefill_ms": (t_prefill - t_start) * 1e3,
+            "decode_ms": decode_s * 1e3,
+            "decode_steps": n_decoded,
+            "decode_visits": n_visits,
+            "tokens_s": n_tokens / decode_s if decode_s > 0 else 0.0,
+            "total_ms": (t_done - t_start) * 1e3,
+            "deadline_expired": [i for i in range(n_real) if expired[i]],
+        }
+        return out, info
+
+    @staticmethod
+    def _retire_expired(deadlines, stopped, expired):
+        """Retire the rows whose deadline has passed (at a step or
+        super-step boundary: further passes for output nobody will read
+        are the overload failure mode)."""
+        if deadlines is None:
+            return
+        now = time.monotonic()
+        for i in range(len(stopped)):
+            if not stopped[i] and now >= deadlines[i]:
+                stopped[i] = True
+                expired[i] = True
+
+    def _decode_loop(self, next_ids, positions, out, stopped, expired,
+                     stop, max_new, temperature, top_k, deadlines, cache,
+                     n_real):
+        """The single-step decode loop: one T=1 step and one host read of
+        the sampled ids per token. Returns the decode steps run."""
         n_decoded = 0
         for step in range(max_new):
             for i in range(n_real):
@@ -505,15 +955,7 @@ class Generator:
                     stopped[i] = True
                 else:
                     out[i].append(tid)
-            if deadlines is not None:
-                # retire expired rows at the step boundary: burning further
-                # T=1 passes for output nobody will read is the overload
-                # failure mode
-                now = time.monotonic()
-                for i in range(n_real):
-                    if not stopped[i] and now >= deadlines[i]:
-                        stopped[i] = True
-                        expired[i] = True
+            self._retire_expired(deadlines, stopped, expired)
             if all(stopped) or step == max_new - 1:
                 # the last sampled token needs no successor logits
                 break
@@ -522,26 +964,105 @@ class Generator:
                                      top_k=top_k)
             positions = positions + 1
             n_decoded += 1
-        t_done = time.perf_counter()
-        decode_s = t_done - t_prefill
-        n_tokens = sum(len(o) for o in out)
-        info = {
-            "prefill_ms": (t_prefill - t_start) * 1e3,
-            "decode_ms": decode_s * 1e3,
-            "decode_steps": n_decoded,
-            "decode_visits": n_decoded,
-            "tokens_s": n_tokens / decode_s if decode_s > 0 else 0.0,
-            "total_ms": (t_done - t_start) * 1e3,
-            "deadline_expired": [i for i in range(n_real) if expired[i]],
-        }
-        return out, info
+        return n_decoded
+
+    def _steps_limit(self, deadlines, stopped, n_real):
+        """The next super-step's iteration count: N, degraded to 1 when
+        some live row's deadline could not survive a full N-iteration
+        super-step (estimated off the per-iteration EMA), so 504
+        retirement latency stays bounded by about one decode iteration.
+        Both counts have their graph captured at warmup: no new
+        signature."""
+        n = self.decode_steps
+        if deadlines is None or self._itl_est is None:
+            return n
+        now = time.monotonic()
+        slack = min((deadlines[i] - now for i in range(n_real)
+                     if not stopped[i]), default=None)
+        if slack is not None and slack < self._itl_est * n:
+            return 1
+        return n
+
+    def _decode_loop_multi(self, next_ids, positions, out, stopped,
+                           expired, stop, max_new, temperature, top_k,
+                           deadlines, cache, n_real, b_bucket):
+        """The multi-step decode loop: the step-0 token is emitted on the
+        host (exactly like single-step), then every further token comes
+        out of super-steps — one host visit per block of up to
+        ``decode_steps`` tokens, settled in one pass over the returned
+        block. Token streams do not depend on where a super-step ends
+        (counter-based on-device keys), so N=8 and N=1 output is
+        identical, and greedy output matches the single-step loop token
+        for token. Returns (decode iterations, host visits)."""
+        for i in range(n_real):
+            tid = int(next_ids[i])
+            if tid in stop:
+                stopped[i] = True
+            else:
+                out[i].append(tid)
+                if len(out[i]) >= max_new:
+                    stopped[i] = True
+        pending = _onp.zeros(b_bucket, _onp.int32)
+        pending[:len(next_ids)] = _onp.asarray(next_ids, _onp.int32)
+        temp = float(temperature) if temperature is not None else 0.0
+        # greedy runs draw no host key (the single-step greedy path draws
+        # nothing either)
+        key_bits = (_fresh_key_bits() if temp > 0.0
+                    else _onp.zeros(2, _onp.uint32))
+        seeds = _onp.arange(b_bucket, dtype=_onp.int32)
+        temps = _onp.full(b_bucket, max(temp, 0.0), _onp.float32)
+        tks = _onp.full(b_bucket, int(top_k) if top_k else 0, _onp.int32)
+        stops_m = _stop_matrix(b_bucket, [stop] * b_bucket)
+        n_decoded = n_visits = 0
+        while True:
+            self._retire_expired(deadlines, stopped, expired)
+            if all(stopped):
+                break
+            remaining = _onp.zeros(b_bucket, _onp.int32)
+            for i in range(n_real):
+                if not stopped[i]:
+                    remaining[i] = max_new - len(out[i])
+            limit = self._steps_limit(deadlines, stopped, n_real)
+            t1 = time.perf_counter()
+            block, valid, _done, cache = self.decode_super(
+                pending, positions, limit, remaining, seeds, temps, tks,
+                stops_m, key_bits, cache)
+            t3 = time.perf_counter()
+            steps_run = int(valid.max()) if valid.size else 0
+            for i in range(n_real):
+                if stopped[i]:
+                    continue
+                k = int(valid[i])
+                for j in range(k):
+                    tid = int(block[i, j])
+                    if tid in stop:
+                        stopped[i] = True
+                        break
+                    out[i].append(tid)
+                    pending[i] = tid
+                    if len(out[i]) >= max_new:
+                        stopped[i] = True
+                        break
+                positions[i] += k
+            if steps_run > 0:
+                est = (t3 - t1) / steps_run
+                self._itl_est = (est if self._itl_est is None
+                                 else 0.5 * self._itl_est + 0.5 * est)
+            n_decoded += steps_run
+            n_visits += 1
+        return n_decoded, n_visits
 
     # -- warmup / invariants -------------------------------------------------
     def warmup(self):
         """Run every (batch bucket x prompt bucket) prefill and every batch
-        bucket's decode step once, then freeze the signature set so
-        ``assert_no_recompiles`` guards steady state."""
+        bucket's decode step once — plus, in multistep mode, capture every
+        batch bucket's super-step graphs (N and 1 steps, greedy and
+        sampled) — then freeze the signature sets so
+        ``assert_no_recompiles`` guards steady state. Returns the
+        signature count, the wall time, and (multistep) the graphs
+        captured and the seconds their captures took."""
         t0 = time.perf_counter()
+        t_cap = 0.0
         for bb in self.batch_buckets:
             for pb in self.prompt_buckets:
                 cache = self._fresh_cache(bb)
@@ -551,11 +1072,48 @@ class Generator:
                 if pb == self.prompt_buckets[0]:
                     ids = _onp.zeros(bb, _onp.int32)
                     self.decode_step(ids, lens, cache)
+            if self._multistep:
+                t1 = time.perf_counter()
+                zeros = _onp.zeros(bb, _onp.int32)
+                for steps in sorted({self.decode_steps, 1}):
+                    for temp in (0.0, 1.0):
+                        # remaining = 0: every lane is done from the start
+                        # and only rewrites its current position
+                        self.decode_super(
+                            zeros, lens, steps, zeros, zeros,
+                            _onp.full(bb, temp, _onp.float32), zeros,
+                            _onp.full((bb, _STOP_WIDTH), -1, _onp.int32),
+                            _onp.zeros(2, _onp.uint32), cache)
+                t_cap += time.perf_counter() - t1
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.session.freeze_signatures()
-        return {"signatures": self.session.signature_count(),
-                "wall_s": time.perf_counter() - t0}
+        sigs = self.session.signature_count()
+        out = {}
+        if self._msession is not None:
+            self._msession.freeze_signatures()
+            sigs += self._msession.signature_count()
+            out = {"captures": self._msession.captures,
+                   "capture_s": t_cap}
+        return dict({"signatures": sigs,
+                     "wall_s": time.perf_counter() - t0}, **out)
 
     def assert_no_recompiles(self):
         self.session.assert_no_recompiles()
+        if self._msession is not None:
+            self._msession.assert_no_recompiles()
+
+    def stats(self):
+        """Signature counts, and the pools' and tries' counters."""
+        out = {"signatures": self.session.signature_count()}
+        if self._msession is not None:
+            out["multistep"] = {
+                "signatures": self._msession.signature_count(),
+                "captures": self._msession.captures}
+            out["decode_steps"] = self.decode_steps
+        if self._paged:
+            out["pool"] = {bb: c.stats()
+                           for bb, c in self._zero_caches.items()}
+        if self._prefix_on:
+            out["prefix"] = {bb: t.stats() for bb, t in self._prefix.items()}
+        return out

@@ -197,10 +197,11 @@ def test_cuda_kernel_replays_in_a_cuda_graph(quant):
         da.decode_attention(q, k, v, sp, k_scale=ks, v_scale=vs)  # warm
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    n0 = da.launch_count()
+    n0, c0 = da.launch_count(), da.captured_count()
     with torch.cuda.graph(graph):
         out = da.decode_attention(q, k, v, sp, k_scale=ks, v_scale=vs)
-    assert da.launch_count() == n0 + 1
+    # a capture records the launch; the card runs it at each replay
+    assert da.captured_count() == c0 + 1 and da.launch_count() == n0
     for sps in ([3, 140], [-1, 299], [64, 65], [200, 0]):
         sp.copy_(torch.tensor(sps, dtype=torch.int32))
         graph.replay()
@@ -731,3 +732,222 @@ def test_cuda_fused_resnet_matches_cpu():
         assert err < 1e-4, (name, err)
     assert bf.dtype == torch.float32
     assert float((bf.cpu() - ref).abs().max()) / scale < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# multi-step decode: the super-step as CUDA graphs; paged KV on the card
+# ---------------------------------------------------------------------------
+
+MS_KW = dict(max_seq=64, batch_buckets=(2,), prompt_buckets=(16,))
+MS_PROMPTS = [[3, 1, 4, 1, 5], [9, 2, 6, 5, 3, 5, 8, 9, 7]]
+
+
+def _tiny_pair(dev):
+    """The tiny Llama on the CPU and the same weights on the card."""
+    trandom.seed(0)
+    cpu_model = get_llama("llama_tiny_test", device="cpu")
+    return cpu_model, copy.deepcopy(cpu_model).to(dev)
+
+
+def _eager_super(gen, cache, steps, sampled, **arrays):
+    """The super-step body run eagerly on the card, on the same kind of
+    static buffers the graph reads: the yardstick of a replay."""
+    from mxnet_tpu_torch.serve.generate import _SuperInputs
+
+    b = len(arrays["start_pos"])
+    pages = cache.pages_per_slot if gen._paged else 0
+    inp = _SuperInputs(b, pages, gen.decode_steps, gen.device)
+    if gen._paged:
+        arrays["page_table"] = cache.table()
+    inp.fill(**arrays)
+    with torch.inference_mode():
+        out = gen._mstep(*inp.views(), *cache.flat(), steps=steps,
+                         sampled=sampled)
+    return inp.read(out)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["ring", "paged"])
+@pytest.mark.parametrize("rung", ["pallas", "int8"])
+def test_cuda_multistep_graph_replay_equals_eager_body(rung, paged):
+    """Super-steps replayed from CUDA graphs give the token blocks of the
+    same body run eagerly on the card, visit after visit from one prefill,
+    at N = 8 and N = 1, greedy and sampled, ring and paged; the graphs hold
+    layers x steps kernel launches and each replay counts them."""
+    dev = _need_cuda()
+    _, gpu = _tiny_pair(dev)
+    kw = dict(MS_KW, decode_path=rung, paged=paged, page_size=8)
+    for steps in (8, 1):
+        for sampled in (False, True):
+            ga = Generator(gpu, multistep=True, decode_steps=steps, **kw)
+            gb = Generator(gpu, multistep=True, decode_steps=steps, **kw)
+            ga.warmup()
+            assert ga._msession.graphs and ga._msession.captures == (
+                4 if steps > 1 else 2)
+            toks, lens, bb = ga._pad_prompts(MS_PROMPTS)
+            ca, cb = ga._fresh_cache(bb), gb._fresh_cache(bb)
+            la, ca = ga.prefill(toks, lens, ca)
+            lb, cb = gb.prefill(toks, lens, cb)
+            ids = torch.argmax(la, -1).to(torch.int32).cpu().numpy()
+            pos = lens.copy()
+            arrays = dict(
+                seeds=np.arange(bb, dtype=np.int32),
+                temps=np.full(bb, 0.8 if sampled else 0.0, np.float32),
+                top_ks=np.full(bb, 4 if sampled else 0, np.int32),
+                stops=np.full((bb, 8), -1, np.int32),
+                key_bits=np.array([3, 2 ** 31 + 5], np.uint32))
+            key = (bb, steps, sampled, None)
+            for visit in range(3):
+                rem = np.array([20, 20], np.int32)
+                n0 = da.launch_count()
+                blk_a, valid, done, ca = ga.decode_super(
+                    ids, pos, steps, rem, arrays["seeds"], arrays["temps"],
+                    arrays["top_ks"], arrays["stops"], arrays["key_bits"],
+                    ca)
+                assert da.launch_count() - n0 == 2 * steps
+                assert ga._msession.launches(key) == [2 * steps]
+                packed = _eager_super(gb, cb, steps, sampled, tokens=ids,
+                                      start_pos=pos, remaining=rem, **arrays)
+                np.testing.assert_array_equal(blk_a, packed[:, :steps])
+                assert valid.tolist() == [steps, steps]
+                assert not done.any()
+                ids = blk_a[:, -1].copy()
+                pos = pos + steps
+            ga.assert_no_recompiles()
+
+
+def test_cuda_multistep_generate_matches_single_step_and_cpu():
+    """Greedy generate through graphs equals the card's single-step loop
+    and the CPU's multi-step loop; launches = layers x N x visits
+    (replay-aware: 11 decode tokens at N = 4 are 3 visits, 24 launches)."""
+    dev = _need_cuda()
+    cpu_model, gpu = _tiny_pair(dev)
+    for rung in ("pallas", "int8"):
+        kw = dict(MS_KW, decode_path=rung)
+        gen = Generator(gpu, multistep=True, decode_steps=4, **kw)
+        gen.warmup()
+        single = Generator(gpu, **kw)
+        cpu = Generator(cpu_model, multistep=True, decode_steps=4, **kw)
+        n0 = da.launch_count()
+        out, info = gen.generate(MS_PROMPTS, max_new_tokens=12)
+        assert info["decode_visits"] == 3 and info["decode_steps"] == 11
+        assert da.launch_count() - n0 == 2 * 4 * 3
+        assert out == single.generate(MS_PROMPTS, max_new_tokens=12)[0]
+        assert out == cpu.generate(MS_PROMPTS, max_new_tokens=12)[0]
+        gen.assert_no_recompiles()
+
+
+def test_cuda_multistep_force_path_reroutes():
+    """A graph keeps the route it was captured on, so graphs are keyed by
+    the routing: under force_path("torch") the super-step captures and
+    replays the plain attention — no kernel launch — with the same greedy
+    tokens."""
+    dev = _need_cuda()
+    _, gpu = _tiny_pair(dev)
+    gen = Generator(gpu, multistep=True, decode_steps=4, **MS_KW)
+    gen.warmup()
+    want, _ = gen.generate(MS_PROMPTS, max_new_tokens=12)
+    captures = gen._msession.captures
+    da.force_path("torch")
+    try:
+        n0 = da.launch_count()
+        got, _ = gen.generate(MS_PROMPTS, max_new_tokens=12)
+        assert da.launch_count() == n0
+        assert da.last_path() == "torch"
+    finally:
+        da.force_path(None)
+    assert got == want
+    assert gen._msession.captures == captures + 1
+    assert gen._msession.launches((2, 4, False, "torch")) == [0]
+    n0 = da.launch_count()
+    assert gen.generate(MS_PROMPTS, max_new_tokens=12)[0] == want
+    assert da.launch_count() - n0 == 2 * 4 * 3
+
+
+def test_cuda_multistep_body_makes_no_host_sync():
+    """Capture runs the body under set_sync_debug_mode("error"), and a
+    replay too makes no host sync; a body that reads a device value on
+    the host fails to capture, and the error raises."""
+    from mxnet_tpu_torch.serve import GraphSession
+
+    dev = _need_cuda()
+    _, gpu = _tiny_pair(dev)
+    for paged in (False, True):
+        gen = Generator(gpu, multistep=True, decode_steps=4, paged=paged,
+                        page_size=8, **MS_KW)
+        gen.warmup()
+        toks, lens, bb = gen._pad_prompts(MS_PROMPTS)
+        cache = gen._fresh_cache(bb)
+        gen.prefill(toks, lens, cache)
+        inp = gen._inputs[bb]
+        zeros = np.zeros(bb, np.int32)
+        arrays = dict(tokens=zeros, start_pos=lens, remaining=zeros + 8,
+                      seeds=zeros, temps=np.ones(bb, np.float32),
+                      top_ks=zeros, stops=np.full((bb, 8), -1, np.int32),
+                      key_bits=np.array([1, 2], np.uint32))
+        if paged:
+            arrays["page_table"] = cache.table()
+        inp.fill(**arrays)
+        flat = cache.flat()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = gen._msession.run(
+                (bb, 4, True, None),
+                lambda: gen._mstep(*inp.views(), *flat, steps=4,
+                                   sampled=True))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert tuple(inp.read(out).shape) == (bb, 6)
+        gen.assert_no_recompiles()
+    sess = GraphSession("bad", dev)
+    x = torch.ones(4, device=dev)
+    with pytest.raises(RuntimeError):
+        sess.run("syncs", lambda: x * float(x.sum().item()))
+
+
+def test_cuda_sample_step_matches_cpu_bits():
+    """The counter-based draws are integer hashes and float64 Gumbel
+    noise rounded to f32: the card gives the CPU's token ids."""
+    dev = _need_cuda()
+    rng = np.random.RandomState(4)
+    b, v = 16, 128256
+    logits = torch.from_numpy(rng.randn(b, v).astype(np.float32) * 3)
+    temps = torch.from_numpy(rng.uniform(0.0, 1.5, b).astype(np.float32))
+    tks = torch.from_numpy(rng.randint(0, 50, b).astype(np.int32))
+    seeds = torch.arange(b, dtype=torch.int32)
+    pos = torch.from_numpy(rng.randint(0, 8000, b).astype(np.int32))
+    key = torch.tensor([2 ** 32 - 3, 17])
+    cpu = tops.sample_step(logits, temps, tks, seeds, pos, key)
+    gpu = tops.sample_step(*(t.to(dev) for t in (logits, temps, tks, seeds,
+                                                 pos, key)))
+    assert torch.equal(gpu.cpu(), cpu)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_cuda_paged_ops_match_cpu(quant):
+    """paged_kv_gather / paged_kv_scatter on the card give the CPU's bytes
+    (exact copies), the scale pools too, with the null page re-zeroed."""
+    dev = _need_cuda()
+    rng = np.random.RandomState(5)
+    p, kv, pg, d, n = 40, 8, 32, 128, 4
+    if quant:
+        pool = torch.from_numpy(rng.randint(-127, 128, (p, kv, pg, d))
+                                .astype(np.int8))
+    else:
+        pool = torch.from_numpy(rng.randn(p, kv, pg, d).astype(np.float32))
+    scales = torch.from_numpy(rng.rand(p, kv, pg).astype(np.float32))
+    table = torch.from_numpy(np.array([[1, 2, 3, 4], [9, 8, 0, 0],
+                                       [0, 0, 0, 0], [5, 6, 7, 10]],
+                                      np.int32))
+    start = torch.tensor([30, 50, 3, 120], dtype=torch.int32)
+    for src in (pool, scales):
+        ring = tops.paged_kv_gather(src, table)
+        gring = tops.paged_kv_gather(src.to(dev), table.to(dev))
+        assert torch.equal(gring.cpu(), ring)
+        new = ring.clone()
+        new.view(-1)[::7] = 0
+        for length in (1, 8):
+            a = tops.paged_kv_scatter(src.clone(), table, new, start, length)
+            b = tops.paged_kv_scatter(src.clone().to(dev), table.to(dev),
+                                      new.to(dev), start.to(dev), length)
+            assert torch.equal(b.cpu(), a) and not b[0].any()

@@ -24,6 +24,12 @@ gen = Generator(get_llama("llama_tiny_test", device="cpu"), max_seq=32,
                 batch_buckets=(2,), prompt_buckets=(8,))
 out, info = gen.generate([[1, 2, 3], [4, 5]], max_new_tokens=4)
 assert [len(o) for o in out] == [4, 4], out
+from mxnet_tpu_torch.serve import GraphSession, PagedKVPool, PrefixCache
+ms = Generator(gen.model, max_seq=32,
+               batch_buckets=(2,), prompt_buckets=(8,), multistep=True,
+               prefix_cache=True, page_size=8)
+assert ms.generate([[1, 2, 3], [4, 5]], max_new_tokens=4)[0] == out
+assert not ms._msession.graphs and ms._fresh_cache(2).device.type == "cpu"
 import torch
 from mxnet_tpu_torch import gluon, lr_scheduler, optimizer
 from mxnet_tpu_torch.ops.hopper import flash_attention
@@ -92,6 +98,7 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch):
     from mxnet_tpu_torch.base import MXNetError
     from mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
     from mxnet_tpu_torch.models import get_llama
+    from mxnet_tpu_torch.serve import GraphSession
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(MXNetError, match="CUDA is not available"):
@@ -102,6 +109,8 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch):
         get_resnet(1, 50)
     with pytest.raises(MXNetError, match="CUDA is not available"):
         tdevice.resolve(None)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        GraphSession("g", None)
     assert tdevice.resolve("cpu") == torch.device("cpu")
     with pytest.raises(MXNetError, match="unsupported device"):
         tdevice.resolve("meta")

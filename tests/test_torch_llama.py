@@ -192,11 +192,15 @@ def test_bucket_overflow_is_rejected():
 
 
 def test_unported_options_raise(monkeypatch):
+    """Only the strict ``baseline`` rung is still unported: paged KV, the
+    prefix cache and multi-step decode construct and serve."""
     _, port, _ = _models("llama_tiny_test")
-    for kw in ({"paged": True}, {"prefix_cache": True}, {"multistep": True},
-               {"decode_path": "baseline"}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            Generator(port, **kw)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        Generator(port, decode_path="baseline")
+    for kw in ({"paged": True}, {"prefix_cache": True}, {"multistep": True}):
+        out, _ = Generator(port, **GEN_KW, **kw).generate([[1, 2, 3]],
+                                                          max_new_tokens=3)
+        assert len(out[0]) == 3, kw
     monkeypatch.setenv("MXNET_SERVE_STRICT_PARITY", "1")
     with pytest.raises(NotImplementedError, match="baseline"):
         Generator(port)
