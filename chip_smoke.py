@@ -49,6 +49,36 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    sharing a 64-token prefix go through ``prefix_cache=True`` (multi-step)
    twice: the second run must match a nonzero prefix, and both runs must
    give the tokens of a ring run of the same prompts.
+5c. continuous: ``ContinuousEngine(max_seq=1024, num_slots=4,
+   page_size=natural_block(), prefill_chunk=256, prefix_cache=True)`` on
+   both rungs, single-step and multi-step (``decode_steps=8``): after
+   ``warmup()`` (the multi-step engine captures its four graphs), the
+   prompts of phases 4-5 submitted at once for 32 greedy tokens must give
+   that rung's phase 4-5 tokens (on a mismatch the row, the step and the
+   logit gap are printed); then a churn of 12 seeded requests (prompts of
+   8-300 tokens, two over one chunk, 4-40 new tokens) submitted at once
+   through the 4 slots must each give the tokens of a batch-1
+   ``Generator`` run of its prompt; then two prompts sharing a 64-token
+   prefix, submitted one after the other, must match a nonzero prefix
+   and give the tokens of a prefix miss. Before each rung, prompt 2's K
+   prefilled at (4, 256) and at (1, 256) is compared: on ``pallas``
+   within 1e-2 of the largest |K| at the first and last layer. On
+   ``int8`` the two differ in whole quantization steps, so greedy tokens
+   depend on the shapes a request runs at and on the attention route:
+   there single-step holds every kernel launch of part 1 and the churn
+   to the plain version on the same inputs (the engine's pages, dead
+   lanes and scales; within 1e-5 plus 1e-4 of the batch row's largest
+   |output|; its readings include that extra work), multi-step must give single-step's tokens, and the
+   agreement with phases 4-5, the batch-1 runs and the same engine with
+   the plain attention forced is printed, with the prompt bucket of each
+   churn request that differs from its batch-1 run. The kernel must
+   launch 32 layers x the
+   decode iterations the engine ran (counted at every graph replay), no
+   shape or graph may be new after warmup, and every page must be free
+   once the trie is cleared. Printed: TTFT and ITL p50/p95, decode ms a
+   token, tokens/s, host visits a token, peak memory: readings of a burst
+   of 4 (or 12) requests, not server metrics, which
+   ``python -m mxnet_tpu_torch.serve_load`` takes under sustained load.
 6. flash: the three flash-attention kernels (forward, dq, dk/dv) each
    against its plain version at the training shape (B=2, H=32, T=2048,
    D=128, causal), non-causal with valid lengths [0, 1000] (dead rows must
@@ -118,6 +148,24 @@ PROMPT_LENS = (17, 64, 130, 250)
 NEW_TOKENS = 32
 DECODE_STEPS = 8            # iterations a multi-step super-step runs
 PREFIX_LEN, PREFIX_TAILS = 64, (20, 45)   # phase 5b's shared-prefix prompts
+CB_SLOTS, CB_CHUNK = 4, 256  # phase 5c: the engine's lanes and prefill chunk
+CB_CHURN, CB_LENS, CB_NEW = 12, (8, 300), (4, 40)  # 5c's seeded churn
+CB_OVER = 2                  # churn prompts longer than one prefill chunk
+CB_WAIT = 600                # seconds any one 5c request may take
+B1_BUCKETS = (64, 256, 512)  # 5c's batch-1 Generator prompt buckets
+# 5c, pallas: prompt 2's f32 K prefilled at (4, 256) and at (1, 256), at
+# the first and last layer, within 1e-2 of the largest |K|. The two
+# shapes sum the same products in another order, which moved K by at most
+# 8.1e-4 at layer 31 on an H100; a prefill that mixed rows or positions
+# would move it by its own size
+KSHAPE_RTOL = 1e-2
+# 5c, int8: every kernel launch against the plain version on the engine's
+# inputs, within ATOL plus 1e-4 of the batch row's largest |output|. An
+# output is a weighted mean of V rows, so rounding scales with V's size,
+# not with the element's own, which may cancel to near 0 (on an H100 the
+# kernel gave 3.3e-5 where phase 3's elementwise RTOL allowed less); a
+# wrong page, position or scale moves an output by V's size
+SHADOW_RTOL = 1e-4
 MAX_SEQ = 1024
 ATOL, RTOL = 1e-5, 1e-4     # same f32 math, only the order of sums differs
 SPIN_CYCLES = 4_000_000     # about 2 ms of the card's clock: covers host work
@@ -1278,6 +1326,334 @@ def paged_phase(torch, np, da, Generator, model, prompts, n_layers, vocab,
         free_cuda(torch)
 
 
+def batch1_reference(Generator, model, rung, prompts, budgets):
+    """Each prompt alone through a batch-1 single-step Generator."""
+    gen = Generator(model, max_seq=MAX_SEQ, batch_buckets=(1,),
+                    prompt_buckets=B1_BUCKETS, decode_path=rung,
+                    name=f"llama3_8b_{rung}_b1")
+    out = [gen.generate([p], max_new_tokens=m)[0][0]
+           for p, m in zip(prompts, budgets)]
+    del gen
+    return out
+
+
+def prefill_shape_check(torch, Generator, model, rung, prompts):
+    """Prompt 2's K at the first and the last layer, prefilled with phases
+    4-5's prompts at (4, 256) and alone at (1, 256). On ``pallas`` the f32
+    K must agree within ``KSHAPE_RTOL`` of the largest |K|; on ``int8``
+    the entries that differ are counted and printed (rounding moves
+    values across quantization steps, so a batch-1 run is no token
+    reference there)."""
+    gen = Generator(model, max_seq=MAX_SEQ, batch_buckets=(1, 4),
+                    prompt_buckets=(64, 256), decode_path=rung,
+                    name=f"llama3_8b_{rung}_shape")
+    toks, lens, _ = gen._pad_prompts(prompts)
+    _, c4 = gen.prefill(toks, lens, gen._fresh_cache(4))
+    per_layer = 4 if rung == "int8" else 2
+    picks = (0, len(c4.flat()) - per_layer)   # K of the first, last layer
+    k4 = [c4.flat()[i][2].clone() for i in picks]
+    t1, l1, _ = gen._pad_prompts([prompts[2]])
+    _, c1 = gen.prefill(t1, l1, gen._fresh_cache(1))
+    n = len(prompts[2])
+    diffs = []
+    for layer, a, i in zip(("first", "last"), k4, picks):
+        a, b = a[:, :n], c1.flat()[i][0, :, :n]
+        if rung == "int8":
+            diffs.append(f"{int((a != b).sum())}/{a.numel()}")
+            continue
+        err = float((a - b).abs().max())
+        scale = float(a.abs().max())
+        check(err <= KSHAPE_RTOL * scale,
+              f"prefill K at (4, 256) and (1, 256) differ by {err:.3e} at "
+              f"the {layer} layer (largest |K| {scale:.3e})")
+        diffs.append(f"{err:.3e}/{scale:.3e}")
+    say("continuous", rung=rung,
+        prefill_k_4x256_vs_1x256_layer_first_last=diffs)
+    del gen, c4, c1, k4
+    free_cuda(torch)
+
+
+def first_diff(a, b):
+    """Index of the first token where two token lists differ."""
+    return next((j for j in range(max(len(a), len(b)))
+                 if a[j:j + 1] != b[j:j + 1]), None)
+
+
+def bucket(n):
+    """The batch-1 Generator's prompt bucket for a prompt of ``n``."""
+    return next(b for b in B1_BUCKETS if b >= n)
+
+
+def clear_trie(eng):
+    """Empty the running engine's prefix trie between requests."""
+    check(eng.drain(timeout=CB_WAIT), "drain timed out")
+    eng.prefix.clear()
+    eng.resume()
+
+
+def engine_run(torch, da, eng, prompts, budgets):
+    """Submit every prompt at once to the running engine and wait; returns
+    (token lists, results, seconds, the kernel's launches, the engine's
+    decode iterations and visits over the run)."""
+    st0 = eng.stats()
+    n0 = da.launch_count()
+    t0 = time.perf_counter()
+    futs = [eng.submit(p, max_new_tokens=m) for p, m in zip(prompts, budgets)]
+    res = [f.result(timeout=CB_WAIT) for f in futs]
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    return ([r["tokens"] for r in res], res, wall, da.launch_count() - n0,
+            st["decode_iterations"] - st0["decode_iterations"],
+            st["decode_visits"] - st0["decode_visits"])
+
+
+class ShadowB1:
+    """From ``start()`` to ``stop()`` every decode-attention kernel launch
+    also runs the plain version on the same inputs (the engine's gathered
+    pages, dead lanes, int8 rings and scales), on the device with no host
+    read; ``within()`` says whether every output agreed to ATOL plus
+    SHADOW_RTOL of its batch row's largest |output|, at live rows. On ``int8`` a token comparison cannot hold the kernel to
+    its plain version: every step requantizes the K/V it writes, so the
+    two routes' 1e-6 differences move later inputs by whole quantization
+    steps."""
+
+    def __init__(self, torch, da):
+        self.torch, self.da, self.kernel = torch, da, None
+        self.calls, self.err, self.excess, self.rel = 0, None, None, None
+
+    def start(self):
+        torch, da = self.torch, self.da
+        kernel = self.kernel = da.decode_attention
+
+        def shadowed(q, k, v, start_pos, scale=None, k_scale=None,
+                     v_scale=None):
+            out = kernel(q, k, v, start_pos, scale=scale, k_scale=k_scale,
+                         v_scale=v_scale)
+            if da.last_path() == "cuda":
+                ref = da.decode_attention_torch(q, k, v, start_pos,
+                                                scale=scale, k_scale=k_scale,
+                                                v_scale=v_scale)
+                live = (start_pos >= 0).view(-1, 1, 1, 1)
+                err = torch.where(live, (out - ref).abs(), 0.0)
+                scale = ref.abs().amax(dim=(1, 2, 3), keepdim=True)
+                excess = (err - ATOL - SHADOW_RTOL * scale).amax()
+                rel = (err / scale.clamp_min(ATOL)).amax()
+                err = err.amax()
+                if self.calls:
+                    err = torch.maximum(self.err, err)
+                    excess = torch.maximum(self.excess, excess)
+                    rel = torch.maximum(self.rel, rel)
+                self.err, self.excess, self.rel = err, excess, rel
+                self.calls += 1
+            return out
+
+        da.decode_attention = shadowed
+
+    def stop(self):
+        if self.kernel is not None:
+            self.da.decode_attention, self.kernel = self.kernel, None
+
+    def within(self):
+        return self.calls > 0 and bool(self.excess <= 0)
+
+
+def plain_agreement(torch, da, eng, prompts, budgets, got):
+    """The running engine serves ``prompts`` again, at its own shapes,
+    with the plain attention forced (the kernel must not launch); returns
+    how many requests give the tokens ``got`` and where the others first
+    differ. The engine is drained and its trie emptied first, so every
+    request is a prefix miss again."""
+    clear_trie(eng)
+    da.force_path("torch")
+    try:
+        plain, _, _, launches, _, _ = engine_run(torch, da, eng, prompts,
+                                                 budgets)
+    finally:
+        da.force_path(None)
+    check(launches == 0, f"{launches} kernel launches with the plain "
+          "attention forced")
+    bad = [f"#{i} from token {first_diff(a, b)}"
+           for i, (a, b) in enumerate(zip(got, plain)) if a != b]
+    return len(prompts) - len(bad), bad
+
+
+def continuous_phase(torch, np, da, Generator, ContinuousEngine, percentile,
+                     model, prompts, n_layers, vocab, served):
+    """Phase 5c: the continuous-batching engine on both rungs, single- and
+    multi-step. On ``pallas`` every request is held to phases 4-5 or to a
+    batch-1 Generator run. On ``int8`` the rung's greedy tokens depend on
+    the shapes a request runs at (``prefill_shape_check`` counts it) and
+    on the attention route, so there single-step holds every kernel
+    launch of part 1 and the churn to the plain version on the same
+    inputs (``ShadowB1``) and multi-step holds the tokens to single-step
+    (the same shapes, the graph replays the same kernels); the agreement
+    with phases 4-5, the batch-1 runs (with the prompt bucket of each
+    churn request that differs) and the same engine with the plain
+    attention forced is printed."""
+    rng = np.random.RandomState(5)
+    # the first two churn prompts over one chunk, the rest anywhere
+    lens = np.concatenate([
+        rng.randint(CB_CHUNK + 1, CB_LENS[1] + 1, size=CB_OVER),
+        rng.randint(CB_LENS[0], CB_LENS[1] + 1, size=CB_CHURN - CB_OVER)])
+    churn = [[int(t) for t in rng.randint(1, vocab, size=int(n))]
+             for n in lens]
+    churn_new = [int(m) for m in rng.randint(CB_NEW[0], CB_NEW[1] + 1,
+                                             size=CB_CHURN)]
+    shared = [int(t) for t in rng.randint(1, vocab, size=PREFIX_LEN)]
+    px = [shared + [int(t) for t in rng.randint(1, vocab, size=n)]
+          for n in PREFIX_TAILS]
+    out, single = {}, None
+    for rung in ("pallas", "int8"):
+        exact = rung == "pallas"
+        prefill_shape_check(torch, Generator, model, rung, prompts)
+        t0 = time.perf_counter()
+        ref = batch1_reference(Generator, model, rung, churn,
+                               churn_new)
+        free_cuda(torch)
+        say("continuous", rung=rung, batch1_reference_s=(
+            f"{time.perf_counter() - t0:.3f}"))
+        for multistep in (False, True):
+            phase = f"continuous {rung} {'multi' if multistep else 'single'}"
+            torch.cuda.reset_peak_memory_stats()
+            eng = ContinuousEngine(
+                model, max_seq=MAX_SEQ, num_slots=CB_SLOTS,
+                page_size=da.natural_block(), prefill_chunk=CB_CHUNK,
+                decode_path=rung, prefix_cache=True, multistep=multistep,
+                decode_steps=DECODE_STEPS, max_queue=64,
+                name=f"llama3_8b_{rung}_cb")
+            shadow = ShadowB1(torch, da)
+            try:
+                da.force_path(None)
+                w = eng.warmup()
+                captures = w.get("captures", 0)
+                check(captures == (4 if multistep else 0),
+                      f"{captures} graphs captured by warmup")
+                say(phase, warmup_s=f"{w['wall_s']:.3f}",
+                    signatures=w["signatures"], graphs_captured=captures)
+                eng.start()
+                # the int8 single-step arm shadows every kernel launch
+                shadowing = not exact and not multistep
+                if shadowing:
+                    shadow.start()
+                # part 1: the prompts of phases 4-5, at once
+                toks, res, wall, launches, iters, visits = engine_run(
+                    torch, da, eng, prompts, [NEW_TOKENS] * len(prompts))
+                all_launches = launches
+                check(launches == n_layers * iters > 0,
+                      f"{launches} kernel launches for {iters} decode "
+                      f"iterations x {n_layers} layers")
+                snap = eng.metrics.snapshot()
+                itl = [ms for ms, _ in eng.metrics.itl_samples()]
+                steps = max(r["decode_steps"] for r in res)
+                say(phase, ttft_p50_ms=f"{snap['ttft_p50_ms']:.3f}",
+                    ttft_p95_ms=f"{snap['ttft_p95_ms']:.3f}",
+                    itl_p50_ms=f"{percentile(itl, 50):.3f}",
+                    itl_p95_ms=f"{percentile(itl, 95):.3f}",
+                    decode_ms_per_token=f"{sum(itl) / len(itl):.3f}",
+                    tokens_s=f"{sum(map(len, toks)) / wall:.3f}",
+                    wall_s=f"{wall:.3f}", decode_visits=visits,
+                    decode_iterations=iters,
+                    host_visits_per_token=f"{visits / steps:.4f}",
+                    kernel_launches=launches)
+                if exact and toks != served[rung]["out"]:
+                    gen = Generator(model, max_seq=MAX_SEQ,
+                                    batch_buckets=(1, 4),
+                                    prompt_buckets=(64, 256),
+                                    decode_path=rung)
+                    raise CheckFailed(
+                        f"{phase}: tokens differ from phases 4-5: "
+                        + first_divergence(torch, da, gen, prompts, toks,
+                                           served[rung]["out"]))
+                # part 2: the seeded churn, at once
+                ctoks, res, cwall, launches, iters, visits = engine_run(
+                    torch, da, eng, churn, churn_new)
+                all_launches += launches
+                if shadowing:
+                    shadow.stop()
+                    check(shadow.calls == all_launches,
+                          f"{phase}: {shadow.calls} shadowed calls for "
+                          f"{all_launches} launches")
+                    err = float(shadow.err) if shadow.calls else None
+                    check(shadow.within(), f"{phase}: the kernel differs "
+                          f"from its plain version on the engine's inputs "
+                          f"by up to {err}")
+                    say(phase, kernel_calls_held_to_plain=shadow.calls,
+                        kernel_max_abs_err_vs_plain=err,
+                        kernel_max_err_over_row_scale=float(shadow.rel))
+                    single = toks + ctoks
+                elif not exact:
+                    bad = [f"#{i} from token {first_diff(a, b)}"
+                           for i, (a, b) in enumerate(zip(toks + ctoks,
+                                                          single)) if a != b]
+                    check(not bad, f"{phase}: tokens differ from the "
+                          f"single-step engine's: {bad}")
+                    say(phase, tokens_identical_to_single_step_engine=len(
+                        single))
+                check(launches == n_layers * iters,
+                      f"churn: {launches} launches for {iters} iterations")
+                say(phase, churn_requests=CB_CHURN,
+                    churn_tokens=sum(map(len, ctoks)),
+                    churn_tokens_s=f"{sum(map(len, ctoks)) / cwall:.3f}",
+                    churn_decode_visits=visits, churn_decode_iterations=iters,
+                    churn_kernel_launches=launches)
+                b1_bad = [f"#{i} (prompt {len(churn[i])}, bucket "
+                          f"{bucket(len(churn[i]))}) from token "
+                          f"{first_diff(ctoks[i], ref[i])}"
+                          for i in range(CB_CHURN) if ctoks[i] != ref[i]]
+                if exact:
+                    check(not b1_bad, f"{phase}: churn requests differ from "
+                          f"batch-1 Generator runs: {b1_bad}")
+                say(phase, rows_equal_to_phase_4_5=sum(
+                    a == b for a, b in zip(toks, served[rung]["out"])),
+                    churn_equal_to_batch1_generator=CB_CHURN - len(b1_bad),
+                    churn_differing_from_batch1=b1_bad,
+                    engine_prefill_chunk=CB_CHUNK)
+                # part 3: a shared 64-token prefix, one request after the
+                # other; the hit must keep the tokens of a miss
+                matched0 = eng.metrics.snapshot()["prefix_tokens_skipped"]
+                hits = [engine_run(torch, da, eng, [p], [NEW_TOKENS])[0][0]
+                        for p in px]
+                matched = (eng.metrics.snapshot()["prefix_tokens_skipped"]
+                           - matched0)
+                check(matched > 0, "the shared-prefix prompt matched no "
+                      "prefix")
+                clear_trie(eng)
+                miss = engine_run(torch, da, eng, px[1:], [NEW_TOKENS])[0]
+                check(hits[1:] == miss, f"{phase}: the prefix hit's tokens "
+                      "differ from a miss's")
+                eng.assert_no_recompiles()
+                if multistep:
+                    check(eng._msession.captures == captures,
+                          "a graph was captured after warmup")
+                snap = eng.metrics.snapshot()
+                peak = torch.cuda.max_memory_allocated()
+                if shadowing:
+                    same, bad = plain_agreement(
+                        torch, da, eng, prompts + churn,
+                        [NEW_TOKENS] * len(prompts) + churn_new, toks + ctoks)
+                    say(phase, tokens_equal_to_forced_plain_engine=same,
+                        differing_from_forced_plain=bad)
+            finally:
+                shadow.stop()
+                eng.close()
+            eng.prefix.clear()
+            pool = eng.stats()["pool"]
+            check(pool["pages_owned"] == 0 and pool["pages_used"] == 0,
+                  f"pages not recycled: {pool}")
+            say(phase, prefix_tokens_matched=matched,
+                prefix_hit_equals_miss=True,
+                prefix_hits=snap["prefix_hits"],
+                prefix_evictions=snap["prefix_evictions"],
+                requests=snap["requests"], errors=snap["errors"],
+                pool_high_water=pool["high_water"],
+                pool_bytes=pool["nbytes"], peak_mem_bytes=peak,
+                pages_recycled=True)
+            out[(rung, multistep)] = snap
+            del eng
+            free_cuda(torch)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1312,7 +1688,8 @@ def main(argv=None):
     from mxnet_tpu_torch.ops.hopper import conv1x1 as c1x1
     from mxnet_tpu_torch.ops.hopper import decode_attention as da
     from mxnet_tpu_torch.ops.hopper import flash_attention as fa
-    from mxnet_tpu_torch.serve import Generator, InferenceSession
+    from mxnet_tpu_torch.serve import (ContinuousEngine, Generator,
+                                       InferenceSession, percentile)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1408,6 +1785,10 @@ def main(argv=None):
             served[rung]["out"])
     paged_phase(torch, np, da, Generator, model, prompts, cfg["num_layers"],
                 cfg["vocab_size"], served)
+    # 5c. continuous batching: ContinuousEngine over per-slot paged KV
+    continuous_phase(torch, np, da, Generator, ContinuousEngine, percentile,
+                     model, prompts, cfg["num_layers"], cfg["vocab_size"],
+                     served)
     del model
     gc.collect()
     torch.cuda.empty_cache()

@@ -6,9 +6,11 @@ tensor code is PyTorch; every TPU kernel on a ported path is a kernel
 written by hand for ``sm_90a`` under ``csrc/``, built at first use. Entry
 points run on the GPU unless the caller passes ``device="cpu"``.
 
-Ported so far: serving (``serve.Generator`` on the ``pallas`` and
-``int8`` rungs, every decode step through the CUDA decode-attention
-kernel) and single-device training (``gluon.Trainer``, ``gluon.loss``,
+Ported so far: serving (``serve.Generator`` and the continuous-batching
+``serve.ContinuousEngine`` with its ``DynamicBatcher`` and
+``ServeMetrics``, on the ``pallas`` and ``int8`` rungs, every decode step
+through the CUDA decode-attention kernel; the host-side ``profiler`` and
+``resilience`` fault injection they report to) and single-device training (``gluon.Trainer``, ``gluon.loss``,
 ``optimizer``, ``lr_scheduler``; the cache-free Llama forward through the
 CUDA flash-attention kernels, forward and backward). ``models.llama`` has
 both paths; ``ops.nn`` holds the ops, ``ops.hopper`` the kernels.
@@ -16,8 +18,9 @@ both paths; ``ops.nn`` holds the ops, ``ops.hopper`` the kernels.
 from __future__ import annotations
 
 from . import (config, device, gluon, lr_scheduler, models, optimizer,
-               random, serve)
+               profiler, random, resilience, serve)
 from .base import MXNetError
 
 __all__ = ["MXNetError", "config", "device", "gluon", "lr_scheduler",
-           "models", "optimizer", "random", "serve"]
+           "models", "optimizer", "profiler", "random", "resilience",
+           "serve"]

@@ -1,5 +1,6 @@
 """Environment flags the port reads (its own copy of the registry in
-``mxnet_tpu/config.py``, restricted to the flags of the serving slice).
+``mxnet_tpu/config.py``, restricted to the flags of the ported modules,
+with the JAX package's defaults).
 
 Values are read live: ``get`` parses the environment on every call, so a
 flag set before a :class:`~mxnet_tpu_torch.serve.Generator` is built takes
@@ -65,8 +66,7 @@ register_flag(
     "MXNET_SERVE_KV_PAGED", False,
     "Back serve.Generator KV state with the paged block pool "
     "(serve.kv_blocks.PagedKVPool, fully assigned) instead of contiguous "
-    "per-bucket rings. The continuous-batching engine, which is always "
-    "paged, is not ported yet.", _bool)
+    "per-bucket rings. (serve.ContinuousEngine is always paged.)", _bool)
 register_flag(
     "MXNET_SERVE_KV_PAGE_SIZE", 0,
     "KV page width in tokens for the paged block allocator. 0 (default): "
@@ -104,3 +104,83 @@ register_flag(
     "through a second graph per batch bucket — tight deadlines "
     "auto-degrade to single-step so 504 retirement latency stays "
     "bounded by one iteration.", int)
+register_flag(
+    "MXNET_SERVE_SLOTS", 8,
+    "Decode lanes for serve.scheduler.ContinuousEngine: its one decode "
+    "width. Requests are admitted into free lanes and retired from "
+    "finished ones between decode visits; idle lanes ride along on the "
+    "null KV page.", int)
+register_flag(
+    "MXNET_SERVE_PREFILL_CHUNK", 0,
+    "Prompt tokens prefilled per continuous-batching scheduler iteration "
+    "at the fixed (1, chunk) signature. 0 (default): one KV page. Bounds "
+    "how long a long prompt can stall live decode streams (one chunk per "
+    "iteration).", int)
+register_flag(
+    "MXNET_SERVE_MAX_BATCH", 8,
+    "DynamicBatcher flush size: a batch dispatches immediately once this "
+    "many requests are queued.", int)
+register_flag(
+    "MXNET_SERVE_BATCH_TIMEOUT_MS", 5.0,
+    "DynamicBatcher flush deadline: an admitted request waits at most this "
+    "long for batch-mates before the partial batch dispatches.", float)
+register_flag(
+    "MXNET_SERVE_MAX_QUEUE", 64,
+    "Admission-control cap on DynamicBatcher queue depth: submissions "
+    "beyond it fast-reject with ServiceUnavailable (503).", int)
+register_flag(
+    "MXNET_SERVE_DEADLINE_MS", 0.0,
+    "Default request deadline attached at DynamicBatcher.submit when the "
+    "caller passes none: expired requests are cancelled at every stage "
+    "boundary with DeadlineExceeded (504). 0 disables.", float)
+register_flag(
+    "MXNET_SERVE_DEADLINE_GRACE_MS", 0.0,
+    "Slack past a request's deadline within which a completed result is "
+    "still delivered (counted as a late completion); beyond deadline + "
+    "grace the future settles with DeadlineExceeded.", float)
+register_flag(
+    "MXNET_SERVE_BATCH_QUEUE_SHARE", 1.0,
+    "Fraction of MXNET_SERVE_MAX_QUEUE the batch priority class may "
+    "occupy; batch-class submits beyond it shed with 503. 1.0 (default) "
+    "reserves nothing.", float)
+register_flag(
+    "MXNET_SERVE_RATE_LIMIT", 0.0,
+    "Token-bucket refill rate (requests/s) gating batch-class admission "
+    "in DynamicBatcher.submit; interactive traffic is never rate-limited. "
+    "0 disables the bucket.", float)
+register_flag(
+    "MXNET_SERVE_RATE_BURST", 16,
+    "Token-bucket capacity for MXNET_SERVE_RATE_LIMIT.", int)
+register_flag(
+    "MXNET_SERVE_METRICS_WINDOW", 2048,
+    "Ring-buffer sample count behind the serve latency, TTFT and ITL "
+    "percentiles (serve.metrics).", int)
+register_flag(
+    "MXNET_FAULT_PLAN", None,
+    "Fault-injection plan (resilience.faults): inline JSON or "
+    "@/path/to/plan.json. Installed lazily on first use; unset disables "
+    "injection.")
+register_flag(
+    "MXNET_TRACE", False,
+    "Request-scoped tracing (profiler.trace) on from import.", _bool)
+register_flag(
+    "MXNET_TRACE_MAX", 1024,
+    "Bounded in-process trace registry size (oldest traces evicted).", int)
+register_flag(
+    "MXNET_FLIGHT_RECORDER", True,
+    "Always-on flight recorder (profiler.recorder): a bounded ring of "
+    "recent faults, sheds, rejects and deadline expiries. 0 disables (ring "
+    "writes become one bool check).", _bool)
+register_flag(
+    "MXNET_FLIGHT_RECORDER_SIZE", 512,
+    "Flight-recorder ring capacity (most recent N notes kept).", int)
+register_flag(
+    "MXNET_ATTRIBUTION", False,
+    "Decode critical-path attribution (profiler.attribution) on from "
+    "import: split every decode visit's wall time into host / dispatch / "
+    "device / wait phases and publish host_overhead_fraction / "
+    "device_ms_per_token through ServeMetrics.", _bool)
+register_flag(
+    "MXNET_ATTRIBUTION_WINDOW", 512,
+    "Rolling window (decode visits) of the attribution ledger's gauges.",
+    int)

@@ -1,20 +1,26 @@
 """Inference serving of the port: the bucketed session, the CUDA-graph
-session, the KV-cache generator (ring or paged, single- or multi-step) and
-the paged pool with its prefix cache (counterparts of
-``mxnet_tpu/serve/engine.py``, ``generate.py``, ``kv_blocks.py`` and
-``prefix_cache.py``). Batching, continuous batching, speculative decoding,
-the fleet layer and serving metrics come in later slices."""
+session, the KV-cache generator (ring or paged, single- or multi-step),
+the paged pool with its prefix cache, the admission queue, serving
+metrics and the continuous-batching engine (counterparts of
+``mxnet_tpu/serve/engine.py``, ``generate.py``, ``kv_blocks.py``,
+``prefix_cache.py``, ``batcher.py``, ``metrics.py`` and ``scheduler.py``).
+Speculative decoding, tenancy and the fleet layer come in later slices."""
 from __future__ import annotations
 
-from .engine import (GraphSession, InferenceSession, PoolExhausted,
-                     ServeError, ServiceUnavailable, pick_bucket)
+from .batcher import PRIORITIES, DynamicBatcher, TokenBucket
+from .engine import (DeadlineExceeded, GraphSession, InferenceSession,
+                     PoolExhausted, ServeError, ServiceUnavailable,
+                     pick_bucket)
 from .generate import Generator, KVCache, resolve_decode_path, sample_tokens
 from .kv_blocks import PagedKVPool, resolve_page_size
+from .metrics import ServeMetrics, percentile
 from .prefix_cache import PrefixCache
+from .scheduler import ContinuousEngine
 
 __all__ = [
-    "InferenceSession", "GraphSession", "Generator", "KVCache",
-    "PagedKVPool", "PrefixCache", "ServeError", "ServiceUnavailable",
-    "PoolExhausted", "sample_tokens", "pick_bucket", "resolve_decode_path",
-    "resolve_page_size",
+    "InferenceSession", "GraphSession", "DynamicBatcher", "Generator",
+    "KVCache", "ServeMetrics", "ServeError", "ServiceUnavailable",
+    "DeadlineExceeded", "PoolExhausted", "TokenBucket", "PRIORITIES",
+    "ContinuousEngine", "PagedKVPool", "resolve_page_size", "PrefixCache",
+    "sample_tokens", "pick_bucket", "percentile", "resolve_decode_path",
 ]

@@ -9,9 +9,11 @@ The session keeps the set of signatures it has run, and
 ``assert_no_recompiles`` keeps its meaning: after ``warmup`` no call
 brings a new signature.
 
-This is the lean first cut. The circuit breaker, execution watchdog and
-fault sites of the JAX session arrive with the port of ``resilience/``,
-and serving metrics with ``serve/metrics.py``.
+Each session carries a :class:`~.metrics.ServeMetrics` (``metrics``,
+``stats()``), runs the ``serve:execute`` fault site before every call and
+records a ``serve::session_run(<name>)`` span on the calling thread's
+ambient request trace. The JAX session's circuit breaker and execution
+watchdog are not ported yet.
 
 :class:`GraphSession` is the counterpart of the compiled executables the
 JAX package keeps per signature: on a GPU it captures one CUDA graph per
@@ -27,6 +29,9 @@ import torch
 
 from .. import device as _device
 from ..base import MXNetError
+from ..profiler import trace as _trace
+from ..resilience import faults as _faults
+from .metrics import ServeMetrics
 
 
 class ServeError(MXNetError):
@@ -48,7 +53,22 @@ class PoolExhausted(ServiceUnavailable):
     """The paged KV block pool has no free pages for a new admission
     (503-shaped: capacity frees as in-flight requests retire and their
     pages recycle). Raised by :class:`~mxnet_tpu_torch.serve.kv_blocks.
-    PagedKVPool`, with a ``retry_after_ms`` hint."""
+    PagedKVPool`, with a ``retry_after_ms`` hint; the continuous
+    engine requeues the request instead of failing it."""
+
+
+class DeadlineExceeded(ServeError):
+    """The request's deadline passed before (or while) it was served (504).
+
+    Distinct from :class:`ServiceUnavailable` on purpose: a 503 means the
+    *server* shed or failed the request and a retry may succeed; a 504
+    means the *request's own time budget* ran out. Raised at every stage
+    boundary (admission, queue sweep, settle, between decode visits); a
+    request that expires mid-decode carries the tokens generated so far
+    in ``.partial``.
+    """
+
+    status = 504
 
 
 def pick_bucket(n, buckets):
@@ -102,18 +122,24 @@ class InferenceSession:
                          None)
             device = param.device if param is not None else None
         self.device = _device.resolve(device)
+        self.metrics = ServeMetrics(self.name)
         self._signatures = set()
         self._warm_signatures = None
         self._lock = threading.Lock()
 
     def run(self, *args):
         """Execute one already-bucketed call under
-        ``torch.inference_mode()``, recording its shape signature."""
+        ``torch.inference_mode()``, recording its shape signature. The
+        ``serve:execute`` fault site fires first; a failure propagates
+        unchanged (a batcher or the continuous engine maps it onto the
+        requests inside the call)."""
         sig = _signature(args)
         with self._lock:
             self._signatures.add(sig)
-        with torch.inference_mode():
-            return self.block(*args)
+        with _trace.span(f"serve::session_run({self.name})"):
+            _faults.fault_point("serve:execute", {"session": self.name})
+            with torch.inference_mode():
+                return self.block(*args)
 
     # -- bucketed predict ---------------------------------------------------
     def _pad_input(self, data):
@@ -206,6 +232,12 @@ class InferenceSession:
         with self._lock:
             return len(self._signatures)
 
+    def stats(self):
+        """Serving snapshot: the metrics plus the signature count."""
+        out = self.metrics.snapshot()
+        out["signatures"] = self.signature_count()
+        return out
+
 
 class _Captured:
     """One captured graph, the outputs it writes, and the kernel launches
@@ -246,6 +278,16 @@ class GraphSession:
     on one stream, and each replay's outputs are read before the next
     replay, so one graph may reuse another's intermediate memory.
     Outputs are valid until the next :meth:`run`.
+
+    Threads: a graph captured on one thread replays on any other (the
+    continuous engine captures in ``warmup()`` on the caller's thread and
+    replays on its scheduler thread). A replay runs on the calling
+    thread's current stream, so the caller fills the static inputs on
+    that same stream; a thread other than the capturing one must make the
+    session's device current first (``torch.cuda.set_device``). Captures
+    use ``capture_error_mode="thread_local"``, so work another thread
+    runs during a capture cannot invalidate it; one thread at a time
+    calls :meth:`run`.
     """
 
     def __init__(self, name, device, counters=()):
@@ -294,7 +336,8 @@ class GraphSession:
         before = [c.captured_count() for c in self._counters]
         graph = torch.cuda.CUDAGraph()
         with torch.inference_mode(), torch.cuda.graph(
-                graph, pool=self._pool, stream=side):
+                graph, pool=self._pool, stream=side,
+                capture_error_mode="thread_local"):
             mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:

@@ -458,6 +458,47 @@ class _SuperInputs:
         return host.numpy().copy()
 
 
+def _replay_super(session, step, inp, steps, flat, arrays, events=None,
+                  dispatched=None):
+    """The host side of one super-step visit, shared by a
+    :class:`Generator`'s batch bucket and the continuous engine's slot
+    lattice: write the host ``arrays`` (``_SuperInputs.fill``'s names)
+    into the lattice's static buffers ``inp`` and move them to the device
+    in one copy, replay the graph of (lanes, ``steps``, greedy or sampled,
+    attention route) in the :class:`GraphSession` — capturing it first on
+    its first use — and read the (lanes, steps + 2) block back in one
+    copy. A visit is sampled when any lane's temperature is above 0; greedy
+    lanes of a sampled visit still take argmax (``ops.nn.sample_step``).
+    ``flat`` is the cache state the body reads and writes in place.
+
+    Returns host numpy ``(block, valid, done)``: the (lanes, steps) token
+    block (-1 where a lane was done), per-lane valid counts and done flags.
+
+    ``events``: optional list; on a GPU one (start, end) pair of CUDA
+    events recorded around the replay is appended (its device time).
+    ``dispatched``: optional list; the host clock right after the replay
+    was issued, before the blocking read, is appended."""
+    sampled = bool((_onp.asarray(arrays["temps"], _onp.float32) > 0).any())
+    inp.fill(**arrays)
+
+    def body():
+        return step(*inp.views(), *flat, steps=steps, sampled=sampled)
+
+    timed = events is not None and session.graphs
+    if timed:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+    out = session.run((inp.lanes, steps, sampled, _da.forced_path()), body)
+    if timed:
+        e1.record()
+        events.append((e0, e1))
+    if dispatched is not None:
+        dispatched.append(time.perf_counter())
+    packed = inp.read(out)
+    return packed[:, :steps], packed[:, steps], packed[:, steps + 1]
+
+
 _DECODE_PATHS = ("baseline", "pallas", "int8")
 
 
@@ -733,8 +774,6 @@ class Generator:
             raise MXNetError(f"decode_super: steps_limit {steps} is neither "
                              f"1 nor decode_steps ({self.decode_steps})")
         b = len(positions)
-        temps = _onp.asarray(temps, _onp.float32)
-        sampled = bool((temps > 0).any())
         inp = self._inputs.get(b)
         if inp is None:
             pages = cache.pages_per_slot if self._paged else 0
@@ -746,26 +785,10 @@ class Generator:
                       key_bits=_onp.asarray(key_bits, _onp.uint32))
         if self._paged:
             arrays["page_table"] = cache.table()
-        inp.fill(**arrays)
-        flat = cache.flat()
-
-        def body():
-            return self._mstep(*inp.views(), *flat, steps=steps,
-                               sampled=sampled)
-
-        timed = events is not None and self.device.type == "cuda"
-        if timed:
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-        out = self._msession.run((b, steps, sampled, _da.forced_path()),
-                                 body)
-        if timed:
-            e1.record()
-            events.append((e0, e1))
-        packed = inp.read(out)
-        return (packed[:, :steps], packed[:, steps], packed[:, steps + 1],
-                cache)
+        block, valid, done = _replay_super(self._msession, self._mstep, inp,
+                                           steps, cache.flat(), arrays,
+                                           events=events)
+        return block, valid, done, cache
 
     # -- the serving API ----------------------------------------------------
     def _pad_prompts(self, prompts):

@@ -951,3 +951,129 @@ def test_cuda_paged_ops_match_cpu(quant):
             b = tops.paged_kv_scatter(src.clone().to(dev), table.to(dev),
                                       new.to(dev), start.to(dev), length)
             assert torch.equal(b.cpu(), a) and not b[0].any()
+
+
+# ---------------------------------------------------------------------------
+# the continuous-batching engine on the card
+# ---------------------------------------------------------------------------
+
+CB_KW = dict(max_seq=64, num_slots=2, page_size=8, prefill_chunk=8)
+CB_WAIT = 120
+
+
+def _cb_prompts(n, seed=0, vocab=256):
+    rng = np.random.RandomState(seed)
+    return [[int(t) for t in rng.randint(1, vocab, size=int(k))]
+            for k in rng.randint(1, 30, size=n)]
+
+
+def _cb_serve(eng, prompts, budgets, **kw):
+    futs = [eng.submit(p, max_new_tokens=int(m), **kw)
+            for p, m in zip(prompts, budgets)]
+    return [f.result(timeout=CB_WAIT)["tokens"] for f in futs]
+
+
+def _cb_engine(model, **kw):
+    from mxnet_tpu_torch.serve import ContinuousEngine
+
+    return ContinuousEngine(model, **dict(CB_KW, **kw))
+
+
+@pytest.mark.parametrize("rung", ["pallas", "int8"])
+def test_cuda_engine_captures_only_in_warmup_across_churn(rung):
+    """warmup() captures the super-step's four graphs (N and 1, greedy and
+    sampled); 24 requests churning through 2 slots on the scheduler thread
+    capture none, keep every signature, recycle every page and give the
+    CPU engine's greedy tokens."""
+    dev = _need_cuda()
+    cpu_model, gpu = _tiny_pair(dev)
+    prompts = _cb_prompts(24, seed=1)
+    budgets = np.random.RandomState(2).randint(1, 12, size=24)
+    eng = _cb_engine(gpu, decode_path=rung, multistep=True, decode_steps=4,
+                     max_queue=64)
+    try:
+        w = eng.warmup()
+        assert w["captures"] == 4 and eng._msession.graphs
+        eng.start()
+        got = _cb_serve(eng, prompts, budgets)
+        assert eng._msession.captures == 4
+        eng.assert_no_recompiles()
+        st = eng.stats()["pool"]
+        assert st["pages_owned"] == 0 and st["pages_used"] == 0
+    finally:
+        eng.close()
+    with _cb_engine(cpu_model, decode_path=rung, multistep=True,
+                    decode_steps=4, max_queue=64) as cpu:
+        assert got == _cb_serve(cpu, prompts, budgets)
+
+
+@pytest.mark.parametrize("multistep", [False, True], ids=["single", "multi"])
+def test_cuda_engine_greedy_matches_cpu_and_counts_replays(multistep):
+    """Greedy tokens on the card equal the same engine's on the CPU, and
+    the decode-attention kernel's launches equal layers x the decode
+    iterations the engine ran (each graph replay counted)."""
+    dev = _need_cuda()
+    cpu_model, gpu = _tiny_pair(dev)
+    prompts = _cb_prompts(6, seed=3)
+    budgets = [9, 3, 12, 1, 7, 5]
+    kw = dict(decode_path="pallas", multistep=multistep, decode_steps=4)
+    eng = _cb_engine(gpu, **kw)
+    try:
+        eng.warmup()
+        n0 = da.launch_count()
+        eng.start()
+        got = _cb_serve(eng, prompts, budgets)
+        launches = da.launch_count() - n0
+        st = eng.stats()
+        eng.assert_no_recompiles()
+    finally:
+        eng.close()
+    iterations = st["decode_iterations"]
+    assert launches == 2 * iterations > 0
+    if not multistep:
+        assert iterations == st["decode_visits"]
+    with _cb_engine(cpu_model, **kw) as cpu:
+        assert got == _cb_serve(cpu, prompts, budgets)
+
+
+def test_cuda_engine_sampled_n8_equals_n1():
+    """Sampled streams are keyed by (engine key, admission seed,
+    position): N = 8 and N = 1 on the card give the same tokens, and the
+    greedy lanes riding in the same sampled visits keep their greedy
+    tokens."""
+    dev = _need_cuda()
+    _, gpu = _tiny_pair(dev)
+    prompts = _cb_prompts(4, seed=4)
+    outs = []
+    for steps in (8, 1):
+        trandom.seed(5)
+        with _cb_engine(gpu, num_slots=4, multistep=True,
+                        decode_steps=steps) as eng:
+            futs = [eng.submit(p, max_new_tokens=14,
+                               temperature=0.0 if i == 0 else 0.9, top_k=6)
+                    for i, p in enumerate(prompts)]
+            outs.append([f.result(timeout=CB_WAIT)["tokens"] for f in futs])
+            eng.assert_no_recompiles()
+    assert outs[0] == outs[1]
+    with _cb_engine(gpu, num_slots=4) as greedy:
+        assert outs[0][0] == _cb_serve(greedy, prompts[:1], [14])[0]
+
+
+def test_cuda_engine_forced_plain_captures_on_the_scheduler_thread():
+    """Under force_path("torch") the scheduler thread captures the plain
+    route's graph at first use (a thread other than warmup's) and replays
+    it: no kernel launch, the same greedy tokens."""
+    dev = _need_cuda()
+    _, gpu = _tiny_pair(dev)
+    prompts = _cb_prompts(3, seed=6)
+    with _cb_engine(gpu, multistep=True, decode_steps=4) as eng:
+        want = _cb_serve(eng, prompts, [10, 10, 10])
+        da.force_path("torch")
+        try:
+            n0 = da.launch_count()
+            got = _cb_serve(eng, prompts, [10, 10, 10])
+            assert da.launch_count() == n0
+        finally:
+            da.force_path(None)
+        assert eng._msession.captures == 5
+    assert got == want

@@ -51,6 +51,25 @@ sess = InferenceSession(fuse_resnet_v1(get_resnet(1, 50, device="cpu"),
                                        use_pallas=True), batch_buckets=(2,))
 assert tuple(sess.predict(torch.rand(1, 3, 32, 32)).shape) == (1, 1000)
 assert conv1x1.last_path() == "torch"
+from mxnet_tpu_torch import profiler, resilience
+from mxnet_tpu_torch.serve import (ContinuousEngine, DynamicBatcher,
+                                   ServeMetrics, batcher, metrics, scheduler)
+for multistep in (False, True):
+    with ContinuousEngine(gen.model, max_seq=32, num_slots=2, page_size=8,
+                          multistep=multistep, decode_steps=2) as eng:
+        got = [f.result(60)["tokens"] for f in
+               [eng.submit(p, max_new_tokens=4) for p in ([1, 2, 3], [4, 5])]]
+        assert got == out, (got, out)
+        assert eng.pool.device.type == "cpu"
+with DynamicBatcher(lambda xs: [x + 1 for x in xs], max_batch_size=2) as b:
+    assert b.submit(1).result(10) == 2
+assert ServeMetrics("iso").snapshot()["requests"] == 0
+from mxnet_tpu_torch import serve_load
+assert serve_load.traffic(4, 2.0, 256)[0][2] == 48
+resilience.install_plan({"rules": [{"site": "x", "kind": "fatal", "at": [5]}]})
+resilience.clear_plan()
+tr = profiler.trace
+tr.enable(); assert tr.start_trace("iso") is not None; tr.disable()
 assert not any(m == "jax" or m.startswith(("jax.", "mxnet_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ISOLATED_OK")
@@ -98,7 +117,9 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch):
     from mxnet_tpu_torch.base import MXNetError
     from mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
     from mxnet_tpu_torch.models import get_llama
-    from mxnet_tpu_torch.serve import GraphSession
+    from mxnet_tpu_torch.serve import (ContinuousEngine, DynamicBatcher,
+                                       GraphSession, ServeMetrics)
+    from mxnet_tpu_torch import profiler, resilience
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(MXNetError, match="CUDA is not available"):
@@ -111,6 +132,28 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch):
         tdevice.resolve(None)
     with pytest.raises(MXNetError, match="CUDA is not available"):
         GraphSession("g", None)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        ContinuousEngine(get_llama("llama_tiny_test"), max_seq=32)
+    from mxnet_tpu_torch import serve_load
+    assert serve_load.main(["--requests", "4"]) == 2
+    # asked for the CPU: the engine, its batcher and metrics, the profiler
+    # and fault injection run without CUDA (the last four are host-only)
+    eng = ContinuousEngine(get_llama("llama_tiny_test", device="cpu"),
+                           max_seq=32, num_slots=2, page_size=8,
+                           multistep=True, decode_steps=2)
+    try:
+        eng.warmup()
+        assert eng.pool.device.type == "cpu" and not eng._msession.graphs
+    finally:
+        eng.close()
+    with DynamicBatcher(lambda xs: xs, max_batch_size=1) as b:
+        assert b.submit(3).result(10) == 3
+    assert ServeMetrics("refuse").snapshot()["tokens"] == 0
+    plan = resilience.install_plan(
+        {"rules": [{"site": "serve:decode", "kind": "fatal", "at": [9]}]})
+    resilience.clear_plan()
+    assert plan.stats()[0]["hits"] == 0
+    assert profiler.trace.start_trace("off") is None
     assert tdevice.resolve("cpu") == torch.device("cpu")
     with pytest.raises(MXNetError, match="unsupported device"):
         tdevice.resolve("meta")
