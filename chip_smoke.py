@@ -79,6 +79,38 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    token, tokens/s, host visits a token, peak memory: readings of a burst
    of 4 (or 12) requests, not server metrics, which
    ``python -m mxnet_tpu_torch.serve_load`` takes under sustained load.
+5d. tenancy: ``ModelRegistry(max_models=1)`` over two tenants behind
+   5c's multi-step engine settings (``pallas``): the Llama serves the
+   prompts of phases 4-5, loading the random 2-layer draft evicts it, and
+   serving it again reloads it through its factory. Both serves must give
+   the phase 4-5 tokens; one eviction of each tenant and one reload are
+   counted; no graph is captured after a ``warmup()``; every page is
+   free once the tries are cleared. Printed: each load's seconds (factory,
+   engine build, warmup with its graph captures).
+5e. fleet: a ``Router`` over two ``Replica`` s, each a single-step
+   ``pallas`` ``Generator`` sharing the model, serves the prompts twice
+   (8 requests at once) with a ``die`` injected at replica 0's third
+   dispatch. Every request settles once with the phase 4 tokens of its
+   prompt; at least one failover is counted; each flusher thread runs its
+   runner with the device current and under ``inference_mode``; the
+   kernel launches (read once the fleet is drained) equal 32 x the decode
+   steps the replicas ran.
+5f. speculative (last of the Llama phases: it changes the weights): the
+   target's layers 2-31 get zero ``o_proj``/``down_proj`` (their cost
+   stays, their output is 0); a 2-layer draft is copied from the target's
+   embedding, first two layers, norm and head, and the random 2-layer
+   draft of 5d is the other. On both rungs, k = 4, buckets (1, 4): the
+   target's own single-step ``Generator`` gives the reference tokens, then
+   ``SpeculativeGenerator`` with each draft, single- and multi-step. On
+   ``pallas`` the tokens must equal the reference; on ``int8`` multi-step
+   must equal single-step and the agreement with the reference is printed
+   (with the first differing step and its logit gap). A multi-step round
+   must be 2 host visits (one draft replay, one verify replay); the
+   kernel launches must be the draft's 2 layers x 5 iterations x rounds
+   (the verify graph launches none); nothing is captured after
+   ``warmup()``. Printed: decode ms a token, tokens a round, acceptance,
+   host visits a token, the draft and verify replays' device ms (CUDA
+   events) and peak memory.
 6. flash: the three flash-attention kernels (forward, dq, dk/dv) each
    against its plain version at the training shape (B=2, H=32, T=2048,
    D=128, causal), non-causal with valid lengths [0, 1000] (dead rows must
@@ -167,6 +199,7 @@ KSHAPE_RTOL = 1e-2
 # wrong page, position or scale moves an output by V's size
 SHADOW_RTOL = 1e-4
 MAX_SEQ = 1024
+SPEC_K = 4                  # 5f: draft tokens a round (k + 1 = 5 iterations)
 ATOL, RTOL = 1e-5, 1e-4     # same f32 math, only the order of sums differs
 SPIN_CYCLES = 4_000_000     # about 2 ms of the card's clock: covers host work
 DECODE_SWEEP_S = (1024, 2048, 4096, 8192)   # ring lengths of the context sweep
@@ -1654,6 +1687,279 @@ def continuous_phase(torch, np, da, Generator, ContinuousEngine, percentile,
     return out
 
 
+
+def tenancy_phase(torch, da, ModelRegistry, model, draft_rand, prompts,
+                  n_layers, served):
+    """Phase 5d: ``ModelRegistry(max_models=1)`` over two tenants behind
+    phase 5c's multi-step engine settings: serve phase 4's prompts, load
+    the 2-layer draft (evicting the Llama), serve the Llama again (a
+    reload through its factory). Returns the Llama tenant's kernel
+    launches of its first serve."""
+    t0 = time.perf_counter()
+    kw = dict(max_seq=MAX_SEQ, num_slots=CB_SLOTS,
+              page_size=da.natural_block(), prefill_chunk=CB_CHUNK,
+              decode_path="pallas", prefix_cache=True, multistep=True,
+              decode_steps=DECODE_STEPS, max_queue=64)
+    want = served["pallas"]["out"]
+    engines = []
+
+    def serve(reg, name, batch):
+        eng = reg.load(name)
+        captures = eng._msession.captures
+        st0 = eng.stats()
+        da.reset_launch_count()
+        futs = [reg.submit(name, p, max_new_tokens=NEW_TOKENS)
+                for p in batch]
+        toks = [f.result(timeout=CB_WAIT)["tokens"] for f in futs]
+        launches = da.launch_count()
+        iters = eng.stats()["decode_iterations"] - st0["decode_iterations"]
+        layers = len(eng.model._blocks)
+        check(launches == layers * iters > 0,
+              f"tenancy {name}: {launches} kernel launches for {iters} "
+              f"decode iterations x {layers} layers")
+        eng.assert_no_recompiles()
+        check(eng._msession.captures == captures,
+              f"tenancy {name}: a graph was captured after warmup")
+        if eng not in engines:
+            engines.append(eng)
+        return toks, launches
+
+    with ModelRegistry(max_models=1, name="chip", **kw) as reg:
+        reg.load("llama3_8b", factory=lambda: model)
+        first, launches = serve(reg, "llama3_8b", prompts)
+        check(first == want, "tenancy: the Llama tenant's tokens differ "
+              "from phases 4-5's")
+        reg.load("draft_rand", factory=lambda: draft_rand)
+        check(reg.resident() == ["draft_rand"],
+              f"tenancy: resident {reg.resident()} after the second load")
+        serve(reg, "draft_rand", prompts[:1])
+        again, _ = serve(reg, "llama3_8b", prompts)      # the reload
+        check(again == want, "tenancy: the reloaded Llama tenant's tokens "
+              "differ from phases 4-5's")
+        summ = reg.summary()
+        check(summ["loads"] == 3 and summ["evictions"] == 2,
+              f"tenancy: {summ['loads']} loads, {summ['evictions']} "
+              "evictions (expected 3 and 2: one eviction of each tenant, "
+              "one reload)")
+        secs = reg.load_seconds()
+        clear_trie(reg.get("llama3_8b"))
+    for eng in engines:
+        eng.prefix.clear()
+        pool = eng.stats()["pool"]
+        check(pool["pages_owned"] == 0 and pool["pages_used"] == 0,
+              f"tenancy: pages not recycled: {pool}")
+    say("tenancy", tokens_equal_to_phase_4_5="both loads",
+        loads=summ["loads"], evictions=summ["evictions"],
+        llama_load_s=f"{secs['llama3_8b'][0]:.3f}",
+        llama_reload_s=f"{secs['llama3_8b'][1]:.3f}",
+        draft_load_s=f"{secs['draft_rand'][0]:.3f}",
+        kernel_launches=launches, pages_recycled=True,
+        seconds=f"{time.perf_counter() - t0:.3f}")
+    del engines
+    free_cuda(torch)
+    return launches
+
+
+def fleet_phase(torch, da, Generator, Replica, Router, fleet_stats, faults,
+                model, prompts, n_layers, served, dev):
+    """Phase 5e: a Router over two replicas, each a single-step ``pallas``
+    Generator over phase 4's model; phase 4's prompts twice, with a
+    ``die`` at replica 0's third dispatch. Returns the kernel launches."""
+    t0 = time.perf_counter()
+    want = served["pallas"]["out"]
+    gens = [Generator(model, max_seq=MAX_SEQ, batch_buckets=(1, 4),
+                      prompt_buckets=(64, 256), decode_path="pallas",
+                      name=f"llama3_8b_fleet{i}") for i in range(2)]
+    for g in gens:
+        g.warmup()
+    steps = [0, 0]
+
+    def runner_for(i):
+        def run(batch):
+            check(torch.cuda.current_device() == dev.index
+                  and torch.is_inference_mode_enabled(),
+                  f"replica {i}'s flusher thread runs without the device "
+                  "or inference mode")
+            out, info = gens[i].generate(batch, max_new_tokens=NEW_TOKENS)
+            steps[i] += info["decode_steps"]
+            return out
+        return run
+
+    reps = [Replica(runner_for(i), index=i, max_batch_size=4,
+                    timeout_ms=5.0, device=dev) for i in range(2)]
+    requests = prompts * 2
+    faults.install_plan({"rules": [{"site": "replica:dispatch",
+                                    "kind": "die", "replica": 0,
+                                    "at": [2]}]})
+    try:
+        da.reset_launch_count()
+        with Router(reps, name="chip_fleet", probe_ms=25.0) as router:
+            futs = [router.submit(p, key=f"req{j}")
+                    for j, p in enumerate(requests)]
+            outs = [f.result(timeout=CB_WAIT) for f in futs]
+            stats = fleet_stats()["chip_fleet"]
+        # drained: the killed replica's flusher may still be finishing the
+        # batch it held when the router fenced it
+        for r in reps:
+            if r.batcher._thread is not None:
+                r.batcher._thread.join(CB_WAIT)
+        launches = da.launch_count()
+    finally:
+        faults.clear_plan()
+    bad = [j for j, o in enumerate(outs) if o != want[j % len(prompts)]]
+    check(not bad, f"fleet: requests {bad} differ from phase 4's tokens")
+    check(all(f.done() for f in futs), "fleet: a request is unsettled")
+    check(stats["failovers"] >= 1 and stats["kills"] == 1,
+          f"fleet: {stats['failovers']} failovers, {stats['kills']} kills")
+    check(launches == n_layers * sum(steps) > 0,
+          f"fleet: {launches} kernel launches for {sum(steps)} decode "
+          f"steps x {n_layers} layers")
+    say("fleet", requests=len(requests), settled_once=len(outs),
+        tokens_equal_to_phase_4=True, failovers=stats["failovers"],
+        requeued=stats["requeued"], kills=stats["kills"],
+        fenced_results=stats["fenced_results"],
+        dispatched=stats["dispatched"], decode_steps=steps,
+        kernel_launches=launches,
+        seconds=f"{time.perf_counter() - t0:.3f}")
+    del gens, reps
+    free_cuda(torch)
+    return launches
+
+
+def spec_divergence(gen, prompts, a, b):
+    """Row and step of the first differing token of the speculative run
+    ``a`` and the Generator run ``b``, with the Generator's logit gap
+    between the two candidates there (it replays its own tokens)."""
+    row, step = next((i, j) for j in range(NEW_TOKENS)
+                     for i in range(len(a)) if a[i][j:j + 1] != b[i][j:j + 1])
+    toks, lens, bb = gen._pad_prompts(prompts)
+    lg, cache = gen.prefill(toks, lens, gen._fresh_cache(bb))
+    pos = lens.copy()
+    for j in range(step):
+        ids = [b[r][j] if r < len(b) else 0 for r in range(bb)]
+        lg, cache = gen.decode_step(ids, pos, cache)
+        pos = pos + 1
+    gap = float(lg[row, b[row][step]] - lg[row, a[row][step]])
+    return f"row={row} step={step} gap={gap:.6e}"
+
+
+def speculative_phase(torch, da, Generator, SpeculativeGenerator, get_llama,
+                      model, draft_rand, prompts, dev):
+    """Phase 5f: ``SpeculativeGenerator`` over the full-depth target with
+    layers 2-31's ``o_proj``/``down_proj`` zeroed (their cost stays, their
+    output is 0), a draft copied from its first two layers (acceptance
+    near 1) and the random 2-layer draft (near 0), on both rungs, single-
+    and multi-step. Changes ``model``'s weights in place. Returns the
+    draft's kernel launches of the ``pallas`` multi-step copied-draft
+    run."""
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for blk in model._blocks[2:]:
+            blk.attention.o_proj.weight.zero_()
+            blk.ffn.down_proj.weight.zero_()
+    draft_copy = get_llama(CONFIG, device=dev, num_layers=2)
+    own = draft_copy.state_dict()
+    draft_copy.load_state_dict({k: v for k, v in model.state_dict().items()
+                                if k in own})
+    drafts = {"copy": draft_copy, "rand": draft_rand}
+    n_draft = len(draft_copy._blocks)
+    kw = dict(max_seq=MAX_SEQ, batch_buckets=(1, 4), prompt_buckets=(64, 256))
+    decode_tokens = NEW_TOKENS - 1
+    result = None
+    for rung in ("pallas", "int8"):
+        gen = Generator(model, decode_path=rung, **kw)
+        gen.warmup()
+        ref, rinfo = gen.generate(prompts, max_new_tokens=NEW_TOKENS)
+        say("speculative", rung=rung, target_generator_decode_ms_per_token=(
+            f"{rinfo['decode_ms'] / decode_tokens:.3f}"))
+        for dname, draft in drafts.items():
+            single = None
+            for multistep in (False, True):
+                phase = (f"speculative {rung} {dname} "
+                         f"{'multi' if multistep else 'single'}")
+                torch.cuda.reset_peak_memory_stats()
+                sg = SpeculativeGenerator(
+                    model, draft, k=SPEC_K, decode_path=rung,
+                    multistep=multistep, name=f"spec_{rung}_{dname}", **kw)
+                w = sg.warmup()
+                caps = (sg._verify.captures, sg.draft._msession.captures
+                        if multistep else 0)
+                vr0 = sg._verify.replays
+                dr0 = sg.draft._msession.replays if multistep else 0
+                events = {"draft": [], "verify": []}
+                da.reset_launch_count()
+                out, info = sg.generate(prompts, max_new_tokens=NEW_TOKENS,
+                                        events=events)
+                launches = da.launch_count()
+                torch.cuda.synchronize()
+                rounds = info["rounds"]
+                check(launches == n_draft * (SPEC_K + 1) * rounds,
+                      f"{phase}: {launches} kernel launches for {rounds} "
+                      f"rounds x {SPEC_K + 1} draft iterations x {n_draft} "
+                      "layers")
+                check(sg._verify.launches((4, SPEC_K + 1, None)) == [0],
+                      f"{phase}: the verify graph launches the kernel")
+                check(sg._verify.replays - vr0 == rounds,
+                      f"{phase}: {sg._verify.replays - vr0} verify replays "
+                      f"for {rounds} rounds")
+                if multistep:
+                    check(sg.draft._msession.replays - dr0 == rounds
+                          and info["decode_visits"] == 2 * rounds,
+                          f"{phase}: {info['decode_visits']} host visits "
+                          f"for {rounds} rounds (expected 2 a round)")
+                    check(sg.draft._msession.captures == caps[1],
+                          f"{phase}: a draft graph was captured after "
+                          "warmup")
+                check(sg._verify.captures == caps[0],
+                      f"{phase}: a verify graph was captured after warmup")
+                sg.assert_no_recompiles()
+                if rung == "pallas":
+                    if out != ref:
+                        raise CheckFailed(
+                            f"{phase}: tokens differ from the target's "
+                            "Generator: " + spec_divergence(gen, prompts,
+                                                            out, ref))
+                    agree = "identical"
+                else:
+                    if multistep:
+                        bad = [i for i in range(len(out))
+                               if out[i] != single[i]]
+                        check(not bad, f"{phase}: rows {bad} differ from "
+                              "single-step's")
+                    else:
+                        single = out
+                    agree = ("identical" if out == ref else
+                             spec_divergence(gen, prompts, out, ref))
+                dev_ms = {k: [e0.elapsed_time(e1) for e0, e1 in v]
+                          for k, v in events.items()}
+                say(phase, warmup_s=f"{w['wall_s']:.3f}",
+                    verify_graphs=w["verify_captures"],
+                    decode_ms_per_token=(
+                        f"{info['decode_ms'] / decode_tokens:.3f}"),
+                    tokens_per_round=f"{decode_tokens / rounds:.3f}",
+                    acceptance_rate=f"{info['acceptance_rate']:.4f}",
+                    rounds=rounds,
+                    host_visits_per_token=(
+                        f"{info['decode_visits'] / decode_tokens:.4f}"),
+                    draft_replay_device_ms=(
+                        f"{statistics.mean(dev_ms['draft']):.3f}"
+                        if dev_ms["draft"] else "single-step"),
+                    verify_replay_device_ms=(
+                        f"{statistics.mean(dev_ms['verify']):.3f}"
+                        if dev_ms["verify"] else None),
+                    kernel_launches=launches,
+                    tokens_vs_target_generator=agree,
+                    peak_mem_bytes=torch.cuda.max_memory_allocated())
+                if rung == "pallas" and dname == "copy" and multistep:
+                    result = launches
+                del sg
+                free_cuda(torch)
+        del gen
+        free_cuda(torch)
+    say("speculative", seconds=f"{time.perf_counter() - t0:.3f}")
+    return result
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1688,8 +1994,11 @@ def main(argv=None):
     from mxnet_tpu_torch.ops.hopper import conv1x1 as c1x1
     from mxnet_tpu_torch.ops.hopper import decode_attention as da
     from mxnet_tpu_torch.ops.hopper import flash_attention as fa
+    from mxnet_tpu_torch.resilience import faults
     from mxnet_tpu_torch.serve import (ContinuousEngine, Generator,
-                                       InferenceSession, percentile)
+                                       InferenceSession, ModelRegistry,
+                                       Replica, Router, SpeculativeGenerator,
+                                       fleet_stats, percentile)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1789,7 +2098,26 @@ def main(argv=None):
     continuous_phase(torch, np, da, Generator, ContinuousEngine, percentile,
                      model, prompts, cfg["num_layers"], cfg["vocab_size"],
                      served)
-    del model
+    # the random 2-layer draft of 5d and 5f
+    mt.random.seed(2)
+    draft_rand = get_llama(CONFIG, device=dev, num_layers=2)
+    # 5d. tenancy: two tenants behind ModelRegistry(max_models=1)
+    tenancy_launches = tenancy_phase(torch, da, ModelRegistry, model,
+                                     draft_rand, prompts, cfg["num_layers"],
+                                     served)
+    # 5e. fleet: a Router over two Generator replicas, one killed
+    fleet_launches = fleet_phase(torch, da, Generator, Replica, Router,
+                                 fleet_stats, faults, model, prompts,
+                                 cfg["num_layers"], served, dev)
+    # 5f. speculative decoding (last: zeroes layers 2-31's output weights)
+    spec_launches = speculative_phase(torch, da, Generator,
+                                      SpeculativeGenerator, get_llama, model,
+                                      draft_rand, prompts, dev)
+    say("b1_launches", serve=served["pallas"]["launches"],
+        multistep=served["pallas"]["multistep"]["launches"],
+        tenancy=tenancy_launches, fleet=fleet_launches,
+        speculative_draft=spec_launches)
+    del model, draft_rand
     gc.collect()
     torch.cuda.empty_cache()
 

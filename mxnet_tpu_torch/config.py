@@ -105,6 +105,117 @@ register_flag(
     "auto-degrade to single-step so 504 retirement latency stays "
     "bounded by one iteration.", int)
 register_flag(
+    "MXNET_SERVE_SPEC_TOKENS", 4,
+    "Draft tokens proposed per speculative-decoding round "
+    "(serve.SpeculativeGenerator's default k): each round costs k+1 draft "
+    "iterations (one super-step replay with multistep) plus one "
+    "(k+1)-wide target verify pass.", int)
+register_flag(
+    "MXNET_SERVE_TIMEOUT_MS", 0.0,
+    "Per-execution watchdog for serve.InferenceSession and the graph "
+    "sessions' replays: a hung execution becomes a fast "
+    "ServiceUnavailable (503) after this many ms instead of wedging the "
+    "serving thread. Off until a session's warmup has frozen its "
+    "signatures. 0 disables (the body runs inline).",
+    float)
+register_flag(
+    "MXNET_SERVE_BREAKER_THRESHOLD", 3,
+    "Consecutive InferenceSession execution failures that trip the "
+    "session circuit breaker open (requests fast-reject until cooldown).",
+    int)
+register_flag(
+    "MXNET_SERVE_BREAKER_COOLDOWN", 8,
+    "Rejected calls the serve breaker stays open before letting one "
+    "half-open probe re-test the session.", int)
+register_flag(
+    "MXNET_SERVE_MAX_MODELS", 4,
+    "Resident-model budget for serve.tenancy.ModelRegistry: at most this "
+    "many named models (engine, KV pool, prefix trie, captured graphs) "
+    "stay loaded per process; loading past the budget LRU-evicts the "
+    "coldest idle tenant, which reloads through its factory on next "
+    "use.", int)
+register_flag(
+    "MXNET_COLLECTIVE_TIMEOUT", 0.0,
+    "Seconds before resilience.retry's watchdog declares a hung body and "
+    "raises CollectiveTimeoutError. 0 disables the watchdog.", float)
+register_flag(
+    "MXNET_COMPILE_MAX_RETRIES", 2,
+    "Extra attempts of resilience.retry.compile_policy() for a "
+    "transiently-failing build.", int)
+register_flag(
+    "MXNET_COLLECTIVE_MAX_RETRIES", 2,
+    "Extra attempts of resilience.retry.collective_policy() for a "
+    "transiently-failing collective.", int)
+register_flag(
+    "MXNET_RETRY_BASE_DELAY_MS", 5.0,
+    "First retry backoff delay in ms; doubles per attempt.", float)
+register_flag(
+    "MXNET_RETRY_MAX_DELAY_MS", 250.0,
+    "Backoff delay ceiling in ms.", float)
+register_flag(
+    "MXNET_FLEET_HEDGE_MS", 0.0,
+    "Hedged-retry delay for serve.fleet.Router: an interactive request "
+    "dispatched to a replica flagged straggling gets a second (hedge) "
+    "dispatch to the next-best replica after this many ms unless it has "
+    "already settled; first settle wins. Batch-class requests are never "
+    "hedged, and a request is never hedged twice. 0 (default) disables "
+    "hedging.", float)
+register_flag(
+    "MXNET_FLEET_STRAGGLER_MS", 150.0,
+    "Per-replica latency-lag EWMA (vs the fleet median, "
+    "resilience.elastic.StragglerMonitor) above which the Router flags a "
+    "replica as straggling, the precondition for a hedge. 0: track only, "
+    "never flag.", float)
+register_flag(
+    "MXNET_FLEET_MAX_FAILOVERS", 2,
+    "Times the Router re-dispatches one request to a surviving replica "
+    "after replica deaths or quarantines before failing it with "
+    "ServiceUnavailable.", int)
+register_flag(
+    "MXNET_FLEET_PROBE_MS", 25.0,
+    "Router supervisor probe interval: how often each replica's liveness "
+    "(flusher thread) and session breaker are checked, so a replica that "
+    "died between dispatches is still detected and its in-flight work "
+    "failed over. 0 disables the supervisor thread.", float)
+register_flag(
+    "MXNET_FLEET_BREAKER_THRESHOLD", 2,
+    "Consecutive replica-attributed dispatch/settle failures that "
+    "quarantine a replica behind the Router's per-replica circuit "
+    "breaker.", int)
+register_flag(
+    "MXNET_FLEET_BREAKER_COOLDOWN", 8,
+    "Dispatch picks a quarantined replica sits out before the Router's "
+    "per-replica breaker goes half-open and routes one probe request "
+    "through it.", int)
+register_flag(
+    "MXNET_STRAGGLER_THRESHOLD_MS", 0.0,
+    "Default lag EWMA (ms) above which resilience.elastic.StragglerMonitor "
+    "flags a replica. 0 (default): tracking only, never flags.", float)
+register_flag(
+    "MXNET_METRICS_PORT", 0,
+    "Serve the unified telemetry surface (profiler.export) over stdlib "
+    "HTTP on this port: /metrics (Prometheus text), /healthz (serving "
+    "health JSON), /snapshot (full JSON). Unset (default): no server. "
+    "Explicitly set to 0: bind an ephemeral port and report it as a "
+    "MXNET_METRICS_PORT_BOUND=<port> line on stderr and "
+    "profiler.export.server_port().", int)
+register_flag(
+    "MXNET_SLO_WINDOW_S", 60.0,
+    "Default slow evaluation window (seconds) for SLO objectives "
+    "(profiler.slo.SLO) built without an explicit window; the fast "
+    "window defaults to 1/12 of it.", float)
+register_flag(
+    "MXNET_SLO_BURN_THRESHOLD", 14.4,
+    "Default error-budget burn-rate alert threshold: an objective burns "
+    "only when both its fast and slow windows exceed this.", float)
+register_flag(
+    "MXNET_SLO_EVAL_INTERVAL_S", 0.25,
+    "Minimum seconds between passive SLO burn-rate evaluations on the "
+    "observing thread.", float)
+register_flag(
+    "MXNET_SLO_MIN_EVENTS", 12,
+    "Minimum fast-window events before an SLO objective may alert.", int)
+register_flag(
     "MXNET_SERVE_SLOTS", 8,
     "Decode lanes for serve.scheduler.ContinuousEngine: its one decode "
     "width. Requests are admitted into free lanes and retired from "
@@ -169,11 +280,20 @@ register_flag(
 register_flag(
     "MXNET_FLIGHT_RECORDER", True,
     "Always-on flight recorder (profiler.recorder): a bounded ring of "
-    "recent faults, sheds, rejects and deadline expiries. 0 disables (ring "
-    "writes become one bool check).", _bool)
+    "recent faults, sheds, rejects, deadline expiries and escalations, "
+    "dumped to JSON at breaker-open, watchdog timeout and SLO burn. 0 "
+    "disables (ring writes become one bool check).", _bool)
 register_flag(
     "MXNET_FLIGHT_RECORDER_SIZE", 512,
     "Flight-recorder ring capacity (most recent N notes kept).", int)
+register_flag(
+    "MXNET_FLIGHT_RECORDER_DIR", None,
+    "Directory for automatic flight-recorder dumps "
+    "(flightrec-<utc>-<reason>.json). Default: the system tempdir.")
+register_flag(
+    "MXNET_FLIGHT_RECORDER_MAX_DUMPS", 16,
+    "Per-process cap on automatic flight-recorder dump files (first "
+    "escalations win; later ones only land in the ring).", int)
 register_flag(
     "MXNET_ATTRIBUTION", False,
     "Decode critical-path attribution (profiler.attribution) on from "

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import NamedTuple
 
 import torch
@@ -66,6 +67,9 @@ _LAST_PATH = None  # "cuda" | "torch": the version the last call took
 _FORCE_PATH = None
 _LAUNCHES = 0     # launches the card ran: eager calls and graph replays
 _CAPTURED = 0     # launches recorded into CUDA graphs while capturing
+# the counts are bumped from every serving thread (fleet flushers, engine
+# schedulers), so updates take this lock: a bare `+=` can lose one
+_COUNT_LOCK = threading.Lock()
 _LIB = None
 _SM_COUNT = {}  # device index -> multiprocessors
 
@@ -108,7 +112,8 @@ def launch_count() -> int:
 
 def reset_launch_count() -> None:
     global _LAUNCHES
-    _LAUNCHES = 0
+    with _COUNT_LOCK:
+        _LAUNCHES = 0
 
 
 def captured_count() -> int:
@@ -121,7 +126,8 @@ def captured_count() -> int:
 def count_replays(n) -> None:
     """Add ``n`` launches run by a graph replay to :func:`launch_count`."""
     global _LAUNCHES
-    _LAUNCHES += int(n)
+    with _COUNT_LOCK:
+        _LAUNCHES += int(n)
 
 
 def _widen(x, x_scale):
@@ -394,10 +400,12 @@ def _launch(q, k, v, start_pos, scale, k_scale, v_scale, n_split=None):
             f"(cudaError {err}; q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"{k.dtype}, vec {vec}, plan {plan}, shared memory "
             f"{lib.mxtt_decode_attention_smem_bytes(d, int(quant))} B)")
-    if torch.cuda.is_current_stream_capturing():
-        _CAPTURED += 1
-    else:
-        _LAUNCHES += 1
+    capturing = torch.cuda.is_current_stream_capturing()
+    with _COUNT_LOCK:
+        if capturing:
+            _CAPTURED += 1
+        else:
+            _LAUNCHES += 1
     return out
 
 

@@ -2,7 +2,7 @@
 one GPU.
 
     python -m mxnet_tpu_torch.profile_decode [--rung pallas|int8] [--steps N]
-        [--multistep]
+        [--multistep] [--speculative]
 
 For each rung: warm the generator up, then
 
@@ -19,6 +19,14 @@ graphs): ``--steps`` super-steps after one prefill, each timed on the
 device (CUDA events around the graph replay) and on the host (from the
 input copy to the host read of the token block), giving device ms a visit
 and a token, host wall ms a visit, and the busy share (device over host).
+
+With ``--speculative``, also a ``SpeculativeGenerator`` (k = 4, a
+multi-step draft: a seeded random 2-layer model of the same widths) over
+the same target: ``--steps`` verify replays and draft replays after one
+prefill, each timed on the device (CUDA events around the replay), and
+``--steps`` passes of the verify body run eagerly under ``torch.profiler``
+with the device time summed by kernel name (the kernels the graph
+replays), beside the single-step profile's T = 1 step.
 
 Prints one JSON object per rung and mode. Weights are random (seeded); the batch is
 4 prompts of lengths 17, 64, 130 and 250 in a 1024-position ring, as in
@@ -69,20 +77,32 @@ def _decode_walls(gen, prompts, steps, route):
 def _profile(gen, prompts, steps):
     """Device time by kernel name over ``steps`` kernel-route decode
     steps, and the host wall they took."""
-    from torch.profiler import ProfilerActivity, profile
-
     toks, lens, bb = gen._pad_prompts(prompts)
     logits, cache = gen.prefill(toks, lens, gen._fresh_cache(bb))
-    ids = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
-    pos = lens.copy()
+    state = {"ids": torch.argmax(logits, -1).to(torch.int32).cpu().numpy(),
+             "pos": lens.copy(), "cache": cache}
+
+    def step():
+        logits, state["cache"] = gen.decode_step(state["ids"], state["pos"],
+                                                 state["cache"])
+        state["ids"] = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+        state["pos"] = state["pos"] + 1
+
+    return _kernel_times(step, steps)
+
+
+def _kernel_times(step, steps):
+    """Run ``step`` ``steps`` times under ``torch.profiler``; returns the
+    host wall (ms) and ``{kernel name: (device ms, calls)}``."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            logits, cache = gen.decode_step(ids, pos, cache)
-            ids = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
-            pos = pos + 1
+            step()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for ev in prof.key_averages():
@@ -91,6 +111,12 @@ def _profile(gen, prompts, steps):
         if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             by_name[ev.key] = (dev_us / 1e3, ev.count)
     return wall_ms, by_name
+
+
+def _top(by_name, steps, n=12):
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return [{"name": k[:90], "ms": ms / steps, "calls_per_step": c / steps}
+            for k, (ms, c) in top]
 
 
 def run(rung, steps, model, prompts):
@@ -104,7 +130,6 @@ def run(rung, steps, model, prompts):
             _decode_walls(gen, prompts, steps, route))
     wall_ms, by_name = _profile(gen, prompts, steps)
     device_ms = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {
         "rung": rung, "steps": steps,
         "decode_step_wall_ms": {k: statistics.median(v)
@@ -112,11 +137,60 @@ def run(rung, steps, model, prompts):
         "profiled_wall_ms_per_step": wall_ms / steps,
         "device_ms_per_step": device_ms / steps,
         "device_busy_share": device_ms / wall_ms,
-        "top_kernels_ms_per_step": [
-            {"name": k[:90], "ms": ms / steps, "calls_per_step": n / steps}
-            for k, (ms, n) in top],
+        "top_kernels_ms_per_step": _top(by_name, steps),
         "device": torch.cuda.get_device_name(0),
     }
+
+
+def run_speculative(rung, steps, model, prompts, k=4):
+    """Device ms of the verify and draft replays of a speculative round,
+    and the verify body's device time by kernel (run eagerly)."""
+    from .serve import SpeculativeGenerator
+    from .serve.generate import _VerifyInputs
+
+    _rng.seed(2)
+    draft = get_llama("llama3_8b", device="cuda", num_layers=2)
+    sg = SpeculativeGenerator(model, draft, k=k, max_seq=1024,
+                              batch_buckets=(4,), prompt_buckets=(256,),
+                              decode_path=rung, multistep=True)
+    sg.warmup()
+    toks, lens, bb = sg.target._pad_prompts(prompts)
+    _, cache = sg.target.prefill(toks, lens, sg.target._fresh_cache(bb))
+    _, dcache = sg.draft.prefill(toks, lens, sg.draft._fresh_cache(bb))
+    blk = np.ones((bb, k + 1), np.int32)
+    zeros = np.zeros(bb, np.int32)
+    verify_ev, draft_ev = [], []
+    for _ in range(steps):
+        sg._verify_run(blk, lens, cache, events=verify_ev)
+        sg.draft.decode_super(
+            zeros, lens, k + 1, np.full(bb, k + 2, np.int32), zeros,
+            np.zeros(bb, np.float32), zeros, np.full((bb, 8), -1, np.int32),
+            np.zeros(2, np.uint32), dcache, events=draft_ev)
+    torch.cuda.synchronize()
+    inp = _VerifyInputs(bb, k + 1, 0, torch.device("cuda"))
+    inp.fill(tokens=blk, start_pos=lens, last_idx=zeros)
+    flat = cache.flat()
+
+    def verify():
+        with torch.inference_mode():
+            sg._verify_step(*inp.views(), *flat)
+
+    verify()
+    wall_ms, by_name = _kernel_times(verify, steps)
+    device_ms = sum(ms for ms, _ in by_name.values())
+    out = {
+        "rung": rung, "mode": "speculative", "k": k, "steps": steps,
+        "verify_replay_device_ms": statistics.median(
+            a.elapsed_time(b) for a, b in verify_ev),
+        "draft_replay_device_ms": statistics.median(
+            a.elapsed_time(b) for a, b in draft_ev),
+        "verify_eager_device_ms": device_ms / steps,
+        "verify_eager_wall_ms": wall_ms / steps,
+        "verify_top_kernels_ms": _top(by_name, steps),
+        "device": torch.cuda.get_device_name(0),
+    }
+    del sg, draft
+    return out
 
 
 def run_multistep(rung, visits, model, prompts):
@@ -163,6 +237,7 @@ def main(argv=None):
     ap.add_argument("--rung", choices=("pallas", "int8"), action="append")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--multistep", action="store_true")
+    ap.add_argument("--speculative", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: needs a CUDA GPU", file=sys.stderr)
@@ -179,6 +254,11 @@ def main(argv=None):
         if args.multistep:
             print(json.dumps(run_multistep(rung, args.steps, model,
                                            prompts)), flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if args.speculative:
+            print(json.dumps(run_speculative(rung, args.steps, model,
+                                             prompts)), flush=True)
             gc.collect()
             torch.cuda.empty_cache()
     return 0

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import collections
 import threading
+import weakref
 
 from . import trace as _trace
 
@@ -40,6 +41,9 @@ _tls = threading.local()
 _lock = threading.Lock()
 # process-wide wait stall totals by phase (ns), from note_wait
 _wait_ns_by_phase: "collections.Counter" = collections.Counter()
+# live Ledgers, for export.snapshot() pull-discovery (weak: a retired
+# engine's ledger is simply no longer exported)
+_instances: "weakref.WeakSet" = weakref.WeakSet()
 
 PHASES = ("decode", "prefill", "train", "input", "other")
 
@@ -137,7 +141,8 @@ class Ledger:
     steady state, not its cold start.
     """
 
-    __slots__ = ("name", "_lock", "_rows", "_sched_ms", "steps")
+    __slots__ = ("name", "_lock", "_rows", "_sched_ms", "steps",
+                 "__weakref__")
 
     def __init__(self, name, window=None):
         if window is None:
@@ -150,6 +155,7 @@ class Ledger:
         self._rows = collections.deque(maxlen=int(window))
         self._sched_ms = collections.deque(maxlen=int(window))
         self.steps = 0
+        _instances.add(self)
 
     def observe_step(self, host_ms, dispatch_ms, device_ms, wait_ms,
                      live=1, tokens=None):
@@ -229,6 +235,12 @@ class Ledger:
 # -- per-request critical path -----------------------------------------------
 
 _LEDGER_KEYS = ("host_ms", "dispatch_ms", "device_ms", "wait_ms")
+
+
+def all_snapshots():
+    """``{ledger_name: snapshot()}`` over every live ledger (same-named
+    ledgers merge last-writer-wins, like ``serve.metrics``)."""
+    return {l.name: l.snapshot() for l in list(_instances)}
 
 
 def _bucket(name):

@@ -1,11 +1,13 @@
-"""Fault injection and its counters (counterpart of the part of
-``mxnet_tpu/resilience`` the serving stack needs: ``faults`` and
-``counters``). Checkpointing, elastic training, guardrails and the
-circuit breaker are not ported yet (ROADMAP A.3)."""
+"""Fault injection, retries and failure containment (counterpart of the
+part of ``mxnet_tpu/resilience`` the serving stack needs): ``faults``
+(deterministic fault plans), ``counters`` (the ``resilience.*``
+counters), ``retry`` (transient-or-fatal classification, backoff, the
+execution watchdog and the circuit breaker) and ``elastic`` (the
+per-replica ``StragglerMonitor``)."""
 from __future__ import annotations
 
-from . import counters, faults
+from . import counters, elastic, faults, retry
 from .faults import clear_plan, fault_point, get_plan, install_plan
 
-__all__ = ["counters", "faults", "install_plan", "clear_plan", "get_plan",
-           "fault_point"]
+__all__ = ["counters", "elastic", "faults", "retry", "install_plan",
+           "clear_plan", "get_plan", "fault_point"]

@@ -64,6 +64,8 @@ import time
 import warnings
 from concurrent.futures import Future, InvalidStateError
 
+import torch
+
 from ..profiler import core as _prof
 from ..profiler import trace as _trace
 from ..resilience import faults as _faults
@@ -164,13 +166,20 @@ class DynamicBatcher:
         ``Exception`` instance fails that request alone.
     max_batch_size, timeout_ms, max_queue : optional overrides of the
         ``MXNET_SERVE_*`` config flags.
+    device : optional device the runner computes on. When given, the
+        flusher thread makes it current (``torch.cuda.set_device``) and
+        runs the runner under ``torch.inference_mode()``: a new thread
+        inherits neither from the thread that built the batcher.
     """
 
     def __init__(self, runner, max_batch_size=None, timeout_ms=None,
-                 max_queue=None, name="batcher", metrics=None, start=True):
+                 max_queue=None, name="batcher", metrics=None, start=True,
+                 device=None):
         from .. import config
 
         self.runner = runner
+        self.device = (torch.device(device) if device is not None
+                       else None)
         self.max_batch_size = int(max_batch_size if max_batch_size is not None
                                   else config.get("MXNET_SERVE_MAX_BATCH"))
         if self.max_batch_size < 1:
@@ -548,6 +557,15 @@ class DynamicBatcher:
 
     def _flush_loop(self):
         _prof.register_thread_name()
+        if self.device is None:
+            self._flush_batches()
+            return
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        with torch.inference_mode():
+            self._flush_batches()
+
+    def _flush_batches(self):
         while True:
             batch, expired = self._take_batch()
             if expired:

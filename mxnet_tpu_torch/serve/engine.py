@@ -4,16 +4,41 @@
 The session pads every call onto a small lattice of (batch, seq) buckets,
 so steady-state traffic only ever runs shapes it has already seen. In the
 JAX package each new shape is an XLA compile; PyTorch runs eagerly, so
-here a shape signature is the unit a later CUDA-graph capture will key on.
-The session keeps the set of signatures it has run, and
+here a shape signature is the unit a CUDA-graph capture keys on. The
+session keeps the set of signatures it has run, and
 ``assert_no_recompiles`` keeps its meaning: after ``warmup`` no call
 brings a new signature.
 
-Each session carries a :class:`~.metrics.ServeMetrics` (``metrics``,
-``stats()``), runs the ``serve:execute`` fault site before every call and
+Resilience wiring, as in the JAX package (``resilience.retry``), on every
+session — :class:`InferenceSession` and :class:`GraphSession` alike, as
+every executable of the JAX package runs through an ``InferenceSession``:
+
+* a :class:`~mxnet_tpu_torch.resilience.retry.CircuitBreaker` guards the
+  session: repeated execution failures trip it open and requests
+  fast-reject with a 503 :class:`ServiceUnavailable` until a half-open
+  probe heals it. An open breaker never reroutes the call to another
+  route or device;
+* ``MXNET_SERVE_TIMEOUT_MS`` bounds each execution with the resilience
+  watchdog — a hung execution becomes a fast 503 instead of wedging the
+  serving thread. The watched body runs on the watchdog's thread, which
+  makes the session's device and the caller's stream current and runs
+  under ``torch.inference_mode()`` (none of these is inherited by a new
+  thread). The watchdog is off until the session's signature set is
+  frozen: warmup (and a cold swap's re-warm) builds kernels and captures
+  graphs, which take seconds and are not hung executions, and a graph is
+  never captured on the watchdog's thread;
+* the ``serve:execute`` fault site fires inside the watched window;
+* ``drain``/``resume`` close and reopen an admission gate that counts the
+  executions in flight; a graph session shares its owner's gate, so
+  draining a session also waits for (and then refuses) the graph replays
+  that read the same weights. ``swap`` (warm weight transplant in place,
+  or a cold block replacement) runs on a drained gate, and the
+  ``health``/``ready`` probes answer for each session, registered as a
+  ``profiler.export`` health provider.
+
+Each session carries a :class:`~.metrics.ServeMetrics` (``metrics``) and
 records a ``serve::session_run(<name>)`` span on the calling thread's
-ambient request trace. The JAX session's circuit breaker and execution
-watchdog are not ported yet.
+ambient request trace.
 
 :class:`GraphSession` is the counterpart of the compiled executables the
 JAX package keeps per signature: on a GPU it captures one CUDA graph per
@@ -23,14 +48,20 @@ from __future__ import annotations
 
 import itertools
 import threading
+import time
 
 import numpy as _onp
 import torch
 
+from .. import config
 from .. import device as _device
 from ..base import MXNetError
+from ..profiler import core as _prof
+from ..profiler import export as _export
 from ..profiler import trace as _trace
 from ..resilience import faults as _faults
+from ..resilience.retry import CircuitBreaker, CollectiveTimeoutError, \
+    run_with_watchdog, watchdog_orphans
 from .metrics import ServeMetrics
 
 
@@ -89,8 +120,188 @@ def _signature(args):
                  else (type(a).__name__,) for a in args)
 
 
-class InferenceSession:
-    """Bucketed executor for one module.
+class _Gate:
+    """Admission gate: the executions in flight that :meth:`drain` waits
+    on, the draining flag, and the per-thread bypass that a swap's own
+    re-warm runs under while external admission is still stopped. A
+    :class:`GraphSession` shares its owner's gate."""
+
+    __slots__ = ("cond", "inflight", "draining", "bypass")
+
+    def __init__(self):
+        self.cond = threading.Condition()
+        self.inflight = 0
+        self.draining = False
+        self.bypass = threading.local()
+
+
+class _Guarded:
+    """The protection stack every serving session runs its executions
+    under (breaker -> fault site -> watchdog, inside an admission gate),
+    and the drain/resume and health/ready probes over it. A subclass
+    sets ``device`` and ``_warm_signatures`` and calls
+    :meth:`_guard_init`."""
+
+    def _guard_init(self, name, gate=None):
+        self.name = name
+        self.metrics = ServeMetrics(name)
+        self.breaker = CircuitBreaker(
+            failure_threshold=config.get("MXNET_SERVE_BREAKER_THRESHOLD"),
+            cooldown_calls=config.get("MXNET_SERVE_BREAKER_COOLDOWN"),
+            name=f"serve:{name}")
+        self._gate = gate if gate is not None else _Gate()
+        # unified export surface: /healthz wraps this session's probes
+        _export.register_health_provider(self)
+
+    def _timeout_s(self):
+        # off until the signature set is frozen: warmup and a cold swap's
+        # re-warm build kernels and capture graphs
+        if self._warm_signatures is None:
+            return 0.0
+        return config.get("MXNET_SERVE_TIMEOUT_MS") / 1e3
+
+    def _protected(self, execute, prepare=None):
+        """Run ``execute()`` under the protection stack: admission (503
+        while draining), breaker (503 while open), then ``prepare()`` on
+        the calling thread (signature accounting, a graph capture), then
+        the ``serve:execute`` fault site and ``execute()`` under
+        ``torch.inference_mode()`` inside the watchdog window. A timeout
+        is a 503; any other failure counts against the breaker and
+        propagates unchanged."""
+        gate = self._gate
+        with gate.cond:
+            if gate.draining and not getattr(gate.bypass, "on", False):
+                self.metrics.observe_reject()
+                raise ServiceUnavailable(
+                    f"serve session {self.name!r} is draining; no new "
+                    "work admitted until swap/resume")
+            gate.inflight += 1
+        try:
+            if not self.breaker.allow():
+                self.metrics.observe_reject()
+                raise ServiceUnavailable(
+                    f"serve session {self.name!r}: circuit breaker is "
+                    f"{self.breaker.state} after repeated execution "
+                    "failures; retry after cooldown")
+            timeout = self._timeout_s()
+            device = self.device
+            stream = (torch.cuda.current_stream(device)
+                      if timeout > 0 and device.type == "cuda" else None)
+
+            def watched():
+                # fault site INSIDE the watchdog window: an injected delay
+                # models a hung execution and must trip the timeout
+                _faults.fault_point("serve:execute", {"session": self.name})
+                with torch.inference_mode():
+                    return execute()
+
+            def body():
+                if stream is None:
+                    return watched()
+                # on the watchdog's thread nothing of the caller's
+                # per-thread state is inherited
+                torch.cuda.set_device(device)
+                with torch.cuda.stream(stream):
+                    return watched()
+
+            t0 = time.perf_counter()
+            try:
+                with _trace.span(f"serve::session_run({self.name})"):
+                    if prepare is not None:
+                        prepare()
+                    out = run_with_watchdog(body, timeout,
+                                            site=f"serve:{self.name}")
+            except CollectiveTimeoutError as exc:
+                self.breaker.record_failure()
+                raise ServiceUnavailable(
+                    f"serve session {self.name!r}: execution exceeded "
+                    f"MXNET_SERVE_TIMEOUT_MS ({exc})") from exc
+            except Exception:
+                self.breaker.record_failure()
+                raise
+            self.breaker.record_success()
+            if _prof.ENABLED:
+                _prof.record_instant(
+                    f"serve::execute({self.name})", "serve",
+                    args={"exec_ms": round(
+                        (time.perf_counter() - t0) * 1e3, 3)})
+            return out
+        finally:
+            with gate.cond:
+                gate.inflight -= 1
+                if gate.inflight == 0:
+                    gate.cond.notify_all()
+
+    # -- drain / health ------------------------------------------------------
+    def drain(self, timeout=30.0):
+        """Stop admitting work and wait for every in-flight execution to
+        settle (on a shared gate: the owner's and its graph sessions').
+        Returns True once quiesced, False on timeout (admission stays
+        stopped either way — call :meth:`resume` to reopen, or
+        ``swap`` which resumes itself). Idempotent."""
+        deadline = time.monotonic() + float(timeout)
+        gate = self._gate
+        with gate.cond:
+            gate.draining = True
+            while gate.inflight > 0:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                gate.cond.wait(remaining)
+        if _prof.ENABLED:
+            _prof.record_instant(f"serve::drain({self.name})", "serve")
+        return True
+
+    def resume(self):
+        """Reopen admission after :meth:`drain`."""
+        with self._gate.cond:
+            self._gate.draining = False
+            self._gate.cond.notify_all()
+
+    def health(self):
+        """Liveness probe payload: lifecycle state, breaker, in-flight
+        count, error rate over the metrics window, warm flag, watchdog
+        orphans. Always answers (a wedged executor is the watchdog's
+        problem, not the probe's)."""
+        snap = self.metrics.snapshot()
+        with self._gate.cond:
+            draining = self._gate.draining
+            inflight = self._gate.inflight
+        requests = snap["requests"]
+        out = {
+            "state": "draining" if draining else "serving",
+            "ready": self.ready(),
+            "warm": self._warm_signatures is not None,
+            "inflight": inflight,
+            "breaker": self.breaker.snapshot(),
+            "error_rate": (snap["errors"] / requests) if requests else 0.0,
+            "rejects": snap["rejects"],
+            "sheds": snap["sheds"],
+            "deadline_expired": snap["deadline_expired"],
+            "watchdog_orphans": watchdog_orphans(),
+        }
+        # SLO burn: degraded, not dead — ready() is untouched (an SLO
+        # violation is a page, not a kill switch), the probe just says so
+        slo_mon = getattr(self.metrics, "slo", None)
+        if slo_mon is not None:
+            out["slo"] = slo_mon.health()
+            if out["slo"]["state"] == "degraded":
+                out["state"] = "degraded"
+        return out
+
+    def ready(self):
+        """Readiness probe: warm (signature set frozen), admitting (not
+        draining), and the breaker is not open. A False here is the load
+        balancer's cue to route around this replica."""
+        with self._gate.cond:
+            if self._gate.draining:
+                return False
+        return (self._warm_signatures is not None
+                and self.breaker.state != "open")
+
+
+class InferenceSession(_Guarded):
+    """Bucketed, breaker-guarded executor for one module.
 
     Parameters
     ----------
@@ -116,30 +327,35 @@ class InferenceSession:
         self.seq_buckets = (tuple(sorted(int(s) for s in seq_buckets))
                             if seq_buckets else None)
         self.pad_value = pad_value
-        self.name = name or type(block).__name__
-        if device is None:  # where the weights are: parameters or buffers
-            param = next(itertools.chain(block.parameters(), block.buffers()),
-                         None)
-            device = param.device if param is not None else None
-        self.device = _device.resolve(device)
-        self.metrics = ServeMetrics(self.name)
+        self.device = _device.resolve(device if device is not None
+                                      else _block_device(block))
         self._signatures = set()
         self._warm_signatures = None
+        self._hits = 0       # calls whose signature had run before
+        self._misses = 0     # calls that brought a new signature
         self._lock = threading.Lock()
+        self._guard_init(name or type(block).__name__)
 
+    # -- raw protected execution -------------------------------------------
     def run(self, *args):
-        """Execute one already-bucketed call under
-        ``torch.inference_mode()``, recording its shape signature. The
-        ``serve:execute`` fault site fires first; a failure propagates
-        unchanged (a batcher or the continuous engine maps it onto the
-        requests inside the call)."""
-        sig = _signature(args)
-        with self._lock:
-            self._signatures.add(sig)
-        with _trace.span(f"serve::session_run({self.name})"):
-            _faults.fault_point("serve:execute", {"session": self.name})
-            with torch.inference_mode():
-                return self.block(*args)
+        """Execute one already-bucketed call under the protection stack
+        (breaker -> fault site -> watchdog -> the module under
+        ``torch.inference_mode()``), recording its shape signature.
+        Raises :class:`ServiceUnavailable` on a draining session, an open
+        breaker or a timeout; any other failure propagates unchanged (a
+        batcher or the continuous engine maps it onto the requests inside
+        the call)."""
+        def prepare():
+            sig = _signature(args)
+            with self._lock:
+                if sig in self._signatures:
+                    self._hits += 1
+                else:
+                    self._misses += 1
+                    self._signatures.add(sig)
+
+        block = self.block
+        return self._protected(lambda: block(*args), prepare)
 
     # -- bucketed predict ---------------------------------------------------
     def _pad_input(self, data):
@@ -194,7 +410,8 @@ class InferenceSession:
     def warmup(self, example):
         """Run every (batch, seq) bucket combination once from one example
         input (an array shaped like a single request batch), then freeze
-        the signature set. Returns the signature count."""
+        the signature set (the watchdog is off until then). Returns the
+        signature count."""
         if torch.is_tensor(example):
             example = example.detach().cpu().numpy()
         example = _onp.asarray(example)
@@ -232,11 +449,122 @@ class InferenceSession:
         with self._lock:
             return len(self._signatures)
 
+    def cache_stats(self):
+        """Signature-cache accounting, the counterpart of the JAX
+        session's executable-cache stats: signatures seen, calls on a
+        seen signature (hits) and calls that brought a new one
+        (misses)."""
+        with self._lock:
+            return {"signatures": len(self._signatures),
+                    "hits": self._hits, "misses": self._misses,
+                    "warm": self._warm_signatures is not None}
+
     def stats(self):
-        """Serving snapshot: the metrics plus the signature count."""
+        """Serving snapshot: the metrics, the signature cache, the breaker
+        and watchdog-orphan accounting (abandoned execution bodies that
+        may still be running — see ``resilience.retry.watchdog_orphans``)."""
         out = self.metrics.snapshot()
         out["signatures"] = self.signature_count()
+        out["cache"] = self.cache_stats()
+        out["breaker"] = self.breaker.snapshot()
+        out["watchdog_orphans"] = watchdog_orphans()
         return out
+
+    # -- hot swap -----------------------------------------------------------
+    def _signature_matches(self, new_block):
+        """True when ``new_block``'s parameters and buffers (count, names,
+        shapes, dtypes, devices, ``requires_grad``, in order) are
+        identical to the serving block's — the condition under which the
+        new weights can be copied into the live tensors in place, so
+        every signature (and every graph captured over those tensors)
+        keeps serving them."""
+        olds = _state_tensors(self.block)
+        news = _state_tensors(new_block)
+        if len(olds) != len(news):
+            return False
+        for (no, to), (nn_, tn) in zip(olds, news):
+            if (no != nn_ or tuple(to.shape) != tuple(tn.shape)
+                    or to.dtype != tn.dtype
+                    or to.requires_grad != tn.requires_grad):
+                return False
+        return True
+
+    def swap(self, new_block, example=None, timeout=30.0):
+        """Hot-swap the served model: drain, switch, resume. Returns the
+        swap mode.
+
+        * ``"warm"`` — ``new_block`` has the serving block's parameter and
+          buffer signature: its weights are copied into the live tensors
+          in place, so every warm signature (and any CUDA graph captured
+          over those tensors) keeps serving — :meth:`assert_no_recompiles`
+          still holds afterwards.
+        * ``"cold"`` — different architecture or shapes: ``new_block``
+          replaces the old one and the signature set restarts; if
+          ``example`` is given the full bucket lattice is re-warmed
+          (through the internal admission bypass) before traffic resumes.
+
+        Raises :class:`ServiceUnavailable` if the drain times out —
+        admission is resumed so the old model keeps serving."""
+        t0 = time.perf_counter()
+        if not self.drain(timeout):
+            self.resume()
+            raise ServiceUnavailable(
+                f"serve session {self.name!r}: swap aborted — in-flight "
+                f"work did not settle within {timeout}s; still serving "
+                "the old model")
+        try:
+            if self._signature_matches(new_block):
+                mode = "warm"
+                with torch.no_grad():
+                    for (_, to), (_, tn) in zip(_state_tensors(self.block),
+                                                _state_tensors(new_block)):
+                        to.copy_(tn)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            else:
+                mode = "cold"
+                self.block = new_block
+                self.device = _device.resolve(_block_device(new_block))
+                with self._lock:
+                    self._signatures = set()
+                    self._warm_signatures = None
+                if example is not None:
+                    with _Flag(self._gate.bypass):
+                        self.warmup(example)
+        finally:
+            self.resume()
+        self.metrics.observe_swap(mode, time.perf_counter() - t0)
+        return mode
+
+
+class _Flag:
+    """``with``-scope that sets ``local.on`` for the current thread."""
+
+    __slots__ = ("_local", "_was")
+
+    def __init__(self, local):
+        self._local = local
+
+    def __enter__(self):
+        self._was = getattr(self._local, "on", False)
+        self._local.on = True
+        return self
+
+    def __exit__(self, *exc):
+        self._local.on = self._was
+        return False
+
+
+def _block_device(block):
+    """Where a module's weights are: its parameters, or its buffers."""
+    t = next(itertools.chain(block.parameters(), block.buffers()), None)
+    return t.device if t is not None else None
+
+
+def _state_tensors(block):
+    """``[(name, tensor)]`` over a module's parameters then buffers."""
+    return (list(block.named_parameters())
+            + list(block.named_buffers()))
 
 
 class _Captured:
@@ -251,9 +579,14 @@ class _Captured:
         self.launches = launches
 
 
-class GraphSession:
+class GraphSession(_Guarded):
     """One CUDA graph per signature key, captured at first use and replayed
-    after (the port's counterpart of a compiled executable per signature).
+    after (the port's counterpart of a compiled executable per signature),
+    under the same protection stack as :class:`InferenceSession`: its own
+    breaker, the ``serve:execute`` fault site and the watchdog around each
+    replay, and the admission gate of ``owner`` (the session whose
+    weights its graphs read), so draining the owner waits for replays in
+    flight and refuses new ones.
 
     :meth:`run` takes a key and a body: a function of no arguments that
     reads the caller's static input tensors, writes whatever persistent
@@ -262,12 +595,14 @@ class GraphSession:
     stream (so lazily built state — cuBLAS handles and workspaces, cached
     tables, a kernel library and its attributes — exists before capture),
     then captures it into a graph and replays it; every later call only
-    replays. The caller refills the static inputs in place between calls.
-    Captures run under ``torch.cuda.set_sync_debug_mode("error")``, so a
-    body that reads a device value on the host fails to capture, and a
-    capture or replay error raises: nothing falls back to eager execution.
-    On the CPU the body runs eagerly every call, with the same signature
-    accounting.
+    replays. A capture runs on the calling thread, before the watchdog
+    window; only the replay is watched. The caller refills the static
+    inputs in place between calls. Captures run under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a body that reads a
+    device value on the host fails to capture, and a capture or replay
+    error raises: nothing falls back to eager execution. On the CPU the
+    body runs eagerly every call (inside the watchdog window), with the
+    same signature accounting.
 
     ``counters`` are kernel modules with ``captured_count()`` and
     ``count_replays(n)`` (``ops.hopper.decode_attention``): a capture
@@ -282,25 +617,28 @@ class GraphSession:
     Threads: a graph captured on one thread replays on any other (the
     continuous engine captures in ``warmup()`` on the caller's thread and
     replays on its scheduler thread). A replay runs on the calling
-    thread's current stream, so the caller fills the static inputs on
-    that same stream; a thread other than the capturing one must make the
-    session's device current first (``torch.cuda.set_device``). Captures
-    use ``capture_error_mode="thread_local"``, so work another thread
-    runs during a capture cannot invalidate it; one thread at a time
-    calls :meth:`run`.
+    thread's current stream (on the watchdog's thread, too), so the
+    caller fills the static inputs on that same stream; a thread other
+    than the capturing one must make the session's device current first
+    (``torch.cuda.set_device``). Captures use
+    ``capture_error_mode="thread_local"``, so work another thread runs
+    during a capture cannot invalidate it; one thread at a time calls
+    :meth:`run`.
     """
 
-    def __init__(self, name, device, counters=()):
-        self.name = name
+    def __init__(self, name, device, counters=(), owner=None):
         self.device = _device.resolve(device)
         self._counters = tuple(counters)
         self._graphs = {}
         self._signatures = set()
         self._warm_signatures = None
         self._captures = 0
+        self._replays = 0
         self._pool = None
         self._stream = None
         self._lock = threading.Lock()
+        self._guard_init(name, gate=owner._gate if owner is not None
+                         else None)
 
     @property
     def graphs(self):
@@ -308,20 +646,32 @@ class GraphSession:
         return self.device.type == "cuda"
 
     def run(self, key, body):
-        """Run the body for signature ``key``: capture on first use, then
-        replay (CUDA); or run it eagerly (CPU). Returns its outputs."""
-        with self._lock:
-            self._signatures.add(key)
-        if not self.graphs:
-            with torch.inference_mode():
+        """Run the body for signature ``key`` under the protection stack:
+        capture on first use, then replay (CUDA); or run it eagerly
+        (CPU). Returns its outputs. Raises :class:`ServiceUnavailable`
+        while the owner drains, the breaker is open, or a replay outlasts
+        ``MXNET_SERVE_TIMEOUT_MS``."""
+        cap = None
+
+        def prepare():
+            nonlocal cap
+            with self._lock:
+                self._signatures.add(key)
+            if self.graphs:
+                cap = self._graphs.get(key)
+                if cap is None:
+                    cap = self._graphs[key] = self._capture(body)
+
+        def execute():
+            if cap is None:
                 return body()
-        cap = self._graphs.get(key)
-        if cap is None:
-            cap = self._graphs[key] = self._capture(body)
-        cap.graph.replay()
-        for counter, n in zip(self._counters, cap.launches):
-            counter.count_replays(n)
-        return cap.outputs
+            cap.graph.replay()
+            self._replays += 1
+            for counter, n in zip(self._counters, cap.launches):
+                counter.count_replays(n)
+            return cap.outputs
+
+        return self._protected(execute, prepare)
 
     def _capture(self, body):
         torch.cuda.set_device(self.device)
@@ -359,6 +709,12 @@ class GraphSession:
     def captures(self):
         """Graphs captured so far."""
         return self._captures
+
+    @property
+    def replays(self):
+        """Graph replays so far (a capture's own first replay included):
+        one per host visit that ran a graph."""
+        return self._replays
 
     # -- signature accounting (as InferenceSession) -------------------------
     def freeze_signatures(self):

@@ -23,6 +23,12 @@ on a GPU each super-step is one replay of a CUDA graph captured per batch
 bucket, with sampling and stop/budget checks on the device and one
 (B, N) token block read back per visit. The strict ``baseline`` rung
 raises ``NotImplementedError`` until its slice lands.
+
+:class:`SpeculativeGenerator` pairs a target ``Generator`` with a draft
+one: the draft proposes k tokens a round (with ``multistep`` its k+1
+iterations are one super-step replay), and the target scores the whole
+(k+1)-token block in one verify pass — one CUDA-graph replay per batch
+bucket on a GPU — so a round costs two host visits.
 """
 from __future__ import annotations
 
@@ -38,6 +44,8 @@ from ..base import MXNetError
 from ..ops import nn as _ops
 from ..ops.hopper import decode_attention as _da
 from ..ops.nn import int8_scale
+from ..profiler import trace as _trace
+from ..resilience import faults as _faults
 from .engine import GraphSession, InferenceSession, PoolExhausted, \
     pick_bucket
 
@@ -222,16 +230,20 @@ class _CacheForward(nn.Module):
     ``ops.nn.paged_kv_gather`` (pool -> per-slot ring) and
     ``ops.nn.paged_kv_scatter`` (the T freshly written rows -> pool, in
     place), as the JAX package's fast rungs do.
+
+    ``all_logits=True`` (the speculative verify step) returns the logits
+    of every position, (B, T, vocab), and ignores ``last_idx``.
     """
 
     def __init__(self, model, max_seq, path="pallas", quant=None,
-                 quant_weights=None, paged=False):
+                 quant_weights=None, all_logits=False, paged=False):
         super().__init__()
         self.model = model
         self._max_seq = int(max_seq)
         self._path = path
         self._quant = quant
         self._quant_weights = quant_weights or None
+        self._all_logits = bool(all_logits)
         self._paged = bool(paged)
 
     def forward(self, tokens, start_pos, last_idx, *rest):
@@ -244,7 +256,7 @@ class _CacheForward(nn.Module):
         cache.path = self._path
         cache.quant_weights = self._quant_weights
         last = self.model(tokens, cache=cache, start_pos=start_pos,
-                          last_idx=last_idx)
+                          last_idx=None if self._all_logits else last_idx)
         if self._paged:
             t_len = tokens.shape[1]
             return (last,) + tuple(
@@ -395,20 +407,15 @@ class _MultiStepForward(nn.Module):
                           done[:, None].to(torch.int32)], dim=1)
 
 
-class _SuperInputs:
-    """The static buffers of one batch bucket's super-step: every input
-    packed into one int32 buffer (``temps`` as float32 bits, the key as
-    two 32-bit words), so a visit fills a host copy and moves it to the
-    device in ONE copy, and the output block comes back in one copy. On a
-    GPU the host side is pinned and the device side is what the graphs
-    were captured on; on the CPU both sides are one buffer."""
+class _StaticInputs:
+    """Static input buffers of one captured body: every input packed into
+    one int32 buffer (float inputs as their bits), so a visit fills a host
+    copy and moves it to the device in ONE copy, and an int32 output comes
+    back in one copy. On a GPU the host side is pinned and the device side
+    is what the graphs were captured on; on the CPU both sides are one
+    buffer. ``sizes`` lists (name, element count) in buffer order."""
 
-    def __init__(self, lanes, pages, steps, device):
-        self.lanes, self.pages = int(lanes), int(pages)
-        sizes = [("tokens", lanes), ("start_pos", lanes),
-                 ("remaining", lanes), ("seeds", lanes), ("temps", lanes),
-                 ("top_ks", lanes), ("stops", lanes * _STOP_WIDTH),
-                 ("key_bits", 2), ("page_table", lanes * pages)]
+    def __init__(self, sizes, out_numel, device):
         self._slices, off = {}, 0
         for name, n in sizes:
             self._slices[name] = (off, off + n)
@@ -417,20 +424,12 @@ class _SuperInputs:
         self.host = torch.zeros(off, dtype=torch.int32, pin_memory=cuda)
         self.dev = (torch.zeros(off, dtype=torch.int32, device=device)
                     if cuda else self.host)
-        self.out_host = torch.zeros(lanes * (steps + 2), dtype=torch.int32,
+        self.out_host = torch.zeros(out_numel, dtype=torch.int32,
                                     pin_memory=cuda)
 
-    def views(self):
-        """The device-side inputs in ``_MultiStepForward``'s order."""
-        def v(name):
-            a, b = self._slices[name]
-            return self.dev[a:b]
-
-        s = self.lanes
-        return (v("tokens").view(s, 1), v("start_pos"), v("remaining"),
-                v("seeds"), v("temps").view(torch.float32), v("top_ks"),
-                v("stops").view(s, _STOP_WIDTH), v("key_bits"),
-                v("page_table").view(s, self.pages) if self.pages else None)
+    def _view(self, name):
+        a, b = self._slices[name]
+        return self.dev[a:b]
 
     def fill(self, **arrays):
         """Write host arrays into the host buffer and, on a GPU, start its
@@ -449,13 +448,61 @@ class _SuperInputs:
             self.dev.copy_(self.host, non_blocking=True)
 
     def read(self, out):
-        """The (S, steps + 2) output block as host numpy, in one copy."""
+        """An int32 output tensor as host numpy, in one copy."""
         if not out.is_cuda:
             return out.numpy().copy()
         host = self.out_host[:out.numel()].view(out.shape)
         host.copy_(out, non_blocking=True)
         torch.cuda.current_stream(out.device).synchronize()
         return host.numpy().copy()
+
+
+class _SuperInputs(_StaticInputs):
+    """The static buffers of one batch bucket's super-step
+    (``_MultiStepForward``'s inputs; ``temps`` as float32 bits, the key as
+    two 32-bit words) and its (S, steps + 2) output block."""
+
+    def __init__(self, lanes, pages, steps, device):
+        self.lanes, self.pages = int(lanes), int(pages)
+        super().__init__(
+            [("tokens", lanes), ("start_pos", lanes), ("remaining", lanes),
+             ("seeds", lanes), ("temps", lanes), ("top_ks", lanes),
+             ("stops", lanes * _STOP_WIDTH), ("key_bits", 2),
+             ("page_table", lanes * pages)],
+            lanes * (steps + 2), device)
+
+    def views(self):
+        """The device-side inputs in ``_MultiStepForward``'s order."""
+        v, s = self._view, self.lanes
+        return (v("tokens").view(s, 1), v("start_pos"), v("remaining"),
+                v("seeds"), v("temps").view(torch.float32), v("top_ks"),
+                v("stops").view(s, _STOP_WIDTH), v("key_bits"),
+                v("page_table").view(s, self.pages) if self.pages else None)
+
+
+class _VerifyInputs(_StaticInputs):
+    """The static buffers of one batch bucket's speculative verify pass:
+    the (B, k+1) token block, per-row ``start_pos``, a zero ``last_idx``
+    (the calling convention's; ``all_logits`` ignores it) and, paged, the
+    (B, P) page table; the (B, k+1) greedy ids come back in one copy."""
+
+    def __init__(self, lanes, width, pages, device):
+        self.lanes, self.width, self.pages = int(lanes), int(width), \
+            int(pages)
+        super().__init__(
+            [("tokens", lanes * width), ("start_pos", lanes),
+             ("last_idx", lanes), ("page_table", lanes * pages)],
+            lanes * width, device)
+
+    def views(self):
+        """``(tokens, start_pos, last_idx[, page_table])`` on the
+        device."""
+        v = self._view
+        out = (v("tokens").view(self.lanes, self.width), v("start_pos"),
+               v("last_idx"))
+        if self.pages:
+            out += (v("page_table").view(self.lanes, self.pages),)
+        return out
 
 
 def _replay_super(session, step, inp, steps, flat, arrays, events=None,
@@ -652,6 +699,10 @@ class Generator:
         self._page_size = page_size
         self._kv_pages = kv_pages
         self._prefix = {}  # batch bucket -> PrefixCache over its pool
+        # speculative decoding sets this to k+1: its draft and verify
+        # passes write that many positions past the accepted prefix, so
+        # per-request page budgets must cover them
+        self._budget_headroom = 0
         self._step = _CacheForward(model, self.max_seq,
                                    path=self.decode_path, quant=self._quant,
                                    quant_weights=self._qweights,
@@ -675,7 +726,8 @@ class Generator:
                 quant=self._quant, quant_weights=self._qweights,
                 paged=self._paged)
             self._msession = GraphSession(f"{name}_multi", self.device,
-                                          counters=(_da,))
+                                          counters=(_da,),
+                                          owner=self.session)
             self._inputs = {}  # batch bucket -> _SuperInputs
 
     def _fresh_cache(self, batch_bucket):
@@ -743,7 +795,10 @@ class Generator:
     def decode_step(self, tokens, positions, cache):
         """One T=1 decode step: ``tokens`` (B,) the just-sampled ids,
         ``positions`` (B,) their absolute positions. Returns the next
-        (B, vocab) logits and the updated cache."""
+        (B, vocab) logits and the updated cache. The ``serve:decode``
+        fault site fires once per step (distinct from ``serve:execute``,
+        which also covers prefill)."""
+        _faults.fault_point("serve:decode", {"session": self.session.name})
         toks = _onp.asarray(tokens, _onp.int32).reshape(-1, 1)
         zeros = _onp.zeros(len(toks), _onp.int32)
         return self._run(toks, _onp.asarray(positions, _onp.int32),
@@ -769,6 +824,8 @@ class Generator:
             raise MXNetError(
                 "decode_super needs multistep=True (or "
                 "MXNET_SERVE_MULTISTEP=1) at construction")
+        _faults.fault_point("serve:decode",
+                            {"session": self._msession.name})
         steps = int(steps_limit)
         if steps not in (1, self.decode_steps):
             raise MXNetError(f"decode_super: steps_limit {steps} is neither "
@@ -828,7 +885,8 @@ class Generator:
                     m, pages = trie.match(row)
                 else:  # dead padding lane: 1-token prompt, never cached
                     row, m, pages = [int(toks[s, 0])], 0, ()
-                budget = min(len(row) + int(max_new), self.max_seq)
+                budget = min(len(row) + int(max_new)
+                             + self._budget_headroom, self.max_seq)
                 try:
                     cache.assign_with_prefix(s, budget, pages)
                 except PoolExhausted:
@@ -1100,8 +1158,8 @@ class Generator:
                 zeros = _onp.zeros(bb, _onp.int32)
                 for steps in sorted({self.decode_steps, 1}):
                     for temp in (0.0, 1.0):
-                        # remaining = 0: every lane is done from the start
-                        # and only rewrites its current position
+                        # remaining = 0: every lane is done from the
+                        # start and only rewrites its current position
                         self.decode_super(
                             zeros, lens, steps, zeros, zeros,
                             _onp.full(bb, temp, _onp.float32), zeros,
@@ -1140,3 +1198,341 @@ class Generator:
         if self._prefix_on:
             out["prefix"] = {bb: t.stats() for bb, t in self._prefix.items()}
         return out
+
+
+class SpeculativeGenerator:
+    """Speculative decoding (Leviathan et al.): a cheap draft model
+    proposes ``k`` tokens per round, the target model scores the whole
+    block in ONE (k+1)-wide verify pass, and the longest proposal prefix
+    that matches the target's greedy choices is accepted plus one
+    correction/bonus token — so each target pass emits between 1 and k+1
+    tokens instead of exactly 1.
+
+    Greedy-only by construction: with argmax acceptance the emitted
+    sequence is **token-identical** to non-speculative greedy decoding
+    for *any* draft model (a bad draft only costs speed, never output).
+    The accepted prefix always equals the target's own greedy chain, and
+    the correction token is the target's argmax conditioned on exactly
+    that chain.
+
+    No cache rollback is needed on rejection: the attention masks
+    positions past each query's own, so the K/V of rejected proposals is
+    dead weight that the next round's writes overwrite before any read
+    reaches it — in rings and in paged pools alike (the verify pass
+    writes its k+1 rows at the row's ``start_pos`` through the page
+    table).
+
+    The target and draft are plain :class:`Generator` s; the target stays
+    single-step (prefill and verify are its only passes). With
+    ``multistep`` the draft is a multi-step ``Generator`` with
+    ``decode_steps = k + 1``: a round's k proposal iterations plus the
+    (k+1)-th that writes d_k's K/V are ONE super-step replay, with the
+    decode-attention kernel in every layer of every iteration. The verify
+    pass is a third session: on a GPU one CUDA graph per batch bucket
+    (:class:`~.engine.GraphSession`, captured in :meth:`warmup`) over
+    static input buffers, writing the target's rings or pools in place;
+    on the CPU the same body runs eagerly. Its attention is the plain
+    version (T = k+1 > 1, as the JAX package routes T > 1 to
+    ``_xla_decode``). So a multi-step round costs two host visits: one
+    draft replay and one verify replay. :meth:`assert_no_recompiles`
+    spans all three sessions.
+    """
+
+    def __init__(self, model, draft_model, k=None, max_seq=128,
+                 batch_buckets=(1, 2, 4), prompt_buckets=None, pad_id=0,
+                 name="llama_spec", decode_path=None, paged=None,
+                 page_size=None, kv_pages=None, prefix_cache=None,
+                 multistep=None):
+        self.k = int(k) if k is not None else int(
+            config.get("MXNET_SERVE_SPEC_TOKENS"))
+        if self.k < 1:
+            raise MXNetError("speculative decoding needs k >= 1")
+        if multistep is None:
+            multistep = bool(config.get("MXNET_SERVE_MULTISTEP"))
+        self._multistep = bool(multistep)
+        self.target = Generator(
+            model, max_seq=max_seq, batch_buckets=batch_buckets,
+            prompt_buckets=prompt_buckets, pad_id=pad_id, name=name,
+            decode_path=decode_path, paged=paged, page_size=page_size,
+            kv_pages=kv_pages, prefix_cache=prefix_cache, multistep=False)
+        self.draft = Generator(
+            draft_model, max_seq=max_seq, batch_buckets=batch_buckets,
+            prompt_buckets=prompt_buckets, pad_id=pad_id,
+            name=f"{name}_draft", decode_path=decode_path, paged=paged,
+            page_size=page_size, kv_pages=kv_pages,
+            prefix_cache=prefix_cache, multistep=self._multistep,
+            decode_steps=self.k + 1)
+        if self.draft.device != self.target.device:
+            raise MXNetError(
+                f"draft model on {self.draft.device}, target on "
+                f"{self.target.device}: both must live on one device")
+        # draft rounds write k+1 positions past the accepted prefix and
+        # the verify block writes k+1 target positions — per-request
+        # page budgets in prefix mode must cover that overhang
+        self.target._budget_headroom = self.k + 1
+        self.draft._budget_headroom = self.k + 1
+        self.decode_path = self.target.decode_path
+        self.max_seq = self.target.max_seq
+        self.batch_buckets = self.target.batch_buckets
+        self.pad_id = self.target.pad_id
+        self.device = self.target.device
+        self._verify_step = _CacheForward(
+            model, self.max_seq, path=self.decode_path,
+            quant=self.target._quant, quant_weights=self.target._qweights,
+            all_logits=True, paged=self.target._paged)
+        self._verify = GraphSession(f"{name}_verify", self.device,
+                                    counters=(_da,),
+                                    owner=self.target.session)
+        self._vinputs = {}  # batch bucket -> _VerifyInputs
+        self.metrics = self.target.session.metrics
+
+    def _verify_run(self, tokens_blk, start_pos, cache, events=None):
+        """One target pass over the (B, k+1) block [pending, d_1..d_k] at
+        per-row ``start_pos``, writing the target's rings (or, paged, its
+        pool pages through the table) in place. Fills the bucket's static
+        buffers in one copy and replays its verify graph — capturing it
+        first on its first use — then reads the (B, k+1) greedy ids back
+        in one copy. Returns ``(logits, greedy, cache)``: the (B, k+1,
+        vocab) logits on the device (valid until the next verify pass),
+        the ids as host numpy, and the cache.
+
+        ``events``: optional list; on a GPU one (start, end) pair of CUDA
+        events recorded around the replay is appended."""
+        blk = _onp.asarray(tokens_blk, _onp.int32)
+        b = blk.shape[0]
+        inp = self._vinputs.get(b)
+        if inp is None:
+            pages = cache.pages_per_slot if self.target._paged else 0
+            inp = self._vinputs[b] = _VerifyInputs(b, self.k + 1, pages,
+                                                   self.device)
+        arrays = dict(tokens=blk, start_pos=_onp.asarray(start_pos,
+                                                         _onp.int32),
+                      last_idx=_onp.zeros(b, _onp.int32))
+        if self.target._paged:
+            arrays["page_table"] = cache.table()
+        inp.fill(**arrays)
+        flat = cache.flat()
+
+        def body():
+            out = self._verify_step(*inp.views(), *flat)
+            return out[0], torch.argmax(out[0], dim=-1).to(torch.int32)
+
+        timed = events is not None and self._verify.graphs
+        if timed:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+        logits, ids = self._verify.run((b, self.k + 1, _da.forced_path()),
+                                       body)
+        if timed:
+            e1.record()
+            events.append((e0, e1))
+        return logits, inp.read(ids), cache
+
+    def generate(self, prompts, max_new_tokens=32, temperature=0.0,
+                 top_k=None, stop_ids=(), deadlines=None, events=None):
+        """Same contract as :meth:`Generator.generate` (greedy only):
+        per-prompt generated id lists plus a stats dict — with
+        ``rounds``, ``draft_steps``, ``verify_steps``, the measured
+        ``acceptance_rate`` and ``decode_visits`` (host visits after
+        prefill: 2 a round with ``multistep``, k+2 without) added.
+
+        ``events``: optional ``{"draft": [], "verify": []}``; on a GPU one
+        pair of CUDA events around each multi-step draft replay and each
+        verify replay is appended (their device times)."""
+        if temperature is not None and temperature > 0.0:
+            raise MXNetError(
+                "SpeculativeGenerator is greedy-only: sampled acceptance "
+                "needs the rejection-sampling correction this build does "
+                "not implement (temperature must be 0)")
+        t_start = time.perf_counter()
+        toks, lens, b_bucket = self.target._pad_prompts(prompts)
+        n_real = len(prompts)
+        max_new = int(max_new_tokens)
+        # +k+1 headroom: the last round's verify block writes k+1
+        # positions past the accepted prefix
+        if int(lens.max()) + max_new + self.k + 1 > self.max_seq:
+            raise MXNetError(
+                f"prompt ({int(lens.max())}) + max_new_tokens ({max_new}) "
+                f"+ speculative headroom ({self.k + 1}) exceeds max_seq "
+                f"({self.max_seq})")
+        if deadlines is not None:
+            try:
+                deadlines = [float(d) for d in deadlines]
+            except TypeError:
+                deadlines = [float(deadlines)] * n_real
+            if len(deadlines) != n_real:
+                raise MXNetError(
+                    f"generate() got {len(deadlines)} deadlines for "
+                    f"{n_real} prompts")
+        draft_ev = events.get("draft") if events is not None else None
+        verify_ev = events.get("verify") if events is not None else None
+        tcache, tmatched = self.target._prefix_begin(
+            prompts, toks, lens, b_bucket, max_new)
+        try:
+            dcache, dmatched = self.draft._prefix_begin(
+                prompts, toks, lens, b_bucket, max_new)
+        except BaseException:
+            self.target._prefix_release(prompts, b_bucket, tcache, False)
+            raise
+        run_ok = False
+        try:
+            with _trace.span("serve::prefill", {"batch": n_real}):
+                logits, tcache = self.target._prefix_prefill(
+                    toks, lens, tmatched, tcache)
+                _, dcache = self.draft._prefix_prefill(
+                    toks, lens, dmatched, dcache)
+            pending = sample_tokens(logits)  # (b_bucket,) greedy
+            t_prefill = time.perf_counter()
+
+            out = [[] for _ in range(n_real)]
+            stopped = [False] * b_bucket
+            for i in range(n_real, b_bucket):
+                stopped[i] = True  # dead padding lanes ride along frozen
+            expired = [False] * n_real
+            stop = set(int(s) for s in stop_ids)
+            # the prefill-sampled token is the first emission (exactly
+            # like Generator.generate's step-0 sample)
+            for i in range(n_real):
+                tid = int(pending[i])
+                if tid in stop:
+                    stopped[i] = True
+                else:
+                    out[i].append(tid)
+                    if len(out[i]) >= max_new:
+                        stopped[i] = True
+            positions = lens.copy()  # write position of row's `pending`
+            rounds = draft_steps = verify_steps = visits = 0
+            proposed = accepted = 0
+            proposals = _onp.zeros((b_bucket, self.k), _onp.int32)
+            while not all(stopped):
+                rounds += 1
+                # draft proposes d_1..d_k; the extra (k+1)-th iteration
+                # writes d_k's K/V into the draft's cache so a fully
+                # accepted round leaves no hole at position + k
+                if self._multistep:
+                    # one super-step replay runs all k+1 draft
+                    # iterations: iteration j feeds d_j at pos+j, writes
+                    # its K/V and greedily picks d_{j+1}. No stops and no
+                    # budget (remaining = k+2): every lane runs the full
+                    # k+1 iterations, and proposals of frozen lanes are
+                    # ignored at settle
+                    with _trace.span("serve::draft_step",
+                                     {"steps": self.k + 1}):
+                        blk_d, _, _, dcache = self.draft.decode_super(
+                            pending, positions, self.k + 1,
+                            _onp.full(b_bucket, self.k + 2, _onp.int32),
+                            _onp.arange(b_bucket, dtype=_onp.int32),
+                            _onp.zeros(b_bucket, _onp.float32),
+                            _onp.zeros(b_bucket, _onp.int32),
+                            _onp.full((b_bucket, _STOP_WIDTH), -1,
+                                      _onp.int32),
+                            _onp.zeros(2, _onp.uint32), dcache,
+                            events=draft_ev)
+                    draft_steps += self.k + 1
+                    visits += 1
+                    proposals[:, :] = blk_d[:, :self.k]
+                else:
+                    cur = _onp.asarray(pending, _onp.int32).copy()
+                    dpos = positions.copy()
+                    for j in range(self.k + 1):
+                        with _trace.span("serve::draft_step", {"j": j}):
+                            dlog, dcache = self.draft.decode_step(
+                                cur, dpos, dcache)
+                            if j < self.k:
+                                cur = sample_tokens(dlog)
+                                proposals[:, j] = cur
+                        dpos = dpos + 1
+                        draft_steps += 1
+                        visits += 1
+                blk = _onp.concatenate(
+                    [_onp.asarray(pending, _onp.int32).reshape(-1, 1),
+                     proposals], axis=1)
+                with _trace.span("serve::verify_step", {"k": self.k}):
+                    _, greedy, tcache = self._verify_run(
+                        blk, positions, tcache, events=verify_ev)
+                verify_steps += 1
+                visits += 1
+                for i in range(b_bucket):
+                    if stopped[i]:
+                        continue
+                    a = 0
+                    while a < self.k and proposals[i, a] == greedy[i, a]:
+                        a += 1
+                    proposed += self.k
+                    accepted += a
+                    emit = [int(t) for t in proposals[i, :a]]
+                    emit.append(int(greedy[i, a]))
+                    for tid in emit:
+                        if tid in stop:
+                            stopped[i] = True
+                            break
+                        out[i].append(tid)
+                        if len(out[i]) >= max_new:
+                            stopped[i] = True
+                            break
+                    pending[i] = greedy[i, a]
+                    positions[i] += a + 1
+                if deadlines is not None:
+                    now = time.monotonic()
+                    for i in range(n_real):
+                        if not stopped[i] and now >= deadlines[i]:
+                            stopped[i] = True
+                            expired[i] = True
+                            self.metrics.observe_deadline("decode")
+            run_ok = True
+        finally:
+            self.target._prefix_release(prompts, b_bucket, tcache, run_ok)
+            self.draft._prefix_release(prompts, b_bucket, dcache, run_ok)
+        t_done = time.perf_counter()
+        decode_s = t_done - t_prefill
+        n_tokens = sum(len(o) for o in out)
+        self.metrics.observe_tokens(n_tokens, decode_s)
+        info = {
+            "prefill_ms": (t_prefill - t_start) * 1e3,
+            "decode_ms": decode_s * 1e3,
+            "rounds": rounds,
+            "draft_steps": draft_steps,
+            "verify_steps": verify_steps,
+            "decode_visits": visits,
+            "acceptance_rate": accepted / proposed if proposed else 0.0,
+            "tokens_s": n_tokens / decode_s if decode_s > 0 else 0.0,
+            "total_ms": (t_done - t_start) * 1e3,
+            "deadline_expired": [i for i in range(n_real) if expired[i]],
+        }
+        return out, info
+
+    # -- warmup / invariants -------------------------------------------------
+    def warmup(self):
+        """Warm all three sessions: the target and draft lattices (the
+        draft's super-step graphs among them) plus one verify pass per
+        batch bucket — on a GPU its graph capture. Returns the signature
+        count, the wall time and the verify graphs captured."""
+        t0 = time.perf_counter()
+        self.target.warmup()
+        self.draft.warmup()
+        for bb in self.batch_buckets:
+            cache = self.target._fresh_cache(bb)
+            blk = _onp.zeros((bb, self.k + 1), _onp.int32)
+            self._verify_run(blk, _onp.zeros(bb, _onp.int32), cache)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._verify.freeze_signatures()
+        sigs = (self.target.session.signature_count()
+                + self.draft.session.signature_count()
+                + self._verify.signature_count())
+        if self.draft._msession is not None:
+            sigs += self.draft._msession.signature_count()
+        return {"signatures": sigs, "wall_s": time.perf_counter() - t0,
+                "verify_captures": self._verify.captures}
+
+    def assert_no_recompiles(self):
+        self.target.assert_no_recompiles()
+        self.draft.assert_no_recompiles()
+        self._verify.assert_no_recompiles()
+
+    def stats(self):
+        return {"target": self.target.stats(), "draft": self.draft.stats(),
+                "verify": {"signatures": self._verify.signature_count(),
+                           "captures": self._verify.captures,
+                           "replays": self._verify.replays}}

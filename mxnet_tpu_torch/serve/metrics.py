@@ -7,18 +7,33 @@ One :class:`ServeMetrics` instance rides along with each serving component
 land in bounded rings (``MXNET_SERVE_METRICS_WINDOW`` samples) so a
 long-lived server's snapshot cost stays flat, and every observation also
 emits a ``serve::*`` event through the profiler bus
-(``mxnet_tpu_torch.profiler.core``) when it is recording. The JAX
-package's SLO burn-rate monitor hooks and export registry are not ported
-yet.
+(``mxnet_tpu_torch.profiler.core``) when it is recording. A
+``profiler.slo.SLOMonitor`` attached with ``attach()`` sees every
+completion, TTFT and ITL sample, and every live instance is exported
+through ``profiler.export.snapshot()`` as ``serve.<name>.*``.
 """
 from __future__ import annotations
 
 import collections
 import math
 import threading
+import weakref
 
 from ..profiler import core as _prof
 from ..profiler import recorder as _recorder
+
+# live ServeMetrics instances, for the process-wide all_snapshots()
+# aggregate (profiler.export pulls it); weak so the registry never pins
+# a retired server's accumulator
+_instances: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def all_snapshots():
+    """``{instance_name: snapshot()}`` over every live ServeMetrics.
+    Same-named instances merge last-writer-wins (deployments that share
+    one accumulator across session and batcher see exactly one entry)."""
+    return {m.name: m.snapshot() for m in list(_instances)}
+
 
 def percentile(samples, pct):
     """Nearest-rank percentile of an unsorted sequence (0 < pct <= 100):
@@ -94,6 +109,10 @@ class ServeMetrics:
         # serve.<name>.* export surface
         self.host_overhead_fraction = 0.0
         self.device_ms_per_token = 0.0
+        # optional SLO burn-rate monitor (profiler.slo.SLOMonitor
+        # .attach()); None keeps every observation at one branch
+        self.slo = None
+        _instances.add(self)
 
     # -- observations -------------------------------------------------------
     def observe_request(self, queue_ms=0.0, exec_ms=0.0, ok=True,
@@ -121,6 +140,9 @@ class ServeMetrics:
                         priority,
                         collections.deque(maxlen=self._window))
                 ring.append(total)
+        slo = self.slo
+        if slo is not None:
+            slo.observe("completion", ok=ok, deadline_ok=deadline_ok)
         if _prof.ENABLED:
             t1 = _prof.begin()
             _prof.record_duration(f"serve::request({self.name})", "serve",
@@ -203,6 +225,9 @@ class ServeMetrics:
         under continuous batching — admission waits show up here."""
         with self._lock:
             self._ttft_ms.append(float(ms))
+        slo = self.slo
+        if slo is not None:
+            slo.observe("ttft_ms", float(ms))
         if _prof.ENABLED:
             _prof.record_instant(f"serve::ttft({self.name})", "serve",
                                  args={"ms": round(float(ms), 3),
@@ -230,6 +255,10 @@ class ServeMetrics:
             for _ in range(tokens):
                 self._itl_ms.append(gap)
                 self._itl_live.append(int(live))
+        slo = self.slo
+        if slo is not None:
+            for _ in range(tokens):
+                slo.observe("itl_ms", gap)
 
     def observe_prefix(self, matched_tokens):
         """One admission consulted the prefix trie: ``matched_tokens``

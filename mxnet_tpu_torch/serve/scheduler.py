@@ -238,7 +238,8 @@ class ContinuousEngine:
                 model, self.max_seq, path=self.decode_path,
                 quant=self._quant, quant_weights=self._qweights, paged=True)
             self._msession = GraphSession(f"{name}_multi", self.device,
-                                          counters=(_da,))
+                                          counters=(_da,),
+                                          owner=self.session)
             self._inputs = _SuperInputs(self.num_slots,
                                         self.pool.pages_per_slot,
                                         self.decode_steps, self.device)
@@ -752,10 +753,10 @@ class ContinuousEngine:
         t0 = time.perf_counter()
         n = self.pool.pages_per_slot
         S = self.num_slots
+        out = {}
         self._run_step(
             _onp.zeros((1, self.prefill_chunk), _onp.int32), [0], [0],
             _onp.zeros((1, n), _onp.int32))
-        out = {}
         if self._multistep:
             t1 = time.perf_counter()
             zeros = _onp.zeros(S, _onp.int32)
@@ -763,16 +764,17 @@ class ContinuousEngine:
                 for temp in (0.0, 1.0):
                     self._run_multi(
                         _onp.zeros((S, 1), _onp.int32), zeros,
-                        _onp.zeros((S, n), _onp.int32), steps, zeros, zeros,
-                        _onp.full(S, temp, _onp.float32), zeros,
+                        _onp.zeros((S, n), _onp.int32), steps, zeros,
+                        zeros, _onp.full(S, temp, _onp.float32), zeros,
                         _onp.full((S, _STOP_WIDTH), -1, _onp.int32))
             self._msession.freeze_signatures()
             out = {"captures": self._msession.captures,
                    "capture_s": time.perf_counter() - t1}
         else:
             self._run_step(
-                _onp.zeros((S, 1), _onp.int32), _onp.zeros(S, _onp.int32),
-                _onp.zeros(S, _onp.int32), _onp.zeros((S, n), _onp.int32))
+                _onp.zeros((S, 1), _onp.int32),
+                _onp.zeros(S, _onp.int32), _onp.zeros(S, _onp.int32),
+                _onp.zeros((S, n), _onp.int32))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.session.freeze_signatures()

@@ -276,24 +276,27 @@ def test_decode_fault_fails_that_step_and_engine_keeps_serving(multistep):
 
 
 def test_prefill_fault_fails_only_that_request():
-    """A fatal serve:execute fault in the second prefill chunk fails the
-    request being prefilled; the request already decoding (its visits
-    replay the super-step, which runs no serve:execute) completes with
-    the batch-1 tokens."""
+    """A fatal serve:execute fault in the second request's prefill chunk
+    fails that request; the request already decoding completes with the
+    batch-1 tokens. The third visit of the site is that chunk: the first
+    step prefills the first request and runs its first super-step, whose
+    replay passes the site too (as the JAX engine's super-step session
+    does)."""
     _, port, vocab = _models()
     prompts = _prompts(vocab, 13, lens=(5, 9))
     want = _batch1(port, prompts[:1], 6)[0]
     eng = _engine(port, multistep=True, steps=2)
     try:
         eng.warmup()
-        faults.install_plan({"rules": [{"site": "serve:execute",
-                                        "kind": "fatal", "at": [1]}]})
+        plan = faults.install_plan({"rules": [{"site": "serve:execute",
+                                               "kind": "fatal", "at": [2]}]})
         try:
             futs = [eng.submit(p, max_new_tokens=6) for p in prompts]
             for _ in range(8):
                 eng.step()
         finally:
             faults.clear_plan()
+        assert plan.fired_total() == 1
         assert futs[0].result(timeout=WAIT)["tokens"] == want
         with pytest.raises(faults.InjectedFaultError):
             futs[1].result(timeout=WAIT)

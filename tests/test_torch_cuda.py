@@ -1077,3 +1077,216 @@ def test_cuda_engine_forced_plain_captures_on_the_scheduler_thread():
             da.force_path(None)
         assert eng._msession.captures == 5
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding and the session watchdog on the card
+# ---------------------------------------------------------------------------
+
+
+def _spec(gpu, draft, **kw):
+    from mxnet_tpu_torch.serve import SpeculativeGenerator
+
+    return SpeculativeGenerator(gpu, draft, **dict(MS_KW, k=3, **kw))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["ring", "paged"])
+@pytest.mark.parametrize("rung", ["pallas", "int8"])
+def test_cuda_verify_graph_replay_equals_eager_body(rung, paged):
+    """The verify pass replayed from its CUDA graph gives the logits and
+    greedy ids of the same body run eagerly on the card over the same
+    prefilled cache, round after round; the graph launches no
+    decode-attention kernel (T = k+1 takes the plain attention)."""
+    from mxnet_tpu_torch.serve.generate import _VerifyInputs
+
+    dev = _need_cuda()
+    _, gpu = _tiny_pair(dev)
+    kw = dict(decode_path=rung, paged=paged, page_size=8)
+    sa, sb = _spec(gpu, gpu, **kw), _spec(gpu, gpu, **kw)
+    sa.warmup()
+    assert sa._verify.graphs and sa._verify.captures == 1
+    toks, lens, bb = sa.target._pad_prompts(MS_PROMPTS)
+    ca, cb = sa.target._fresh_cache(bb), sb.target._fresh_cache(bb)
+    _, ca = sa.target.prefill(toks, lens, ca)
+    _, cb = sb.target.prefill(toks, lens, cb)
+    rng = np.random.RandomState(0)
+    pos = lens.copy()
+    for _ in range(3):
+        blk = rng.randint(1, 256, size=(bb, 4)).astype(np.int32)
+        n0 = da.launch_count()
+        logits, ids, ca = sa._verify_run(blk, pos, ca)
+        assert da.launch_count() == n0
+        inp = _VerifyInputs(bb, 4, cb.pages_per_slot if paged else 0, dev)
+        arrays = dict(tokens=blk, start_pos=pos,
+                      last_idx=np.zeros(bb, np.int32))
+        if paged:
+            arrays["page_table"] = cb.table()
+        inp.fill(**arrays)
+        with torch.inference_mode():
+            want = sb._verify_step(*inp.views(), *cb.flat())[0]
+        torch.testing.assert_close(logits, want, rtol=RTOL, atol=ATOL)
+        np.testing.assert_array_equal(
+            ids, torch.argmax(want, -1).to(torch.int32).cpu().numpy())
+        pos = pos + 2
+    assert sa._verify.launches((bb, 4, None)) == [0]
+    sa.assert_no_recompiles()
+
+
+@pytest.mark.parametrize("multistep", [False, True], ids=["single", "multi"])
+def test_cuda_speculative_matches_generator_and_cpu(multistep):
+    """A tiny speculative generator on the card gives the card
+    ``Generator``'s greedy tokens and the CPU speculative generator's, for
+    a copied draft and a random one; a round is two host visits with
+    ``multistep`` (one draft replay, one verify replay); the kernel
+    launches are the draft's layers x (k+1) x rounds; nothing is captured
+    after warmup."""
+    dev = _need_cuda()
+    cpu_model, gpu = _tiny_pair(dev)
+    trandom.seed(1)
+    cpu_draft = get_llama("llama_tiny_test", device="cpu", num_layers=1)
+    gpu_draft = copy.deepcopy(cpu_draft).to(dev)
+    want = Generator(gpu, **MS_KW).generate(MS_PROMPTS,
+                                            max_new_tokens=12)[0]
+    for cpu_d, gpu_d in ((cpu_model, gpu), (cpu_draft, gpu_draft)):
+        layers = len(gpu_d._blocks)
+        sg = _spec(gpu, gpu_d, multistep=multistep)
+        sg.warmup()
+        caps = (sg._verify.captures,
+                sg.draft._msession.captures if multistep else 0)
+        vr0 = sg._verify.replays
+        dr0 = sg.draft._msession.replays if multistep else 0
+        n0 = da.launch_count()
+        out, info = sg.generate(MS_PROMPTS, max_new_tokens=12)
+        rounds = info["rounds"]
+        assert out == want
+        assert da.launch_count() - n0 == layers * 4 * rounds
+        assert sg._verify.replays - vr0 == rounds
+        if multistep:
+            assert sg.draft._msession.replays - dr0 == rounds
+            assert info["decode_visits"] == 2 * rounds
+            assert sg.draft._msession.captures == caps[1]
+        assert sg._verify.captures == caps[0]
+        sg.assert_no_recompiles()
+        cpu = _spec(cpu_model, cpu_d, multistep=multistep)
+        assert out == cpu.generate(MS_PROMPTS, max_new_tokens=12)[0]
+
+
+def _record_set_device(monkeypatch):
+    """Patch ``torch.cuda.set_device`` to record (thread name, device
+    index) for every call, then make the call."""
+    import threading
+
+    calls = []
+    real = torch.cuda.set_device
+
+    def spy(device):
+        calls.append((threading.current_thread().name,
+                      device if isinstance(device, int)
+                      else torch.device(device).index))
+        return real(device)
+
+    monkeypatch.setattr(torch.cuda, "set_device", spy)
+    return calls
+
+
+def test_cuda_session_watchdog_thread_sets_device_and_inference_mode(
+        monkeypatch):
+    """With ``MXNET_SERVE_TIMEOUT_MS`` set, a session's CUDA body runs on
+    the watchdog's thread, which calls ``torch.cuda.set_device`` with the
+    session's device before the body and makes the caller's stream
+    current, under ``torch.inference_mode()``, recording no autograd
+    graph; warmup runs inline; a hung body becomes a 503."""
+    from mxnet_tpu_torch.resilience import faults as tfaults
+    from mxnet_tpu_torch.serve import InferenceSession, ServiceUnavailable
+
+    dev = _need_cuda()
+    seen = []
+
+    class Probe(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.lin = torch.nn.Linear(8, 8)
+
+        def forward(self, x):
+            import threading
+
+            seen.append((threading.current_thread().name,
+                         torch.cuda.current_device(),
+                         torch.cuda.current_stream(),
+                         torch.is_inference_mode_enabled(),
+                         torch.is_grad_enabled()))
+            return self.lin(x)
+
+    block = Probe().to(dev)
+    sess = InferenceSession(block, batch_buckets=(2,), name="wd")
+    x = np.ones((2, 8), np.float32)
+    monkeypatch.setenv("MXNET_SERVE_TIMEOUT_MS", "60000")
+    sess.warmup(x)
+    assert "watchdog" not in seen[-1][0]
+    calls = _record_set_device(monkeypatch)
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        out = sess.predict(x)
+    side.synchronize()
+    name, device, stream, inference, grad = seen[-1]
+    assert "mxtpu-watchdog[serve:wd]" == name
+    assert calls == [(name, dev.index)]
+    assert device == dev.index and stream == side
+    assert inference and not grad
+    assert out.device == dev and not out.requires_grad
+    torch.testing.assert_close(out, block.lin(torch.ones(2, 8,
+                                                         device=dev)))
+    monkeypatch.setenv("MXNET_SERVE_TIMEOUT_MS", "50")
+    tfaults.install_plan({"rules": [{"site": "serve:execute",
+                                     "kind": "delay", "seconds": 0.3,
+                                     "times": 1}]})
+    try:
+        with pytest.warns(RuntimeWarning, match="watchdog abandoned"):
+            with pytest.raises(ServiceUnavailable,
+                               match="MXNET_SERVE_TIMEOUT_MS"):
+                sess.predict(x)
+    finally:
+        tfaults.clear_plan()
+
+
+def test_cuda_graph_replay_under_the_watchdog_and_drain(monkeypatch):
+    """With ``MXNET_SERVE_TIMEOUT_MS`` set after warmup, a multi-step
+    generator's super-step graphs replay on the watchdog's thread (which
+    sets the device first) on the caller's stream, with the tokens and
+    kernel launch counts of an unwatched run and no new capture; draining
+    the generator's session refuses the next replay with a 503."""
+    from mxnet_tpu_torch.serve import ServiceUnavailable
+    from mxnet_tpu_torch.serve.generate import _STOP_WIDTH
+
+    dev = _need_cuda()
+    _, gpu = _tiny_pair(dev)
+    gen = Generator(gpu, multistep=True, decode_steps=4, **MS_KW)
+    gen.warmup()
+    caps = gen._msession.captures
+    want, info = gen.generate(MS_PROMPTS, max_new_tokens=12)
+    monkeypatch.setenv("MXNET_SERVE_TIMEOUT_MS", "60000")
+    calls = _record_set_device(monkeypatch)
+    side = torch.cuda.Stream(dev)
+    for stream in (None, side):
+        n0, r0 = da.launch_count(), gen._msession.replays
+        with torch.cuda.stream(stream):
+            out, got = gen.generate(MS_PROMPTS, max_new_tokens=12)
+        assert out == want
+        assert gen._msession.replays - r0 == got["decode_visits"]
+        assert da.launch_count() - n0 == (
+            len(gpu._blocks) * 4 * got["decode_visits"])
+    watched = [c for c in calls if c[0] == "mxtpu-watchdog[serve:"
+               f"{gen._msession.name}]"]
+    assert watched and all(d == dev.index for _, d in watched)
+    assert gen._msession.captures == caps
+    gen.assert_no_recompiles()
+    assert gen.session.drain(timeout=5.0)
+    try:
+        with pytest.raises(ServiceUnavailable, match="draining"):
+            gen.decode_super(*([np.zeros(2, np.int32)] * 2), 4,
+                             np.zeros(2, np.int32), np.zeros(2, np.int32),
+                             np.zeros(2, np.float32), np.zeros(2, np.int32),
+                             np.full((2, _STOP_WIDTH), -1, np.int32),
+                             np.zeros(2, np.uint32), gen._fresh_cache(2))
+    finally:
+        gen.session.resume()

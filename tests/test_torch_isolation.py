@@ -66,6 +66,26 @@ with DynamicBatcher(lambda xs: [x + 1 for x in xs], max_batch_size=2) as b:
 assert ServeMetrics("iso").snapshot()["requests"] == 0
 from mxnet_tpu_torch import serve_load
 assert serve_load.traffic(4, 2.0, 256)[0][2] == 48
+from mxnet_tpu_torch.serve import (ModelRegistry, Replica, Router,
+                                   SpeculativeGenerator)
+for multistep in (False, True):
+    sg = SpeculativeGenerator(gen.model, gen.model, k=2, max_seq=32,
+                              batch_buckets=(2,), prompt_buckets=(8,),
+                              multistep=multistep)
+    assert sg.generate([[1, 2, 3], [4, 5]], max_new_tokens=4)[0] == out
+with ModelRegistry(max_models=1, max_seq=32, num_slots=2,
+                   page_size=8) as reg:
+    assert reg.submit("a", [1, 2, 3], max_new_tokens=4).result(60)[
+        "tokens"] == out[0] if reg.load("a", model=gen.model) else False
+with Router([Replica(lambda xs: [x * 2 for x in xs], index=0,
+                     device="cpu")], probe_ms=0.0) as router:
+    assert router.submit(3).result(10) == 6
+from mxnet_tpu_torch.profiler import export, slo
+from mxnet_tpu_torch.resilience import elastic, retry
+assert "recorder.dumps" in export.snapshot()
+assert retry.run_with_watchdog(lambda: 5, 1.0) == 5
+assert slo.SLO("goodput", 0.9).budget > 0
+assert not elastic.StragglerMonitor().flagged(0)
 resilience.install_plan({"rules": [{"site": "x", "kind": "fatal", "at": [5]}]})
 resilience.clear_plan()
 tr = profiler.trace

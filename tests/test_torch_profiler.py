@@ -9,6 +9,7 @@ and fault-plan decisions on both sides. Time stamps, thread ids and trace
 ids are left out of the comparison; everything else is compared whole.
 """
 import json
+import os
 
 import pytest
 
@@ -159,28 +160,55 @@ def test_event_bus_aggregates_counters_and_dump(tmp_path):
     assert port_side[4] == {"name": "worker-x"} and port_side[6] == {}
 
 
-def test_flight_recorder_ring_and_dump():
-    """The ring and the resilience counters. The reference's ``dump()``
-    is not ported yet (it comes with its first caller), so the ring is
-    compared through ``snapshot()``."""
+def test_flight_recorder_ring_and_dump(tmp_path, monkeypatch):
+    """The ring, the resilience counters and ``dump()``: the dump file's
+    document (ring, counters, reason, args), the per-reason rate limit,
+    the ``MXNET_FLIGHT_RECORDER_MAX_DUMPS`` cap and the dump accounting."""
+    def strip(ring):
+        return [{k: v for k, v in e.items() if k not in ("t", "thread")}
+                for e in ring]
+
     def script(s):
         rec, counters = s["rec"], s["counters"]
+        side = "jax" if s is SIDES[0] else "port"
+        monkeypatch.setenv("MXNET_FLIGHT_RECORDER_DIR",
+                           str(tmp_path / side))
+        monkeypatch.setenv("MXNET_FLIGHT_RECORDER_MAX_DUMPS", "2")
         rec.disable()
         rec.note("fault", "ignored")
+        assert rec.dump("off") is None              # disabled: no file
         rec.enable()
         rec.note("shed", "serve.shed(a)", {"priority": "batch"})
         counters.incr("resilience.faults_injected")
-        ring = [{k: v for k, v in e.items() if k not in ("t", "thread")}
-                for e in rec.snapshot()]
+        ring = strip(rec.snapshot())
+        first = rec.dump("breaker_open", args={"breaker": "serve:a"})
+        limited = rec.dump("breaker_open")          # same reason, < 1 s
+        second = rec.dump("watchdog_timeout")
+        capped = rec.dump("slo_burn")               # over the cap
+        with open(first) as f:
+            doc = json.load(f)
+        explicit = rec.dump("manual", path=str(tmp_path / side / "x.json"),
+                            force=True)
         return (ring, counters.snapshot(), counters.should_warn(10),
-                counters.should_warn(11))
+                counters.should_warn(11), limited, capped,
+                doc["reason"], doc["args"], strip(doc["ring"]),
+                doc["resilience_counters"],
+                os.path.basename(first).split("-", 2)[2],
+                os.path.basename(second).split("-", 2)[2],
+                os.path.basename(explicit), rec.dump_count(),
+                os.path.basename(rec.last_dump_path()),
+                [e["kind"] for e in strip(rec.snapshot())])
 
     jax_side, port_side = _both(script)
     assert jax_side == port_side
     ring = port_side[0]
     assert [e["kind"] for e in ring] == ["shed", "counter"]
     assert ring[1]["args"] == {"value": 1} and ring[1]["seq"] == 2
-    assert not hasattr(trec, "dump")
+    assert port_side[4] is None and port_side[5] is None
+    assert port_side[6] == "breaker_open"
+    assert port_side[10:13] == ("breaker_open.json", "watchdog_timeout.json",
+                                "x.json")
+    assert port_side[13] == 3
 
 
 def test_ledger_and_report_match():
