@@ -13,7 +13,8 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    convolutions (cuDNN's TF32 is on by default; ``ops.nn.convolution``
    turns it off for its call): within 1e-5 of a float64 convolution.
 2. build: compile the CUDA kernel libraries from ``mxnet_tpu_torch/csrc``,
-   one ``nvcc`` per source, all started together; each kernel's registers
+   one ``nvcc`` per library, all started together (the flash kernels build
+   one library per (q/k, v) dtype pair); each kernel's registers
    and spills as ``ptxas -v`` reports them, under the kernel's name (no
    ``conv1x1_pair`` kernel may spill, nor a ``decode_attention`` kernel for
    D <= 128).
@@ -116,20 +117,39 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    D=128, causal), non-causal with valid lengths [0, 1000] (dead rows must
    be exact zeros), causal with Tq != Tk, a ragged T=1000, D=64, and a
    ragged T=333 at D=30 (4-byte copies) and D=256; at the training shape
-   each kernel's time, its bound (its 3xTF32 products on the tensor cores,
-   with the f32 bound beside it), its plain time, and the
+   each kernel's time, its bound (its products on the tensor cores in the
+   fewest passes that keep them as exact as 3xTF32 for their operand
+   types, with the f32 bound beside it), its plain time, and the
    ``scaled_dot_product_attention`` forward and backward as yardsticks,
    with the device kernels that the library backward launches
    (``torch.profiler``) and the port's whole backward (the delta reduce,
    dq and dk/dv, through autograd); then the forward kernel against the
    library forward, and dq + dk/dv and the whole backward against the
-   library backward, at T=512..4096.
+   library backward, at T=512..4096. Then each other dtype instantiation
+   ((f32, bf16), (f32, f16), (bf16, bf16), (f16, f16) as (q/k, v)) against
+   its plain version on the same cases, within ATOL / RTOL plus one unit in
+   the last place of each output's dtype, launches counted on its pair;
+   at the training shape two calls bit for bit, its time, bound and plain
+   time, and for the one-dtype pairs the library forward and backward in
+   that dtype. No library time may beat its row's bound.
 7. train: Llama-3-8B width (units 4096, FFN 14336, 32 heads, 8 KV heads,
    vocab 128256) at depth 4 with seeded weights, three Adam steps of
    ``gluon.Trainer`` on one next-token batch (B=2, T=2048): every layer's
    attention must launch each flash kernel once a step, the loss must be
    finite and fall, and the losses and the parameters after three steps
    must match the same steps with the plain attention forced.
+7b. train amp: phase 7's model (built with ``remat=True``), batch and Adam
+   under ``parallel.ShardedTrainer(dtype="bfloat16")``: three ``step()``
+   calls, one ``step_n`` window of three on a fresh model from the same
+   seed (its losses must equal the steps'), and the steps with the plain
+   attention forced. Each step runs every layer's forward twice (the
+   recompute): the forward kernel launches 2 x 4 x 3 times, dq and dk/dv
+   4 x 3, layer 0's on the (f32, bf16) instantiation (its v is bf16, its
+   q and k f32 after RoPE), the rest on f32; the plain route launches
+   none. Losses against the plain route as phase 7's; the weights within
+   AMP_PARAM_RTOL of their movement, itself at most a quarter of the
+   bf16 run's distance from phase 7's f32 weights; step ms, tokens/s and
+   peak memory beside phase 7's.
 8. pair: the fused 1x1-pair kernel (``conv1x1_pair``) against its plain
    version at ResNet-50's four block-boundary shapes (batch 32, 224 x 224;
    residual and mid) in bf16 and f32, and on the no-residual and
@@ -175,6 +195,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12    # H100 SXM TF32 tensor cores, dense
+BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 and f16 tensor cores, dense
 CONFIG = "llama3_8b"
 PROMPT_LENS = (17, 64, 130, 250)
 NEW_TOKENS = 32
@@ -231,7 +252,17 @@ TRAIN_LAYERS, TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 4, 2, 2048, 3, 1e-4
 # 1.2e-3 on an H100 (a few hundred of 1.92 B weights 2 lr apart); a wrong
 # attention gradient changes the update of every weight it reaches
 LOSS_ATOL, PARAM_ATOL, PARAM_RTOL = 1e-4, 7 * TRAIN_LR, 1e-2
-BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
+# phase 7b, kernel route against forced-plain route under bf16 AMP: the
+# norm of the weights' difference within 2.5e-2 of the norm of their
+# movement. On an H100 it read 1.576e-2 in five runs, bit for bit,
+# against 1.076e-3 in f32. Three quarters of its square lay in differences
+# under lr / 2 spread over 73% of the weights (diff_bands): bf16 roundings
+# of layer 0's gradients move Adam's updates a little wherever they reach.
+# The run checks
+# that the limit stays at most a quarter of the bf16 run's own distance
+# from the f32 weights (3.469e-1 there), as tests/test_torch_sharded.py
+# does on the CPU
+AMP_PARAM_RTOL = 2.5e-2
 PAIR_SOURCE = "mxnet_tpu_torch/csrc/conv1x1.cu"
 PAIR_REPLACES = "mxnet_tpu/ops/pallas/conv1x1.py:32"
 # ResNet-50's block boundaries at batch 32, 224 x 224, in kernel terms:
@@ -524,25 +555,60 @@ def pairs_kept(b, h, tq, tk, causal, vl):
     return total * h
 
 
-def flash_bound(kernel, b, h, tq, tk, d, causal, vl):
-    """Least time (ms) of one launch: its inputs read and outputs written
-    once over the memory rate, against its matrix-product flops on the
-    kept pairs (fwd 4 D, dq 6 D, dk/dv 8 D a pair) over the rate of the
-    units that do them: every kernel's products are 3xTF32 tensor-core
-    products, each flop done three times over at the TF32 rate. Returns
-    (ms, "bytes" | "operations", f32 ms): the bound and, beside it, the
-    bound at the f32 rate outside the tensor cores."""
-    q_bytes, k_bytes = b * h * tq * d * 4, b * h * tk * d * 4
+# the matrix products of each flash kernel, 2 D flops a kept (query, key)
+# pair each, by operand types: "qk" and "v" are the inputs' types, "f32"
+# the kernel's own P and dS (G comes in q's type)
+FLASH_PRODUCTS = {
+    "fwd": (("qk", "qk"), ("f32", "v")),                  # S = QK^T, O = PV
+    "bwd_dq": (("qk", "qk"), ("qk", "v"), ("f32", "qk")),  # S, dP = GV^T, dS K
+    "bwd_dkv": (("qk", "qk"), ("f32", "qk"), ("qk", "v"),  # S, dV = P^T G,
+                ("f32", "qk"))}                            # dP, dK = dS^T Q
+
+
+def product_s_per_flop(a, b):
+    """Least seconds a flop of one matrix product of operand types ``a``
+    and ``b`` ("f32", "bf16", "f16") takes on the tensor cores: the fewest
+    passes that keep it as exact as the kernels' 3xTF32 (an f32 operand cut
+    into pieces of 22 significand bits or more in all), at the rate of the
+    type they run in. f32 x f32: three TF32 passes (six bf16 passes cost
+    the same). A narrow type against itself: one pass, the product exact
+    in the f32 accumulator. f32 against bf16: three bf16 pieces of the f32
+    operand (8 + 8 + 8 bits; two TF32 passes cost more); against f16: two
+    f16 pieces (11 + 11 bits)."""
+    if a == b == "f32":
+        return 3 / TF32_FLOP_PER_S
+    if a == b:
+        return 1 / BF16_FLOP_PER_S
+    if "f32" not in (a, b):
+        raise ValueError(f"no flash instantiation multiplies {a} by {b}")
+    narrow = b if a == "f32" else a
+    return {"bf16": 3, "f16": 2}[narrow] / BF16_FLOP_PER_S
+
+
+def flash_bound(kernel, b, h, tq, tk, d, causal, vl, qk="f32", v="f32"):
+    """Least time (ms) of one launch on inputs of types ``qk`` (q, k, g)
+    and ``v``: its inputs read and outputs written once over the memory
+    rate (q, k, g, out, dq, dk in ``qk``, v and dv in ``v``, lse and delta
+    f32), against its products (FLASH_PRODUCTS, 2 D flops a kept pair each)
+    at the least each costs for its operand types (product_s_per_flop).
+    Returns (ms, "bytes" | "operations", f32 ms): the bound and, beside it,
+    the bound with every flop at the f32 rate outside the tensor cores."""
+    elem = {"f32": 4, "bf16": 2, "f16": 2}
+    q_bytes, k_bytes = b * h * tq * d * elem[qk], b * h * tk * d * elem[qk]
+    v_bytes = b * h * tk * d * elem[v]
     rows = b * h * tq * 4
-    nbytes = {"fwd": 2 * q_bytes + 2 * k_bytes + rows,
-              "bwd_dq": 3 * q_bytes + 2 * k_bytes + 2 * rows,
-              "bwd_dkv": 2 * q_bytes + 4 * k_bytes + 2 * rows}[kernel] + 4 * b
-    flops = {"fwd": 4, "bwd_dq": 6, "bwd_dkv": 8}[kernel] * d * pairs_kept(
-        b, h, tq, tk, causal, vl)
+    nbytes = {"fwd": 2 * q_bytes + k_bytes + v_bytes + rows,
+              "bwd_dq": 3 * q_bytes + k_bytes + v_bytes + 2 * rows,
+              "bwd_dkv": 2 * q_bytes + 2 * k_bytes + 2 * v_bytes
+              + 2 * rows}[kernel] + 4 * b
+    types = {"qk": qk, "v": v, "f32": "f32"}
+    flops = 2 * d * pairs_kept(b, h, tq, tk, causal, vl)  # one product's
+    products = FLASH_PRODUCTS[kernel]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f32 = flops / F32_FLOP_PER_S * 1e3
-    t_3x = 3 * flops / TF32_FLOP_PER_S * 1e3
-    return (max(t_bytes, t_3x), "bytes" if t_bytes >= t_3x else "operations",
+    t_f32 = len(products) * flops / F32_FLOP_PER_S * 1e3
+    t_ops = sum(product_s_per_flop(types[x], types[y])
+                for x, y in products) * flops * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             max(t_bytes, t_f32))
 
 
@@ -731,6 +797,137 @@ def core_backward_ms(torch, fa, q4, k4, v4, g4, flush, reps=25):
         out, (qr, kr, vr), g4, retain_graph=True), flush, reps=reps)
 
 
+def ulp(torch, x, dtype):
+    """One unit in the last place of ``dtype`` at |x| (0 for f32)."""
+    if dtype == torch.float32:
+        return torch.zeros_like(x)
+    mant, lo = (7, -126) if dtype == torch.bfloat16 else (10, -14)
+    _, e = torch.frexp(x.abs())
+    return torch.ldexp(torch.ones_like(x),
+                       torch.clamp(e - 1, min=lo) - mant)
+
+
+def flash_dtype_phase(torch, fa, flush, dev):
+    """Phase 6, dtypes: each instantiation other than f32 against its plain
+    version (the same f32 math, rounded once to the output's dtype) on the
+    FLASH_CASES shapes; at the training shape two calls bit for bit, the
+    times, the bound and, for one-dtype pairs, the library's. Returns
+    {pair label: {kernel: numbers at the training shape, max error}}."""
+    import torch.nn.functional as F
+
+    out = {}
+    for pair in fa.DTYPE_PAIRS[1:]:
+        qk, vt = pair
+        label = fa.pair_label(pair)
+        res = {n: {"max_abs_err": 0.0} for n in fa.KERNELS}
+        for case_i, (b, h, tq, tk, d, causal, vl) in enumerate(FLASH_CASES):
+            gen = torch.Generator(device=dev).manual_seed(200 + case_i)
+
+            def rnd(t, dtype):
+                return torch.randn(b * h, t, d, device=dev,
+                                   generator=gen).to(dtype)
+
+            q, k, v, g = rnd(tq, qk), rnd(tk, qk), rnd(tk, vt), rnd(tq, qk)
+            kvalid = fa.kvalid_of(None if vl is None else torch.tensor(vl),
+                                  b, tk, dev)
+            args = (kvalid, causal, tk - tq, d ** -0.5)
+            n0 = fa.launch_count(pair)
+            o, lse = fa.flash_fwd(q, k, v, *args)
+            check(fa.last_path() == "cuda", "flash call did not take the "
+                  "kernel")
+            ref_o, ref_lse = fa.flash_fwd_torch(q, k, v, *args)
+            delta = (g.float() * ref_o.float()).sum(-1)
+            dq = fa.flash_bwd_dq(q, k, v, g, ref_lse, delta, *args)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, g, ref_lse, delta, *args)
+            torch.cuda.synchronize()
+            check(fa.launch_count(pair) == {
+                n: c + 1 for n, c in n0.items()},
+                f"flash {label}: launches not counted on its instantiation")
+            ref_dq = fa.flash_bwd_dq_torch(q, k, v, g, ref_lse, delta, *args)
+            ref_dk, ref_dv = fa.flash_bwd_dkv_torch(q, k, v, g, ref_lse,
+                                                    delta, *args)
+            errs = {}
+            for name, pairs in (("fwd", ((o, ref_o), (lse, ref_lse))),
+                                ("bwd_dq", ((dq, ref_dq),)),
+                                ("bwd_dkv", ((dk, ref_dk), (dv, ref_dv)))):
+                err = 0.0
+                for ours, ref in pairs:
+                    check(ours.dtype == ref.dtype, f"flash {label} {name}: "
+                          f"{ours.dtype}, the plain version {ref.dtype}")
+                    check(bool(torch.isfinite(ours).all()),
+                          f"flash {label} {name} output not finite")
+                    a, r = ours.float(), ref.float()
+                    diff = (a - r).abs()
+                    bound = ATOL + RTOL * r.abs() + ulp(
+                        torch, torch.maximum(a.abs(), r.abs()), ours.dtype)
+                    check(bool((diff <= bound).all()),
+                          f"flash {label} {name} disagrees with plain: "
+                          f"max_abs_err={float(diff.max())} (case {case_i})")
+                    err = max(err, float(diff.max()))
+                errs[name] = err
+                res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
+                                               err)
+            dead = ref_lse <= -1e29
+            check(bool(torch.equal(lse <= -1e29, dead))
+                  and not bool(o[dead].any()) and not bool(dq[dead].any()),
+                  f"flash {label}: dead rows are not exact zeros (case "
+                  f"{case_i})")
+            say("flash dtypes", pair=label, B=b, H=h, Tq=tq, Tk=tk, D=d,
+                causal=causal, valid_length=vl, dead_rows=int(dead.sum()),
+                **{f"{n}_max_abs_err": f"{e:.3e}" for n, e in errs.items()})
+            if case_i:
+                continue
+            # the training shape: repeats, times, bounds, library
+            again = (fa.flash_fwd(q, k, v, *args),
+                     fa.flash_bwd_dq(q, k, v, g, ref_lse, delta, *args),
+                     fa.flash_bwd_dkv(q, k, v, g, ref_lse, delta, *args))
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(
+                (again[0][0], again[0][1], again[1], again[2][0],
+                 again[2][1]), (o, lse, dq, dk, dv))),
+                  f"flash {label}: two calls differ")
+            calls = {"fwd": lambda: fa.flash_fwd(q, k, v, *args),
+                     "bwd_dq": lambda: fa.flash_bwd_dq(
+                         q, k, v, g, ref_lse, delta, *args),
+                     "bwd_dkv": lambda: fa.flash_bwd_dkv(
+                         q, k, v, g, ref_lse, delta, *args)}
+            plains = {"fwd": lambda: fa.flash_fwd_torch(q, k, v, *args),
+                      "bwd_dq": lambda: fa.flash_bwd_dq_torch(
+                          q, k, v, g, ref_lse, delta, *args),
+                      "bwd_dkv": lambda: fa.flash_bwd_dkv_torch(
+                          q, k, v, g, ref_lse, delta, *args)}
+            lib = dict.fromkeys(fa.KERNELS)
+            if qk == vt:  # one library call takes one dtype
+                q4, k4, v4, g4 = (x.view(b, h, -1, d) for x in (q, k, v, g))
+                lib["fwd"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True), flush)
+                qr, kr, vr = (x.detach().clone().requires_grad_()
+                              for x in (q4, k4, v4))
+                lib_out = F.scaled_dot_product_attention(qr, kr, vr,
+                                                         is_causal=True)
+                lib["bwd_dq"] = lib["bwd_dkv"] = time_ms(
+                    torch, lambda: torch.autograd.grad(
+                        lib_out, (qr, kr, vr), g4, retain_graph=True), flush)
+                del qr, kr, vr, lib_out
+            types = fa.pair_label((qk, qk)), fa.pair_label((vt, vt))
+            for name in fa.KERNELS:
+                k_ms = time_ms(torch, calls[name], flush)
+                p_ms = time_ms(torch, plains[name], flush)
+                bound, bound_by, bound_f32 = flash_bound(
+                    name, b, h, tq, tk, d, causal, vl, *types)
+                res[name].update(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                                 bound_by=bound_by, library_ms=lib[name])
+                say("flash dtypes", pair=label, kernel=name, B=b, H=h, T=tq,
+                    D=d, causal=causal, kernel_ms=f"{k_ms:.6f}",
+                    bound_ms=f"{bound:.6f}", bound_by=bound_by,
+                    bound_f32_ms=f"{bound_f32:.6f}", plain_ms=f"{p_ms:.6f}",
+                    library_ms=("none" if lib[name] is None
+                                else f"{lib[name]:.6f}"))
+        out[label] = res
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_run(torch, mt, fa, get_llama, Trainer, loss_mod, dev, route,
               toks, keep_initial):
     """Three Adam steps of the 4-layer Llama-3-8B-width model on ``toks``
@@ -775,7 +972,8 @@ def train_run(torch, mt, fa, get_llama, Trainer, loss_mod, dev, route,
 def train_phase(torch, np, mt, fa, get_llama, Trainer, loss_mod, dev, vocab):
     """Phase 7: train Llama-3-8B width at depth 4 on the kernel route, then
     the same steps with the plain attention forced; returns the kernel
-    route's launches."""
+    route's launches and its step ms (steps 2-3), tokens/s, peak memory
+    and final weights on the host."""
     toks = np.random.RandomState(0).randint(
         0, vocab, size=(TRAIN_B, TRAIN_T + 1)).astype(np.int64)
     runs = {}
@@ -794,6 +992,9 @@ def train_phase(torch, np, mt, fa, get_llama, Trainer, loss_mod, dev, vocab):
         check(losses[-1] < losses[0], f"{label} route: loss did not fall "
               f"({losses})")
         runs[label] = (losses, launches, final, initial)
+        if route is None:
+            summary = {"step_ms": statistics.mean(step_ms[1:]),
+                       "tokens_s": tok_s, "peak": peak, "final": final}
     k_losses, k_launches, k_final, initial = runs["kernel"]
     p_losses, p_launches, p_final, _ = runs["plain"]
     want = TRAIN_LAYERS * TRAIN_STEPS
@@ -802,13 +1003,7 @@ def train_phase(torch, np, mt, fa, get_llama, Trainer, loss_mod, dev, vocab):
     check(p_launches == dict.fromkeys(fa.KERNELS, 0),
           f"plain route launched the kernels: {p_launches}")
     loss_diff = max(abs(a - b) for a, b in zip(k_losses, p_losses))
-    max_diff, diff_sq, moved_sq = 0.0, 0.0, 0.0
-    for name, pk in k_final.items():
-        pk, pp, p0 = (t.to(dev) for t in (pk, p_final[name], initial[name]))
-        max_diff = max(max_diff, float((pk - pp).abs().max()))
-        diff_sq += float(((pk - pp).double() ** 2).sum())
-        moved_sq += float(((pk - p0).double() ** 2).sum())
-    rel = (diff_sq / moved_sq) ** 0.5 if moved_sq else float("inf")
+    max_diff, rel = route_agreement(torch, dev, k_final, p_final, initial)
     say("train", loss_max_diff=f"{loss_diff:.3e}",
         param_max_abs_diff=f"{max_diff:.3e}",
         param_diff_over_movement=f"{rel:.3e}",
@@ -818,6 +1013,182 @@ def train_phase(torch, np, mt, fa, get_llama, Trainer, loss_mod, dev, vocab):
     check(max_diff <= PARAM_ATOL and rel <= PARAM_RTOL,
           f"parameters differ from the plain route: max {max_diff} "
           f"(limit {PARAM_ATOL}), relative {rel} (limit {PARAM_RTOL})")
+    return k_launches, summary
+
+
+def route_agreement(torch, dev, k_final, p_final, initial, top=0):
+    """Phase 7's measures of two runs' weights: the largest difference,
+    and the norm of the difference over the norm of how far ``k_final``
+    moved from ``initial``; with ``top``, also the ``top`` parameters with
+    the largest share of the squared difference, as (name, share)."""
+    max_diff, diff_sq, moved_sq, by_name = 0.0, 0.0, 0.0, {}
+    for name, pk in k_final.items():
+        pk, pp, p0 = (t.to(dev) for t in (pk, p_final[name], initial[name]))
+        max_diff = max(max_diff, float((pk - pp).abs().max()))
+        by_name[name] = float(((pk - pp).double() ** 2).sum())
+        diff_sq += by_name[name]
+        moved_sq += float(((pk - p0).double() ** 2).sum())
+    rel = (diff_sq / moved_sq) ** 0.5 if moved_sq else float("inf")
+    if not top:
+        return max_diff, rel
+    worst = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return max_diff, rel, [(n, d / diff_sq if diff_sq else 0.0)
+                           for n, d in worst]
+
+
+# 7b's reading of where the routes' weight difference lies: bands of |d| in
+# units of lr; 1.5-2.5 lr is an Adam step that went the other way (each
+# route moves such a weight by about lr, in opposite directions)
+DIFF_BANDS_LR = (0.0, 0.5, 1.5, 2.5, float("inf"))
+
+
+def diff_bands(torch, dev, k_final, p_final, lr):
+    """For each band of DIFF_BANDS_LR, the weights whose difference between
+    two runs lies in it (the first band counts only those that differ at
+    all) and the band's share of the difference's squared norm."""
+    edges = torch.tensor([e * lr for e in DIFF_BANDS_LR[1:-1]], device=dev)
+    n = len(DIFF_BANDS_LR) - 1
+    counts = torch.zeros(n, dtype=torch.float64, device=dev)
+    sq = torch.zeros(n, dtype=torch.float64, device=dev)
+    for name, pk in k_final.items():
+        d = (pk.to(dev) - p_final[name].to(dev)).abs().flatten()
+        d = d[d > 0]
+        band = torch.bucketize(d, edges)
+        counts += torch.bincount(band, minlength=n).double()
+        sq += torch.zeros(n, dtype=torch.float64, device=dev).index_add_(
+            0, band, d.double() ** 2)
+    total = float(sq.sum()) or 1.0
+    names = [f"{a:g}-{b:g}lr" if b < float("inf") else f">{a:g}lr"
+             for a, b in zip(DIFF_BANDS_LR, DIFF_BANDS_LR[1:])]
+    return {"diff_bands": json.dumps({
+        nm: [int(c), round(float(q) / total, 4)]
+        for nm, c, q in zip(names, counts, sq)})}
+
+
+def train_amp_run(torch, mt, fa, get_llama, ShardedTrainer, loss_mod, dev,
+                  route, toks, windowed, keep):
+    """Three bf16 AMP steps of the 4-layer Llama-3-8B-width model with
+    per-layer recompute, through ``ShardedTrainer(dtype="bfloat16")``:
+    three ``step()`` calls, or (``windowed``) one ``step_n`` window of
+    three over the batch stacked three times, with the attention on
+    ``route``. Returns (losses, step ms, launches by dtype pair, peak
+    bytes, final params on the host or None, initial params or None)."""
+    mt.random.seed(0)
+    model = get_llama(CONFIG, device=dev, trainable=True,
+                      num_layers=TRAIN_LAYERS, remat=True)
+    initial = ({n: p.detach().to("cpu", copy=True)
+                for n, p in model.named_parameters()}
+               if keep == "both" else None)
+    trainer = ShardedTrainer(model, loss_mod.SoftmaxCrossEntropyLoss(),
+                             "adam", {"learning_rate": TRAIN_LR},
+                             dtype="bfloat16")
+    x = torch.from_numpy(toks[:, :-1]).to(dev)
+    y = torch.from_numpy(toks[:, 1:]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.force_path(route)
+    fa.reset_launch_count()
+    try:
+        t0 = time.perf_counter()
+        if windowed:
+            n = TRAIN_STEPS
+            losses = [float(v) for v in trainer.step_n(
+                x.expand(n, *x.shape), y.expand(n, *y.shape))]
+            step_ms = [(time.perf_counter() - t0) * 1e3 / n] * n
+        else:
+            losses, step_ms = [], []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                losses.append(float(trainer.step(x, y)))  # waits for it
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        fa.force_path(None)
+    launches = {fa.pair_label(p): fa.launch_count(p) for p in fa.DTYPE_PAIRS}
+    peak = torch.cuda.max_memory_allocated()
+    final = ({n: p.detach().to("cpu", copy=True)
+              for n, p in model.named_parameters()} if keep else None)
+    del model, trainer, x, y
+    torch.cuda.empty_cache()
+    return losses, step_ms, launches, peak, final, initial
+
+
+def train_amp_phase(torch, np, mt, fa, get_llama, ShardedTrainer, loss_mod,
+                    dev, vocab, f32):
+    """Phase 7b: phase 7's model, batch and optimizer under
+    ``ShardedTrainer(dtype="bfloat16")`` with per-layer recompute: three
+    ``step()`` calls on the kernel route, one ``step_n`` window of three on
+    a fresh model from the same seed, and the steps with the plain
+    attention forced. ``f32``: phase 7's kernel-route step ms, tokens/s,
+    peak (printed beside) and final weights: the same model, batch and
+    Adam steps in f32. Returns the kernel route's launches by dtype
+    pair."""
+    toks = np.random.RandomState(0).randint(
+        0, vocab, size=(TRAIN_B, TRAIN_T + 1)).astype(np.int64)
+    runs = {}
+    for label, route, windowed, keep in (("kernel", None, False, "both"),
+                                         ("kernel step_n", None, True, None),
+                                         ("plain", "torch", False, "final")):
+        losses, step_ms, launches, peak, final, initial = train_amp_run(
+            torch, mt, fa, get_llama, ShardedTrainer, loss_mod, dev, route,
+            toks, windowed, keep)
+        ms = statistics.mean(step_ms[1:])
+        tok_s = TRAIN_B * TRAIN_T / (ms / 1e3)
+        say("train amp", route=label, dtype="bfloat16", remat=True,
+            layers=TRAIN_LAYERS, B=TRAIN_B, T=TRAIN_T,
+            losses=[f"{x:.6f}" for x in losses],
+            step_ms=[f"{x:.3f}" for x in step_ms], tokens_s=f"{tok_s:.3f}",
+            peak_mem_bytes=peak, launches=json.dumps(launches))
+        check(all(np.isfinite(losses)), f"amp {label}: loss not finite")
+        check(losses[-1] < losses[0], f"amp {label}: loss did not fall "
+              f"({losses})")
+        runs[label] = (losses, launches, final, initial, ms, tok_s, peak)
+    k_losses, k_launches, k_final, initial, ms, tok_s, peak = runs["kernel"]
+    p_losses, p_launches, p_final = runs["plain"][:3]
+    layer0 = (torch.float32, torch.bfloat16)  # v_proj's bf16 v meets f32 q, k
+    want = {fa.pair_label(p): dict.fromkeys(fa.KERNELS, 0)
+            for p in fa.DTYPE_PAIRS}
+    steps = TRAIN_STEPS
+    want[fa.pair_label(layer0)] = {"fwd": 2 * steps, "bwd_dq": steps,
+                                   "bwd_dkv": steps}
+    rest = TRAIN_LAYERS - 1
+    want["f32"] = {"fwd": 2 * rest * steps, "bwd_dq": rest * steps,
+                   "bwd_dkv": rest * steps}
+    for label in ("kernel", "kernel step_n"):
+        check(runs[label][1] == want, f"amp {label} launched "
+              f"{runs[label][1]}, want {want}")
+    check(all(v == dict.fromkeys(fa.KERNELS, 0) for v in p_launches.values()),
+          f"amp plain route launched the kernels: {p_launches}")
+    window_diff = max(abs(a - b) for a, b in zip(runs["kernel step_n"][0],
+                                                 k_losses))
+    loss_diff = max(abs(a - b) for a, b in zip(k_losses, p_losses))
+    max_diff, rel, worst = route_agreement(torch, dev, k_final, p_final,
+                                           initial, top=4)
+    # the distance bf16 itself puts between these weights and phase 7's f32
+    # ones, which AMP_PARAM_RTOL must stay well inside
+    _, rel_f32, _ = route_agreement(torch, dev, k_final, f32["final"],
+                                    initial, top=1)
+    bands = diff_bands(torch, dev, k_final, p_final, TRAIN_LR)
+    say("train amp", step_n_loss_max_diff=f"{window_diff:.3e}",
+        loss_max_diff=f"{loss_diff:.3e}",
+        param_max_abs_diff=f"{max_diff:.3e}",
+        param_diff_over_movement=f"{rel:.3e}",
+        amp_vs_f32_over_movement=f"{rel_f32:.3e}",
+        largest_shares=json.dumps([[n, round(x, 4)] for n, x in worst]),
+        **bands)
+    say("train amp", amp_step_ms=f"{ms:.3f}", f32_step_ms=f"{f32['step_ms']:.3f}",
+        amp_tokens_s=f"{tok_s:.3f}", f32_tokens_s=f"{f32['tokens_s']:.3f}",
+        amp_peak_mem_bytes=peak, f32_peak_mem_bytes=f32["peak"],
+        step_ratio=f"{ms / f32['step_ms']:.4f}")
+    check(window_diff <= LOSS_ATOL, f"step_n's losses differ from step()'s "
+          f"by {window_diff} > {LOSS_ATOL}")
+    check(loss_diff <= LOSS_ATOL, f"amp losses differ from the plain route "
+          f"by {loss_diff} > {LOSS_ATOL}")
+    check(AMP_PARAM_RTOL <= rel_f32 / 4, f"the amp weight limit "
+          f"{AMP_PARAM_RTOL} is over a quarter of the bf16 run's distance "
+          f"from the f32 run ({rel_f32})")
+    check(max_diff <= PARAM_ATOL and rel <= AMP_PARAM_RTOL,
+          f"amp parameters differ from the plain route: max {max_diff} "
+          f"(limit {PARAM_ATOL}), relative {rel} (limit {AMP_PARAM_RTOL})")
     return k_launches
 
 
@@ -1994,6 +2365,7 @@ def main(argv=None):
     from mxnet_tpu_torch.ops.hopper import conv1x1 as c1x1
     from mxnet_tpu_torch.ops.hopper import decode_attention as da
     from mxnet_tpu_torch.ops.hopper import flash_attention as fa
+    from mxnet_tpu_torch.parallel import ShardedTrainer
     from mxnet_tpu_torch.resilience import faults
     from mxnet_tpu_torch.serve import (ContinuousEngine, Generator,
                                        InferenceSession, ModelRegistry,
@@ -2028,19 +2400,23 @@ def main(argv=None):
           f"f32: {conv_err['port']} relative to float64")
     del cx, cw, c64
 
-    # 2. build: one nvcc per source, all started together
+    # 2. build: one nvcc per library, all started together (the flash
+    # kernels build one library per dtype pair)
     t0 = time.perf_counter()
-    sources = ("decode_attention", "flash_attention", "conv1x1")
-    _build.build_many(sources)
+    specs = ([("decode_attention", ()), ("conv1x1", ())]
+             + [fa.build_spec(p) for p in fa.DTYPE_PAIRS])
+    _build.build_many(specs)
     da.build()
     fa.build()
     c1x1.build()
     spills = []  # gated kernels that spill
-    for name in sources:
-        log = _build.BUILD_LOGS.get(name)
-        say("build", source=name,
+    for name, defines in specs:
+        key = _build.variant_key(name, defines)
+        log = _build.BUILD_LOGS.get(key)
+        say("build", source=key,
             seconds=f"{log['seconds']:.3f}" if log else "cached",
-            library=os.path.relpath(_build.library_path(name), root))
+            library=os.path.relpath(_build.library_path(name, defines),
+                                    root))
         function = ""
         for line in (log["log"].splitlines() if log else []):
             if "Function properties for" in line:
@@ -2064,6 +2440,7 @@ def main(argv=None):
     kres = kernel_phase(torch, da, nn_ops, flush, dev)
     if args.quick:
         flash_phase(torch, fa, flush, dev)
+        flash_dtype_phase(torch, fa, flush, dev)
         pair_phase(torch, c1x1, FusedResNetV1, flush, dev)
         say("quick", seconds=f"{time.perf_counter() - t_start:.3f}")
         return 0
@@ -2121,16 +2498,24 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 6. flash kernels vs plain
+    # 6. flash kernels vs plain, f32 and the other dtype pairs
     flush = torch.empty(64 << 18, device=dev)
     fres = flash_phase(torch, fa, flush, dev)
+    dres = flash_dtype_phase(torch, fa, flush, dev)
     del flush
     gc.collect()
     torch.cuda.empty_cache()
 
     # 7. train llama3_8b width at depth 4 on both attention routes
-    train_launches = train_phase(torch, np, mt, fa, get_llama, Trainer,
-                                 loss_mod, dev, cfg["vocab_size"])
+    train_launches, f32_train = train_phase(
+        torch, np, mt, fa, get_llama, Trainer, loss_mod, dev,
+        cfg["vocab_size"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 7b. the same under ShardedTrainer(dtype="bfloat16") with recompute
+    amp_launches = train_amp_phase(torch, np, mt, fa, get_llama,
+                                   ShardedTrainer, loss_mod, dev,
+                                   cfg["vocab_size"], f32_train)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2162,6 +2547,16 @@ def main(argv=None):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for label, res in dres.items():  # launches: phase 7b's kernel route
+        for name in fa.KERNELS:
+            r = res[name]
+            kernels.append({
+                "name": f"flash_{name}_{label}", "route": "cuda",
+                "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[name],
+                "launches": amp_launches[label][name],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     for name in ("bf16", "f32"):
         r = pres[name]
         kernels.append({
@@ -2171,6 +2566,11 @@ def main(argv=None):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for row in kernels:
+        check(row["library_ms"] is None
+              or row["library_ms"] >= row["bound_ms"],
+              f"{row['name']}: the library's {row['library_ms']} ms beats "
+              f"the bound {row['bound_ms']} ms")
     print(json.dumps({"kernels": kernels}), flush=True)
     say("done", seconds=f"{time.perf_counter() - t_start:.3f}")
     print(f"nvidia-smi: {nvidia_smi()}", flush=True)

@@ -12,15 +12,18 @@ Ported so far: serving (``serve.Generator`` and the continuous-batching
 through the CUDA decode-attention kernel; the host-side ``profiler`` and
 ``resilience`` fault injection they report to) and single-device training (``gluon.Trainer``, ``gluon.loss``,
 ``optimizer``, ``lr_scheduler``; the cache-free Llama forward through the
-CUDA flash-attention kernels, forward and backward). ``models.llama`` has
-both paths; ``ops.nn`` holds the ops, ``ops.hopper`` the kernels.
+CUDA flash-attention kernels, forward and backward), mixed-precision
+training on one device (``parallel.ShardedTrainer(dtype=...)`` with the
+Llama's per-layer recompute, ``amp`` and its ``LossScaler`` on
+``gluon.Trainer``). ``models.llama`` has both paths; ``ops.nn`` holds the
+ops, ``ops.hopper`` the kernels.
 """
 from __future__ import annotations
 
-from . import (config, device, gluon, lr_scheduler, models, optimizer,
-               profiler, random, resilience, serve)
+from . import (amp, config, device, gluon, lr_scheduler, models, optimizer,
+               parallel, profiler, random, resilience, serve)
 from .base import MXNetError
 
-__all__ = ["MXNetError", "config", "device", "gluon", "lr_scheduler",
-           "models", "optimizer", "profiler", "random", "resilience",
-           "serve"]
+__all__ = ["MXNetError", "amp", "config", "device", "gluon", "lr_scheduler",
+           "models", "optimizer", "parallel", "profiler", "random",
+           "resilience", "serve"]

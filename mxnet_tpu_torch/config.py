@@ -304,3 +304,11 @@ register_flag(
     "MXNET_ATTRIBUTION_WINDOW", 512,
     "Rolling window (decode visits) of the attribution ledger's gauges.",
     int)
+register_flag(
+    "MXNET_LOSS_SCALE_MIN", 1.0,
+    "Lower clamp for the dynamic LossScaler (amp.py): repeated overflows "
+    "can never drive the scale to 0.", float)
+register_flag(
+    "MXNET_LOSS_SCALE_MAX", 2.0 ** 24,
+    "Upper clamp for the dynamic LossScaler: a long overflow-free run "
+    "can never drive the scale to inf.", float)

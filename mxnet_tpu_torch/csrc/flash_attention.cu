@@ -7,7 +7,7 @@
 //   flash_bwd_dq_kernel  <- _flash_bwd_dq  (dq)
 //   flash_bwd_dkv_kernel <- _flash_bwd_dkv (dk, dv)
 //
-// Over (BH, T, D) f32 tensors, with kvalid (B,) int32 valid key counts
+// Over (BH, T, D) tensors, with kvalid (B,) int32 valid key counts
 // (bh / H picks the row) and the causal diagonal offset causal_off = Tk - Tq
 // of the unpadded lengths, each computes what its Pallas kernel computes:
 //
@@ -21,6 +21,18 @@
 //
 // where delta = rowsum(g * out) is computed outside the kernels, as the JAX
 // package computes it in XLA (_flash_core_bwd).
+//
+// Element types, as the TPU kernels take them: q, k and g share one dtype and
+// v has its own, each f32, bf16 or f16. A library is built for one pair
+// (-DMXTT_FLASH_QK=c -DMXTT_FLASH_V=c, c = 0 f32, 1 bf16, 2 f16; both 0 by
+// default) and says which (mxtt_flash_dtypes). Every operand is widened to
+// f32 as it enters shared memory, as the TPU kernels upcast in VMEM, so the
+// math below is the same f32 math for every pair; out and dq are written in
+// q's dtype, dk in k's, dv in v's, lse stays f32 and delta comes in f32.
+// f32 operands arrive by cp.async; a bf16 or f16 operand is read into
+// registers (8-byte loads of four values, all of a thread's loads before
+// its first store), widened and stored, so its loads are not in flight
+// while the previous tile is used.
 //
 // Bound: operations. Per kept (query, key) pair the forward does 4 * D
 // flops, dq 6 * D and dk/dv 8 * D, all as 3xTF32 products on the tensor
@@ -99,10 +111,39 @@
 // need five); wgmma's TF32 wants both operands K-major in shared memory,
 // which the transposed products are not; dk/dv runs at the 255-register
 // limit.
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#ifndef MXTT_FLASH_QK
+#define MXTT_FLASH_QK 0
+#endif
+#ifndef MXTT_FLASH_V
+#define MXTT_FLASH_V 0
+#endif
+
 namespace {
+
+// dtype code (0 f32, 1 bf16, 2 f16) -> element type
+template <int C>
+struct ElemOf;
+template <>
+struct ElemOf<0> {
+  using T = float;
+};
+template <>
+struct ElemOf<1> {
+  using T = __nv_bfloat16;
+};
+template <>
+struct ElemOf<2> {
+  using T = __half;
+};
+using QkT = ElemOf<MXTT_FLASH_QK>::T;  // q, k, g, out, dq, dk
+using VT = ElemOf<MXTT_FLASH_V>::T;    // v, dv
 
 constexpr int kThreads = 256;        // 8 warps
 constexpr float kNegInf = -1e30f;    // finite "minus infinity", as in the TPU kernels
@@ -227,6 +268,83 @@ __device__ __forceinline__ void load_rows_async(float* dst, const float* __restr
   for (int r = threadIdx.x; r < ROWS; r += kThreads) {
     const bool in = r0 + r < T;
     cp_async4(dst + r, in ? src + r0 + r : src, in);
+  }
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+template <class E>
+__device__ __forceinline__ E from_f32(float x) {
+  if constexpr (std::is_same<E, __nv_bfloat16>::value)
+    return __float2bfloat16_rn(x);
+  else if constexpr (std::is_same<E, __half>::value)
+    return __float2half_rn(x);
+  else
+    return x;
+}
+
+// Values col and col + 1 of a row, rounded to E (col even: 2 E-aligned).
+template <class E>
+__device__ __forceinline__ void store2(E* p, float x, float y) {
+  if constexpr (std::is_same<E, __nv_bfloat16>::value)
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+  else if constexpr (std::is_same<E, __half>::value)
+    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+// Four bf16 or f16 values (8 bytes) widened to f32.
+template <class E>
+__device__ __forceinline__ float4 widen4(uint2 raw) {
+  if constexpr (std::is_same<E, __nv_bfloat16>::value) {
+    return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                       __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+  } else {
+    const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&raw.x));
+    const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&raw.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+}
+
+// Rows [r0, r0 + ROWS) of a row-major (T, D) matrix of E into a swizzled
+// (ROWS x P) f32 tile; rows at or past T and columns at or past D are zero.
+// f32: load_async's copies, in flight until the caller waits. bf16/f16:
+// read, widened and stored by the threads (visible after the next
+// barrier); VEC: 8-byte loads of four values (D % 4 == 0, src 8-byte
+// aligned), all of a thread's loads issued before its first store.
+template <int ROWS, int P, bool VEC, class E>
+__device__ __forceinline__ void load_tile(float* dst, const E* __restrict__ src, int r0, int T,
+                                          int D) {
+  if constexpr (std::is_same<E, float>::value) {
+    load_async<ROWS, P, VEC>(dst, src, r0, T, D);
+  } else if constexpr (VEC) {
+    constexpr int PER_ROW = P / 4;
+    constexpr int N = ROWS * PER_ROW / kThreads;
+    static_assert(ROWS * PER_ROW % kThreads == 0, "a thread's share of the tile");
+    uint2 raw[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int r = i / PER_ROW, c = (i % PER_ROW) * 4;
+      raw[j] = r0 + r < T && c < D
+                   ? __ldg(reinterpret_cast<const uint2*>(src + static_cast<size_t>(r0 + r) * D + c))
+                   : make_uint2(0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int r = i / PER_ROW, c = (i % PER_ROW) * 4;
+      *reinterpret_cast<float4*>(dst + swz<P>(r, c)) = widen4<E>(raw[j]);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * P; i += kThreads) {
+      const int r = i / P, c = i % P;
+      dst[swz<P>(r, c)] =
+          r0 + r < T && c < D ? to_f32(src[static_cast<size_t>(r0 + r) * D + c]) : 0.f;
+    }
   }
 }
 
@@ -375,11 +493,11 @@ __device__ __forceinline__ void reduce_rows(float* red, const float (&acc)[NO][4
 
 // ---------------------------------------------------------------------------
 // forward: one block per (bh, query tile); grid (BH, ceil(Tq / R))
-template <int P, bool VEC>
+template <int P, bool VEC, class TQ, class TV>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const int* __restrict__ kvalid,
-                     float* __restrict__ out, float* __restrict__ lse, int H, int Tq, int Tk,
+    flash_fwd_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
+                     const TV* __restrict__ v, const int* __restrict__ kvalid,
+                     TQ* __restrict__ out, float* __restrict__ lse, int H, int Tq, int Tk,
                      int D, int causal, int causal_off, float scale) {
   using C = FwdTile<P>;
   constexpr int BM = C::R;             // query rows of the block
@@ -404,8 +522,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int k_end = key_end<BM>(q0, kv_len, causal, causal_off);
   const int n_tiles = k_end > 0 ? (k_end + BN - 1) / BN : 0;
   const size_t qoff = static_cast<size_t>(bh) * Tq;
-  const float* kb = k + static_cast<size_t>(bh) * Tk * D;
-  const float* vb = v + static_cast<size_t>(bh) * Tk * D;
+  const TQ* kb = k + static_cast<size_t>(bh) * Tk * D;
+  const TV* vb = v + static_cast<size_t>(bh) * Tk * D;
 
   // the output rows, their running max and sum (h = 0: row gr, h = 1: gr + 8)
   float acc[NO][4];
@@ -416,10 +534,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   if (n_tiles > 0) {
-    load_async<BM, P, VEC>(q_s, q + qoff * D, q0, Tq, D);
+    load_tile<BM, P, VEC>(q_s, q + qoff * D, q0, Tq, D);
     cp_async_commit();
-    load_async<BN, P, VEC>(kv_s, kb, 0, Tk, D);
-    load_async<BN, P, VEC>(kv_s + BN * P, vb, 0, Tk, D);
+    load_tile<BN, P, VEC>(kv_s, kb, 0, Tk, D);
+    load_tile<BN, P, VEC>(kv_s + BN * P, vb, 0, Tk, D);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();  // q landed: scale it in place, as the TPU kernel does
@@ -429,8 +547,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncthreads();  // tile it landed; every warp is done with tile it - 1
       if (it + 1 < n_tiles) {
         float* nxt = kv_s + ((it + 1) & 1) * STAGE;
-        load_async<BN, P, VEC>(nxt, kb, (it + 1) * BN, Tk, D);
-        load_async<BN, P, VEC>(nxt + BN * P, vb, (it + 1) * BN, Tk, D);
+        load_tile<BN, P, VEC>(nxt, kb, (it + 1) * BN, Tk, D);
+        load_tile<BN, P, VEC>(nxt + BN * P, vb, (it + 1) * BN, Tk, D);
         cp_async_commit();
       }
       const float* k_s = kv_s + (it & 1) * STAGE;
@@ -537,16 +655,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row = r0 + gr + 8 * h;
     if (row >= Tq) continue;
     const float lsafe = l[h] == 0.f ? 1.f : l[h];
-    float* orow = out + (qoff + row) * D;
+    TQ* orow = out + (qoff + row) * D;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       const int col = c0 + n * 8 + 2 * tc;
       const float x = acc[n][2 * h] / lsafe, y = acc[n][2 * h + 1] / lsafe;
       if (VEC) {  // D % 4 == 0: col and col + 1 are both in or both out
-        if (col < D) *reinterpret_cast<float2*>(orow + col) = make_float2(x, y);
+        if (col < D) store2(orow + col, x, y);
       } else {
-        if (col < D) orow[col] = x;
-        if (col + 1 < D) orow[col + 1] = y;
+        if (col < D) orow[col] = from_f32<TQ>(x);
+        if (col + 1 < D) orow[col + 1] = from_f32<TQ>(y);
       }
     }
     if (wd == 0 && tc == 0) lse[qoff + row] = l[h] == 0.f ? kNegInf : m[h] + logf(lsafe);
@@ -555,12 +673,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---------------------------------------------------------------------------
 // dq: one block per (bh, query tile); grid (BH, ceil(Tq / R))
-template <int P, bool VEC>
+template <int P, bool VEC, class TQ, class TV>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ g,
+    flash_bwd_dq_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
+                        const TV* __restrict__ v, const TQ* __restrict__ g,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        const int* __restrict__ kvalid, float* __restrict__ dq, int H, int Tq,
+                        const int* __restrict__ kvalid, TQ* __restrict__ dq, int H, int Tq,
                         int Tk, int D, int causal, int causal_off, float scale) {
   using C = BwdTile<P>;
   constexpr int BM = C::R;               // query rows of the block
@@ -585,8 +703,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int k_end = key_end<BM>(q0, kv_len, causal, causal_off);
   const int n_tiles = k_end > 0 ? (k_end + BN - 1) / BN : 0;
   const size_t qoff = static_cast<size_t>(bh) * Tq;
-  const float* kb = k + static_cast<size_t>(bh) * Tk * D;
-  const float* vb = v + static_cast<size_t>(bh) * Tk * D;
+  const TQ* kb = k + static_cast<size_t>(bh) * Tk * D;
+  const TV* vb = v + static_cast<size_t>(bh) * Tk * D;
 
   float acc[NO][4];
 #pragma unroll
@@ -595,10 +713,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
 
   if (n_tiles > 0) {
-    load_async<BM, P, VEC>(q_s, q + qoff * D, q0, Tq, D);
-    load_async<BM, P, VEC>(g_s, g + qoff * D, q0, Tq, D);
-    load_async<BN, P, VEC>(kv_s, kb, 0, Tk, D);
-    load_async<BN, P, VEC>(kv_s + BN * P, vb, 0, Tk, D);
+    load_tile<BM, P, VEC>(q_s, q + qoff * D, q0, Tq, D);
+    load_tile<BM, P, VEC>(g_s, g + qoff * D, q0, Tq, D);
+    load_tile<BN, P, VEC>(kv_s, kb, 0, Tk, D);
+    load_tile<BN, P, VEC>(kv_s + BN * P, vb, 0, Tk, D);
     cp_async_commit();
     // lse and delta of the thread's two rows (h = 0: row g, h = 1: g + 8)
     float lr[2], dl[2];
@@ -614,8 +732,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncthreads();  // tile it landed; every warp is done with tile it - 1
       if (it + 1 < n_tiles) {
         float* nxt = kv_s + ((it + 1) & 1) * STAGE;
-        load_async<BN, P, VEC>(nxt, kb, (it + 1) * BN, Tk, D);
-        load_async<BN, P, VEC>(nxt + BN * P, vb, (it + 1) * BN, Tk, D);
+        load_tile<BN, P, VEC>(nxt, kb, (it + 1) * BN, Tk, D);
+        load_tile<BN, P, VEC>(nxt + BN * P, vb, (it + 1) * BN, Tk, D);
         cp_async_commit();
       }
       const float* k_s = kv_s + (it & 1) * STAGE;
@@ -703,21 +821,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
   }
 
-  float* dqb = dq + qoff * D;
+  TQ* dqb = dq + qoff * D;
   reduce_rows<C, NO>(q_s, acc, wm, wn, wd, gr, tc, [&](int r, int c, float x) {
-    if (q0 + r < Tq && c < D) dqb[static_cast<size_t>(q0 + r) * D + c] = x * scale;
+    if (q0 + r < Tq && c < D) dqb[static_cast<size_t>(q0 + r) * D + c] = from_f32<TQ>(x * scale);
   });
 }
 
 // ---------------------------------------------------------------------------
 // dk, dv: one block per (bh, key tile); grid (BH, ceil(Tk / R))
-template <int P, bool VEC>
+template <int P, bool VEC, class TQ, class TV>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ g,
+    flash_bwd_dkv_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
+                         const TV* __restrict__ v, const TQ* __restrict__ g,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         const int* __restrict__ kvalid, float* __restrict__ dk,
-                         float* __restrict__ dv, int H, int Tq, int Tk, int D, int causal,
+                         const int* __restrict__ kvalid, TQ* __restrict__ dk,
+                         TV* __restrict__ dv, int H, int Tq, int Tk, int D, int causal,
                          int causal_off, float scale) {
   using C = BwdTile<P>;
   constexpr int BN = C::R;               // keys of the block
@@ -745,8 +863,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_tiles = k0 < kv_len && q_first < Tq ? (Tq - q_first + BM - 1) / BM : 0;
   const size_t qoff = static_cast<size_t>(bh) * Tq;
   const size_t koff = static_cast<size_t>(bh) * Tk;
-  const float* qb = q + qoff * D;
-  const float* gb = g + qoff * D;
+  const TQ* qb = q + qoff * D;
+  const TQ* gb = g + qoff * D;
 
   float dk_acc[NO][4], dv_acc[NO][4];
 #pragma unroll
@@ -755,15 +873,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int c = 0; c < 4; ++c) dk_acc[n][c] = dv_acc[n][c] = 0.f;
 
   auto load_stage = [&](float* dst, int q0) {
-    load_async<BM, P, VEC>(dst, qb, q0, Tq, D);
-    load_async<BM, P, VEC>(dst + BM * P, gb, q0, Tq, D);
+    load_tile<BM, P, VEC>(dst, qb, q0, Tq, D);
+    load_tile<BM, P, VEC>(dst + BM * P, gb, q0, Tq, D);
     load_rows_async<BM>(dst + 2 * BM * P, lse + qoff, q0, Tq);
     load_rows_async<BM>(dst + 2 * BM * P + BM, delta + qoff, q0, Tq);
   };
 
   if (n_tiles > 0) {
-    load_async<BN, P, VEC>(k_s, k + koff * D, k0, Tk, D);
-    load_async<BN, P, VEC>(v_s, v + koff * D, k0, Tk, D);
+    load_tile<BN, P, VEC>(k_s, k + koff * D, k0, Tk, D);
+    load_tile<BN, P, VEC>(v_s, v + koff * D, k0, Tk, D);
     load_stage(st_s, q_first);
     cp_async_commit();
     const int qw = wn * QW;
@@ -872,14 +990,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
   }
 
-  float* dkb = dk + koff * D;
-  float* dvb = dv + koff * D;
+  TQ* dkb = dk + koff * D;
+  TV* dvb = dv + koff * D;
   float* red = k_s;  // two R x RP buffers over K, V and the stages
   reduce_rows<C, NO>(red, dk_acc, wm, wn, wd, gr, tc, [&](int r, int c, float x) {
-    if (k0 + r < Tk && c < D) dkb[static_cast<size_t>(k0 + r) * D + c] = x * scale;
+    if (k0 + r < Tk && c < D) dkb[static_cast<size_t>(k0 + r) * D + c] = from_f32<TQ>(x * scale);
   });
   reduce_rows<C, NO>(red + BN * C::RP, dv_acc, wm, wn, wd, gr, tc, [&](int r, int c, float x) {
-    if (k0 + r < Tk && c < D) dvb[static_cast<size_t>(k0 + r) * D + c] = x;
+    if (k0 + r < Tk && c < D) dvb[static_cast<size_t>(k0 + r) * D + c] = from_f32<TV>(x);
   });
 }
 
@@ -909,9 +1027,10 @@ inline size_t smem_bytes(int kernel, int D) {
 }
 
 struct Args {
-  const float *q, *k, *v, *g, *lse, *delta;
+  const void *q, *k, *v, *g;  // QkT, except v: VT
+  const float *lse, *delta;
   const int* kvalid;
-  float *o0, *o1;  // fwd: out, lse; dq: dq; dkv: dk, dv
+  void *o0, *o1;  // fwd: out (QkT), lse (f32); dq: dq (QkT); dkv: dk (QkT), dv (VT)
   int BH, H, Tq, Tk, D, causal, causal_off;
   float scale;
 };
@@ -928,38 +1047,47 @@ cudaError_t launch_tiles(int kernel, const Args& a, cudaStream_t st) {
   const int rows = kernel == kDkv ? a.Tk : a.Tq;
   const int tile = kernel == kFwd ? FwdTile<P>::R : BwdTile<P>::R;  // resident rows
   const dim3 grid(a.BH, (rows + tile - 1) / tile);
+  const QkT* q = static_cast<const QkT*>(a.q);
+  const QkT* k = static_cast<const QkT*>(a.k);
+  const VT* v = static_cast<const VT*>(a.v);
+  const QkT* g = static_cast<const QkT*>(a.g);
   cudaError_t err;
   if (kernel == kFwd) {
-    err = set_smem(flash_fwd_kernel<P, VEC>, smem);
+    err = set_smem(flash_fwd_kernel<P, VEC, QkT, VT>, smem);
     if (err != cudaSuccess) return err;
-    flash_fwd_kernel<P, VEC><<<grid, kThreads, smem, st>>>(a.q, a.k, a.v, a.kvalid, a.o0, a.o1,
-                                                           a.H, a.Tq, a.Tk, a.D, a.causal,
-                                                           a.causal_off, a.scale);
+    flash_fwd_kernel<P, VEC, QkT, VT><<<grid, kThreads, smem, st>>>(
+        q, k, v, a.kvalid, static_cast<QkT*>(a.o0), static_cast<float*>(a.o1), a.H, a.Tq, a.Tk,
+        a.D, a.causal, a.causal_off, a.scale);
   } else if (kernel == kDq) {
-    err = set_smem(flash_bwd_dq_kernel<P, VEC>, smem);
+    err = set_smem(flash_bwd_dq_kernel<P, VEC, QkT, VT>, smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_kernel<P, VEC><<<grid, kThreads, smem, st>>>(
-        a.q, a.k, a.v, a.g, a.lse, a.delta, a.kvalid, a.o0, a.H, a.Tq, a.Tk, a.D, a.causal,
-        a.causal_off, a.scale);
-  } else {
-    err = set_smem(flash_bwd_dkv_kernel<P, VEC>, smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_kernel<P, VEC><<<grid, kThreads, smem, st>>>(
-        a.q, a.k, a.v, a.g, a.lse, a.delta, a.kvalid, a.o0, a.o1, a.H, a.Tq, a.Tk, a.D,
+    flash_bwd_dq_kernel<P, VEC, QkT, VT><<<grid, kThreads, smem, st>>>(
+        q, k, v, g, a.lse, a.delta, a.kvalid, static_cast<QkT*>(a.o0), a.H, a.Tq, a.Tk, a.D,
         a.causal, a.causal_off, a.scale);
+  } else {
+    err = set_smem(flash_bwd_dkv_kernel<P, VEC, QkT, VT>, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_kernel<P, VEC, QkT, VT><<<grid, kThreads, smem, st>>>(
+        q, k, v, g, a.lse, a.delta, a.kvalid, static_cast<QkT*>(a.o0), static_cast<VT*>(a.o1),
+        a.H, a.Tq, a.Tk, a.D, a.causal, a.causal_off, a.scale);
   }
   return cudaGetLastError();
 }
 
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+// p starts on a multiple of four elements of E (f32: 16 bytes)
+template <class E>
+inline bool aligned4(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(E)) == 0;
+}
 
-// 16-byte copies where every row of q, k, v, dO (and the forward's out,
-// stored in 8-byte pairs) starts on 16 bytes, else the same kernel with
-// 4-byte copies.
+// Four values a copy (f32: 16-byte cp.async; bf16/f16: 8-byte loads) where
+// every row of q, k, v, dO (and the forward's out, stored in pairs) starts
+// on four elements, else the same kernel with one value a copy.
 template <int P>
 cudaError_t launch_width(int kernel, const Args& a, cudaStream_t st) {
-  const bool vec = a.D % 4 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
-                   aligned16(a.g) && (kernel != kFwd || aligned16(a.o0));
+  const bool vec = a.D % 4 == 0 && aligned4<QkT>(a.q) && aligned4<QkT>(a.k) &&
+                   aligned4<VT>(a.v) && aligned4<QkT>(a.g) &&
+                   (kernel != kFwd || aligned4<QkT>(a.o0));
   return vec ? launch_tiles<P, true>(kernel, a, st) : launch_tiles<P, false>(kernel, a, st);
 }
 
@@ -978,27 +1106,27 @@ int launch(int kernel, const Args& a, void* stream) {
 
 extern "C" {
 
-// All tensors f32 and contiguous on the device: q (BH, Tq, D); k, v
-// (BH, Tk, D); g and the outputs shaped as the tensor they differentiate;
-// lse, delta (BH, Tq); kvalid (B,) int32 with B = BH / H. Each function
-// launches on `stream` without synchronising and returns cudaGetLastError()
-// (cudaErrorInvalidValue for an empty shape or D outside 1..256).
+// All tensors contiguous on the device, q, k and g of the library's q/k
+// dtype and v of its v dtype (mxtt_flash_dtypes): q (BH, Tq, D); k, v
+// (BH, Tk, D); g and the outputs shaped, and typed, as the tensor they
+// differentiate; lse, delta (BH, Tq) f32; kvalid (B,) int32 with
+// B = BH / H. Each function launches on `stream` without synchronising and
+// returns cudaGetLastError() (cudaErrorInvalidValue for an empty shape or D
+// outside 1..256).
 int mxtt_flash_fwd(const void* q, const void* k, const void* v, const void* kvalid, void* out,
                    void* lse, int BH, int H, int Tq, int Tk, int D, int causal, int causal_off,
                    float scale, void* stream) {
-  Args a{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-         nullptr, nullptr, nullptr, static_cast<const int*>(kvalid), static_cast<float*>(out),
-         static_cast<float*>(lse), BH, H, Tq, Tk, D, causal, causal_off, scale};
+  Args a{q, k, v, nullptr, nullptr, nullptr, static_cast<const int*>(kvalid), out, lse,
+         BH, H, Tq, Tk, D, causal, causal_off, scale};
   return launch(kFwd, a, stream);
 }
 
 int mxtt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* g, const void* lse,
                       const void* delta, const void* kvalid, void* dq, int BH, int H, int Tq,
                       int Tk, int D, int causal, int causal_off, float scale, void* stream) {
-  Args a{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-         static_cast<const float*>(g), static_cast<const float*>(lse),
-         static_cast<const float*>(delta), static_cast<const int*>(kvalid),
-         static_cast<float*>(dq), nullptr, BH, H, Tq, Tk, D, causal, causal_off, scale};
+  Args a{q, k, v, g, static_cast<const float*>(lse), static_cast<const float*>(delta),
+         static_cast<const int*>(kvalid), dq, nullptr, BH, H, Tq, Tk, D, causal, causal_off,
+         scale};
   return launch(kDq, a, stream);
 }
 
@@ -1006,13 +1134,14 @@ int mxtt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* 
                        const void* lse, const void* delta, const void* kvalid, void* dk, void* dv,
                        int BH, int H, int Tq, int Tk, int D, int causal, int causal_off,
                        float scale, void* stream) {
-  Args a{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-         static_cast<const float*>(g), static_cast<const float*>(lse),
-         static_cast<const float*>(delta), static_cast<const int*>(kvalid),
-         static_cast<float*>(dk), static_cast<float*>(dv), BH, H, Tq, Tk, D, causal, causal_off,
-         scale};
+  Args a{q, k, v, g, static_cast<const float*>(lse), static_cast<const float*>(delta),
+         static_cast<const int*>(kvalid), dk, dv, BH, H, Tq, Tk, D, causal, causal_off, scale};
   return launch(kDkv, a, stream);
 }
+
+// The dtype pair the library was built for: 16 * (q/k code) + (v code),
+// codes 0 f32, 1 bf16, 2 f16.
+int mxtt_flash_dtypes() { return 16 * MXTT_FLASH_QK + MXTT_FLASH_V; }
 
 // Dynamic shared memory of one block of `kernel` (0 fwd, 1 dq, 2 dk/dv) at D.
 long long mxtt_flash_smem_bytes(int kernel, int D) {

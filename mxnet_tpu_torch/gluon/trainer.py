@@ -25,30 +25,43 @@ rule).
 
 The trainer never moves a parameter: states are made on each parameter's
 own device and every update runs there. ``allreduce_grads`` does nothing
-on one device. Not ported yet: the kvstore, gradient compression and
-bucketing, the loss scaler, and the fault sites.
+on one device.
+
+With an :class:`~mxnet_tpu_torch.amp.LossScaler` attached
+(``loss_scaler=`` or :meth:`set_loss_scaler`), the backward runs on
+``trainer.scale_loss(loss)`` and :meth:`step` checks every gradient
+before the allreduce: a non-finite one skips the update (the gradients
+are dropped, the weights untouched), halves the scale and bumps
+``resilience.loss_scale_overflows``; a clean step clips at
+``clip_global_norm`` times the scale in use and folds the unscale into
+the update (``batch_size * scale``). Not ported yet: the kvstore,
+gradient compression and bucketing, and the ``trainer:grad`` /
+``trainer:param`` fault sites.
 """
 from __future__ import annotations
 
-import math
 import pickle
 
 import torch
 
 from ..base import MXNetError
 from ..optimizer import Optimizer, create as create_optimizer
+from ..profiler import core as _prof
+from ..resilience import counters as _counters
+from ..resilience import guardrails as _guardrails
 
 
 class Trainer:
     """``Trainer(params, optimizer, optimizer_params=None,
-    clip_global_norm=None)``: ``params`` is an iterable of tensors (such as
-    ``model.parameters()``) or a ``{name: tensor}`` dict; those that do not
-    require gradients are left out, as Gluon leaves out ``grad_req="null"``.
-    ``optimizer`` is a name for :func:`~mxnet_tpu_torch.optimizer.create`
-    or an :class:`~mxnet_tpu_torch.optimizer.Optimizer`."""
+    loss_scaler=None, clip_global_norm=None)``: ``params`` is an iterable
+    of tensors (such as ``model.parameters()``) or a ``{name: tensor}``
+    dict; those that do not require gradients are left out, as Gluon leaves
+    out ``grad_req="null"``. ``optimizer`` is a name for
+    :func:`~mxnet_tpu_torch.optimizer.create` or an
+    :class:`~mxnet_tpu_torch.optimizer.Optimizer`."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
-                 clip_global_norm=None):
+                 loss_scaler=None, clip_global_norm=None):
         if isinstance(params, dict):
             params = list(params.values())
         else:
@@ -68,6 +81,7 @@ class Trainer:
             raise MXNetError(
                 f"clip_global_norm must be > 0, got {clip_global_norm}")
         self._clip_global_norm = clip_global_norm
+        self._loss_scaler = loss_scaler
         self._states = None
         self._step_count = 0
 
@@ -79,6 +93,23 @@ class Trainer:
     @property
     def optimizer(self):
         return self._optimizer
+
+    @property
+    def loss_scaler(self):
+        return self._loss_scaler
+
+    def set_loss_scaler(self, scaler):
+        """Attach (or detach with ``None``) an ``amp.LossScaler``."""
+        self._loss_scaler = scaler
+
+    def scale_loss(self, loss):
+        """Scale one loss (or a list) by the attached scaler before
+        ``backward``; the loss itself when no scaler is attached."""
+        if self._loss_scaler is None:
+            return loss
+        from ..amp import scale_loss as _scale
+
+        return _scale(loss, self._loss_scaler)
 
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
@@ -94,7 +125,31 @@ class Trainer:
     def step(self, batch_size, ignore_stale_grad=False):
         """Allreduce the gradients (nothing to do on one device), clip them
         to ``clip_global_norm`` if set, then update every parameter with
-        gradients scaled by ``rescale_grad / batch_size``."""
+        gradients scaled by ``rescale_grad / batch_size``. With a loss
+        scaler, an overflow skips all of it (see the module docstring)."""
+        scaler = self._loss_scaler
+        if scaler is not None:
+            # the scale the backward used, before update() may grow it
+            cur_scale = scaler.loss_scale
+            # checked before the allreduce, as in the JAX package
+            overflow = not _guardrails.all_finite(
+                [p.grad for p in self._params])
+            if scaler.update(overflow):
+                _counters.incr("resilience.loss_scale_overflows")
+                if _prof.ENABLED:
+                    _prof.record_instant(
+                        "resilience::loss_scale(overflow)", "resilience",
+                        args={"new_scale": scaler.loss_scale})
+                # the gradients are garbage: drop them, so the next
+                # backward writes fresh ones instead of adding to them
+                for p in self._params:
+                    p.grad = None
+                return
+            self.allreduce_grads()
+            self._apply_global_clip(scale_factor=cur_scale)
+            # the unscale folds into the update's one multiply
+            self._update(batch_size * cur_scale, ignore_stale_grad)
+            return
         self.allreduce_grads()
         self._apply_global_clip()
         self._update(batch_size, ignore_stale_grad)
@@ -117,25 +172,16 @@ class Trainer:
                 "them")
         return [p.grad for p in self._params]
 
-    def _apply_global_clip(self):
+    def _apply_global_clip(self, scale_factor=1.0):
         """Scale every gradient so their global L2 norm is at most
         ``clip_global_norm`` (the raw, batch-summed gradients, as in the
-        JAX package). A non-finite norm leaves them untouched."""
+        JAX package) times ``scale_factor``, the loss scale the gradients
+        still carry. A non-finite norm leaves them untouched."""
         if self._clip_global_norm is None:
             return
-        grads = [p.grad for p in self._params if p.grad is not None]
-        if not grads:
-            return
-        with torch.no_grad():
-            total = 0.0
-            for dev in {g.device for g in grads}:
-                total += float(sum(torch.sum(torch.square(g.float()))
-                                   for g in grads if g.device == dev))
-            norm = math.sqrt(total)
-            if math.isfinite(norm) and norm > self._clip_global_norm:
-                scale = self._clip_global_norm / norm
-                for g in grads:
-                    g.mul_(scale)
+        _guardrails.clip_by_global_norm(
+            [p.grad for p in self._params if p.grad is not None],
+            self._clip_global_norm * scale_factor)
 
     def _update(self, batch_size, ignore_stale_grad=False):
         grads = self._grads(ignore_stale_grad)

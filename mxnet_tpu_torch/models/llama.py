@@ -11,6 +11,13 @@ head. Two paths, as in the JAX package:
 * the cache path (serving): attention over per-layer KV rings through the
   decode-attention kernel module.
 
+Mixed dtypes compute as ``jnp`` promotes them: products through
+``ops.nn.dense`` (``F.linear`` refuses a bf16 input against an f32 weight
+where ``jnp.dot`` promotes), RoPE by the f32 tables, which promote q and k.
+So under ``parallel.ShardedTrainer(dtype="bfloat16")`` the first layer's
+attention takes (q, k, v) in (f32, f32, bf16) and every later layer runs
+in f32 on bf16-rounded weights, as the JAX package's does.
+
 Module and parameter names follow the JAX package's, so
 ``named_parameters()`` yields exactly its ``collect_params()`` names
 (``embed.weight``, ``layer{i}.attention.q_proj.weight``, ...), and
@@ -23,8 +30,8 @@ import functools
 
 import numpy as _onp
 import torch
-import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from .. import device as _device
 from .. import random as _rng
@@ -62,14 +69,14 @@ def apply_rope(x, cos, sin):
 
 
 def _serving_dense(x, weight, cache):
-    """Projection by ``weight`` (out, in) on the serving rungs: the int8
-    rung looks the weight up in the cache's pre-quantized side table
-    (``ops.nn.quantized_dense``); otherwise the f32 gemm."""
+    """Projection by ``weight`` (out, in): on the int8 serving rung the
+    cache's pre-quantized side table (``ops.nn.quantized_dense``),
+    otherwise ``ops.nn.dense``."""
     qw = getattr(cache, "quant_weights", None)
     entry = qw.get(id(weight)) if qw else None
     if entry is not None:
         return _ops.quantized_dense(x, entry[0], entry[1])
-    return F.linear(x, weight)
+    return _ops.dense(x, weight)
 
 
 class RMSNorm(nn.Module):
@@ -133,9 +140,11 @@ class LlamaAttention(nn.Module):
         heads repeated to the query heads (``mnp.repeat(k, rep, axis=1)``
         in the JAX package), then causal flash attention."""
         b, t, _ = x.shape
-        q = self._heads_split(self.q_proj(x), self._heads)
-        k = self._heads_split(self.k_proj(x), self._kv_heads)
-        v = self._heads_split(self.v_proj(x), self._kv_heads)
+        q = self._heads_split(_ops.dense(x, self.q_proj.weight), self._heads)
+        k = self._heads_split(_ops.dense(x, self.k_proj.weight),
+                              self._kv_heads)
+        v = self._heads_split(_ops.dense(x, self.v_proj.weight),
+                              self._kv_heads)
         cos, sin = _rope_tables_on(t, self._head_dim, self._theta, x.device)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -145,7 +154,7 @@ class LlamaAttention(nn.Module):
             v = v.repeat_interleave(rep, dim=1)
         out = _ops.attention(q, k, v, causal=True)
         out = out.transpose(1, 2).reshape(b, t, self._units)
-        return self.o_proj(out)
+        return _ops.dense(out, self.o_proj.weight)
 
     def _forward_cached_fast(self, x, cache, start_pos, path):
         """Serving rungs ("pallas"/"int8"): gemm (or int8) projections, the
@@ -218,12 +227,40 @@ class LlamaBlock(nn.Module):
 
 class LlamaModel(nn.Module):
     """Decoder-only LM: logits of a whole sequence (training), or through
-    per-layer KV rings (serving)."""
+    per-layer KV rings (serving).
+
+    ``remat=True``: inside a ``parallel.ShardedTrainer`` step, each layer
+    runs under ``torch.utils.checkpoint`` and is recomputed in the backward
+    instead of keeping its activations. Elsewhere (an eager
+    ``gluon.Trainer``, serving) the plain loop runs, as the JAX package
+    recomputes only inside a traced step. ``layer_barrier=True`` (only
+    with ``remat=True``) is accepted and does nothing: in the JAX package
+    it is an XLA scheduling fence that keeps a layer's weight gathers and
+    casts from moving ahead of the previous layer, and eager PyTorch runs
+    each layer's ops in order anyway.
+    """
+
+    # ShardedTrainer protocol: under remat the model casts its parameters
+    # to the AMP dtype at use inside each recomputed layer (``_amp_dtype``,
+    # set by the trainer for its step) instead of the trainer casting the
+    # whole model, so no low-precision copy of the weights lives across
+    # the step
+    supports_inner_amp = True
 
     def __init__(self, vocab_size=32000, units=4096, hidden_size=11008,
                  num_layers=32, num_heads=32, num_kv_heads=None,
-                 norm_eps=1e-5, tie_embeddings=False):
+                 norm_eps=1e-5, tie_embeddings=False, remat=False,
+                 layer_barrier=False):
         super().__init__()
+        if layer_barrier and not remat:
+            raise MXNetError(
+                "layer_barrier=True requires remat=True (the barrier "
+                "lives inside the per-layer recompute)")
+        self._remat = remat
+        self._layer_barrier = layer_barrier
+        # set by ShardedTrainer for the duration of its step
+        self._amp_dtype = None
+        self._in_step = False
         self._units = units
         self._tie = tie_embeddings
         self.embed = nn.Embedding(vocab_size, units)
@@ -247,14 +284,41 @@ class LlamaModel(nn.Module):
         per position) and keeps a prefill from computing T x vocab logits
         it throws away."""
         x = self.embed(input_ids.to(torch.long))
-        for i, blk in enumerate(self._blocks):
-            x = blk(x, cache=None if cache is None else cache.layer(i),
-                    start_pos=start_pos)
+        if cache is None and self._remat and self._in_step:
+            x = self._recompute_layers(x)
+        else:
+            for i, blk in enumerate(self._blocks):
+                x = blk(x, cache=None if cache is None else cache.layer(i),
+                        start_pos=start_pos)
         if last_idx is not None:
             x = _ops.gather_positions(x, last_idx)
         x = self.norm(x)
         w = self.embed.weight if self._tie else self.lm_head.weight
         return _serving_dense(x, w, cache)
+
+    def _recompute_layers(self, x):
+        """The layers, each recomputed in the backward
+        (``torch.utils.checkpoint``). With ``_amp_dtype`` set, the
+        activation enters the first layer in that dtype and each layer
+        runs on low-precision copies of its floating parameters, made at
+        use inside the checkpoint (so they are freed after the layer's
+        forward and made again in its backward) and differentiable back to
+        the f32 masters; the final norm and the head then run on the
+        masters after ``x.float()``."""
+        amp = self._amp_dtype
+        if amp is not None:
+            x = x.to(amp)
+
+        def layer(blk, h):
+            if amp is None:
+                return blk(h)
+            params = {n: p.to(amp) if p.is_floating_point() else p
+                      for n, p in blk.named_parameters()}
+            return torch.func.functional_call(blk, params, (h,))
+
+        for blk in self._blocks:
+            x = _checkpoint(layer, blk, x, use_reentrant=False)
+        return x.float() if amp is not None else x
 
 
 # canonical configs (vocab 32000 for llama-2 sizes, 128256 for llama-3-8b)

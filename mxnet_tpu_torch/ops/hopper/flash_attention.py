@@ -11,6 +11,18 @@ hand-written CUDA kernel ``flash_fwd`` and its backward the kernels
 every product on the tensor cores in 3xTF32 (each f32 operand split into
 two TF32 parts, three products summed in f32), which keeps f32 accuracy.
 
+Dtypes, as the TPU kernels take them: q and k (and the cotangent g) share
+one dtype and v has its own, each float32, bfloat16 or float16. The kernels
+widen every operand to f32 as it enters shared memory and write ``out`` and
+``dq`` in q's dtype, ``dk`` in k's and ``dv`` in v's; ``lse`` and ``delta``
+are f32. A library of the kernels is built for each (q/k, v) pair of
+:data:`DTYPE_PAIRS`: (f32, f32); (f32, bf16) and (f32, f16), which a Llama
+layer's attention gets under ``ShardedTrainer(dtype=...)``, whose f32 RoPE
+tables promote q and k but not v; (bf16, bf16) and (f16, f16). Any other
+pair, or k of another dtype than q, raises :class:`MXNetError` naming it;
+nothing is cast in front of a kernel. The plain versions take the same
+dtypes: they compute in f32 and cast each result to its primal's dtype.
+
 Each kernel has a plain PyTorch version with the kernel's own signature
 (:func:`flash_fwd_torch`, :func:`flash_bwd_dq_torch`,
 :func:`flash_bwd_dkv_torch`), and :func:`attention_torch` is the plain
@@ -39,7 +51,7 @@ several T instead.
 ``last_path()`` says which version the last call took ("cuda" | "torch"),
 and ``launch_count()`` counts the launches of each kernel
 (``{"fwd", "bwd_dq", "bwd_dkv"}``), bumped only after a launch returns
-``cudaSuccess``.
+``cudaSuccess``; ``launch_count(pair)`` counts those of one dtype pair.
 """
 from __future__ import annotations
 
@@ -54,10 +66,18 @@ _NEG_INF = -1e30  # finite "minus infinity": keeps fully-masked rows NaN-free
 _MAX_D = 256
 KERNELS = ("fwd", "bwd_dq", "bwd_dkv")
 
+_F32, _BF16, _F16 = torch.float32, torch.bfloat16, torch.float16
+# dtype codes of the CUDA source's MXTT_FLASH_QK / MXTT_FLASH_V
+_CODES = {_F32: 0, _BF16: 1, _F16: 2}
+_SHORT = {_F32: "f32", _BF16: "bf16", _F16: "f16"}
+# (q/k dtype, v dtype) pairs with an instantiation of the kernels
+DTYPE_PAIRS = ((_F32, _F32), (_F32, _BF16), (_F32, _F16), (_BF16, _BF16),
+               (_F16, _F16))
+
 _LAST_PATH = None  # "cuda" | "torch": the version the last call took
 _FORCE_PATH = None
-_LAUNCHES = dict.fromkeys(KERNELS, 0)
-_LIB = None
+_LAUNCHES = {(name, pair): 0 for name in KERNELS for pair in DTYPE_PAIRS}
+_LIBS = {}  # dtype pair -> ctypes.CDLL
 
 
 def force_path(path) -> None:
@@ -74,14 +94,24 @@ def last_path():
     return _LAST_PATH
 
 
-def launch_count() -> dict:
-    """Kernel launches since import (or the last reset), by kernel."""
-    return dict(_LAUNCHES)
+def pair_label(pair) -> str:
+    """``"f32"``, ``"bf16"``, ``"f16"`` for a pair of one dtype, else
+    ``"<q/k>_<v>"`` (``"f32_bf16"``)."""
+    qk, v = pair
+    return _SHORT[qk] if qk == v else f"{_SHORT[qk]}_{_SHORT[v]}"
+
+
+def launch_count(pair=None) -> dict:
+    """Kernel launches since import (or the last reset), by kernel: of all
+    dtype pairs, or of ``pair`` ((q/k dtype, v dtype)) alone."""
+    return {name: sum(n for (k, p), n in _LAUNCHES.items()
+                      if k == name and (pair is None or p == tuple(pair)))
+            for name in KERNELS}
 
 
 def reset_launch_count() -> None:
-    for name in KERNELS:
-        _LAUNCHES[name] = 0
+    for key in _LAUNCHES:
+        _LAUNCHES[key] = 0
 
 
 def _scale_of(scale, d):
@@ -95,9 +125,12 @@ def attention_torch(q, k, v, mask=None, causal=False, scale=None,
                     valid_length=None):
     """Plain PyTorch attention over (B, H, T, D), the counterpart of
     ``_reference_attention``: the (Tq, Tk) scores are materialized; rows
-    whose every key is masked give zeros (and zero gradients)."""
+    whose every key is masked give zeros (and zero gradients). Mixed dtypes
+    promote as ``jnp`` promotes them: the scores in q and k's common
+    dtype, the weights in q's, the output in q and v's common dtype."""
     s = _scale_of(scale, q.shape[-1])
-    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * s
+    qk = torch.promote_types(q.dtype, k.dtype)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.to(qk), k.to(qk)) * s
     tq, tk = scores.shape[-2], scores.shape[-1]
     neg = torch.tensor(_NEG_INF, dtype=scores.dtype, device=scores.device)
     if causal:
@@ -114,7 +147,8 @@ def attention_torch(q, k, v, mask=None, causal=False, scale=None,
     w = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
     alive = torch.amax(scores, dim=-1, keepdim=True) > _NEG_INF / 2
     w = torch.where(alive, w, torch.zeros((), dtype=w.dtype, device=w.device))
-    return torch.einsum("bhqk,bhkd->bhqd", w, v)
+    out = torch.promote_types(w.dtype, v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", w.to(out), v.to(out))
 
 
 def _keep_mask(kvalid, bh, tq, tk, causal, causal_off, device):
@@ -141,10 +175,17 @@ def _probs(q, k, lse, kvalid, causal, causal_off, scale):
     return torch.where(keep, torch.exp(sc - lse[:, :, None]), zero)
 
 
+def _f32(*xs):
+    return [x.to(torch.float32) for x in xs]
+
+
 def flash_fwd_torch(q, k, v, kvalid, causal, causal_off, scale):
     """Plain version of the ``flash_fwd`` kernel: q (BH, Tq, D), k/v
-    (BH, Tk, D), kvalid (B,) int32 -> (out (BH, Tq, D), lse (BH, Tq)).
-    A row with no kept key gives out = 0 and lse = -1e30."""
+    (BH, Tk, D), kvalid (B,) int32 -> (out (BH, Tq, D) in q's dtype,
+    lse (BH, Tq) f32), computed in f32. A row with no kept key gives
+    out = 0 and lse = -1e30."""
+    dtype = q.dtype
+    q, k, v = _f32(q, k, v)
     bh, tq, _ = q.shape
     sc = torch.matmul(q * scale, k.transpose(1, 2))
     keep = _keep_mask(kvalid, bh, tq, k.shape[1], causal, causal_off,
@@ -158,38 +199,63 @@ def flash_fwd_torch(q, k, v, kvalid, causal, causal_off, scale):
     lsafe = torch.where(l == 0, torch.ones_like(l), l)
     out = torch.matmul(p, v) / lsafe
     lse = torch.where(l == 0, neg, m + torch.log(lsafe))
-    return out, lse[..., 0]
+    return out.to(dtype), lse[..., 0]
 
 
 def flash_bwd_dq_torch(q, k, v, g, lse, delta, kvalid, causal, causal_off,
                        scale):
     """Plain version of the ``flash_bwd_dq`` kernel:
-    dq = scale * (P * (g . v^T - delta)) . k."""
+    dq = scale * (P * (g . v^T - delta)) . k, in f32, returned in q's
+    dtype."""
+    dtype = q.dtype
+    q, k, v, g = _f32(q, k, v, g)
     p = _probs(q, k, lse, kvalid, causal, causal_off, scale)
     ds = p * (torch.matmul(g, v.transpose(1, 2)) - delta[:, :, None])
-    return torch.matmul(ds, k) * scale
+    return (torch.matmul(ds, k) * scale).to(dtype)
 
 
 def flash_bwd_dkv_torch(q, k, v, g, lse, delta, kvalid, causal, causal_off,
                         scale):
     """Plain version of the ``flash_bwd_dkv`` kernel:
-    dv = P^T . g, dk = (P * (g . v^T - delta))^T . (q * scale)."""
+    dv = P^T . g, dk = (P * (g . v^T - delta))^T . (q * scale), in f32,
+    returned in k's and v's dtypes."""
+    k_dtype, v_dtype = k.dtype, v.dtype
+    q, k, v, g = _f32(q, k, v, g)
     p = _probs(q, k, lse, kvalid, causal, causal_off, scale)
     ds = p * (torch.matmul(g, v.transpose(1, 2)) - delta[:, :, None])
     dv = torch.matmul(p.transpose(1, 2), g)
     dk = torch.matmul(ds.transpose(1, 2), q * scale)
-    return dk, dv
+    return dk.to(k_dtype), dv.to(v_dtype)
 
 
 # -- the CUDA kernels -----------------------------------------------------------
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
+def build_spec(pair):
+    """The ``_build`` variant of ``pair``'s library: ``("flash_attention",
+    defines)``; the f32 pair builds with no defines."""
+    qk, v = pair
+    if (qk, v) == (_F32, _F32):
+        return ("flash_attention", ())
+    return ("flash_attention", (f"MXTT_FLASH_QK={_CODES[qk]}",
+                                f"MXTT_FLASH_V={_CODES[v]}"))
+
+
+def _lib(pair=(_F32, _F32)):
+    lib = _LIBS.get(pair)
+    if lib is None:
         from ._build import load
 
-        lib = load("flash_attention")
+        lib = load(*build_spec(pair))
+        lib.mxtt_flash_dtypes.restype = ctypes.c_int
+        want = 16 * _CODES[pair[0]] + _CODES[pair[1]]
+        got = lib.mxtt_flash_dtypes()
+        if got != want:
+            # a library of another pair would read the tensors as the wrong
+            # element type: refuse it
+            raise MXNetError(f"flash kernels for {pair_label(pair)}: the "
+                             f"loaded library was built for code {got}, "
+                             f"want {want}")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         tail = [i32] * 7 + [ctypes.c_float, ptr]
         lib.mxtt_flash_fwd.argtypes = [ptr] * 6 + tail
@@ -202,14 +268,19 @@ def _lib():
         lib.mxtt_flash_smem_bytes.restype = ctypes.c_longlong
         lib.mxtt_flash_error_string.argtypes = [i32]
         lib.mxtt_flash_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        _LIBS[pair] = lib
+    return lib
 
 
 def build() -> None:
-    """Build and load the kernel library now (it is otherwise built at the
-    first launch)."""
-    _lib()
+    """Build (one ``nvcc`` per dtype pair, all started together) and load
+    the kernel libraries now; they are otherwise built at the first launch
+    of each pair."""
+    from ._build import build_many
+
+    build_many([build_spec(p) for p in DTYPE_PAIRS])
+    for p in DTYPE_PAIRS:
+        _lib(p)
 
 
 def _check_launch(name, q, k, v, kvalid, rest):
@@ -233,6 +304,14 @@ def _check_launch(name, q, k, v, kvalid, rest):
         raise MXNetError(f"flash {name}: kvalid must be int32 (B,) with B "
                          f"dividing {bh}, got {kvalid.dtype} "
                          f"{tuple(kvalid.shape)}")
+    pair = (q.dtype, v.dtype)
+    if k.dtype != q.dtype or pair not in DTYPE_PAIRS:
+        pairs = ", ".join(f"({a}, {b})" for a, b in DTYPE_PAIRS)
+        raise MXNetError(
+            f"flash {name} kernel: no instantiation for q {q.dtype}, k "
+            f"{k.dtype}, v {v.dtype}; the (q/k, v) pairs are {pairs}")
+    want = {"kvalid": torch.int32, "g": q.dtype, "lse": torch.float32,
+            "delta": torch.float32}
     for label, x, shape in [("q", q, None), ("k", k, None), ("v", v, None),
                             ("kvalid", kvalid, None)] + rest:
         if x.device != q.device:
@@ -240,19 +319,21 @@ def _check_launch(name, q, k, v, kvalid, rest):
                              f"{q.device}")
         if not x.is_contiguous():
             raise MXNetError(f"flash {name}: {label} is not contiguous")
-        if label != "kvalid" and x.dtype != torch.float32:
+        if label in want and x.dtype != want[label]:
             raise MXNetError(f"flash {name} kernel: {label} must be "
-                             f"float32, got {x.dtype}")
+                             f"{want[label]}, got {x.dtype}")
         if shape is not None and tuple(x.shape) != shape:
             raise MXNetError(f"flash {name}: {label} must be {shape}, got "
                              f"{tuple(x.shape)}")
+    return pair
 
 
-def _launch(name, fn, ptrs, q, k, kvalid, causal, causal_off, scale):
+def _launch(name, pair, ptrs, q, k, kvalid, causal, causal_off, scale):
     bh, tq, d = q.shape
     tk = k.shape[1]
     h = bh // kvalid.shape[0]
-    lib = _lib()
+    lib = _lib(pair)
+    fn = getattr(lib, f"mxtt_flash_{name}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*ptrs, bh, h, tq, tk, d, int(bool(causal)), int(causal_off),
@@ -262,9 +343,9 @@ def _launch(name, fn, ptrs, q, k, kvalid, causal, causal_off, scale):
         raise MXNetError(
             f"flash {name} kernel launch failed: "
             f"{lib.mxtt_flash_error_string(err).decode()} (cudaError {err}; "
-            f"q {tuple(q.shape)}, k {tuple(k.shape)}, shared memory "
-            f"{lib.mxtt_flash_smem_bytes(kernel, d)} B)")
-    _LAUNCHES[name] += 1
+            f"{pair_label(pair)}, q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"shared memory {lib.mxtt_flash_smem_bytes(kernel, d)} B)")
+    _LAUNCHES[(name, pair)] += 1
 
 
 def _use_kernel(q):
@@ -286,11 +367,10 @@ def flash_fwd(q, k, v, kvalid, causal, causal_off, scale):
     q (BH, Tq, D), k/v (BH, Tk, D), kvalid (B,) int32 -> (out, lse)."""
     if not _use_kernel(q):
         return flash_fwd_torch(q, k, v, kvalid, causal, causal_off, scale)
-    _check_launch("fwd", q, k, v, kvalid, [])
+    pair = _check_launch("fwd", q, k, v, kvalid, [])
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _launch("fwd", _lib().mxtt_flash_fwd,
-            [x.data_ptr() for x in (q, k, v, kvalid, out, lse)],
+    _launch("fwd", pair, [x.data_ptr() for x in (q, k, v, kvalid, out, lse)],
             q, k, kvalid, causal, causal_off, scale)
     return out, lse
 
@@ -306,9 +386,10 @@ def flash_bwd_dq(q, k, v, g, lse, delta, kvalid, causal, causal_off, scale):
     if not _use_kernel(q):
         return flash_bwd_dq_torch(q, k, v, g, lse, delta, kvalid, causal,
                                   causal_off, scale)
-    _check_launch("bwd_dq", q, k, v, kvalid, _bwd_rest(q, g, lse, delta))
+    pair = _check_launch("bwd_dq", q, k, v, kvalid,
+                         _bwd_rest(q, g, lse, delta))
     dq = torch.empty_like(q)
-    _launch("bwd_dq", _lib().mxtt_flash_bwd_dq,
+    _launch("bwd_dq", pair,
             [x.data_ptr() for x in (q, k, v, g, lse, delta, kvalid, dq)],
             q, k, kvalid, causal, causal_off, scale)
     return dq
@@ -319,10 +400,11 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, kvalid, causal, causal_off, scale):
     if not _use_kernel(q):
         return flash_bwd_dkv_torch(q, k, v, g, lse, delta, kvalid, causal,
                                    causal_off, scale)
-    _check_launch("bwd_dkv", q, k, v, kvalid, _bwd_rest(q, g, lse, delta))
+    pair = _check_launch("bwd_dkv", q, k, v, kvalid,
+                         _bwd_rest(q, g, lse, delta))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("bwd_dkv", _lib().mxtt_flash_bwd_dkv,
+    _launch("bwd_dkv", pair,
             [x.data_ptr() for x in (q, k, v, g, lse, delta, kvalid, dk, dv)],
             q, k, kvalid, causal, causal_off, scale)
     return dk, dv
@@ -341,10 +423,10 @@ def kvalid_of(valid_length, b, tk, device):
 
 class _FlashCore(torch.autograd.Function):
     """Counterpart of ``_flash_core``: the forward kernel saves
-    ``(q, k, v, out, lse, kvalid)``; the backward computes
-    ``delta = rowsum(dO * O)`` with a torch op, then runs the dq and dk/dv
-    kernels (``_flash_core_bwd``). Each kernel call goes to its plain
-    version for CPU tensors."""
+    ``(q, k, v, out, lse, kvalid)``; the backward casts dO to q's dtype,
+    computes ``delta = rowsum(dO * O)`` in f32 with a torch op, then runs
+    the dq and dk/dv kernels (``_flash_core_bwd``). Each kernel call goes to
+    its plain version for CPU tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid_length, causal, scale):

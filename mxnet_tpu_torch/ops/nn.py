@@ -28,8 +28,20 @@ def activation(data, act_type="relu"):
                      "silu)")
 
 
+def dense(data, weight):
+    """``data @ weight.T``, ``weight`` (out, in) as Gluon's Dense keeps it.
+    Mixed dtypes promote first, as ``jnp.matmul`` promotes them (bf16
+    against f32 computes in f32), where ``F.linear`` would refuse them;
+    same dtypes go straight to ``F.linear``."""
+    dtype = torch.promote_types(data.dtype, weight.dtype)
+    return F.linear(data.to(dtype), weight.to(dtype))
+
+
 def rms_norm(data, gamma, axis=-1, eps=1e-6):
-    """RMSNorm: ``x / sqrt(mean(x^2) + eps) * gamma`` along ``axis``."""
+    """RMSNorm: ``x / sqrt(mean(x^2) + eps) * gamma`` along ``axis``, in
+    the JAX package's order: the mean of squares in f32, the reciprocal
+    root cast to x's dtype, then the product with gamma, which promotes
+    (bf16 x with an f32 gamma gives f32) as ``jnp`` does."""
     ms = torch.mean(torch.square(data.to(torch.float32)), dim=axis,
                     keepdim=True)
     out = data * (1.0 / torch.sqrt(ms + eps)).to(data.dtype)

@@ -4,10 +4,11 @@
 A *fault plan* names injection **sites** and, per rule, decides
 deterministically — by hit index or by a seeded RNG — when that site
 throws a transient error, sleeps, raises a fatal error, or simulates
-worker death. The port's sites are the serving stack's:
+worker death. The port's sites are the serving stack's,
 ``serve:execute`` (``InferenceSession.run``), ``serve:queue``
 (``DynamicBatcher.submit``) and ``serve:decode`` (each decode visit of
-``ContinuousEngine``). Every site calls :func:`fault_point`, so a
+``ContinuousEngine``), and ``trainer:sharded_step``
+(``parallel.ShardedTrainer.step``). Every site calls :func:`fault_point`, so a
 process that never installs a plan pays one global load and an ``is
 None`` test per site. (The JAX package also pokes a ``_FAULTS`` slot into
 its dispatch, compile and collective modules; the port has none of those
@@ -73,6 +74,8 @@ KNOWN_SITES = (
     "serve:decode",         # serve.scheduler.ContinuousEngine, once per
                             # decode visit (a step or a super-step) — fails
                             # the requests decoding in it
+    "trainer:sharded_step", # parallel.ShardedTrainer.step, before the step
+                            # runs
 )
 
 

@@ -510,6 +510,156 @@ def test_cuda_trainer_matches_cpu():
                                    rtol=0, msg=name)
 
 
+# the flash kernels' other dtype pairs: (q/k, v)
+FLASH_PAIRS = [(torch.float32, torch.bfloat16), (torch.float32, torch.float16),
+               (torch.bfloat16, torch.bfloat16),
+               (torch.float16, torch.float16)]
+_MANT = {torch.bfloat16: 7, torch.float16: 10}
+
+
+def _dtype_close(ours, ref):
+    """Within ATOL / RTOL plus one unit in the last place of the output's
+    dtype at the larger value: kernel and plain version compute in f32 and
+    round once to it."""
+    assert ours.dtype == ref.dtype
+    a, r = ours.float(), ref.float()
+    bound = ATOL + RTOL * r.abs()
+    if ours.dtype in _MANT:
+        lo = -14 if ours.dtype == torch.float16 else -126
+        _, e = torch.frexp(torch.maximum(a.abs(), r.abs()))
+        bound = bound + torch.ldexp(torch.ones_like(a), torch.clamp(
+            e - 1, min=lo) - _MANT[ours.dtype])
+    diff = (a - r).abs()
+    assert bool((diff <= bound).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (1, 4, 7, 8)])
+@pytest.mark.parametrize("pair", FLASH_PAIRS,
+                         ids=["f32-bf16", "f32-f16", "bf16", "f16"])
+def test_cuda_flash_dtype_pairs_match_plain(pair, case):
+    """Each flash kernel's (q/k, v) instantiation against its plain version
+    on the card, with ragged T, valid lengths and dead rows: out and dq in
+    q's dtype, dk in k's, dv in v's; launches counted on that pair."""
+    dev = _need_cuda()
+    b, h, tq, tk, d, causal, vl = case
+    qk, vt = pair
+    q, k, v, g, kvalid = _flash_inputs(b, h, tq, tk, d, vl, dev, seed=5)
+    q, k, g, v = q.to(qk), k.to(qk), g.to(qk), v.to(vt)
+    args = (kvalid, causal, tk - tq, d ** -0.5)
+    n0 = fa.launch_count(pair)
+    out, lse = fa.flash_fwd(q, k, v, *args)
+    ref_out, ref_lse = fa.flash_fwd_torch(q, k, v, *args)
+    delta = (g.float() * ref_out.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, g, ref_lse, delta, *args)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, g, ref_lse, delta, *args)
+    torch.cuda.synchronize()
+    assert fa.last_path() == "cuda"
+    assert fa.launch_count(pair) == {n: n0[n] + 1 for n in fa.KERNELS}
+    ref_dq = fa.flash_bwd_dq_torch(q, k, v, g, ref_lse, delta, *args)
+    ref_dk, ref_dv = fa.flash_bwd_dkv_torch(q, k, v, g, ref_lse, delta,
+                                            *args)
+    assert (out.dtype, dq.dtype, dk.dtype, dv.dtype) == (qk, qk, qk, vt)
+    for ours, ref in ((out, ref_out), (lse, ref_lse), (dq, ref_dq),
+                      (dk, ref_dk), (dv, ref_dv)):
+        _dtype_close(ours, ref)
+    dead = ref_lse <= -1e29
+    assert torch.equal(lse <= -1e29, dead)
+    assert not out[dead].any() and not dq[dead].any()
+    if vl is not None and vl[0] == 0:
+        assert not dk[:h].any() and not dv[:h].any()
+
+
+def test_cuda_flash_bad_dtype_pair_raises():
+    """A pair with no instantiation, or k of another dtype than q, raises
+    before any launch; nothing is cast or routed to the plain version."""
+    dev = _need_cuda()
+    q, k, v, g, kvalid = _flash_inputs(1, 2, 64, 64, 32, None, dev)
+    n0 = fa.launch_count()
+    for qd, kd, vd in ((torch.bfloat16, torch.bfloat16, torch.float32),
+                       (torch.float16, torch.float16, torch.bfloat16),
+                       (torch.float32, torch.bfloat16, torch.bfloat16)):
+        with pytest.raises(MXNetError, match="no instantiation"):
+            fa.flash_fwd(q.to(qd), k.to(kd), v.to(vd), kvalid, True, 0, 0.1)
+        with pytest.raises(MXNetError, match="no instantiation"):
+            fa.attention(q[None].to(qd), k[None].to(kd), v[None].to(vd),
+                         causal=True)
+    assert fa.launch_count() == n0
+
+
+def test_cuda_sharded_bf16_step_matches_cpu():
+    """Three ``ShardedTrainer(dtype="bfloat16")`` steps of
+    ``llama_tiny_test`` with recompute on the card against the same steps
+    on the CPU. The bf16 products round in other places on the two
+    devices, so losses are held to 1e-4 and the weights to 8e-3 of how far
+    they moved, in norm (``tests/test_torch_sharded.py``'s measure).
+    Launches: layer 0's attention takes (f32, f32, bf16), the other layer's
+    f32, the forward twice a step (the recompute)."""
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    dev = _need_cuda()
+    trandom.seed(0)
+    cpu_model = get_llama("llama_tiny_test", device="cpu", trainable=True,
+                          remat=True)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    init = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, size=(2, 129)))
+    results = []
+    for model, d in ((cpu_model, "cpu"), (gpu_model, dev)):
+        tr = ShardedTrainer(model, tloss.SoftmaxCrossEntropyLoss(), "adam",
+                            {"learning_rate": 1e-3}, dtype="bfloat16")
+        x, y = toks[:, :-1].to(d), toks[:, 1:].to(d)
+        n0 = {p: fa.launch_count(p) for p in fa.DTYPE_PAIRS}
+        losses = [float(tr.step(x, y)) for _ in range(3)]
+        launched = {fa.pair_label(p): {n: fa.launch_count(p)[n] - n0[p][n]
+                                       for n in fa.KERNELS}
+                    for p in fa.DTYPE_PAIRS[:2]}
+        results.append((losses, launched))
+    (cpu_losses, cpu_launched), (gpu_losses, gpu_launched) = results
+    zero = dict.fromkeys(fa.KERNELS, 0)
+    assert cpu_launched == {"f32": zero, "f32_bf16": zero}
+    per_layer = {"fwd": 2 * 3, "bwd_dq": 3, "bwd_dkv": 3}
+    assert gpu_launched == {"f32": per_layer, "f32_bf16": per_layer}
+    assert gpu_losses[2] < gpu_losses[0]
+    np.testing.assert_allclose(gpu_losses, cpu_losses, atol=1e-4, rtol=0)
+    diff = moved = 0.0
+    for (name, a), b in zip(gpu_model.named_parameters(),
+                            cpu_model.parameters()):
+        diff += float(((a.detach().cpu() - b.detach()).double() ** 2).sum())
+        moved += float(((b.detach() - init[name]).double() ** 2).sum())
+    assert (diff / moved) ** 0.5 <= 8e-3
+
+
+def test_cuda_loss_scaler_overflow_skips_update():
+    """On the card: an inf gradient skips the update (weights bit for bit),
+    halves the scale and drops the gradients; the next clean step folds
+    the unscale in and matches the same step on the CPU."""
+    from mxnet_tpu_torch import amp
+
+    dev = _need_cuda()
+    torch.manual_seed(3)
+    cpu = torch.nn.Linear(8, 4)
+    gpu = copy.deepcopy(cpu).to(dev)
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(5, 8).astype(np.float32))
+    steps = []
+    for lin, d in ((cpu, "cpu"), (gpu, dev)):
+        tr = Trainer(lin.parameters(), "sgd", {"learning_rate": 0.1},
+                     loss_scaler=amp.LossScaler(init_scale=2.0 ** 10))
+        tr.scale_loss(lin(x.to(d)).square().sum()).backward()
+        lin.weight.grad[0, 0] = float("inf")
+        before = [p.detach().clone() for p in lin.parameters()]
+        tr.step(5)
+        assert all(torch.equal(a, b) for a, b in zip(lin.parameters(),
+                                                      before))
+        assert lin.weight.grad is None and tr.loss_scaler.loss_scale == 512.0
+        tr.scale_loss(lin(x.to(d)).square().sum()).backward()
+        tr.step(5)
+        steps.append([p.detach().cpu() for p in lin.parameters()])
+    for a, b in zip(*steps):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+
+
 # (lead, c1, cm, cout, residual, return_mid): the ResNet-50 boundary at
 # stage 1 and 4 widths on a few rows, a ragged M, cout != c1, Cout above
 # one block's 512 columns (a second grid dimension), channel counts that

@@ -332,3 +332,153 @@ def test_three_tf32_products_keep_forward_within_f32_tolerance(case):
         errs[passes] = max(float((ours - ref).abs().max())
                            for ours, ref in zip(got, want))
     assert errs[1] >= 10 * errs[3], errs
+
+
+# -- the reference's mixed input dtypes -----------------------------------------
+
+# (q/k dtype, v dtype) of the kernels' instantiations other than f32
+PAIRS = [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
+         (torch.float16, torch.float16)]
+PAIR_IDS = ["f32-bf16", "bf16", "f16"]
+_MANT = {torch.bfloat16: 7, torch.float16: 10}
+
+
+def _ulp(ref, dtype):
+    """One unit in the last place of ``dtype`` at |ref| (0 for f32)."""
+    if dtype not in _MANT:
+        return np.zeros_like(ref)
+    _, e = np.frexp(np.abs(ref).astype(np.float64))
+    lo = -14 if dtype == torch.float16 else -126
+    return np.ldexp(1.0, np.maximum(e - 1, lo) - _MANT[dtype])
+
+
+def _close_dtype(ours, ref, dtype, scale=None):
+    """Within the f32 tolerance plus one unit in the last place of the
+    output's dtype, at the larger of the two values (a rounding across a
+    power of two counts as one unit) or, given ``scale``, at ``scale``."""
+    ours, ref = ours.astype(np.float32), ref.astype(np.float32)
+    at = np.maximum(np.abs(ours), np.abs(ref)) if scale is None else scale
+    bound = ATOL + RTOL * np.abs(ref) + _ulp(np.asarray(at), dtype)
+    bad = np.abs(ours - ref) > bound
+    assert not bad.any(), (f"{int(bad.sum())} of {bad.size} beyond "
+                           f"tolerance, max {np.abs(ours - ref).max()}")
+
+
+def _jax_dtype(pair):
+    return [{torch.float32: "float32", torch.bfloat16: "bfloat16",
+             torch.float16: "float16"}[t] for t in pair]
+
+
+@pytest.mark.parametrize("case", [CASES[2], CASES[4]],
+                         ids=["causal-valid0", "tq>tk"])
+@pytest.mark.parametrize("pair", PAIRS, ids=PAIR_IDS)
+def test_flash_core_mixed_dtypes_match_pallas_interpret(pair, case):
+    """``_FlashCore`` on the kernels' plain versions against the Pallas
+    kernels (interpreter) on the same rounded inputs: out and dq in q's
+    dtype, dk in k's, dv in v's. Each computes in f32 and rounds once, so
+    out is within one unit in the last place of its dtype beyond the f32
+    tolerance. The backward reads that rounded out (delta = rowsum(g out)),
+    so one unit of out moves a gradient by an amount set by the gradients'
+    scale, not by the element's own size: a gradient is held to one unit
+    at its tensor's largest magnitude. Dead rows are exact zeros."""
+    import jax
+    import jax.numpy as jnp
+
+    b, h, tq, tk, d, causal, vl = case
+    qk, vt = pair
+    arrays = _inputs(b, h, tq, tk, d, seed=3)
+    ts = [torch.from_numpy(a).to(t)
+          for a, t in zip(arrays, (qk, qk, vt, qk))]
+    jq, jv = _jax_dtype(pair)
+    js = [jnp.asarray(t.float().numpy()).astype(dt)
+          for t, dt in zip(ts, (jq, jq, jv, jq))]
+    vlj = None if vl is None else jnp.asarray(np.array(vl, np.int32))
+    jfa.use_interpret(True)
+    try:
+        ref_out, vjp = jax.vjp(
+            lambda q_, k_, v_: jfa.attention(q_, k_, v_, causal=causal,
+                                             valid_length=vlj), *js[:3])
+        assert jfa.last_path() == "pallas"
+        ref_grads = vjp(js[3])
+    finally:
+        jfa.use_interpret(False)
+    leaves = [t.clone().requires_grad_() for t in ts[:3]]
+    vlt = None if vl is None else torch.tensor(vl, dtype=torch.int32)
+    out = fa.attention(*leaves, causal=causal, valid_length=vlt)
+    grads = torch.autograd.grad(out, leaves, ts[3])
+    assert fa.last_path() == "torch"
+    for ours, ref, dt in zip((out,) + grads, (ref_out,) + tuple(ref_grads),
+                             (qk, qk, qk, vt)):
+        assert ours.dtype == dt and str(ref.dtype) == _jax_dtype((dt, dt))[0]
+        ref = np.asarray(ref.astype(jnp.float32))
+        _close_dtype(ours.detach().float().numpy(), ref, dt,
+                     scale=None if ours is out else np.abs(ref).max())
+    if vl is not None and vl[0] == 0:
+        assert not out[0].any() and not any(x[0].any() for x in grads)
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=PAIR_IDS)
+def test_plain_attention_promotes_as_reference_attention(pair):
+    """``attention_torch`` (the dense-mask route) on mixed dtypes gives
+    ``_reference_attention``'s output dtype and values under ``jnp``
+    promotion."""
+    import jax.numpy as jnp
+
+    b, h, tq, tk, d, causal, vl = CASES[2]
+    qk, vt = pair
+    arrays = _inputs(b, h, tq, tk, d, seed=5)
+    ts = [torch.from_numpy(a).to(t) for a, t in zip(arrays, (qk, qk, vt))]
+    jq, jv = _jax_dtype(pair)
+    ref = jfa._reference_attention(
+        *[jnp.asarray(t.float().numpy()).astype(dt)
+          for t, dt in zip(ts, (jq, jq, jv))], causal=causal,
+        valid_length=jnp.asarray(np.array(vl, np.int32)))
+    out = fa.attention_torch(*ts, causal=causal,
+                             valid_length=torch.tensor(vl))
+    want = torch.promote_types(qk, vt)
+    assert out.dtype == want and str(ref.dtype) == _jax_dtype((want, want))[0]
+    # a product in the working dtype: the scores and weights round there
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               atol=3e-2 if want != torch.float32 else 1e-5,
+                               rtol=0)
+
+
+def test_kernel_dtype_pairs_and_refusals():
+    """The wrapper names each instantiation, builds a library per pair
+    (the f32 one with no defines) and refuses, before any launch, a pair
+    with no instantiation or k of another dtype than q."""
+    assert [fa.pair_label(p) for p in fa.DTYPE_PAIRS] == [
+        "f32", "f32_bf16", "f32_f16", "bf16", "f16"]
+    assert fa.build_spec(fa.DTYPE_PAIRS[0]) == ("flash_attention", ())
+    assert fa.build_spec((torch.float16, torch.float16)) == (
+        "flash_attention", ("MXTT_FLASH_QK=2", "MXTT_FLASH_V=2"))
+    kvalid = torch.full((1,), 8, dtype=torch.int32)
+
+    def qkv(qk, k, v):
+        return (torch.zeros(2, 8, 16, dtype=qk), torch.zeros(2, 8, 16,
+                                                             dtype=k),
+                torch.zeros(2, 8, 16, dtype=v))
+
+    for pair in fa.DTYPE_PAIRS:
+        assert fa._check_launch("fwd", *qkv(pair[0], *pair), kvalid,
+                                []) == pair
+    for q_dt, k_dt, v_dt in [(torch.bfloat16, torch.bfloat16, torch.float32),
+                             (torch.float16, torch.float16, torch.bfloat16),
+                             (torch.float32, torch.bfloat16, torch.bfloat16),
+                             (torch.float64, torch.float64, torch.float64)]:
+        with pytest.raises(MXNetError, match="no instantiation"):
+            fa._check_launch("fwd", *qkv(q_dt, k_dt, v_dt), kvalid, [])
+    q, k, v = qkv(torch.bfloat16, torch.bfloat16, torch.bfloat16)
+    rows = (2, 8)
+    for label, bad in (("g", {"g": q.float()}),
+                       ("lse", {"lse": torch.zeros(rows,
+                                                   dtype=torch.bfloat16)})):
+        rest = {"g": q, "lse": torch.zeros(rows), "delta": torch.zeros(rows)}
+        rest.update(bad)
+        with pytest.raises(MXNetError, match=f"{label} must be"):
+            fa._check_launch("bwd_dq", q, k, v, kvalid,
+                             fa._bwd_rest(q, rest["g"], rest["lse"],
+                                          rest["delta"]))
+    assert fa.launch_count((torch.float32, torch.bfloat16)) == dict.fromkeys(
+        fa.KERNELS, 0)

@@ -90,6 +90,18 @@ resilience.install_plan({"rules": [{"site": "x", "kind": "fatal", "at": [5]}]})
 resilience.clear_plan()
 tr = profiler.trace
 tr.enable(); assert tr.start_trace("iso") is not None; tr.disable()
+from mxnet_tpu_torch import amp, parallel
+remat = get_llama("llama_tiny_test", device="cpu", trainable=True, remat=True)
+st = parallel.ShardedTrainer(remat, gluon.loss.SoftmaxCrossEntropyLoss(),
+                             "adam", {"learning_rate": 1e-3},
+                             dtype="bfloat16")
+assert float(st.step(toks[:, :-1], toks[:, 1:])) > 0
+assert st.step_n(toks[None, :, :-1].repeat(2, 1, 1),
+                 toks[None, :, 1:].repeat(2, 1, 1)).shape == (2,)
+assert st.mesh.device.type == "cpu"
+scaler = amp.LossScaler(init_scale=4.0)
+tr2 = gluon.Trainer(model.parameters(), "sgd", loss_scaler=scaler)
+assert float(tr2.scale_loss(torch.tensor(1.0))) == 4.0
 assert not any(m == "jax" or m.startswith(("jax.", "mxnet_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ISOLATED_OK")
@@ -150,6 +162,9 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch):
         get_resnet(1, 50)
     with pytest.raises(MXNetError, match="CUDA is not available"):
         tdevice.resolve(None)
+    from mxnet_tpu_torch import parallel
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        parallel.make_mesh()
     with pytest.raises(MXNetError, match="CUDA is not available"):
         GraphSession("g", None)
     with pytest.raises(MXNetError, match="CUDA is not available"):
