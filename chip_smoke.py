@@ -131,7 +131,18 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    the last place of each output's dtype, launches counted on its pair;
    at the training shape two calls bit for bit, its time, bound and plain
    time, and for the one-dtype pairs the library forward and backward in
-   that dtype. No library time may beat its row's bound.
+   that dtype. No library time may beat its row's bound. Then BERT-base's
+   attention shape (B=64, H=12, T=128, D=64, non-causal, valid lengths 112
+   on every fourth row, 0 on row 1, else 128) in f32 and (bf16, bf16):
+   each kernel against its plain version, the row of length 0 and the
+   masked keys exact zeros, two calls bit for bit; each kernel's time,
+   bound (the masked keys and the dead row's queries not read) and plain
+   time, and ``scaled_dot_product_attention`` in the same dtype with a
+   boolean key mask as the yardstick, with the device kernels it ran (its
+   backend). Then Transformer-base's shapes as 10c runs them (B=192, H=8,
+   T=128, D=64, f32): the decoder's causal self-attention and the
+   encoder's and cross-attention's over 10c's source lengths, each kernel
+   against its plain version and two calls bit for bit.
 7. train: Llama-3-8B width (units 4096, FFN 14336, 32 heads, 8 KV heads,
    vocab 128256) at depth 4 with seeded weights, three Adam steps of
    ``gluon.Trainer`` on one next-token batch (B=2, T=2048): every layer's
@@ -176,6 +187,53 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    for a forward with the pair kernel's share of it (``torch.profiler``).
    The JSON line's bf16 launches are the served run's; its f32 launches
    are those of the f32 kernel arm's one forward, counted from 0.
+10a. bert serve: BERT-base (``bert_12_768_12``, seeded weights) under a
+   2-class ``BERTClassifier``, f32, ``eval()``, behind ``BERTStep`` (the
+   valid length from the pad mask), served by ``InferenceSession(
+   batch_buckets=(1, 8, 32), seq_buckets=(32, 64, 128), pad_value=0)``:
+   warmup (9 signatures), then requests of 1 x 20, 5 x 50 (its last row
+   all padding, so valid length 0, as are the rows the bucket adds) and
+   32 x 128 tokens. Each forward launches the flash forward once a layer
+   (12), nothing is new after warmup, the logits are finite and within
+   1e-4 of the largest logit of the same requests with the plain
+   attention forced. Printed: ms a request at each size, samples/s at
+   batch 32 (three rounds), one forward's device time and the flash
+   forward's share of it.
+10b. bert train: bench.py's ``_bert_setup``: ``BERTForPretrain`` over
+   BERT-base (dropout 0.1) behind ``BERTStep``, B=64, T=128, tokens from
+   1..29999 with every fourth row padded from position 112, random MLM
+   and NSP labels, loss ``ce(mlm).mean() + ce(nsp).mean()``, under
+   ``ShardedTrainer(..., "adam", {"learning_rate": 1e-4},
+   dtype="bfloat16")``: three ``step()`` calls, a ``step_n`` window of
+   three on a fresh model from the same seed (weights and dropout stream;
+   its losses equal the steps' bit for bit), the same steps on two plain
+   routes, the kernels' plain versions (``force_path("versions")``: f32
+   scores, as the kernels) and ``force_path("torch")``
+   (``attention_torch``: bf16 scores, as the JAX package's XLA path), and
+   the same batch and steps in f32 through ``gluon.Trainer`` as the
+   yardstick. Every attention is (bf16, bf16): each flash kernel launches
+   12 x 3 times on that pair and on no other, the plain routes none; the
+   loss is finite (it need not fall: bench.py's Adam at 1e-4 with no
+   warmup raises it over the first steps, in the JAX package too). The
+   kernel route against each plain route: each step's loss within
+   LOSS_ATOL + ROUTE_SCALE times the widest gap at that step among the
+   plain routes and the f32 run, and the weights within ROUTE_SCALE times
+   the plain routes' distance from each other. Then the first step's
+   gradients: in f32 the kernels within GRAD_RTOL of the plain versions;
+   in bf16 the kernels within ROUTE_SCALE times the plain routes' distance
+   from each other of each. Printed for the bf16 and f32 runs: step ms,
+   samples/s over a window of RATE_STEPS steps (its fastest, median and
+   slowest step), peak memory, and from one profiled step the flash
+   kernels' device ms and share.
+10c. transformer: Transformer-base (units 512, FFN 2048, 8 heads, 6 + 6
+   layers, a tied 37000-token vocabulary, dropout 0.1), three f32 Adam
+   steps of ``gluon.Trainer`` at B=192, T_src = T_tgt = 128 with seeded
+   source lengths: each flash kernel launches 18 times a step (6 encoder,
+   6 causal decoder and 6 cross-attentions), the loss is finite and
+   falls; the first step's gradients and the losses and weights after
+   three steps on the kernels lie within ROUTE_SCALE times the two plain
+   routes' own distance of each. Printed:
+   step ms and target tokens/s.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, the result line. Without CUDA, or without the package next to
@@ -287,6 +345,41 @@ RESNET_BUCKETS = (1, 8, 32)
 RESNET_REQUESTS = (1, 5, 32)
 RESNET_PAIRS = 12           # block boundaries of one ResNet-50 forward
 LOGIT_F32_TOL, LOGIT_BF16_TOL = 1e-4, 5e-2
+# phases 6 and 10: BERT-base as bench.py's _bert_setup trains it (batch 64,
+# sequence 128, tokens drawn from 1..29999, every fourth row padded from
+# position 112) and serves it; Transformer-base (Vaswani et al. 2017:
+# units 512, FFN 2048, 8 heads, 6 + 6 layers, a shared vocabulary of 37000)
+BERT_CONFIG = "bert_12_768_12"
+BERT_LAYERS, BERT_HEADS, BERT_D = 12, 12, 64
+BERT_B, BERT_T, BERT_TOKENS, BERT_PAD_FROM = 64, 128, 30000, 112
+BERT_BUCKETS, BERT_SEQ_BUCKETS = (1, 8, 32), (32, 64, 128)
+BERT_REQUESTS = ((1, 20), (5, 50), (32, 128))   # (rows, tokens)
+MT_VOCAB, MT_B, MT_T, MT_LAYERS, MT_HEADS, MT_D = (37000, 192, 128,
+                                                  6, 8, 64)
+# phase 10: the routes of a BERT or Transformer step. Two plain routes
+# compute the same attention and differ only in where they round: the
+# kernels' plain versions (force_path("versions"): f32 scores, as the
+# kernels) and attention_torch (force_path("torch"); the JAX package's XLA
+# formula, which rounds bf16 scores to bf16). A fixed limit does not carry
+# over from phase 7: on an H100 the two plain routes' first-step gradients
+# part by 6.2e-4 of their norm at Transformer-base's B=192 (5e-7 at B=4),
+# and BERT-base's bf16 step turns any last-bit difference into bf16's own
+# noise within three Adam steps (the kernels 9.3e-2 of the movement from
+# either plain route, these 9.2e-2 from each other, bf16 0.115 from f32),
+# while phase 6 holds each kernel to its plain version at 1e-5. So the
+# kernel route is held within ROUTE_SCALE times the noise of each plain
+# route: the two plain routes' own distance for the weights and first-step
+# gradients (sums over 1e8 entries, a steady measure), and for the losses
+# (plus LOSS_ATOL) the widest gap at the step among the runs that are not
+# the kernels': in bf16 (10b) a loss is one draw of bf16's noise, and one
+# pair of draws measures it badly (the plain routes 3.0e-4 apart at step 1
+# where each lies 7.1e-2 from the f32 run), so there the f32 run, the same
+# batch and steps without bf16's rounding, joins the plain routes. In f32
+# the first-step gradients are also held within GRAD_RTOL of the plain
+# versions' (2.8e-6 of the norm on an H100 at BERT-base)
+ROUTE_SCALE = 2
+GRAD_RTOL = 1e-5
+RATE_STEPS = 10      # 10b: steps of the window samples/s is taken over
 
 
 class CheckFailed(Exception):
@@ -585,22 +678,41 @@ def product_s_per_flop(a, b):
     return {"bf16": 3, "f16": 2}[narrow] / BF16_FLOP_PER_S
 
 
+def live_rows_keys(b, tq, tk, causal, vl):
+    """(query rows with a kept key, keys some query keeps) of one head,
+    summed over the batch: the rows and keys of q, g, lse, delta and of k,
+    v that a flash kernel must read on these inputs."""
+    rows = keys = 0
+    for kv in (vl if vl is not None else [tk] * b):
+        kv = max(0, min(kv, tk))
+        if kv:
+            # causal: query q keeps keys up to q + tk - tq
+            rows += tq - (min(tq, max(0, tq - tk)) if causal else 0)
+            keys += kv
+    return rows, keys
+
+
 def flash_bound(kernel, b, h, tq, tk, d, causal, vl, qk="f32", v="f32"):
     """Least time (ms) of one launch on inputs of types ``qk`` (q, k, g)
-    and ``v``: its inputs read and outputs written once over the memory
-    rate (q, k, g, out, dq, dk in ``qk``, v and dv in ``v``, lse and delta
-    f32), against its products (FLASH_PRODUCTS, 2 D flops a kept pair each)
-    at the least each costs for its operand types (product_s_per_flop).
-    Returns (ms, "bytes" | "operations", f32 ms): the bound and, beside it,
-    the bound with every flop at the f32 rate outside the tensor cores."""
+    and ``v``: its inputs read once where a kept pair needs them (the rows
+    and keys of live_rows_keys: a key past its valid length, or a query
+    row with no kept key, is never read) and its outputs written whole
+    (dead rows as zeros) over the memory rate (q, k, g, out, dq, dk in
+    ``qk``, v and dv in ``v``, lse and delta f32), against its products
+    (FLASH_PRODUCTS, 2 D flops a kept pair each) at the least each costs
+    for its operand types (product_s_per_flop). Returns (ms, "bytes" |
+    "operations", f32 ms): the bound and, beside it, the bound with every
+    flop at the f32 rate outside the tensor cores."""
     elem = {"f32": 4, "bf16": 2, "f16": 2}
-    q_bytes, k_bytes = b * h * tq * d * elem[qk], b * h * tk * d * elem[qk]
-    v_bytes = b * h * tk * d * elem[v]
-    rows = b * h * tq * 4
-    nbytes = {"fwd": 2 * q_bytes + k_bytes + v_bytes + rows,
-              "bwd_dq": 3 * q_bytes + k_bytes + v_bytes + 2 * rows,
-              "bwd_dkv": 2 * q_bytes + 2 * k_bytes + 2 * v_bytes
-              + 2 * rows}[kernel] + 4 * b
+    rows, keys = live_rows_keys(b, tq, tk, causal, vl)
+    q_in, q_out = h * rows * d * elem[qk], b * h * tq * d * elem[qk]
+    k_in, k_out = h * keys * d * elem[qk], b * h * tk * d * elem[qk]
+    v_in, v_out = h * keys * d * elem[v], b * h * tk * d * elem[v]
+    r_in, r_out = h * rows * 4, b * h * tq * 4
+    nbytes = {"fwd": q_in + k_in + v_in + q_out + r_out,
+              "bwd_dq": 2 * q_in + k_in + v_in + 2 * r_in + q_out,
+              "bwd_dkv": 2 * q_in + k_in + v_in + 2 * r_in + k_out
+              + v_out}[kernel] + 4 * b
     types = {"qk": qk, "v": v, "f32": "f32"}
     flops = 2 * d * pairs_kept(b, h, tq, tk, causal, vl)  # one product's
     products = FLASH_PRODUCTS[kernel]
@@ -924,6 +1036,169 @@ def flash_dtype_phase(torch, fa, flush, dev):
                     library_ms=("none" if lib[name] is None
                                 else f"{lib[name]:.6f}"))
         out[label] = res
+    torch.cuda.empty_cache()
+    return out
+
+
+def bert_valid_lengths():
+    """Phase 6's key lengths at BERT's attention shape: the training
+    batch's (112 on every fourth row, the rest 128), with row 1 all
+    padding (0)."""
+    vl = [BERT_PAD_FROM if i % 4 == 0 else BERT_T for i in range(BERT_B)]
+    vl[1] = 0
+    return vl
+
+
+def flash_case_check(torch, fa, dev, what, b, h, tq, tk, d, causal, vl,
+                     dtype, seed):
+    """Each flash kernel against its plain version on seeded inputs of
+    ``dtype`` (q, k, v, g) at one main-path shape: within ATOL / RTOL plus
+    one unit in the last place, launches counted on its pair, the rows and
+    keys the masks drop exact zeros (lse -1e30), two calls bit for bit.
+    Returns ({kernel: {"max_abs_err"}}, the inputs and plain outputs)."""
+    pair = (dtype, dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b * h, tq, d, device=dev, generator=gen).to(dtype)
+    k, v = (torch.randn(b * h, tk, d, device=dev, generator=gen).to(dtype)
+            for _ in range(2))
+    g = torch.randn(b * h, tq, d, device=dev, generator=gen).to(dtype)
+    kvalid = fa.kvalid_of(None if vl is None else torch.tensor(vl), b, tk,
+                          dev)
+    args = (kvalid, causal, tk - tq, d ** -0.5)
+    n0 = fa.launch_count(pair)
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    check(fa.last_path() == "cuda", "flash call did not take the kernel")
+    ref_o, ref_lse = fa.flash_fwd_torch(q, k, v, *args)
+    delta = (g.float() * ref_o.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, g, ref_lse, delta, *args)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, g, ref_lse, delta, *args)
+    torch.cuda.synchronize()
+    check(fa.launch_count(pair) == {n: c + 1 for n, c in n0.items()},
+          f"flash {what}: launches not counted on its pair")
+    ref_dq = fa.flash_bwd_dq_torch(q, k, v, g, ref_lse, delta, *args)
+    ref_dk, ref_dv = fa.flash_bwd_dkv_torch(q, k, v, g, ref_lse, delta,
+                                            *args)
+    res = {}
+    for name, pairs in (("fwd", ((o, ref_o), (lse, ref_lse))),
+                        ("bwd_dq", ((dq, ref_dq),)),
+                        ("bwd_dkv", ((dk, ref_dk), (dv, ref_dv)))):
+        err = 0.0
+        for ours, ref in pairs:
+            check(ours.dtype == ref.dtype and bool(torch.isfinite(ours).all()),
+                  f"flash {what} {name}: {ours.dtype} or not finite")
+            a, r = ours.float(), ref.float()
+            diff = (a - r).abs()
+            bound = ATOL + RTOL * r.abs() + ulp(
+                torch, torch.maximum(a.abs(), r.abs()), ours.dtype)
+            check(bool((diff <= bound).all()),
+                  f"flash {what} {name} disagrees with plain: "
+                  f"max_abs_err={float(diff.max())}")
+            err = max(err, float(diff.max()))
+        res[name] = {"max_abs_err": err}
+    rows, _ = live_rows_keys(b, tq, tk, causal, vl)
+    dead = ref_lse <= -1e29
+    cut = (torch.arange(tk, device=dev)[None, :]
+           >= kvalid.repeat_interleave(h)[:, None])    # keys never kept
+    check(int(dead.sum()) == b * h * tq - h * rows
+          and bool(torch.equal(lse <= -1e29, dead))
+          and not bool(o[dead].any()) and not bool(dq[dead].any())
+          and not bool(dk[cut].any()) and not bool(dv[cut].any()),
+          f"flash {what}: masked rows or keys are not zeros")
+    again = (fa.flash_fwd(q, k, v, *args),
+             fa.flash_bwd_dq(q, k, v, g, ref_lse, delta, *args),
+             fa.flash_bwd_dkv(q, k, v, g, ref_lse, delta, *args))
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(
+        (again[0][0], again[0][1], again[1], again[2][0], again[2][1]),
+        (o, lse, dq, dk, dv))), f"flash {what}: two calls differ")
+    say("flash bert" if what.startswith("bert") else "flash transformer",
+        case=what, B=b, H=h, Tq=tq, Tk=tk, D=d, causal=causal,
+        valid_length=("all" if vl is None else f"{min(vl)}..{max(vl)}, "
+                      f"mean {statistics.mean(vl):.2f}"),
+        dead_rows=int(dead.sum()), masked_keys=int(cut.sum()),
+        **{f"{n}_max_abs_err": f"{r['max_abs_err']:.3e}"
+           for n, r in res.items()})
+    return res, (q, k, v, g, ref_lse, delta, args)
+
+
+def mt_data(np):
+    """Phase 10c's batch: source, target and label tokens, and the
+    seeded source lengths (64..128)."""
+    rng = np.random.RandomState(0)
+    src, tgt, labels = (rng.randint(1, MT_VOCAB, (MT_B, MT_T)).astype(
+        np.int64) for _ in range(3))
+    svl = rng.randint(MT_T // 2, MT_T + 1, (MT_B,)).astype(np.int64)
+    return src, tgt, labels, svl
+
+
+def flash_bert_phase(torch, np, fa, flush, dev):
+    """Phase 6 at BERT-base's attention shape (B=64, H=12, T=128, D=64,
+    non-causal, bert_valid_lengths()), in f32 and (bf16, bf16): each kernel
+    against its plain version (flash_case_check); its time, bound and
+    plain time, and the library: one ``scaled_dot_product_attention`` call
+    in the same dtype with a boolean key mask (forward; backward for dq,
+    dk, dv), with the device kernels it ran. Then Transformer-base's two
+    shapes (B=192, H=8, T=128, D=64, f32, as 10c runs them): the decoder's
+    causal self-attention and the encoder's and cross-attention's
+    non-causal one over 10c's source lengths, checked alone. Returns
+    {"f32" | "bf16": {kernel: numbers}}."""
+    import torch.nn.functional as F
+
+    b, h, t, d = BERT_B, BERT_HEADS, BERT_T, BERT_D
+    vl = bert_valid_lengths()
+    keep = (torch.arange(t, device=dev)[None, :]
+            < torch.tensor(vl, device=dev)[:, None])[:, None, None, :]
+    out = {}
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        res, (q, k, v, g, ref_lse, delta, args) = flash_case_check(
+            torch, fa, dev, f"bert {label}", b, h, t, t, d, False, vl, dtype,
+            300)
+        calls = {"fwd": lambda: fa.flash_fwd(q, k, v, *args),
+                 "bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, g, ref_lse,
+                                                   delta, *args),
+                 "bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, g, ref_lse,
+                                                     delta, *args)}
+        plains = {"fwd": lambda: fa.flash_fwd_torch(q, k, v, *args),
+                  "bwd_dq": lambda: fa.flash_bwd_dq_torch(
+                      q, k, v, g, ref_lse, delta, *args),
+                  "bwd_dkv": lambda: fa.flash_bwd_dkv_torch(
+                      q, k, v, g, ref_lse, delta, *args)}
+        q4, k4, v4, g4 = (x.view(b, h, t, d) for x in (q, k, v, g))
+        lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=keep), flush)
+        fwd_kernels = device_kernels(
+            torch, lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                          attn_mask=keep))
+        qr, kr, vr = (x.detach().clone().requires_grad_()
+                      for x in (q4, k4, v4))
+        lib_out = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=keep)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qr, kr, vr), g4, retain_graph=True), flush)
+        bwd_kernels = device_kernels(torch, lambda: torch.autograd.grad(
+            lib_out, (qr, kr, vr), g4, retain_graph=True))
+        say("flash bert", pair=label, library="sdpa with a boolean key mask",
+            sdpa_forward_kernels=json.dumps(sorted(fwd_kernels)),
+            sdpa_backward_kernels=json.dumps(sorted(bwd_kernels)))
+        del qr, kr, vr, lib_out
+        for name in fa.KERNELS:
+            k_ms = time_ms(torch, calls[name], flush)
+            p_ms = time_ms(torch, plains[name], flush)
+            bound, bound_by, bound_f32 = flash_bound(
+                name, b, h, t, t, d, False, vl, label, label)
+            lib_ms = lib_fwd if name == "fwd" else lib_bwd
+            res[name].update(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                             bound_by=bound_by, library_ms=lib_ms)
+            say("flash bert", pair=label, kernel=name, kernel_ms=f"{k_ms:.6f}",
+                bound_ms=f"{bound:.6f}", bound_by=bound_by,
+                bound_f32_ms=f"{bound_f32:.6f}", plain_ms=f"{p_ms:.6f}",
+                library_ms=f"{lib_ms:.6f}",
+                kernel_over_library=f"{k_ms / lib_ms:.3f}")
+        out[label] = res
+    svl = [int(x) for x in mt_data(np)[3]]
+    for what, causal, lengths in (("transformer decoder self", True, None),
+                                  ("transformer encoder/cross", False, svl)):
+        flash_case_check(torch, fa, dev, what, MT_B, MT_HEADS, MT_T, MT_T,
+                         MT_D, causal, lengths, torch.float32, 301)
     torch.cuda.empty_cache()
     return out
 
@@ -1517,6 +1792,486 @@ def resnet_phase(torch, np, mt, c1x1, vision, fuse, Session, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def request_ms(torch, sess, batch, reps=10):
+    """Median ms of ``sess.predict(batch)`` (host padding and copy
+    included): CUDA events around each call, after two warm calls."""
+    return 1e3 * batch.shape[0] / img_s(torch, sess, batch, reps)[0]
+
+
+def flash_share(torch, kernels):
+    """(device ms of the three flash kernels, of everything) in a
+    ``device_kernels`` reading."""
+    flash = sum(ms for name, ms in kernels.items()
+                if any(f"flash_{k}" in name for k in ("fwd", "bwd_dq",
+                                                      "bwd_dkv")))
+    return flash, sum(kernels.values())
+
+
+def bert_serve_phase(torch, np, mt, fa, models, Session, dev):
+    """Phase 10a: BERT-base's classifier (f32, eval) behind ``BERTStep``,
+    served by ``InferenceSession`` over (batch, seq) buckets. Returns the
+    served run's launches by kernel (of the f32 pair)."""
+    mt.random.seed(0)
+    t0 = time.perf_counter()
+    block = models.BERTStep(models.BERTClassifier(
+        models.get_bert_model(BERT_CONFIG, device=dev), num_classes=2)).eval()
+    torch.cuda.synchronize()
+    say("bert serve", model=BERT_CONFIG, head="BERTClassifier(2)",
+        params=sum(p.numel() for p in block.parameters()),
+        init_s=f"{time.perf_counter() - t0:.3f}")
+    rng = np.random.RandomState(0)
+    requests = [rng.randint(1, BERT_TOKENS, size=shape).astype(np.int64)
+                for shape in BERT_REQUESTS]
+    # a row of padding only (valid_length 0: every key masked); the rows the
+    # batch bucket adds repeat it, as the session pads by edge
+    requests[1][-1] = 0
+    forwards = []
+    hook = block.register_forward_pre_hook(
+        lambda mod, a: forwards.append(tuple(a[0].shape)))
+    # the main path: counts to 0, warm up and serve, read the counts
+    fa.reset_launch_count()
+    sess = Session(block, batch_buckets=BERT_BUCKETS,
+                   seq_buckets=BERT_SEQ_BUCKETS, pad_value=0,
+                   name="bert_base")
+    t0 = time.perf_counter()
+    sigs = sess.warmup(requests[0])
+    warm_s = time.perf_counter() - t0
+    outs = [sess.predict(r) for r in requests]
+    torch.cuda.synchronize()
+    sess.assert_no_recompiles()
+    served = fa.launch_count((torch.float32, torch.float32))
+    hook.remove()
+    check(fa.launch_count() == served == {
+        "fwd": BERT_LAYERS * len(forwards), "bwd_dq": 0, "bwd_dkv": 0},
+          f"bert serve: {fa.launch_count()} launches for {len(forwards)} "
+          "forwards")
+    check(sigs == len(BERT_BUCKETS) * len(BERT_SEQ_BUCKETS),
+          f"bert serve: {sigs} signatures after warmup")
+    fa.force_path("torch")
+    try:
+        plain = [sess.predict(r) for r in requests]
+    finally:
+        fa.force_path(None)
+    sess.assert_no_recompiles()
+    errs = []
+    for r, o, p in zip(requests, outs, plain):
+        check(tuple(o.shape) == (r.shape[0], 2) and o.dtype == torch.float32,
+              f"bert logits {tuple(o.shape)} {o.dtype}")
+        check(bool(torch.isfinite(o).all()), "bert logits not finite")
+        errs.append(float((o - p).abs().max() / p.abs().max()))
+    say("bert serve", warmup_s=f"{warm_s:.3f}", signatures=sigs,
+        forwards=len(forwards), fwd_launches=served["fwd"],
+        requests=[list(r.shape) for r in requests],
+        valid_length_0_rows=1,
+        max_rel_diff_to_plain=[f"{e:.3e}" for e in errs])
+    check(max(errs) <= LOGIT_F32_TOL, f"bert logits differ from the plain "
+          f"route by {max(errs)} of the largest logit")
+    ms = [request_ms(torch, sess, r) for r in requests]
+    rates = [img_s(torch, sess, requests[2])[0] for _ in range(3)]
+    say("bert serve", ms_per_request={f"{n}x{t}": f"{m:.3f}" for (n, t), m
+                                      in zip(BERT_REQUESTS, ms)},
+        batch=32, rounds=3, samples_s=[f"{x:.3f}" for x in rates],
+        samples_s_median=f"{statistics.median(rates):.3f}")
+    x = torch.from_numpy(requests[2]).to(dev)
+    with torch.inference_mode():
+        flash, total = flash_share(torch, device_kernels(
+            torch, lambda: block(x)))
+    if total:
+        say("bert serve", batch=32, T=128, forward_device_ms=f"{total:.4f}",
+            flash_fwd_device_ms=f"{flash:.4f}",
+            flash_share=f"{flash / total:.4f}")
+    else:
+        say("bert serve", forward_device_ms="not measured (no device time "
+            "in the profiler trace)")
+    del block, sess, x
+    free_cuda(torch)
+    return served
+
+
+def bert_batch(np):
+    """bench.py's _bert_setup batch: tokens, MLM labels, NSP labels."""
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(1, BERT_TOKENS, (BERT_B, BERT_T)).astype(np.int64)
+    tokens[::4, BERT_PAD_FROM:] = 0
+    mlm = rng.randint(1, BERT_TOKENS, (BERT_B, BERT_T)).astype(np.int64)
+    nsp = rng.randint(0, 2, (BERT_B,)).astype(np.int64)
+    return tokens, mlm, nsp
+
+
+def bert_train_run(torch, mt, fa, models, ShardedTrainer, Trainer, loss_mod,
+                   dev, batch, route, mode, keep, profile):
+    """Three Adam steps (lr 1e-4) of BERT-base pretraining (MLM + NSP,
+    dropout 0.1) behind ``BERTStep`` on ``batch``, the attention on
+    ``route``. ``mode``: "steps" (three ``step()`` of
+    ``ShardedTrainer(dtype="bfloat16")``), "step_n" (one window of three)
+    or "f32" (``gluon.Trainer`` in f32); ``route`` None (the kernels),
+    "versions" or "torch" (``force_path(route)``). The weights and the
+    dropout stream come from seed 0. ``keep``: "both" (initial and final
+    weights), "final" or None. With ``profile``, RATE_STEPS more steps
+    are timed after the final weights are taken, then two more run, the
+    second under the profiler. Returns a dict."""
+    ce = loss_mod.SoftmaxCrossEntropyLoss()
+
+    def loss_fn(outs, labels):
+        return ce(outs[0], labels[0]).mean() + ce(outs[1], labels[1]).mean()
+
+    mt.random.seed(0)
+    net = models.BERTStep(models.BERTForPretrain(
+        models.get_bert_model(BERT_CONFIG, device=dev)))
+    initial = ({n: p.detach().to("cpu", copy=True)
+                for n, p in net.named_parameters()}
+               if keep == "both" else None)
+    tokens, mlm, nsp = (torch.from_numpy(a).to(dev) for a in batch)
+    if mode == "f32":
+        trainer = Trainer(net.parameters(), "adam",
+                          {"learning_rate": TRAIN_LR})
+
+        def step():
+            loss = loss_fn(net(tokens), (mlm, nsp))
+            loss.backward()
+            trainer.step(1)       # the loss is already the batch mean
+            return loss.detach()
+    else:
+        trainer = ShardedTrainer(net, loss_fn, "adam",
+                                 {"learning_rate": TRAIN_LR},
+                                 dtype="bfloat16")
+
+        def step():
+            return trainer.step(tokens, (mlm, nsp))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_count()
+    fa.force_path(route)
+    try:
+        if mode == "step_n":
+            n = TRAIN_STEPS
+            t0 = time.perf_counter()
+            losses = [float(v) for v in trainer.step_n(
+                tokens.expand(n, *tokens.shape),
+                (mlm.expand(n, *mlm.shape), nsp.expand(n, *nsp.shape)))]
+            step_ms = [(time.perf_counter() - t0) * 1e3 / n] * n
+        else:
+            losses, step_ms = [], []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                losses.append(float(step()))   # waits for the step
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {fa.pair_label(p): fa.launch_count(p)
+                    for p in fa.DTYPE_PAIRS}
+        peak = torch.cuda.max_memory_allocated()
+        final = ({n: p.detach().to("cpu", copy=True)
+                  for n, p in net.named_parameters()} if keep else None)
+        window = prof = None
+        if profile:
+            window = []
+            for _ in range(RATE_STEPS):
+                t0 = time.perf_counter()
+                float(step())
+                window.append((time.perf_counter() - t0) * 1e3)
+            prof = flash_share(torch, device_kernels(torch, step))
+    finally:
+        fa.force_path(None)
+    del net, trainer, tokens, mlm, nsp
+    free_cuda(torch)
+    return {"losses": losses, "step_ms": step_ms, "launches": launches,
+            "peak": peak, "final": final, "initial": initial,
+            "window": window, "prof": prof}
+
+
+def grad_distance(a, b):
+    """Norm of the difference of two {name: gradient} over the norm of
+    ``b``'s."""
+    diff = sum(float(((a[n] - g).double() ** 2).sum()) for n, g in b.items())
+    return (diff / sum(float((g.double() ** 2).sum())
+                       for g in b.values())) ** 0.5
+
+
+def bert_first_grads(torch, mt, fa, models, ShardedTrainer, loss_fn, dev,
+                     batch, route, dtype):
+    """The f32 masters' gradients of BERT-base pretraining's first step
+    (seed 0, dropout on) through ``ShardedTrainer(dtype=dtype)``, on
+    ``route``: the step's forward and backward without the update."""
+    mt.random.seed(0)
+    net = models.BERTStep(models.BERTForPretrain(
+        models.get_bert_model(BERT_CONFIG, device=dev)))
+    trainer = ShardedTrainer(net, loss_fn, "adam",
+                             {"learning_rate": TRAIN_LR}, dtype=dtype)
+    tokens, mlm, nsp = (torch.from_numpy(a).to(dev) for a in batch)
+    fa.force_path(route)
+    try:
+        with trainer._train_mode():
+            trainer._loss(tokens, (mlm, nsp)).backward()
+    finally:
+        fa.force_path(None)
+    return {n: p.grad for n, p in net.named_parameters()}
+
+
+def route_distances(phase, torch, dev, runs, initial, ref, against):
+    """Losses (largest difference over the steps) and weights (norm of the
+    difference over the norm of ``ref``'s movement) of each run named in
+    ``against`` from run ``ref``, printed with where the weight difference
+    lies; returns {name: (loss gap, largest weight difference,
+    relative)}."""
+    r = runs[ref]
+    out = {}
+    for label in against:
+        p = runs[label]
+        gap = max(abs(x - y) for x, y in zip(r["losses"], p["losses"]))
+        max_diff, rel, worst = route_agreement(torch, dev, r["final"],
+                                               p["final"], initial, top=4)
+        say(phase, run=ref, against=label, loss_max_diff=f"{gap:.3e}",
+            param_max_abs_diff=f"{max_diff:.3e}",
+            param_diff_over_movement=f"{rel:.3e}",
+            largest_shares=json.dumps([[n, round(x, 4)] for n, x in worst]),
+            **diff_bands(torch, dev, r["final"], p["final"], TRAIN_LR))
+        out[label] = (gap, max_diff, rel)
+    return out
+
+
+def bert_train_phase(torch, np, mt, fa, models, ShardedTrainer, Trainer,
+                     loss_mod, dev):
+    """Phase 10b: BERT-base pretraining as bench.py trains it, under
+    ``ShardedTrainer(dtype="bfloat16")``: three ``step()`` calls, a
+    ``step_n`` window of three from the same seed (bit for bit), the steps
+    on both plain routes and the f32 ``gluon.Trainer`` yardstick; the
+    kernel route's losses, weights and first-step gradients within
+    ROUTE_SCALE times the noise of each plain route, and its f32 first-step
+    gradients within GRAD_RTOL of the plain versions'. Returns the kernel
+    route's launches by dtype pair and the f32 run's."""
+    batch = bert_batch(np)
+    runs = {}
+    for label, route, mode, keep, profile in (
+            ("kernel", None, "steps", "both", True),
+            ("kernel step_n", None, "step_n", None, False),
+            ("plain versions", "versions", "steps", "final", False),
+            ("forced plain", "torch", "steps", "final", False),
+            ("f32", None, "f32", "final", True)):
+        r = bert_train_run(torch, mt, fa, models, ShardedTrainer, Trainer,
+                           loss_mod, dev, batch, route, mode, keep, profile)
+        ms = statistics.mean(r["step_ms"][1:])
+        fields = {}
+        if r["window"]:
+            w = r["window"]
+            r["rate"] = BERT_B * len(w) / (sum(w) / 1e3)
+            fields = dict(window_steps=len(w),
+                          window_step_ms=f"{min(w):.3f}/"
+                          f"{statistics.median(w):.3f}/{max(w):.3f}",
+                          window_samples_s=f"{r['rate']:.3f}")
+        if r["prof"] and r["prof"][1]:
+            flash, total = r["prof"]
+            fields.update(step_device_ms=f"{total:.3f}",
+                          flash_ms_per_step=f"{flash:.3f}",
+                          flash_share=f"{flash / total:.4f}")
+        elif r["prof"]:
+            fields.update(step_device_ms="not measured (no device time in "
+                          "the profiler trace)")
+        say("bert train", route=label,
+            dtype="float32" if mode == "f32" else "bfloat16",
+            trainer="gluon.Trainer" if mode == "f32" else "ShardedTrainer",
+            B=BERT_B, T=BERT_T, losses=[f"{x:.6f}" for x in r["losses"]],
+            step_ms=[f"{x:.3f}" for x in r["step_ms"]],
+            samples_s=f"{BERT_B / (ms / 1e3):.3f}", peak_mem_bytes=r["peak"],
+            launches=json.dumps({k: v for k, v in r["launches"].items()
+                                 if any(v.values())}), **fields)
+        # finite, but not falling: bench.py's Adam at 1e-4 with no warmup
+        # raises BERT's loss over the first steps, in the JAX package too
+        check(all(np.isfinite(r["losses"])), f"bert {label}: loss not finite")
+        r["ms"] = ms
+        runs[label] = r
+    zero = dict.fromkeys(fa.KERNELS, 0)
+    bf16 = fa.pair_label((torch.bfloat16, torch.bfloat16))
+    want = {fa.pair_label(p): zero for p in fa.DTYPE_PAIRS}
+    want[bf16] = dict.fromkeys(fa.KERNELS, BERT_LAYERS * TRAIN_STEPS)
+    for label in ("kernel", "kernel step_n"):
+        check(runs[label]["launches"] == want, f"bert {label} launched "
+              f"{runs[label]['launches']}, want {want}")
+    for label in ("plain versions", "forced plain"):
+        check(all(v == zero for v in runs[label]["launches"].values()),
+              f"bert {label} launched the kernels: "
+              f"{runs[label]['launches']}")
+    f32_want = dict(want, **{bf16: zero, "f32": want[bf16]})
+    check(runs["f32"]["launches"] == f32_want, f"bert f32 launched "
+          f"{runs['f32']['launches']}, want {f32_want}")
+    k, f = runs["kernel"], runs["f32"]
+    window = runs["kernel step_n"]["losses"]
+    say("bert train", step_n_losses_equal=window == k["losses"])
+    check(window == k["losses"], f"bert step_n's losses {window} are not "
+          f"step()'s {k['losses']}")
+    # the yardstick, printed: each bf16 route's distance from the f32 run
+    gaps = route_distances("bert train", torch, dev, runs, k["initial"],
+                           "f32", ("kernel", "plain versions",
+                                   "forced plain"))
+    plain = route_distances("bert train", torch, dev, runs, k["initial"],
+                            "plain versions", ("forced plain",))
+    _, _, scale_rel = plain["forced plain"]
+    others = [runs[n]["losses"] for n in ("plain versions", "forced plain",
+                                          "f32")]
+    scale_loss = [max(xs) - min(xs) for xs in zip(*others)]
+    say("bert train", loss_noise_per_step=[f"{x:.3e}" for x in scale_loss],
+        weight_noise=f"{scale_rel:.3e}",
+        kernel_from_f32=f"{gaps['kernel'][2]:.3e}")
+    for label, (_, max_diff, rel) in route_distances(
+            "bert train", torch, dev, runs, k["initial"], "kernel",
+            ("plain versions", "forced plain")).items():
+        for step, (a, b, lim) in enumerate(zip(
+                k["losses"], runs[label]["losses"], scale_loss)):
+            check(abs(a - b) <= LOSS_ATOL + ROUTE_SCALE * lim,
+                  f"bert step {step}: the kernels' loss {a} and the {label} "
+                  f"route's {b} differ by more than {LOSS_ATOL} + "
+                  f"{ROUTE_SCALE} x {lim}")
+        check(max_diff <= PARAM_ATOL and rel <= ROUTE_SCALE * scale_rel,
+              f"bert weights differ from the {label} route: max {max_diff} "
+              f"(limit {PARAM_ATOL}), relative {rel} (limit {ROUTE_SCALE} x "
+              f"{scale_rel})")
+    del runs
+    free_cuda(torch)
+    ce = loss_mod.SoftmaxCrossEntropyLoss()
+
+    def loss_fn(outs, labels):
+        return ce(outs[0], labels[0]).mean() + ce(outs[1], labels[1]).mean()
+
+    grads = {}
+    for key in ((None, None), ("versions", None), (None, "bfloat16"),
+                ("versions", "bfloat16"), ("torch", "bfloat16")):
+        grads[key] = bert_first_grads(torch, mt, fa, models, ShardedTrainer,
+                                      loss_fn, dev, batch, *key)
+    f32_err = grad_distance(grads[None, None], grads["versions", None])
+    noise = grad_distance(grads["versions", "bfloat16"],
+                          grads["torch", "bfloat16"])
+    errs = {route: grad_distance(grads[None, "bfloat16"],
+                                 grads[route, "bfloat16"])
+            for route in ("versions", "torch")}
+    say("bert train", first_step_grads_f32_kernels_vs_plain=f"{f32_err:.3e}",
+        first_step_grads_bf16_plain_routes=f"{noise:.3e}",
+        **{f"first_step_grads_bf16_kernels_vs_{r}": f"{e:.3e}"
+           for r, e in errs.items()},
+        **{f"first_step_grads_bf16_{r or 'kernels'}_vs_f32":
+           f"{grad_distance(grads[r, 'bfloat16'], grads[None, None]):.3e}"
+           for r in (None, "versions", "torch")})
+    check(f32_err <= GRAD_RTOL, f"bert f32 first-step gradients: the "
+          f"kernels {f32_err} of the norm from the plain versions'")
+    for route, e in errs.items():
+        check(e <= ROUTE_SCALE * noise, f"bert bf16 first-step gradients: "
+              f"the kernels {e} of the norm from the {route} route's, limit "
+              f"{ROUTE_SCALE} x {noise}")
+    del grads
+    free_cuda(torch)
+    say("bert train", amp_step_ms=f"{k['ms']:.3f}",
+        f32_step_ms=f"{f['ms']:.3f}",
+        amp_window_samples_s=f"{k['rate']:.3f}",
+        f32_window_samples_s=f"{f['rate']:.3f}",
+        amp_peak_mem_bytes=k["peak"], f32_peak_mem_bytes=f["peak"],
+        window_rate_ratio=f"{k['rate'] / f['rate']:.4f}")
+    return k["launches"], f["launches"]
+
+
+def mt_train_run(torch, mt, fa, models, Trainer, loss_mod, dev, data, route,
+                 keep_initial):
+    """Three f32 Adam steps (lr 1e-4) of Transformer-base (dropout 0.1,
+    seed 0) through ``gluon.Trainer`` on ``data``, the attention on
+    ``route``. Returns (losses, step ms, launches, peak bytes, final
+    weights on the host, initial weights or None, the first step's
+    gradients on the device)."""
+    mt.random.seed(0)
+    model = models.Transformer(MT_VOCAB, tie_embeddings=True, device=dev)
+    initial = ({n: p.detach().to("cpu", copy=True)
+                for n, p in model.named_parameters()}
+               if keep_initial else None)
+    trainer = Trainer(model.parameters(), "adam", {"learning_rate": TRAIN_LR})
+    loss_fn = loss_mod.SoftmaxCrossEntropyLoss()
+    src, tgt, labels, svl = (torch.from_numpy(a).to(dev) for a in data)
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_count()
+    fa.force_path(route)
+    try:
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss = loss_fn(model(src, tgt, svl), labels)
+            loss.sum().backward()          # MXNet's loss.backward()
+            if i == 0:
+                grads = {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()}
+            trainer.step(MT_B)
+            losses.append(float(loss.detach().mean()))  # waits for it
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        fa.force_path(None)
+    launches = fa.launch_count()
+    peak = torch.cuda.max_memory_allocated()
+    final = {n: p.detach().to("cpu", copy=True)
+             for n, p in model.named_parameters()}
+    del model, trainer, loss, src, tgt, labels, svl
+    free_cuda(torch)
+    return losses, step_ms, launches, peak, final, initial, grads
+
+
+def mt_train_phase(torch, np, mt, fa, models, Trainer, loss_mod, dev):
+    """Phase 10c: Transformer-base (shared 37000-token vocabulary) in f32,
+    three Adam steps at B=192, T_src = T_tgt = 128, seeded source lengths,
+    on the kernels and on both plain routes (ROUTE_SCALE, also for the
+    first step's gradients). Returns the kernel route's launches."""
+    data = mt_data(np)
+    runs = {}
+    for label, route in (("kernel", None), ("plain versions", "versions"),
+                         ("forced plain", "torch")):
+        losses, step_ms, launches, peak, final, initial, grads = \
+            mt_train_run(torch, mt, fa, models, Trainer, loss_mod, dev,
+                         data, route, keep_initial=route is None)
+        ms = statistics.mean(step_ms[1:])
+        say("transformer", route=label, units=512, layers="6+6",
+            vocab=MT_VOCAB, B=MT_B, T_src=MT_T, T_tgt=MT_T,
+            losses=[f"{x:.6f}" for x in losses],
+            step_ms=[f"{x:.3f}" for x in step_ms],
+            tgt_tokens_s=f"{MT_B * MT_T / (ms / 1e3):.3f}",
+            peak_mem_bytes=peak, launches=launches)
+        check(all(np.isfinite(losses)), f"transformer {label}: loss not "
+              "finite")
+        check(losses[-1] < losses[0], f"transformer {label}: loss did not "
+              f"fall ({losses})")
+        runs[label] = {"losses": losses, "launches": launches,
+                       "final": final, "initial": initial, "grads": grads}
+    k, v, f = runs["kernel"], runs["plain versions"], runs["forced plain"]
+    # a step: 6 encoder self-attentions, 6 decoder causal self-attentions
+    # and 6 cross-attentions, each one forward and one backward
+    want = 3 * MT_LAYERS * TRAIN_STEPS
+    check(k["launches"] == dict.fromkeys(fa.KERNELS, want),
+          f"transformer launched {k['launches']}, want {want} of each")
+    for label in ("plain versions", "forced plain"):
+        check(runs[label]["launches"] == dict.fromkeys(fa.KERNELS, 0),
+              f"transformer {label} launched the kernels: "
+              f"{runs[label]['launches']}")
+    scale = grad_distance(v["grads"], f["grads"])
+    errs = {label: grad_distance(k["grads"], runs[label]["grads"])
+            for label in ("plain versions", "forced plain")}
+    say("transformer", first_step_grads_plain_routes=f"{scale:.3e}",
+        **{f"first_step_grads_kernels_vs_{label.replace(' ', '_')}":
+           f"{e:.3e}" for label, e in errs.items()},
+        params=sum(t.numel() for t in k["final"].values()))
+    for label, e in errs.items():
+        check(e <= ROUTE_SCALE * scale, f"transformer first-step gradients: "
+              f"the kernels {e} of the norm from the {label} route's, limit "
+              f"{ROUTE_SCALE} x {scale}")
+    for r in runs.values():
+        del r["grads"]
+    free_cuda(torch)
+    scale = route_distances("transformer", torch, dev, runs, k["initial"],
+                            "plain versions", ("forced plain",))
+    scale_loss, _, scale_rel = scale["forced plain"]
+    for label, (gap, max_diff, rel) in route_distances(
+            "transformer", torch, dev, runs, k["initial"], "kernel",
+            ("plain versions", "forced plain")).items():
+        check(gap <= LOSS_ATOL + ROUTE_SCALE * scale_loss,
+              f"transformer losses differ from the {label} route by {gap}, "
+              f"limit {LOSS_ATOL} + {ROUTE_SCALE} x {scale_loss}")
+        check(max_diff <= PARAM_ATOL and rel <= ROUTE_SCALE * scale_rel,
+              f"transformer weights differ from the {label} route: max "
+              f"{max_diff} (limit {PARAM_ATOL}), relative {rel} (limit "
+              f"{ROUTE_SCALE} x {scale_rel})")
+    return k["launches"]
 
 
 def first_divergence(torch, da, gen, prompts, a, b):
@@ -2358,6 +3113,7 @@ def main(argv=None):
                                                      fuse_resnet_v1)
     from mxnet_tpu_torch.gluon import loss as loss_mod
     from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch import models
     from mxnet_tpu_torch.models import get_llama
     from mxnet_tpu_torch.models.llama import _LLAMA_CONFIGS
     from mxnet_tpu_torch.ops import nn as nn_ops
@@ -2441,6 +3197,7 @@ def main(argv=None):
     if args.quick:
         flash_phase(torch, fa, flush, dev)
         flash_dtype_phase(torch, fa, flush, dev)
+        flash_bert_phase(torch, np, fa, flush, dev)
         pair_phase(torch, c1x1, FusedResNetV1, flush, dev)
         say("quick", seconds=f"{time.perf_counter() - t_start:.3f}")
         return 0
@@ -2502,6 +3259,7 @@ def main(argv=None):
     flush = torch.empty(64 << 18, device=dev)
     fres = flash_phase(torch, fa, flush, dev)
     dres = flash_dtype_phase(torch, fa, flush, dev)
+    bres = flash_bert_phase(torch, np, fa, flush, dev)
     del flush
     gc.collect()
     torch.cuda.empty_cache()
@@ -2527,6 +3285,19 @@ def main(argv=None):
     # 9. resnet50_v1 fused and served through the pair kernel
     pair_launches = resnet_phase(torch, np, mt, c1x1, vision,
                                  fuse_resnet_v1, InferenceSession, dev)
+
+    # 10. BERT-base served (10a) and trained (10b), Transformer-base (10c)
+    t10 = time.perf_counter()
+    bert_served = bert_serve_phase(torch, np, mt, fa, models,
+                                   InferenceSession, dev)
+    bert_amp, bert_f32 = bert_train_phase(torch, np, mt, fa, models,
+                                          ShardedTrainer, Trainer, loss_mod,
+                                          dev)
+    mt_launches = mt_train_phase(torch, np, mt, fa, models, Trainer,
+                                 loss_mod, dev)
+    say("flash_launches", bert_serve=bert_served, bert_train_bf16=bert_amp[
+        "bf16"], bert_train_f32=bert_f32["f32"], transformer=mt_launches,
+        phase_10_seconds=f"{time.perf_counter() - t10:.3f}")
 
     kernels = []
     for variant, rung in (("f32", "pallas"), ("int8", "int8")):
@@ -2554,6 +3325,20 @@ def main(argv=None):
                 "name": f"flash_{name}_{label}", "route": "cuda",
                 "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[name],
                 "launches": amp_launches[label][name],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # BERT's attention shape; launches: bf16 over 10b's kernel route, f32
+    # the forward over 10a's served run and dq, dk/dv over 10b's f32 run
+    bert_launches = {"bf16": bert_amp["bf16"],
+                     "f32": dict(bert_f32["f32"], fwd=bert_served["fwd"])}
+    for label, res in bres.items():
+        for name in fa.KERNELS:
+            r = res[name]
+            kernels.append({
+                "name": f"flash_{name}_bert_{label}", "route": "cuda",
+                "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[name],
+                "launches": bert_launches[label][name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

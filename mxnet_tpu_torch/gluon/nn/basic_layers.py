@@ -1,12 +1,13 @@
-"""Basic Gluon layers of the port, the subset ResNet needs (counterpart of
-``mxnet_tpu/gluon/nn/basic_layers.py``): ``HybridSequential``, ``Dense``,
-``Activation`` and ``BatchNorm`` as ``torch.nn`` modules.
+"""Basic Gluon layers of the port, the subset ResNet, BERT and the
+Transformer need (counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``):
+``HybridSequential``, ``Dense``, ``Dropout``, ``Activation``, ``GELU``,
+``Embedding``, ``BatchNorm`` and ``LayerNorm`` as ``torch.nn`` modules.
 
 Shapes are not deferred: a layer is built with its input width
 (``in_units``, ``in_channels``), so its parameters exist from the start and
-can be loaded before any forward. Parameters are made empty;
-``get_resnet`` makes them on ``meta``, moves them to the device and
-initialises them.
+can be loaded before any forward. Parameters are made empty; the model
+factories (``get_resnet``, ``get_bert_model``, ``Transformer``) make them
+on ``meta``, move them to the device and initialise them.
 """
 from __future__ import annotations
 
@@ -30,23 +31,50 @@ class HybridSequential(nn.Sequential):
 
 
 class Dense(nn.Module):
-    """Fully-connected layer ``x @ W^T + b`` over ``x`` flattened to
-    (batch, -1), as Gluon's default ``flatten=True`` does. Parameters
+    """Fully-connected layer ``activation(x @ W^T + b)``. With Gluon's
+    default ``flatten=True`` ``x`` is flattened to (batch, -1); with
+    ``flatten=False`` the product runs over the last axis. Parameters
     ``weight`` (units, in_units) and ``bias`` (units,)."""
 
-    def __init__(self, units, use_bias=True, in_units=0):
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 in_units=0):
         super().__init__()
         if in_units <= 0:
             raise MXNetError("Dense: the port does not defer shapes; pass "
                              "in_units")
+        self._flatten = flatten
+        self._act_type = activation
         self.weight = nn.Parameter(torch.empty(units, in_units))
         self.bias = nn.Parameter(torch.empty(units)) if use_bias else None
 
     def forward(self, x):
-        return F.linear(x.reshape(x.shape[0], -1), self.weight, self.bias)
+        out = _ops.fully_connected(x, self.weight, self.bias,
+                                   flatten=self._flatten)
+        if self._act_type:
+            out = _ops.activation(out, self._act_type)
+        return out
 
     def extra_repr(self):
-        return f"{self.weight.shape[1]} -> {self.weight.shape[0]}"
+        return (f"{self.weight.shape[1]} -> {self.weight.shape[0]}, "
+                f"activation={self._act_type}, flatten={self._flatten}")
+
+
+class Dropout(nn.Module):
+    """Dropout of rate ``rate`` (``ops.nn.dropout``, on the device's seeded
+    stream), active only in ``train()`` mode: the counterpart of the JAX
+    layer's ``autograd.is_training()``."""
+
+    def __init__(self, rate, axes=()):
+        super().__init__()
+        self._rate = rate
+        self._axes = axes
+
+    def forward(self, x):
+        return _ops.dropout(x, p=self._rate, axes=self._axes,
+                            training=self.training)
+
+    def extra_repr(self):
+        return f"p={self._rate}"
 
 
 class Activation(nn.Module):
@@ -59,6 +87,40 @@ class Activation(nn.Module):
 
     def extra_repr(self):
         return self._act_type
+
+
+class GELU(nn.Module):
+    """GELU, exact (``approximation="erf"``, the JAX layer's default) or
+    the tanh approximation (``"tanh"``)."""
+
+    def __init__(self, approximation="erf"):
+        super().__init__()
+        self._approx = approximation
+
+    def forward(self, x):
+        return _ops.activation(
+            x, "gelu_tanh" if self._approx == "tanh" else "erf_gelu")
+
+    def extra_repr(self):
+        return f"approximation={self._approx}"
+
+
+class Embedding(nn.Module):
+    """Index -> vector lookup with ``weight`` (input_dim, output_dim).
+    ``sparse_grad=True`` raises: the row-sparse gradient is ROADMAP A.7."""
+
+    def __init__(self, input_dim, output_dim, sparse_grad=False):
+        super().__init__()
+        if sparse_grad:
+            raise MXNetError("Embedding(sparse_grad=True): the row-sparse "
+                             "gradient is ROADMAP A.7")
+        self.weight = nn.Parameter(torch.empty(input_dim, output_dim))
+
+    def forward(self, x):
+        return _ops.embedding(x, self.weight)
+
+    def extra_repr(self):
+        return f"{self.weight.shape[0]} -> {self.weight.shape[1]}"
 
 
 class BatchNorm(nn.Module):
@@ -117,3 +179,25 @@ class BatchNorm(nn.Module):
     def extra_repr(self):
         return (f"{self.running_mean.shape[0]}, momentum={self._momentum}, "
                 f"eps={self.eps}, scale={self.scale}")
+
+
+class LayerNorm(nn.Module):
+    """Layer normalization over ``axis`` (``ops.nn.layer_norm``) with a
+    learned ``gamma`` and ``beta`` of ``in_channels``."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, in_channels=0):
+        super().__init__()
+        if in_channels <= 0:
+            raise MXNetError("LayerNorm: the port does not defer shapes; "
+                             "pass in_channels")
+        self._axis = axis
+        self._eps = epsilon
+        self.gamma = nn.Parameter(torch.empty(in_channels))
+        self.beta = nn.Parameter(torch.empty(in_channels))
+
+    def forward(self, x):
+        return _ops.layer_norm(x, self.gamma, self.beta, axis=self._axis,
+                               eps=self._eps)
+
+    def extra_repr(self):
+        return f"{self.gamma.shape[0]}, eps={self._eps}"

@@ -369,14 +369,18 @@ def get_llama(config="llama3_8b", device=None, trainable=False,
 
 def load_reference_params(model, params):
     """Copy weights keyed by the JAX package's ``collect_params()`` names
-    (``{name: numpy array}``) into ``model``. Raises :class:`MXNetError` on
-    a missing, unused or wrongly shaped entry. Returns ``model``."""
-    own = dict(model.named_parameters())
+    (``{name: numpy array}``) into ``model``, a Llama, BERT or Transformer
+    of the port. A tied parameter (the Transformer's shared embedding)
+    answers to each of its names, as in the JAX package, and its entries
+    must be equal. Raises :class:`MXNetError` on a missing, unused or
+    wrongly shaped entry. Returns ``model``."""
+    own = dict(model.named_parameters(remove_duplicate=False))
     missing = sorted(set(own) - set(params))
     unused = sorted(set(params) - set(own))
     if missing or unused:
         raise MXNetError(f"load_reference_params: missing {missing}, "
                          f"unused {unused}")
+    first = {}  # id of a parameter -> the first name it was loaded under
     with torch.no_grad():
         for name, p in own.items():
             arr = _onp.asarray(params[name])
@@ -384,5 +388,12 @@ def load_reference_params(model, params):
                 raise MXNetError(
                     f"load_reference_params: {name} has shape "
                     f"{tuple(arr.shape)}, the model wants {tuple(p.shape)}")
+            tied = first.setdefault(id(p), name)
+            if tied != name:
+                if not _onp.array_equal(arr, _onp.asarray(params[tied])):
+                    raise MXNetError(
+                        f"load_reference_params: {name} and {tied} are one "
+                        "tied parameter, but their entries differ")
+                continue
             p.copy_(torch.tensor(arr))
     return model

@@ -40,7 +40,11 @@ arguments, never on values:
   raise (head dim above 256, dtypes, devices): nothing falls back;
 * CPU tensors go to :class:`_FlashCore` on the kernels' plain versions
   (or to :func:`attention_torch` when D > 256), so the CPU tests drive
-  the autograd function end to end.
+  the autograd function end to end;
+* ``force_path("versions")`` sends tensors of any device that way: the
+  kernels' plain versions under :class:`_FlashCore`, which score in f32 as
+  the kernels do, where :func:`attention_torch` rounds narrow scores to
+  their dtype as the JAX package's XLA path does.
 
 The JAX package's TPU facts are not copied: no padding of T to 128-row
 blocks or of D to 128 lanes (the kernels mask the ragged edge), no
@@ -81,12 +85,14 @@ _LIBS = {}  # dtype pair -> ctypes.CDLL
 
 
 def force_path(path) -> None:
-    """Override routing: ``None`` (by device and shape), ``"torch"`` (the
-    plain versions, on any device) or ``"cuda"`` (the kernels; raises for
-    CPU tensors)."""
+    """Override routing: ``None`` (by device and shape), ``"torch"``
+    (:func:`attention_torch`, on any device), ``"versions"`` (the kernels'
+    plain versions under the autograd function, on any device) or
+    ``"cuda"`` (the kernels; raises for CPU tensors)."""
     global _FORCE_PATH
-    if path not in (None, "torch", "cuda"):
-        raise ValueError(f"force_path: {path!r} not in (None,'torch','cuda')")
+    if path not in (None, "torch", "versions", "cuda"):
+        raise ValueError(f"force_path: {path!r} not in "
+                         "(None,'torch','versions','cuda')")
     _FORCE_PATH = path
 
 
@@ -349,7 +355,8 @@ def _launch(name, pair, ptrs, q, k, kvalid, causal, causal_off, scale):
 
 
 def _use_kernel(q):
-    """True to launch the kernel for ``q``; raises for a CPU tensor under
+    """True to launch the kernel for ``q`` (a CUDA tensor unless
+    ``force_path("versions")``); raises for a CPU tensor under
     ``force_path("cuda")``."""
     global _LAST_PATH
     if _FORCE_PATH == "cuda" or (_FORCE_PATH is None and q.is_cuda):
@@ -479,7 +486,7 @@ def attention(q, k, v, mask=None, causal=False, scale=None, use_flash=True,
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     if q.shape[-1] > _MAX_D:
-        if q.is_cuda or _FORCE_PATH == "cuda":
+        if _FORCE_PATH == "cuda" or (_FORCE_PATH is None and q.is_cuda):
             raise MXNetError(f"attention: head_dim {q.shape[-1]} > {_MAX_D}"
                              " is not taken by the flash kernels; pass "
                              "use_flash=False for the plain version")

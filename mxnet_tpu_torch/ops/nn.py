@@ -12,20 +12,34 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import random as _rng
 from ..base import MXNetError
 from .hopper import decode_attention as _da
 from .hopper import flash_attention as _fa
 
 
+_ACTIVATIONS = {
+    "relu": F.relu,
+    "silu": F.silu,
+    "tanh": torch.tanh,
+    # jax.nn.gelu's default is the tanh approximation, and the JAX
+    # package's "gelu" is that default
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "erf_gelu": F.gelu,
+}
+
+
 def activation(data, act_type="relu"):
-    """Elementwise activation: ``relu`` (ResNet) and ``silu`` (Llama's
-    SwiGLU) are ported."""
-    if act_type == "relu":
-        return F.relu(data)
-    if act_type == "silu":
-        return F.silu(data)
-    raise MXNetError(f"activation {act_type!r} is not ported yet (relu, "
-                     "silu)")
+    """Elementwise activation by name, as the JAX package names them:
+    ``relu`` (ResNet), ``silu`` (Llama's SwiGLU), ``tanh`` (BERT's pooler),
+    ``gelu`` and ``gelu_tanh`` (the tanh approximation, ``jax.nn.gelu``'s
+    default) and ``erf_gelu`` (the exact one)."""
+    fn = _ACTIVATIONS.get(act_type)
+    if fn is None:
+        raise MXNetError(f"activation {act_type!r} is not ported yet "
+                         f"({', '.join(sorted(_ACTIVATIONS))})")
+    return fn(data)
 
 
 def dense(data, weight):
@@ -48,6 +62,69 @@ def rms_norm(data, gamma, axis=-1, eps=1e-6):
     shape = [1] * data.dim()
     shape[axis] = data.shape[axis]
     return out * gamma.reshape(shape)
+
+
+def fully_connected(x, weight, bias=None, num_hidden=None, no_bias=False,
+                    flatten=True):
+    """``x @ weight.T + bias``, ``weight`` (num_hidden, in). ``flatten=True``
+    collapses every axis but the first (Gluon's default); ``flatten=False``
+    applies to the last axis. Mixed dtypes promote first, as ``jnp.matmul``
+    and the bias add promote them."""
+    del num_hidden  # the weight's shape says it
+    if flatten and x.dim() > 2:
+        x = x.reshape(x.shape[0], -1)
+    b = None if no_bias else bias
+    dtype = torch.promote_types(x.dtype, weight.dtype)
+    if b is not None:
+        dtype = torch.promote_types(dtype, b.dtype)
+    return F.linear(x.to(dtype), weight.to(dtype),
+                    None if b is None else b.to(dtype))
+
+
+def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
+    """Layer normalization along ``axis``: ``(x - mean) / sqrt(var + eps)
+    * gamma + beta`` with the population variance. The mean and variance
+    are taken in f32 and rounded to x's dtype, as ``jnp.mean``/``jnp.var``
+    take them for a bf16 or f16 ``x``; the rest runs in x's dtype and
+    promotes against gamma and beta as ``jnp`` does."""
+    xf = data.to(torch.float32)
+    mean = xf.mean(dim=axis, keepdim=True)
+    var = xf.var(dim=axis, keepdim=True, correction=0)
+    out = (data - mean.to(data.dtype)) / torch.sqrt(var.to(data.dtype) + eps)
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
+def dropout(data, p=0.5, axes=(), training=False, generator=None):
+    """Inverted dropout: each element kept with probability ``1 - p`` and
+    scaled by ``1 / (1 - p)``; ``axes`` share one draw along each axis
+    named (the mask has extent 1 there). It acts only when ``training`` is
+    true (the JAX op reads ``autograd.is_training()``; a module passes its
+    ``training`` flag). The mask is drawn in f32 from ``generator``, by
+    default the device's seeded stream (``mxnet_tpu_torch.random.generator``),
+    so a run of another dtype draws the same mask. The bits are not
+    threefry's."""
+    if p <= 0 or not training:
+        return data
+    gen = generator if generator is not None else _rng.generator(
+        data.device)
+    shape = list(data.shape)
+    for ax in axes:
+        shape[ax] = 1
+    keep = 1.0 - p
+    mask = torch.empty(shape, dtype=torch.float32,
+                       device=data.device).bernoulli_(keep, generator=gen)
+    return data * mask.to(data.dtype) / keep
+
+
+def embedding(data, weight, sparse_grad=False):
+    """Dense lookup of the rows ``data`` (any integer shape) of ``weight``
+    (input_dim, output_dim)."""
+    if sparse_grad:
+        raise MXNetError("embedding(sparse_grad=True): the row-sparse "
+                         "gradient is ROADMAP A.7; use the dense gradient")
+    return F.embedding(data.to(torch.long), weight)
 
 
 def rope_positions(cos_table, sin_table, start_pos, length):

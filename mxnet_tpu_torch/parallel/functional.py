@@ -19,6 +19,10 @@ package:
   casts each recomputed layer's parameters at use, so no low-precision
   copy of the weights lives across the step.
 
+The step runs the block in training mode (Dropout active), whatever mode
+it is in between steps, as the JAX package's step traces it with
+``train_mode=True``.
+
 Ported so far: one device, ``step`` and ``step_n``. ``parallel=``,
 ``zero_bucket_mb > 0``, ``abstract=True``, a pipelined block and a mesh of
 more than one device raise; ``step_flops``, checkpoints, ``export_state``
@@ -58,6 +62,19 @@ def _collect_aux_losses(block):
         if isinstance(aux, torch.Tensor):
             total = aux if total is None else total + aux
     return total
+
+
+def _first_leaf(tree):
+    while isinstance(tree, (list, tuple)):
+        tree = tree[0]
+    return tree
+
+
+def _leaf_step(tree, j):
+    """Step ``j`` of every leaf of a batch stacked on a leading axis."""
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_leaf_step(x, j) for x in tree)
+    return tree[j]
 
 
 def _cast(x, dtype):
@@ -153,6 +170,21 @@ class ShardedTrainer:
         finally:
             self.block._amp_dtype, self.block._in_step = prev
 
+    @contextlib.contextmanager
+    def _train_mode(self):
+        """Run the step with every submodule in training mode (Dropout
+        active), as the JAX package traces its step with
+        ``functionalize(block, train_mode=True)``; each submodule's own
+        mode comes back afterwards. It covers the backward too, so a layer
+        recomputed there (``remat``) runs in the same mode."""
+        modes = [(m, m.training) for m in self.block.modules()]
+        self.block.train()
+        try:
+            yield
+        finally:
+            for m, training in modes:
+                m.training = training
+
     def _loss(self, data, labels):
         amp = self._dtype
         batch = tuple(data) if isinstance(data, (list, tuple)) else (data,)
@@ -175,8 +207,9 @@ class ShardedTrainer:
     def _step_once(self, data, labels, lrs, wds, t):
         for p in self._train:
             p.grad = None
-        loss = self._loss(data, labels)
-        loss.backward()
+        with self._train_mode():
+            loss = self._loss(data, labels)
+            loss.backward()
         opt = self.optimizer
         with torch.no_grad():
             for i, p in enumerate(self._train):
@@ -211,11 +244,12 @@ class ShardedTrainer:
 
     def step_n(self, data, labels, num_steps=None):
         """``num_steps`` training steps over batches stacked on a leading
-        axis (``(num_steps, B, ...)``; default: all of it). The learning
-        rate and weight decay are held across the window. Returns the
-        per-step losses, shape (num_steps,)."""
-        first = data[0] if isinstance(data, (list, tuple)) else data
-        avail = first.shape[0]
+        axis (``(num_steps, B, ...)``; default: all of it). ``data`` and
+        ``labels`` may be tensors or tuples and lists of them (the JAX
+        package's pytree leaves), each leaf stacked. The learning rate and
+        weight decay are held across the window. Returns the per-step
+        losses, shape (num_steps,)."""
+        avail = _first_leaf(data).shape[0]
         n = avail if num_steps is None else int(num_steps)
         if n < 1 or n > avail:
             raise MXNetError(
@@ -224,9 +258,9 @@ class ShardedTrainer:
         lrs, wds, t0 = self._advance_optimizer(n)
         losses = []
         for j in range(n):
-            d = (tuple(x[j] for x in data)
-                 if isinstance(data, (list, tuple)) else data[j])
-            losses.append(self._step_once(d, labels[j], lrs, wds, t0 + j))
+            losses.append(self._step_once(_leaf_step(data, j),
+                                          _leaf_step(labels, j), lrs, wds,
+                                          t0 + j))
         return torch.stack(losses)
 
     def sync_to_block(self):

@@ -475,6 +475,32 @@ def test_cuda_flash_refusals_and_forced_plain():
     assert fa.launch_count() == n0
 
 
+
+def test_cuda_flash_force_path_versions():
+    """``force_path("versions")`` on CUDA tensors: the autograd function on
+    the kernels' plain versions, launching nothing, equal to those plain
+    versions called directly."""
+    dev = _need_cuda()
+    q, k, v, g, kvalid = _flash_inputs(2, 2, 64, 64, 32, [64, 0], dev)
+    n0 = fa.launch_count()
+    qs, ks, vs = (x.view(2, 2, 64, 32).clone().requires_grad_()
+                  for x in (q, k, v))
+    fa.force_path("versions")
+    try:
+        out = fa.attention(qs, ks, vs, causal=True, valid_length=kvalid)
+        assert fa.last_path() == "torch"
+        grads = torch.autograd.grad(out, (qs, ks, vs), g.view(out.shape))
+    finally:
+        fa.force_path(None)
+    assert fa.launch_count() == n0
+    args = (kvalid, True, 0, fa._scale_of(None, 32))
+    ref, lse = fa.flash_fwd_torch(q, k, v, *args)
+    delta = (g * ref).sum(-1)
+    refs = [ref, fa.flash_bwd_dq_torch(q, k, v, g, lse, delta, *args),
+            *fa.flash_bwd_dkv_torch(q, k, v, g, lse, delta, *args)]
+    for a, b in zip([out, *grads], refs):
+        assert a.is_cuda and torch.equal(a.reshape(b.shape), b)
+
 def test_cuda_trainer_matches_cpu():
     """Three SGD steps of ``llama_tiny_test`` on the card (every layer's
     attention through the flash kernels) against the same steps on the
@@ -1440,3 +1466,183 @@ def test_cuda_graph_replay_under_the_watchdog_and_drain(monkeypatch):
                              np.zeros(2, np.uint32), gen._fresh_cache(2))
     finally:
         gen.session.resume()
+
+
+# -- BERT and the Transformer (slice A.5) -------------------------------------
+
+BERT_TINY = dict(units=32, hidden_size=64, num_layers=2, num_heads=4,
+                 vocab_size=100, max_length=64, dropout=0.0)
+
+
+def _bert_tokens(b=3, t=16, seed=0, zero_row=True):
+    """Token ids with padded tails (valid lengths t, t // 2 + 1, ...) and,
+    with ``zero_row``, a last row of padding only (valid length 0)."""
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(1, 100, (b, t)).astype(np.int64)
+    toks[1:2, t // 2 + 1:] = 0
+    if zero_row:
+        toks[-1] = 0
+    return torch.from_numpy(toks)
+
+
+def _routes(fn):
+    """``fn()`` on the kernels, then with the plain attention forced."""
+    out = fn()
+    fa.force_path("torch")
+    try:
+        plain = fn()
+    finally:
+        fa.force_path(None)
+    return out, plain
+
+
+def _tiny_bert(dev, head):
+    from mxnet_tpu_torch import models
+
+    trandom.seed(0)
+    bert = models.get_bert_model(device=dev, **BERT_TINY)
+    block = (models.BERTForPretrain(bert) if head == "pretrain"
+             else models.BERTClassifier(bert, num_classes=3, dropout=0.0))
+    return models.BERTStep(block)
+
+
+def test_cuda_bert_kernel_route_matches_plain():
+    """The wrapped ``BERTForPretrain`` at the tiny size on the card: MLM
+    and NSP scores and every weight's gradient on the kernels against the
+    plain attention, a row of valid length 0 finite; 2 layers launch each
+    flash kernel twice a forward and backward on the f32 pair."""
+    dev = _need_cuda()
+    net = _tiny_bert(dev, "pretrain")
+    toks = _bert_tokens().to(dev)
+
+    def run():
+        net.zero_grad()
+        mlm, nsp = net(toks)
+        (mlm.sum() + nsp.sum()).backward()
+        return (mlm.detach(), nsp.detach(),
+                {n: p.grad.clone() for n, p in net.named_parameters()})
+
+    n0 = fa.launch_count((torch.float32, torch.float32))
+    (mlm, nsp, grads), (p_mlm, p_nsp, p_grads) = _routes(run)
+    got = fa.launch_count((torch.float32, torch.float32))
+    assert got == {k: n0[k] + 2 for k in fa.KERNELS}
+    for ours, ref in ((mlm, p_mlm), (nsp, p_nsp)):
+        assert bool(torch.isfinite(ours).all())
+        assert float((ours - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max())
+    scale = max(float(g.abs().max()) for g in p_grads.values())
+    for name, g in grads.items():
+        assert bool(torch.isfinite(g).all()), name
+        assert float((g - p_grads[name]).abs().max()) <= 1e-5 * scale, name
+
+
+def test_cuda_transformer_kernel_route_matches_plain():
+    """Transformer at the tiny size (2 + 2 layers): the encoder's
+    non-causal attention with valid lengths (one 0), the decoder's causal
+    self-attention and its cross-attention with Tq != Tk, forward and
+    gradients on the kernels against the plain attention; 6 launches of
+    each kernel a forward and backward."""
+    from mxnet_tpu_torch import models
+
+    dev = _need_cuda()
+    trandom.seed(0)
+    net = models.Transformer(50, units=32, hidden_size=64, num_heads=4,
+                             num_encoder_layers=2, num_decoder_layers=2,
+                             dropout=0.0, tie_embeddings=True, device=dev)
+    rng = np.random.RandomState(1)
+    src = torch.from_numpy(rng.randint(0, 50, (3, 12))).to(dev)
+    tgt = torch.from_numpy(rng.randint(0, 50, (3, 7))).to(dev)
+    svl = torch.tensor([12, 5, 0], device=dev)
+
+    def run():
+        net.zero_grad()
+        out = net(src, tgt, svl)
+        out.square().sum().backward()
+        return out.detach(), {n: p.grad.clone()
+                              for n, p in net.named_parameters()}
+
+    n0 = fa.launch_count()
+    (out, grads), (p_out, p_grads) = _routes(run)
+    assert fa.launch_count() == {k: n0[k] + 6 for k in fa.KERNELS}
+    assert bool(torch.isfinite(out).all())
+    assert float((out - p_out).abs().max()) <= 1e-5 * float(
+        p_out.abs().max())
+    scale = max(float(g.abs().max()) for g in p_grads.values())
+    for name, g in grads.items():
+        assert float((g - p_grads[name]).abs().max()) <= 1e-5 * scale, name
+
+
+def test_cuda_bert_bf16_step_launches_the_bf16_pair():
+    """``ShardedTrainer(dtype="bfloat16")`` on the wrapped
+    ``BERTForPretrain`` (dropout 0.1): every attention is (bf16, bf16), so
+    each kernel launches once a layer a step on that pair and on no other;
+    the loss is finite and falls; a ``step_n`` window of three from the
+    same seed gives the steps' losses bit for bit."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    dev = _need_cuda()
+    toks = _bert_tokens(4, 16, zero_row=False).to(dev)
+    mlm = torch.from_numpy(np.random.RandomState(2).randint(
+        1, 100, (4, 16))).to(dev)
+    nsp = torch.tensor([0, 1, 1, 0], device=dev)
+    ce = tloss.SoftmaxCrossEntropyLoss()
+
+    def loss_fn(outs, labels):
+        return ce(outs[0], labels[0]).mean() + ce(outs[1], labels[1]).mean()
+
+    runs = []
+    for windowed in (False, True):
+        trandom.seed(0)
+        net = models.BERTStep(models.BERTForPretrain(models.get_bert_model(
+            device=dev, **dict(BERT_TINY, dropout=0.1))))
+        tr = ShardedTrainer(net, loss_fn, "adam", {"learning_rate": 1e-3},
+                            dtype="bfloat16")
+        fa.reset_launch_count()
+        if windowed:
+            losses = [float(x) for x in tr.step_n(
+                toks.expand(3, -1, -1), (mlm.expand(3, -1, -1),
+                                         nsp.expand(3, -1)))]
+        else:
+            losses = [float(tr.step(toks, (mlm, nsp))) for _ in range(3)]
+        launched = {fa.pair_label(p): fa.launch_count(p)
+                    for p in fa.DTYPE_PAIRS}
+        runs.append(losses)
+        zero = dict.fromkeys(fa.KERNELS, 0)
+        assert launched == {**{k: zero for k in launched},
+                            "bf16": dict.fromkeys(fa.KERNELS, 2 * 3)}
+    assert runs[0] == runs[1]
+    assert all(np.isfinite(runs[0])) and runs[0][2] < runs[0][0]
+
+
+def test_cuda_bert_session_signatures_frozen_after_warmup():
+    """The wrapped classifier served on the card over (batch, seq)
+    buckets: after ``warmup()`` no request brings a new signature, each
+    forward launches the flash forward once a layer, the padding-only row
+    (valid length 0) gives finite logits, and the logits match the CPU's
+    plain run of the same weights."""
+    from mxnet_tpu_torch.serve import InferenceSession
+
+    dev = _need_cuda()
+    net = _tiny_bert(dev, "classifier").eval()
+    cpu = copy.deepcopy(net).cpu()
+    kw = dict(batch_buckets=(1, 4), seq_buckets=(8, 16), pad_value=0)
+    sess = InferenceSession(net, **kw)
+    cpu_sess = InferenceSession(cpu, device="cpu", **kw)
+    reqs = [_bert_tokens(1, 5, zero_row=False).numpy(),
+            _bert_tokens(3, 12).numpy(), _bert_tokens(4, 16).numpy()]
+    assert sess.warmup(reqs[0]) == 4
+    forwards = []
+    hook = net.register_forward_pre_hook(lambda m, a: forwards.append(1))
+    n0 = fa.launch_count()
+    for r in reqs:
+        out = sess.predict(r)
+        ref = cpu_sess.predict(r)
+        assert bool(torch.isfinite(out).all())
+        torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=1e-4)
+    hook.remove()
+    sess.assert_no_recompiles()
+    assert sess.signature_count() == 4
+    assert fa.launch_count() == {"fwd": n0["fwd"] + 2 * len(forwards),
+                                 "bwd_dq": n0["bwd_dq"],
+                                 "bwd_dkv": n0["bwd_dkv"]}

@@ -215,6 +215,34 @@ def test_routing_on_cpu_and_force_path():
         fa.attention(q[0], k[0], v[0])
 
 
+
+def test_force_path_versions_takes_the_autograd_function_on_plain_versions():
+    """``force_path("versions")``: the kernels' plain versions under the
+    autograd function (what a CPU call takes anyway), never
+    ``attention_torch``: in bf16 its scores stay f32, bit for bit the
+    unforced CPU route's, forward and gradients; nothing is launched."""
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in _inputs(2, 2, 24, 24, 16))
+    vl = torch.tensor([24, 0], dtype=torch.int32)
+
+    def run():
+        qt, kt, vt = (x.clone().requires_grad_() for x in (q, k, v))
+        out = fa.attention(qt, kt, vt, causal=True, valid_length=vl)
+        return [out, *torch.autograd.grad(out, (qt, kt, vt), g)]
+
+    n0 = fa.launch_count()
+    want = run()
+    fa.force_path("versions")
+    try:
+        got = run()
+        assert fa.last_path() == "torch"
+    finally:
+        fa.force_path(None)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    assert not got[0][1].any()          # the row with no valid key
+    assert fa.launch_count() == n0
+
 def test_kvalid_of_clamps_to_tk():
     kv = fa.kvalid_of(torch.tensor([0, 5, 900]), 3, 64, torch.device("cpu"))
     assert kv.dtype == torch.int32 and kv.tolist() == [0, 5, 64]

@@ -102,6 +102,17 @@ assert st.mesh.device.type == "cpu"
 scaler = amp.LossScaler(init_scale=4.0)
 tr2 = gluon.Trainer(model.parameters(), "sgd", loss_scaler=scaler)
 assert float(tr2.scale_loss(torch.tensor(1.0))) == 4.0
+from mxnet_tpu_torch.models import (BERTClassifier, BERTStep, Transformer,
+                                    get_bert_model)
+bert = BERTStep(BERTClassifier(get_bert_model(
+    units=32, hidden_size=64, num_layers=2, num_heads=4, vocab_size=100,
+    max_length=32, device="cpu"), num_classes=2)).eval()
+bsess = InferenceSession(bert, batch_buckets=(2,), seq_buckets=(8,))
+assert tuple(bsess.predict(torch.tensor([[5, 6, 0]])).shape) == (1, 2)
+mt_model = Transformer(50, units=32, hidden_size=64, num_heads=4,
+                       num_encoder_layers=1, num_decoder_layers=1,
+                       device="cpu")
+assert tuple(mt_model(toks[:, :5] % 50, toks[:, :4] % 50).shape) == (2, 4, 50)
 assert not any(m == "jax" or m.startswith(("jax.", "mxnet_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ISOLATED_OK")
@@ -160,6 +171,11 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch):
         get_llama("llama_tiny_test", trainable=True)
     with pytest.raises(MXNetError, match="CUDA is not available"):
         get_resnet(1, 50)
+    from mxnet_tpu_torch.models import Transformer, get_bert_model
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        get_bert_model(num_layers=1)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        Transformer(50, num_encoder_layers=1, num_decoder_layers=1)
     with pytest.raises(MXNetError, match="CUDA is not available"):
         tdevice.resolve(None)
     from mxnet_tpu_torch import parallel
