@@ -234,6 +234,35 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    three steps on the kernels lie within ROUTE_SCALE times the two plain
    routes' own distance of each. Printed:
    step ms and target tokens/s.
+11. resnet train: ``resnet50_v1`` trained as ``bench.py``'s ResNet rows
+   train it (batch 256, 224 x 224, 1000 classes, synthetic images and
+   labels from seed 0, ``SoftmaxCrossEntropyLoss``, SGD lr 0.1, momentum
+   0.9, wd 1e-4). 11a: the f32 convolution (``ops.nn.convolution``)
+   forward, data gradient and weight gradient at the stem (7 x 7, stride
+   2), a 3 x 3 and a strided 1 x 1 within 1e-5 of float64 on the CPU, as a
+   share of the largest value, beside the same convolution under PyTorch's
+   defaults (cuDNN TF32); no global TF32 flag may move. 11b: one f32 SGD
+   step (``gluon.Trainer``) of ``get_resnet(1, 50, trainable=True)`` at
+   batch 8 on the card and on the CPU in f32, each against the same step
+   in float64 on the CPU: the card's loss, gradients, weights and running
+   statistics within C3_MODEL_SCALE times the CPU's f32 distance; the
+   card's step with TF32 convolutions is printed beside them. 11c:
+   ``ShardedTrainer`` in f32, in bf16 (cast-for-compute) and as bf16
+   ``step_n`` windows, three gated steps each from the same seeded
+   weights (finite losses, running
+   statistics finite, f32 and moved), twice for ``step()``; ``step_n``
+   must equal ``step()`` bit for bit where two ``step()`` runs do, else lie
+   within ROUTE_SCALE times their distance; the bf16 run's distance from
+   the f32 run is printed. Then for f32, bf16 and the window of 8: img/s
+   over 10 steps (3 windows of 8) after the gated three with the fastest,
+   median and slowest step, one step's device time from ``torch.profiler``
+   (convolutions, BatchNorm and the rest) and its busy share, the peak
+   memory, ``step_flops`` and the MFU it gives against the dtype's peak.
+   11d: the train_imagenet loop in f32 through ``gluon.Trainer``
+   (``loss.sum().backward()``, ``step(256)``) with ``Accuracy`` and
+   ``TopKAccuracy(5)``, within ROUTE_SCALE times the distance of two f32
+   ``step()`` runs from the f32 ``ShardedTrainer`` steps. The phase adds
+   no kernel.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, the result line. Without CUDA, or without the package next to
@@ -244,6 +273,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -380,6 +410,28 @@ MT_VOCAB, MT_B, MT_T, MT_LAYERS, MT_HEADS, MT_D = (37000, 192, 128,
 ROUTE_SCALE = 2
 GRAD_RTOL = 1e-5
 RATE_STEPS = 10      # 10b: steps of the window samples/s is taken over
+# phase 11: ResNet-50 v1 trained as bench.py's bench_resnet_train and
+# bench_resnet_train_fused time it (batch 256, 224 x 224, 1000 classes,
+# SGD lr 0.1, momentum 0.9, wd 1e-4; synthetic images and labels from a
+# seed)
+RT_BATCH, RT_CLASSES, RT_FUSE = 256, 1000, 8
+RT_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+RT_GATED, RT_WINDOWS = 3, 3   # gated steps; step_n windows of RT_FUSE timed
+# 11a: the port's f32 convolution, forward and both gradients, against
+# float64 on the CPU, as a share of the largest value
+C3_OP_TOL = 1e-5
+# 11b: one f32 SGD step of resnet50_v1 at batch 8, on the card and on the
+# CPU in f32, each against the same step in float64 on the CPU: the loss,
+# the gradients (total norm), the weights and the running statistics (of
+# their movement). The card's distances must stay within C3_MODEL_SCALE
+# times the CPU's f32 ones (plus C3_MODEL_ATOL where both are at f32's
+# rounding). The step itself is ill-conditioned in f32: on an H100 (run
+# B) the CPU's f32 gradients lay 1.75e-2 of their norm from float64 and
+# the card's 2.10e-2 (BatchNorm's backward cancels terms at every layer),
+# while TF32 convolutions put them 0.655 away, so a fixed 1e-4 limit
+# against the CPU's f32 step was wrong
+C3_MODEL_SCALE, C3_MODEL_ATOL = 2.0, 1e-6
+C3_MODEL_BATCH = 8
 
 
 class CheckFailed(Exception):
@@ -2274,6 +2326,402 @@ def mt_train_phase(torch, np, mt, fa, models, Trainer, loss_mod, dev):
     return k["launches"]
 
 
+def rel_max(a, b):
+    """Largest |a - b| over the largest |b|."""
+    b = b.double()
+    return float((a.double().cpu() - b.cpu()).abs().max()
+                 / b.abs().max().clamp_min(1e-30))
+
+
+def c3_op_phase(torch, F, nn_ops, dev):
+    """Phase 11a: the port's f32 convolution on the card, forward and both
+    gradients, against float64 on the CPU at ResNet-50's stem (7 x 7,
+    stride 2), a 3 x 3 and a strided 1 x 1, beside the same convolution
+    under PyTorch's defaults (cuDNN TF32 on); no global flag may move."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    cases = (("stem_7x7_s2", (2, 3, 224, 224), (64, 3, 7, 7), 2, 3),
+             ("3x3", (2, 64, 56, 56), (64, 64, 3, 3), 1, 1),
+             ("1x1_s2", (2, 256, 56, 56), (512, 256, 1, 1), 2, 0))
+    worst = 0.0
+    for label, xs, ws, stride, pad in cases:
+        gen = torch.Generator().manual_seed(11)
+        x = torch.randn(xs, generator=gen)
+        w = torch.randn(ws, generator=gen) / ws[1] ** 0.5
+        x64 = x.double().requires_grad_()
+        w64 = w.double().requires_grad_()
+        y64 = F.conv2d(x64, w64, None, stride, pad)
+        gy = torch.randn(y64.shape, generator=gen)
+        y64.backward(gy.double())
+        errs = {}
+        for arm, conv in (("port", nn_ops.convolution), ("torch_default",
+                                                        F.conv2d)):
+            xc = x.to(dev).requires_grad_()
+            wc = w.to(dev).requires_grad_()
+            yc = conv(xc, wc, None, stride, pad)
+            yc.backward(gy.to(dev))
+            errs[arm] = {"out": rel_max(yc.detach(), y64.detach()),
+                         "dx": rel_max(xc.grad, x64.grad),
+                         "dw": rel_max(wc.grad, w64.grad)}
+        say("resnet train", c3_op=label, **{
+            f"{arm}_{k}": f"{v:.3e}" for arm, e in errs.items()
+            for k, v in e.items()})
+        worst = max(worst, *errs["port"].values())
+        check(max(errs["port"].values()) <= C3_OP_TOL,
+              f"C3: the port's f32 convolution {label} is not full f32: "
+              f"{errs['port']} relative to float64")
+    check((torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32) == flags,
+          "C3: a global TF32 flag moved")
+    return worst
+
+
+def state_cpu(model):
+    """{name: float64 CPU copy} of every parameter and buffer."""
+    return {n: t.detach().to("cpu").double()
+            for n, t in model.state_dict().items()
+            if t.is_floating_point()}
+
+
+def moved_distance(torch, dev, ref, other, init, keys):
+    """``route_agreement``'s norm of ``ref - other`` over the norm of
+    ``ref``'s movement from ``init``, over ``keys``."""
+    return route_agreement(torch, dev, {n: ref[n] for n in keys}, other,
+                           init)[1]
+
+
+def split_keys(state):
+    stats = [n for n in state if "running" in n]
+    return [n for n in state if n not in stats], stats
+
+
+def c3_step(torch, nn_ops, model, x, y, loss_mod, Trainer, tf32):
+    """One f32 SGD step of ``model`` through ``gluon.Trainer`` on the mean
+    loss: (loss, {name: gradient}, state after), float64 on the CPU. With
+    ``tf32`` the convolutions run under cuDNN's default TF32."""
+    import contextlib
+
+    orig = nn_ops._full_f32
+    if tf32:
+        nn_ops._full_f32 = lambda device: contextlib.nullcontext()
+    try:
+        tr = Trainer(model.parameters(), "sgd", dict(RT_SGD))
+        loss = loss_mod.SoftmaxCrossEntropyLoss()(model(x), y).mean()
+        loss.backward()
+        grads = {n: p.grad.detach().to("cpu", torch.float64, copy=True)
+                 for n, p in model.named_parameters()}
+        tr.step(1)
+    finally:
+        nn_ops._full_f32 = orig
+    return float(loss.detach()), grads, state_cpu(model)
+
+
+def c3_model_phase(torch, np, mt, nn_ops, vision, loss_mod, Trainer, dev):
+    """Phase 11b: one f32 SGD step of resnet50_v1 at batch 8 on the card
+    and on the CPU, each against the same step in float64 on the CPU (the
+    loss, the gradients, the weights and running statistics after it), and
+    the card's step with TF32 convolutions beside them."""
+    import copy
+
+    mt.random.seed(0)
+    base = vision.get_resnet(1, 50, device="cpu", trainable=True)
+    init = state_cpu(base)
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.uniform(
+        -1, 1, (C3_MODEL_BATCH, 3, RESNET_HW, RESNET_HW)).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, RT_CLASSES, C3_MODEL_BATCH))
+    t0 = time.perf_counter()
+    runs = {}
+    for arm in ("cpu_f64", "cpu", "card", "card_tf32"):
+        d = dev if arm.startswith("card") else torch.device("cpu")
+        model = copy.deepcopy(base).to(d)
+        xs = x.to(d)
+        if arm == "cpu_f64":
+            model, xs = model.double(), xs.double()
+        runs[arm] = c3_step(torch, nn_ops, model, xs, y.to(d), loss_mod,
+                            Trainer, arm == "card_tf32")
+        del model
+    ref_loss, ref_g, ref_s = runs["cpu_f64"]
+    weights, stats = split_keys(ref_s)
+    out = {}
+    for arm in ("cpu", "card", "card_tf32"):
+        loss, grads, state = runs[arm]
+        out[arm] = {
+            "loss": abs(loss - ref_loss) / abs(ref_loss),
+            "grads": grad_distance(grads, ref_g),
+            "weights": moved_distance(torch, dev, ref_s, state, init,
+                                      weights),
+            "stats": moved_distance(torch, dev, ref_s, state, init, stats)}
+    say("resnet train", c3_model="resnet50_v1", batch=C3_MODEL_BATCH,
+        reference="cpu_f64", loss=f"{ref_loss:.6f}",
+        seconds=f"{time.perf_counter() - t0:.3f}",
+        **{f"{arm}_{k}": f"{v:.3e}" for arm, e in out.items()
+           for k, v in e.items()})
+    for k, v in out["card"].items():
+        limit = C3_MODEL_SCALE * out["cpu"][k] + C3_MODEL_ATOL
+        check(v <= limit, f"C3 model step: the card's f32 {k} {v:.3e} from "
+              f"float64, limit {limit:.3e} (the CPU's f32: "
+              f"{out['cpu'][k]:.3e})")
+    free_cuda(torch)
+    return out
+
+
+def resnet_data(torch, np, dev):
+    """bench.py's synthetic batch: 256 images uniform in [-1, 1), labels
+    in [0, 1000), from seed 0; on the card."""
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (RT_BATCH, 3, RESNET_HW, RESNET_HW)).astype(
+        np.float32)
+    y = rng.randint(0, RT_CLASSES, RT_BATCH)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def bn_stats(model):
+    return [m for m in model.modules() if hasattr(m, "running_var")]
+
+
+def resnet_train_run(torch, mt, vision, loss_mod, ShardedTrainer, Trainer,
+                     metric, dev, data, dtype, mode, timed=False):
+    """Three SGD steps of resnet50_v1 from seed 0 on ``data``: ``mode``
+    "steps" (``ShardedTrainer.step``), "step_n" (one window of three) or
+    "trainer" (``gluon.Trainer`` in f32, MXNet's summed loss and
+    ``step(batch)``, with ``Accuracy`` and ``TopKAccuracy(5)``). Gated on
+    finite losses and running statistics that moved and stayed finite.
+    With ``timed``: RATE_STEPS steps (or RT_WINDOWS windows of RT_FUSE)
+    on the host clock, then one step (window) under ``torch.profiler``,
+    one more for its wall time, and (``step()`` runs) the BatchNorm layers
+    alone.
+    Returns a dict; the state after the three steps on the CPU."""
+    x, y = data
+    mt.random.seed(0)
+    model = vision.get_resnet(1, 50, device=dev, trainable=True)
+    init = state_cpu(model) if mode == "steps" and dtype is None else None
+    lf = loss_mod.SoftmaxCrossEntropyLoss()
+    metrics = None
+    if mode == "trainer":
+        tr = Trainer(model.parameters(), "sgd", dict(RT_SGD))
+        metrics = [metric.Accuracy(), metric.TopKAccuracy(5)]
+
+        def step():
+            out = model(x)
+            loss = lf(out, y)
+            loss.sum().backward()       # MXNet's loss.backward()
+            tr.step(x.shape[0])
+            for m in metrics:
+                m.update([y], [out])
+            return loss.detach().mean()
+    else:
+        tr = ShardedTrainer(model, lf, "sgd", dict(RT_SGD), dtype=dtype)
+
+        def step():
+            return tr.step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if mode == "step_n":
+        xs = x.expand(RT_GATED, *x.shape)
+        ys = y.expand(RT_GATED, *y.shape)
+        losses = [float(v) for v in tr.step_n(xs, ys)]
+    else:
+        losses = [float(step()) for _ in range(RT_GATED)]
+    gated_s = time.perf_counter() - t0
+    check(all(map(math.isfinite, losses)),
+          f"resnet train {dtype} {mode}: loss {losses}")
+    for m in bn_stats(model):
+        check(bool(torch.isfinite(m.running_var).all()
+                   and torch.isfinite(m.running_mean).all()),
+              f"resnet train {dtype} {mode}: running statistics not finite")
+        check(m.running_var.dtype == torch.float32,
+              f"resnet train: running_var is {m.running_var.dtype}")
+    check(all(bool((m.running_mean != 0).any()) for m in bn_stats(model)),
+          f"resnet train {dtype} {mode}: running statistics did not move")
+    final = state_cpu(model)
+    res = {"losses": losses, "final": final, "init": init,
+           "flops": getattr(tr, "step_flops", None), "gated_s": gated_s,
+           "metrics": ([m.get() for m in metrics] if metrics else None)}
+    if timed:
+        if mode == "step_n":
+            xs = x.expand(RT_FUSE, *x.shape)
+            ys = y.expand(RT_FUSE, *y.shape)
+
+            def window():
+                return tr.step_n(xs, ys)[-1]
+            per, reps = RT_FUSE, RT_WINDOWS
+        else:
+            window, per, reps = step, 1, RATE_STEPS
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            float(window())
+            times.append((time.perf_counter() - t0) * 1e3 / per)
+        kernels = device_kernels(torch, window)
+        res.update(step_ms=times, peak=torch.cuda.max_memory_allocated(),
+                   device_ms=sum(kernels.values()) / per,
+                   kernels=kernels, per=per)
+        if mode == "steps":
+            res["bn_alone_ms"] = bn_layer_ms(
+                torch, model, x, torch.bfloat16 if dtype else torch.float32)
+        # the profiled call's own wall time, for the busy share
+        t0 = time.perf_counter()
+        float(window())
+        res["wall_ms"] = (time.perf_counter() - t0) * 1e3 / per
+    del model, tr
+    free_cuda(torch)
+    return res
+
+
+def bn_layer_ms(torch, model, x, dtype):
+    """Device ms of every BatchNorm of ``model`` in train mode, forward and
+    backward, at the input shapes one step gives them, run alone (CUDA
+    events over 5 repeats after a warm one): the step's BatchNorm share
+    where its kernels carry no name of their own (the 16-bit composite)."""
+    shapes = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp: shapes.append((mod, tuple(inp[0].shape))))
+        for m in bn_stats(model)]
+    with torch.no_grad():
+        model(x[:8])
+    for h in hooks:
+        h.remove()
+    total = 0.0
+    for mod, shape in shapes:
+        layer = type(mod)(in_channels=shape[1]).to(x.device)
+        layer.reset_parameters()
+        layer = layer.to(dtype).train()
+        inp = torch.randn((x.shape[0],) + shape[1:], device=x.device,
+                          dtype=dtype, requires_grad=True)
+        grad = torch.randn_like(inp)
+        layer(inp).backward(grad)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(5):
+            layer(inp).backward(grad)
+        e1.record()
+        e1.synchronize()
+        total += e0.elapsed_time(e1) / 5
+    return total
+
+
+def conv_bn_share(kernels):
+    """{"conv", "bn", "other"} device ms from {kernel name: ms}: the
+    convolutions (cuDNN and cuBLAS conv and gemm kernels, the weight
+    gradient's im2col), cuDNN's BatchNorm kernels, and everything else
+    (elementwise and reductions: the 16-bit BatchNorm, ReLU, the residual
+    adds, casts, pooling, the optimizer)."""
+    out = {"conv": 0.0, "bn": 0.0, "other": 0.0}
+    for name, ms in kernels.items():
+        low = name.lower()
+        if any(k in low for k in ("conv", "gemm", "xmma", "cutlass", "sm90",
+                                  "implicit", "wgrad", "dgrad", "fprop",
+                                  "im2col")):
+            out["conv"] += ms
+        elif "batch_norm" in low or "bn_" in low or "batchnorm" in low:
+            out["bn"] += ms
+        else:
+            out["other"] += ms
+    return out
+
+
+def resnet_train_phase(torch, np, mt, vision, loss_mod, ShardedTrainer,
+                       Trainer, metric, dev):
+    """Phase 11c-d: ResNet-50 v1 at batch 256 trained in f32, in bf16 and
+    as bf16 ``step_n`` windows of 8, and the f32 ``gluon.Trainer`` loop."""
+    data = resnet_data(torch, np, dev)
+    t0 = time.perf_counter()
+    a = resnet_train_run(torch, mt, vision, loss_mod, ShardedTrainer,
+                         Trainer, metric, dev, data, None, "steps",
+                         timed=True)
+    b = resnet_train_run(torch, mt, vision, loss_mod, ShardedTrainer,
+                         Trainer, metric, dev, data, None, "steps")
+    c = resnet_train_run(torch, mt, vision, loss_mod, ShardedTrainer,
+                         Trainer, metric, dev, data, None, "step_n")
+    d = resnet_train_run(torch, mt, vision, loss_mod, ShardedTrainer,
+                         Trainer, metric, dev, data, None, "trainer")
+    e = resnet_train_run(torch, mt, vision, loss_mod, ShardedTrainer,
+                         Trainer, metric, dev, data, "bfloat16", "steps",
+                         timed=True)
+    f = resnet_train_run(torch, mt, vision, loss_mod, ShardedTrainer,
+                         Trainer, metric, dev, data, "bfloat16", "step_n",
+                         timed=True)
+    g = resnet_train_run(torch, mt, vision, loss_mod, ShardedTrainer,
+                         Trainer, metric, dev, data, "bfloat16", "steps")
+    init = a["init"]
+    weights, stats = split_keys(init)
+
+    def dist(ref, other, keys=weights):
+        return moved_distance(torch, dev, ref["final"], other["final"], init,
+                              keys)
+
+    pairs = {"f32_steps_twice": dist(a, b), "f32_step_n_vs_steps": dist(a, c),
+             "f32_trainer_vs_steps": dist(a, d),
+             "bf16_steps_twice": dist(e, g), "bf16_step_n_vs_steps": dist(e, f),
+             "bf16_vs_f32": dist(a, e),
+             "f32_stats_steps_twice": dist(a, b, stats),
+             "bf16_vs_f32_stats": dist(a, e, stats)}
+    bitwise = {k: a_["losses"] == b_["losses"] and all(
+        torch.equal(a_["final"][n], b_["final"][n]) for n in a_["final"])
+        for k, (a_, b_) in {"f32": (a, b), "f32_step_n": (a, c),
+                            "bf16": (e, g), "bf16_step_n": (e, f)}.items()}
+    say("resnet train", **{k: f"{v:.3e}" for k, v in pairs.items()},
+        **{f"bitwise_{k}": v for k, v in bitwise.items()},
+        losses_f32=[f"{v:.6f}" for v in a["losses"]],
+        losses_bf16=[f"{v:.6f}" for v in e["losses"]],
+        losses_trainer=[f"{v:.6f}" for v in d["losses"]],
+        trainer_metrics=d["metrics"],
+        seconds=f"{time.perf_counter() - t0:.3f}")
+    # step_n against step(): bit for bit where two step() runs are, else
+    # within twice their distance (cuDNN's and max-pool's backward add in
+    # no fixed order)
+    for prec, (same, n_vs_s) in {
+            "f32": (bitwise["f32"], "f32_step_n_vs_steps"),
+            "bf16": (bitwise["bf16"], "bf16_step_n_vs_steps")}.items():
+        twice = pairs[f"{prec}_steps_twice"]
+        if same:
+            check(bitwise[f"{prec}_step_n"], f"resnet train {prec}: two "
+                  "step() runs are bitwise equal, step_n is not")
+        else:
+            check(pairs[n_vs_s] <= ROUTE_SCALE * twice,
+                  f"resnet train {prec}: step_n {pairs[n_vs_s]:.3e} from "
+                  f"step(), two step() runs {twice:.3e}")
+    noise = max(pairs["f32_steps_twice"], pairs["f32_step_n_vs_steps"])
+    check(pairs["f32_trainer_vs_steps"] <= ROUTE_SCALE * noise,
+          f"resnet train: gluon.Trainer {pairs['f32_trainer_vs_steps']:.3e} "
+          f"from the f32 ShardedTrainer steps, limit {ROUTE_SCALE} x "
+          f"{noise:.3e}")
+    rows = {}
+    for label, r, peak_flops in (("f32", a, F32_FLOP_PER_S),
+                                 ("bf16", e, BF16_FLOP_PER_S),
+                                 ("bf16_step_n8", f, BF16_FLOP_PER_S)):
+        ms = r["step_ms"]
+        med = statistics.median(ms)
+        share = conv_bn_share(r["kernels"])
+        rows[label] = {
+            "img_s": RT_BATCH * len(ms) / (sum(ms) / 1e3),
+            "step_ms_fastest": min(ms), "step_ms_median": med,
+            "step_ms_slowest": max(ms), "device_ms": r["device_ms"],
+            "busy": r["device_ms"] / r["wall_ms"],
+            "peak_gb": r["peak"] / 1e9, "step_flops": r["flops"],
+            "floor_ms": r["flops"] / peak_flops * 1e3,
+            "mfu": r["flops"] / (med / 1e3) / peak_flops,
+            **{f"{k}_ms": v / r["per"] for k, v in share.items()},
+            "batchnorm_alone_ms": r.get("bn_alone_ms", "not measured")}
+        say("resnet train", run=label, batch=RT_BATCH,
+            steps_timed=len(ms) if r["per"] == 1 else
+            f"{len(ms)} windows of {r['per']}",
+            **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+               for k, v in rows[label].items()})
+    top = sorted(e["kernels"].items(), key=lambda kv: -kv[1])[:8]
+    print("  bf16 step, top device kernels (ms): "
+          + "; ".join(f"{n[:60]}={t:.2f}" for n, t in top), flush=True)
+    top = sorted(a["kernels"].items(), key=lambda kv: -kv[1])[:8]
+    print("  f32 step, top device kernels (ms): "
+          + "; ".join(f"{n[:60]}={t:.2f}" for n, t in top), flush=True)
+    del data
+    free_cuda(torch)
+    return rows, pairs
+
+
 def first_divergence(torch, da, gen, prompts, a, b):
     """Row and step of the first differing greedy token of the kernel run
     ``a`` and the plain run ``b``, with each route's logit gap between the
@@ -3112,6 +3560,7 @@ def main(argv=None):
     from mxnet_tpu_torch.contrib.pallas_fuse import (FusedResNetV1,
                                                      fuse_resnet_v1)
     from mxnet_tpu_torch.gluon import loss as loss_mod
+    from mxnet_tpu_torch.gluon import metric
     from mxnet_tpu_torch.gluon.model_zoo import vision
     from mxnet_tpu_torch import models
     from mxnet_tpu_torch.models import get_llama
@@ -3298,6 +3747,15 @@ def main(argv=None):
     say("flash_launches", bert_serve=bert_served, bert_train_bf16=bert_amp[
         "bf16"], bert_train_f32=bert_f32["f32"], transformer=mt_launches,
         phase_10_seconds=f"{time.perf_counter() - t10:.3f}")
+
+    # 11. ResNet-50 v1 training: C3 at the op (11a) and model (11b) level,
+    # f32, bf16 and step_n at batch 256 (11c), gluon.Trainer (11d)
+    t11 = time.perf_counter()
+    c3_op_phase(torch, F, nn_ops, dev)
+    c3_model_phase(torch, np, mt, nn_ops, vision, loss_mod, Trainer, dev)
+    resnet_train_phase(torch, np, mt, vision, loss_mod, ShardedTrainer,
+                       Trainer, metric, dev)
+    say("resnet train", phase_11_seconds=f"{time.perf_counter() - t11:.3f}")
 
     kernels = []
     for variant, rung in (("f32", "pallas"), ("int8", "int8")):

@@ -15,15 +15,18 @@ through the CUDA decode-attention kernel; the host-side ``profiler`` and
 CUDA flash-attention kernels, forward and backward), mixed-precision
 training on one device (``parallel.ShardedTrainer(dtype=...)`` with the
 Llama's per-layer recompute, ``amp`` and its ``LossScaler`` on
-``gluon.Trainer``). ``models.llama`` has both paths; ``ops.nn`` holds the
+``gluon.Trainer``), ResNet training with train-mode BatchNorm in f32 and
+bf16, the 17 optimizers, 15 losses, ``initializer`` and
+``gluon.metric``. ``models.llama`` has both paths; ``ops.nn`` holds the
 ops, ``ops.hopper`` the kernels.
 """
 from __future__ import annotations
 
-from . import (amp, config, device, gluon, lr_scheduler, models, optimizer,
-               parallel, profiler, random, resilience, serve)
+from . import (amp, config, device, gluon, initializer, lr_scheduler,
+               models, optimizer, parallel, profiler, random, resilience,
+               serve)
 from .base import MXNetError
 
-__all__ = ["MXNetError", "amp", "config", "device", "gluon", "lr_scheduler",
-           "models", "optimizer", "parallel", "profiler", "random",
-           "resilience", "serve"]
+__all__ = ["MXNetError", "amp", "config", "device", "gluon", "initializer",
+           "lr_scheduler", "models", "optimizer", "parallel", "profiler",
+           "random", "resilience", "serve"]

@@ -253,11 +253,14 @@ def _init_weights(model, dev):
 
 
 def get_resnet(version, num_layers, pretrained=False, device=None,
-               **kwargs):
+               trainable=False, **kwargs):
     """ResNet ``version`` (1 or 2) of depth ``num_layers`` on ``device``
     (the GPU unless ``"cpu"`` is asked for; raises without CUDA), with
-    seeded random weights (:func:`_init_weights`), in eval mode with
-    gradients off, for serving. ``kwargs``: ``classes``, ``thumbnail``."""
+    seeded random weights (:func:`_init_weights`). The model is in eval
+    mode with gradients off, for serving; ``trainable=True`` gives it in
+    train mode with gradients on, for ``gluon.Trainer`` and
+    ``parallel.ShardedTrainer`` (whose step runs it in train mode
+    whatever its mode). ``kwargs``: ``classes``, ``thumbnail``."""
     if num_layers not in resnet_spec:
         raise MXNetError(f"invalid resnet depth {num_layers}; options "
                          f"{sorted(resnet_spec)}")
@@ -274,8 +277,8 @@ def get_resnet(version, num_layers, pretrained=False, device=None,
         model = resnet_class(block_class, layers, channels, **kwargs)
     model.to_empty(device=dev)
     _init_weights(model, dev)
-    model.requires_grad_(False)
-    return model.eval()
+    model.requires_grad_(trainable)
+    return model.train(trainable)
 
 
 def _reference_names(model):

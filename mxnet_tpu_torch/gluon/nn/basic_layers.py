@@ -12,7 +12,6 @@ on ``meta``, move them to the device and initialise them.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ...base import MXNetError
@@ -124,29 +123,42 @@ class Embedding(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Batch normalization over axis 1 with running statistics, MXNet's
-    defaults (``momentum=0.9``, ``epsilon=1e-5``).
+    """Batch normalization over ``axis`` (1, the channels of NCHW, by
+    default) with running statistics, MXNet's defaults (``momentum=0.9``,
+    ``epsilon=1e-5``); the counterpart of the JAX layer
+    (``mxnet_tpu/gluon/nn/basic_layers.py``), through ``ops.nn.batch_norm``.
 
-    Train mode normalizes with the batch statistics and updates the running
-    ones as the JAX layer does (``basic_layers.py``): ``m * old + (1 - m) *
-    batch``, with the unbiased variance; that is
-    ``F.batch_norm(momentum=1 - m)``. Eval mode uses the running ones.
+    Train mode (and not ``use_global_stats``) normalizes with the batch
+    statistics and updates the running ones as the JAX layer does:
+    ``m * old + (1 - m) * batch``, with the unbiased variance, where
+    ``m * old`` is taken in the statistics' own dtype (``m`` rounded to it,
+    as ``jnp`` rounds a Python scalar) and the sum in float32, the batch
+    statistics' dtype. When the buffers are float32 the result is written
+    in place. When a cast-for-compute step (``parallel.ShardedTrainer``)
+    has handed the layer 16-bit copies of its buffers, the float32 result
+    replaces the copy, and the trainer writes it back to the float32
+    buffer: the old statistics are rounded to the compute dtype, the new
+    ones are not. Eval mode, or ``use_global_stats``, uses the running
+    ones.
+
     ``scale=False`` is MXNet's ``fix_gamma``: gamma is taken as 1 and the
     layer has no ``weight``. ``center=False`` keeps ``bias`` (beta, zeros by
     default) as a buffer that is not trained. State names: ``weight``
     (gamma), ``bias`` (beta), ``running_mean``, ``running_var``.
     """
 
-    def __init__(self, momentum=0.9, epsilon=1e-5, center=True, scale=True,
-                 in_channels=0):
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, in_channels=0):
         super().__init__()
         if in_channels <= 0:
             raise MXNetError("BatchNorm: the port does not defer shapes; "
                              "pass in_channels")
+        self._axis = axis
         self._momentum = momentum
         self.eps = epsilon
         self.scale = scale
         self.center = center
+        self._use_global_stats = use_global_stats
 
         def empty():
             return torch.empty(in_channels)
@@ -172,13 +184,36 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, training=self.training,
-                            momentum=1.0 - self._momentum, eps=self.eps)
+        training = self.training and not self._use_global_stats
+        out = _ops.batch_norm(
+            x, self.weight, self.bias, self.running_mean, self.running_var,
+            eps=self.eps, fix_gamma=not self.scale,
+            use_global_stats=self._use_global_stats,
+            output_mean_var=training, axis=self._axis, training=training)
+        if not training:
+            return out
+        out, mean, var = out
+        with torch.no_grad():
+            n = x.numel() / x.shape[self._axis]
+            unbiased = var * (n / max(n - 1, 1))
+            self._update("running_mean", mean)
+            self._update("running_var", unbiased)
+        return out
+
+    def _update(self, name, batch):
+        old = self._buffers[name]
+        m = self._momentum
+        new = old * torch.tensor(m, dtype=old.dtype) + (1 - m) * batch
+        if new.dtype == old.dtype or old.element_size() > 2:
+            old.copy_(new)
+        else:
+            self._buffers[name] = new
 
     def extra_repr(self):
-        return (f"{self.running_mean.shape[0]}, momentum={self._momentum}, "
-                f"eps={self.eps}, scale={self.scale}")
+        return (f"{self.running_mean.shape[0]}, axis={self._axis}, "
+                f"momentum={self._momentum}, eps={self.eps}, "
+                f"scale={self.scale}, "
+                f"use_global_stats={self._use_global_stats}")
 
 
 class LayerNorm(nn.Module):

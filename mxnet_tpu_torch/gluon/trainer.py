@@ -34,7 +34,11 @@ before the allreduce: a non-finite one skips the update (the gradients
 are dropped, the weights untouched), halves the scale and bumps
 ``resilience.loss_scale_overflows``; a clean step clips at
 ``clip_global_norm`` times the scale in use and folds the unscale into
-the update (``batch_size * scale``). Not ported yet: the kvstore,
+the update (``batch_size * scale``). Any of the 17 optimizers steps
+through ``_update_raw`` (Nadam's host-side schedule advances once a
+parameter, as on the JAX trainer's eager path); a BatchNorm's running
+statistics are buffers, not parameters, and are not trained. Not ported
+yet: the kvstore,
 gradient compression and bucketing, and the ``trainer:grad`` /
 ``trainer:param`` fault sites.
 """

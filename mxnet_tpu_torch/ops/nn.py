@@ -9,6 +9,8 @@ device value on the host, so each can run inside a captured CUDA graph.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -251,19 +253,150 @@ def gather_positions(data, indices):
     return data[rows, indices.to(device=data.device, dtype=torch.long)]
 
 
+def _full_f32(device):
+    """cuDNN with TF32 off, for an f32 convolution on ``device``; every
+    other flag as it stands. Nothing changes outside the block."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+def _weight_grad(data, grad, wshape, stride, pad):
+    """The weight gradient of a 2-D convolution as one f32 matrix product
+    a sample, summed over the batch: ``grad`` (N, O, L) times the unfolded
+    input (N, I * kh * kw, L) transposed. cuDNN's own f32 weight-gradient
+    algorithm sums long reductions less exactly: at ResNet-50's 3 x 3 shape
+    (batch 2) it lands 1.1e-5 of the largest value from float64, this
+    product 1.6e-6 (``chip_smoke.py`` phase 11a on an H100). A 1 x 1
+    convolution needs no unfold: its columns are the (strided) input
+    itself."""
+    o, i, kh, kw = wshape
+    n = data.shape[0]
+    if (kh, kw) == (1, 1) and pad == (0, 0):
+        cols = data[:, :, ::stride[0], ::stride[1]].reshape(n, i, -1)
+    else:
+        cols = F.unfold(data, (kh, kw), padding=pad, stride=stride)
+    g = grad.reshape(n, o, -1)
+    return torch.matmul(g, cols.transpose(1, 2)).sum(0).reshape(wshape)
+
+
+class _ConvolutionF32(torch.autograd.Function):
+    """An f32 2-D convolution whose forward and data gradient run with
+    cuDNN's TF32 off, and whose weight gradient is an f32 matrix product
+    (:func:`_weight_grad`; cuBLAS keeps f32 unless
+    ``torch.backends.cuda.matmul.allow_tf32`` is set, which PyTorch leaves
+    off). Autograd runs a backward after the forward's call has returned,
+    under PyTorch's default ``cudnn.allow_tf32=True``, so the backward
+    enters the same block itself."""
+
+    @staticmethod
+    def forward(ctx, data, weight, bias, stride, pad):
+        ctx.save_for_backward(data, weight)
+        ctx.stride, ctx.pad = stride, pad
+        ctx.has_bias = bias is not None
+        with _full_f32(data.device):
+            return F.conv2d(data, weight, bias, stride, pad)
+
+    @staticmethod
+    def backward(ctx, grad):
+        data, weight = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with _full_f32(grad.device):
+            gd, _, gb = torch.ops.aten.convolution_backward(
+                grad, data, weight,
+                [weight.shape[0]] if ctx.has_bias else None,
+                ctx.stride, ctx.pad, [1, 1], False, [0, 0], 1,
+                [need[0], False, ctx.has_bias and need[2]])
+        gw = (_weight_grad(data, grad, weight.shape, ctx.stride, ctx.pad)
+              if need[1] else None)
+        return gd, gw, gb, None, None
+
+
 def convolution(data, weight, bias=None, stride=1, pad=0):
     """2-D convolution, NCHW data and (O, I, kh, kw) weight, as
-    ``mxnet_tpu.ops.nn.convolution`` lays it out. A float32 convolution on
-    a CUDA tensor runs with cuDNN's TF32 off inside this call: PyTorch's
-    default (``torch.backends.cudnn.allow_tf32``) would keep about three
-    decimal digits. No flag changes outside the call."""
-    if data.is_cuda and data.dtype == torch.float32:
-        cudnn = torch.backends.cudnn
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic,
-                         allow_tf32=False):
-            return F.conv2d(data, weight, bias, stride, pad)
+    ``mxnet_tpu.ops.nn.convolution`` lays it out. A float32 convolution
+    keeps f32 in its forward and both gradients
+    (:class:`_ConvolutionF32`): PyTorch's default
+    (``torch.backends.cudnn.allow_tf32``) would keep about three decimal
+    digits. No flag changes outside the call."""
+    if data.dtype == torch.float32 and weight.dtype == torch.float32:
+        st = (stride, stride) if isinstance(stride, int) else tuple(stride)
+        pd = (pad, pad) if isinstance(pad, int) else tuple(pad)
+        return _ConvolutionF32.apply(data, weight, bias, st, pd)
     return F.conv2d(data, weight, bias, stride, pad)
+
+
+def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-5,
+               momentum=0.9, fix_gamma=False, use_global_stats=False,
+               output_mean_var=False, axis=1, training=False):
+    """Batch normalization over every axis but ``axis``, with the JAX
+    package's arithmetic (``mxnet_tpu.ops.nn.batch_norm``). The JAX op
+    reads ``autograd.is_training()``; here the caller passes ``training``
+    (a module passes its ``training`` flag). ``fix_gamma`` (or a ``gamma``
+    of None) takes gamma as 1. ``momentum`` is the layer's: the op does
+    not touch the running statistics.
+
+    Training (``training`` and not ``use_global_stats``) normalizes with
+    the batch statistics:
+
+    * float32 (and float64): the exact two-pass mean and population
+      variance. ``F.batch_norm`` (cuDNN on the card) normalizes; the
+      statistics for the caller come from ``torch.var_mean``;
+    * 16-bit: one-pass float32 statistics, ``E[x^2] - E[x]^2`` clamped at
+      0; ``gamma * rsqrt(var + eps)`` and the mean rounded to x's dtype,
+      and the normalization in x's dtype, as the JAX op does under AMP.
+
+    Otherwise the running statistics normalize: ``F.batch_norm`` when x,
+    gamma, beta and the statistics are all float32 or float64, else the
+    JAX formula ``(x - mean) * gamma / sqrt(var + eps) + beta`` in the
+    dtypes given (they promote as ``jnp`` does).
+
+    With ``output_mean_var`` returns ``(out, mean, var)``: in training
+    the batch mean and population variance (float32 for a 16-bit x),
+    detached, for the layer's running update; else the running ones."""
+    del momentum  # the layer's running update reads it
+    axis = axis % x.dim()
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    gamma = None if fix_gamma else gamma
+    if training and not use_global_stats:
+        axes = tuple(i for i in range(x.dim()) if i != axis)
+        if x.element_size() <= 2:
+            x32 = x.to(torch.float32)
+            mean = x32.mean(dim=axes)
+            var = torch.clamp(torch.square(x32).mean(dim=axes)
+                              - torch.square(mean), min=0.0)
+            inv_c = 1.0 / torch.sqrt(var + eps)
+            inv = inv_c if gamma is None else gamma.to(torch.float32) * inv_c
+            out = ((x - mean.to(x.dtype).reshape(shape))
+                   * inv.to(x.dtype).reshape(shape) + beta.reshape(shape))
+            mean, var = mean.detach(), var.detach()
+        else:
+            if axis == 1:
+                out = F.batch_norm(x, None, None, gamma, beta, training=True,
+                                   eps=eps)
+            else:
+                mean = x.mean(dim=axes, keepdim=True)
+                var = x.var(dim=axes, keepdim=True, correction=0)
+                inv = 1.0 / torch.sqrt(var + eps)
+                if gamma is not None:
+                    inv = gamma.reshape(shape) * inv
+                out = (x - mean) * inv + beta.reshape(shape)
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=axes, correction=0)
+        return (out, mean, var) if output_mean_var else out
+    same = {t.dtype for t in (x, gamma, beta, running_mean, running_var)
+            if t is not None}
+    if axis == 1 and (same <= {torch.float32} or same <= {torch.float64}):
+        out = F.batch_norm(x, running_mean, running_var, gamma, beta,
+                           training=False, eps=eps)
+    else:
+        den = torch.sqrt(running_var.reshape(shape) + eps)
+        inv = 1.0 / den if gamma is None else gamma.reshape(shape) / den
+        out = (x - running_mean.reshape(shape)) * inv + beta.reshape(shape)
+    return (out, running_mean, running_var) if output_mean_var else out
 
 
 # ---------------------------------------------------------------------------

@@ -19,20 +19,31 @@ package:
   casts each recomputed layer's parameters at use, so no low-precision
   copy of the weights lives across the step.
 
-The step runs the block in training mode (Dropout active), whatever mode
-it is in between steps, as the JAX package's step traces it with
-``train_mode=True``.
+Under cast-for-compute the block's mutable state (the floating buffers
+that a ``state_dict`` keeps: BatchNorm's running statistics) goes through
+the step as the JAX package carries it: it enters as compute-dtype copies
+and what the step leaves in them comes back to the f32 buffers, so the
+running statistics are rounded to the compute dtype once a step. (The
+JAX step casts its state with its parameters and returns the new state
+at the master dtype.)
 
-Ported so far: one device, ``step`` and ``step_n``. ``parallel=``,
-``zero_bucket_mb > 0``, ``abstract=True``, a pipelined block and a mesh of
-more than one device raise; ``step_flops``, checkpoints, ``export_state``
-and the elastic hooks are ROADMAP A.4.
+The step runs the block in training mode (Dropout active, BatchNorm on
+batch statistics), whatever mode it is in between steps, as the JAX
+package's step traces it with ``train_mode=True``.
+
+Ported so far: one device, ``step``, ``step_n``, ``step_flops`` and
+``step_cost_analysis``. ``parallel=``, ``zero_bucket_mb > 0``,
+``abstract=True``, a pipelined block and a mesh of more than one device
+raise; checkpoints, ``export_state`` and the elastic hooks are ROADMAP
+A.4.
 """
 from __future__ import annotations
 
 import contextlib
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 
 from ..base import MXNetError
 from ..optimizer import create as create_optimizer
@@ -81,6 +92,62 @@ def _cast(x, dtype):
     if isinstance(x, torch.Tensor) and x.is_floating_point():
         return x.to(dtype)
     return x
+
+
+def _signature(tree):
+    """Shapes and dtypes of a batch's leaves: the key ``step_flops`` is
+    counted under."""
+    if isinstance(tree, (list, tuple)):
+        return tuple(_signature(x) for x in tree)
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype)
+    return type(tree).__name__
+
+
+class _FlopCount(TorchDispatchMode):
+    """A dispatch mode that sums, in ``total``, the floating-point
+    operations of the ops run under it, by PyTorch's own formulas
+    (``torch.utils.flop_counter.flop_registry``: products and
+    convolutions, forward and backward). ``FlopCounterMode`` itself is not
+    used: it runs ops through their decompositions and hooks every
+    module's backward, which changes the step's last bits."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            self.total += formula(*args, **kwargs, out_val=out)
+        return out
+
+
+@contextlib.contextmanager
+def _state_in(block, dtype):
+    """Hand every module of ``block`` compute-dtype copies of its floating
+    persistent buffers for the forward, and write what the forward left
+    in them (a new tensor the module put in their place, or the copy
+    itself) back to the original buffers, in their own dtype. The
+    originals stay where they are: nothing holding them is disturbed."""
+    swapped = []
+    try:
+        for mod in block.modules():
+            for name, buf in mod._buffers.items():
+                if (buf is not None and buf.is_floating_point()
+                        and name not in mod._non_persistent_buffers_set):
+                    swapped.append((mod, name, buf))
+        for mod, name, buf in swapped:
+            mod._buffers[name] = buf.to(dtype)
+        yield
+        with torch.no_grad():
+            for mod, name, buf in swapped:
+                buf.copy_(mod._buffers[name])
+    finally:
+        for mod, name, buf in swapped:
+            mod._buffers[name] = buf
 
 
 class ShardedTrainer:
@@ -147,6 +214,8 @@ class ShardedTrainer:
             self._opt_states = [self.optimizer.create_state(i, p.detach())
                                 for i, p in enumerate(self._train)]
         self._step_count = 0
+        self._flops = {}
+        self._step_flops = None
 
     # -- the step ---------------------------------------------------------
     @property
@@ -193,9 +262,11 @@ class ShardedTrainer:
         with self._protocol():
             if amp is not None and not self._inner_amp:
                 # cast-for-compute: the backward through the casts hands
-                # f32 gradients to the f32 masters
+                # f32 gradients to the f32 masters; the state is cast too
                 params = {n: _cast(p, amp) for n, p in self.params.items()}
-                out = torch.func.functional_call(self.block, params, batch)
+                with _state_in(self.block, amp):
+                    out = torch.func.functional_call(self.block, params,
+                                                     batch)
             else:
                 out = self.block(*batch)
             loss = self.loss_fn(out, labels)
@@ -205,6 +276,18 @@ class ShardedTrainer:
         return torch.mean(loss.to(torch.float32))
 
     def _step_once(self, data, labels, lrs, wds, t):
+        sig = (_signature(data), _signature(labels))
+        if sig in self._flops:
+            loss = self._run_step(data, labels, lrs, wds, t)
+        else:
+            counter = _FlopCount()
+            with counter:
+                loss = self._run_step(data, labels, lrs, wds, t)
+            self._flops[sig] = counter.total
+        self._step_flops = self._flops[sig]
+        return loss
+
+    def _run_step(self, data, labels, lrs, wds, t):
         for p in self._train:
             p.grad = None
         with self._train_mode():
@@ -262,6 +345,32 @@ class ShardedTrainer:
                                           _leaf_step(labels, j), lrs, wds,
                                           t0 + j))
         return torch.stack(losses)
+
+    @property
+    def step_flops(self):
+        """Floating-point operations of one step of the last signature run
+        (forward, backward and update; None before the first step): the
+        MFU numerator. Counted once per batch signature (shapes and
+        dtypes), while that signature's first step runs, by PyTorch's flop
+        formulas (:class:`_FlopCount`), and cached, so later steps pay
+        nothing for it; a ``step_n`` window reports one step's.
+
+        It counts the products the step dispatches to PyTorch: matrix
+        products and convolutions, forward and backward, at 2 per
+        multiply-add. XLA's cost analysis, the JAX package's figure, also
+        counts elementwise operations (normalizations, activations, the
+        optimizer's update), so this count is lower; and a product inside
+        a kernel of ``ops.hopper`` (the flash attention) is not seen."""
+        return self._step_flops
+
+    @property
+    def step_cost_analysis(self):
+        """``{"flops": step_flops}`` of the last step ({} before the first
+        step): the one figure of XLA's cost analysis this trainer
+        measures."""
+        if self._step_flops is None:
+            return {}
+        return {"flops": self._step_flops}
 
     def sync_to_block(self):
         """Nothing to do: the block's parameters are the masters and hold

@@ -1646,3 +1646,179 @@ def test_cuda_bert_session_signatures_frozen_after_warmup():
     assert fa.launch_count() == {"fwd": n0["fwd"] + 2 * len(forwards),
                                  "bwd_dq": n0["bwd_dq"],
                                  "bwd_dkv": n0["bwd_dkv"]}
+
+
+# ---------------------------------------------------------------------------
+# ResNet training (slice A.4): C3, train-mode BatchNorm, ShardedTrainer,
+# the optimizers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", [
+    ((2, 3, 64, 64), (16, 3, 7, 7), 2, 3),
+    ((2, 32, 28, 28), (32, 32, 3, 3), 1, 1),
+    ((2, 64, 28, 28), (128, 64, 1, 1), 2, 0)],
+    ids=["stem_7x7_s2", "3x3", "1x1_s2"])
+def test_cuda_f32_convolution_gradients_full_f32(case):
+    """C3: the port's f32 convolution on the card, forward and both
+    gradients, within 1e-5 of float64 (as a share of the largest value),
+    where cuDNN's default TF32 keeps about three digits; no global flag
+    moves."""
+    dev = _need_cuda()
+    xs, ws, stride, pad = case
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(xs, generator=gen)
+    w = torch.randn(ws, generator=gen) / ws[1] ** 0.5
+    x64, w64 = x.double().requires_grad_(), w.double().requires_grad_()
+    y64 = torch.nn.functional.conv2d(x64, w64, None, stride, pad)
+    gy = torch.randn(y64.shape, generator=gen)
+    y64.backward(gy.double())
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    xc = x.to(dev).requires_grad_()
+    wc = w.to(dev).requires_grad_()
+    yc = tops.convolution(xc, wc, None, stride, pad)
+    yc.backward(gy.to(dev))
+    for got, want in ((yc, y64), (xc.grad, x64.grad), (wc.grad, w64.grad)):
+        want = want.detach()
+        err = (got.detach().double().cpu() - want).abs().max()
+        assert float(err / want.abs().max()) <= 1e-5
+    assert (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32) == flags
+
+
+def test_cuda_bf16_batch_norm_matches_cpu():
+    """Train-mode bf16 ``batch_norm``: forward and gradients on the card
+    against the CPU, within 2 units in bf16's last place of each output's
+    largest value (the reductions add in other orders); the f32 batch
+    statistics to 1e-5."""
+    dev = _need_cuda()
+    rng = np.random.RandomState(0)
+    arrs = [rng.randn(8, 16, 14, 14) * 2 + 1, rng.uniform(0.5, 1.5, 16),
+            rng.randn(16), rng.randn(8, 16, 14, 14)]
+    outs = {}
+    for d in ("cpu", dev):
+        x, g, b, dy = (torch.from_numpy(a.astype(np.float32)).to(d)
+                       for a in arrs)
+        x, g, b = (t.bfloat16().requires_grad_() for t in (x, g, b))
+        out, mean, var = tops.batch_norm(
+            x, g, b, None, None, output_mean_var=True, training=True)
+        (out.float() * dy).sum().backward()
+        outs[str(d)] = [t.detach().float().cpu() for t in
+                        (out, mean, var, x.grad, g.grad, b.grad)]
+    for i, (a, b) in enumerate(zip(outs[str(dev)], outs["cpu"])):
+        scale = float(b.abs().max())
+        tol = 1e-5 if i in (1, 2) else 2 * 2.0 ** -8
+        assert float((a - b).abs().max()) <= tol * scale, i
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"], ids=["f32", "bf16"])
+def test_cuda_resnet_sharded_step_matches_cpu(dtype):
+    """One ``ShardedTrainer`` SGD step of a small bottleneck ResNetV1 on
+    the card against the CPU, then a ``step_n`` window equal to two
+    ``step()`` calls. f32: the loss within 1e-5, the weights and running
+    statistics within 1e-4 of their movement (the C3 repair: TF32 alone
+    would move them ~1e-3); bf16: the loss within 1e-2 and the statistics
+    f32 on both."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    dev = _need_cuda()
+    base = initializer.initialize(
+        vision.ResNetV1(vision.BottleneckV1, [1, 1, 1, 1],
+                        [8, 16, 32, 64, 128], classes=10, thumbnail=True),
+        "xavier", generator=torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.uniform(-1, 1, (3, 4, 3, 32, 32)).astype(
+        np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, (3, 4)))
+    init = {n: t.detach().double().clone()
+            for n, t in base.state_dict().items()}
+    runs = {}
+    for d in ("cpu", dev):
+        model = copy.deepcopy(base).to(d)
+        tr = ShardedTrainer(model, tloss.SoftmaxCrossEntropyLoss(), "sgd",
+                            {"learning_rate": 0.1, "momentum": 0.9,
+                             "wd": 1e-4}, dtype=dtype)
+        loss = float(tr.step(x[0].to(d), y[0].to(d)))
+        runs[str(d)] = (loss, {n: t.detach().double().cpu()
+                               for n, t in model.state_dict().items()}, tr)
+        assert all(m.running_var.dtype == torch.float32
+                   for m in model.modules() if hasattr(m, "running_var"))
+    (l_cpu, s_cpu, _), (l_dev, s_dev, tr) = runs["cpu"], runs[str(dev)]
+    if dtype is None:
+        assert abs(l_dev - l_cpu) <= 1e-5
+        for stats in (False, True):
+            keys = [n for n in s_cpu if ("running" in n) == stats
+                    and s_cpu[n].is_floating_point()]
+            diff = sum(float(((s_dev[n] - s_cpu[n]) ** 2).sum())
+                       for n in keys) ** 0.5
+            moved = sum(float(((s_cpu[n] - init[n]) ** 2).sum())
+                        for n in keys) ** 0.5
+            assert diff <= 1e-4 * moved, (stats, diff, moved)
+    else:
+        assert abs(l_dev - l_cpu) <= 1e-2
+    # step_n over the next two batches equals two step() calls from here
+    model = tr.block
+    twin = copy.deepcopy(model)
+    tr2 = ShardedTrainer(twin, tloss.SoftmaxCrossEntropyLoss(), "sgd",
+                         {"learning_rate": 0.1, "momentum": 0.9,
+                          "wd": 1e-4}, dtype=dtype)
+    tr2._opt_states = [tuple(s.clone() for s in st)
+                       for st in tr._opt_states]
+    tr2._step_count = tr._step_count
+    fused = tr.step_n(x[1:].to(dev), y[1:].to(dev))
+    seq = torch.stack([tr2.step(x[i].to(dev), y[i].to(dev))
+                       for i in (1, 2)])
+    assert torch.allclose(fused, seq, rtol=0, atol=1e-3 if dtype else 1e-5)
+    assert tr.step_flops == tr2.step_flops > 0
+
+
+@pytest.mark.parametrize("name", ["nag", "rmsprop", "adagrad", "adadelta",
+                                  "adamax", "nadam", "ftrl", "ftml",
+                                  "signum", "lars", "lamb", "lans",
+                                  "dcasgd"])
+def test_cuda_optimizer_updates_match_cpu(name):
+    """The new optimizers' in-place rules on the card against the CPU:
+    four updates of two weights, to 1e-6 (relative, and absolute at the
+    weights' scale). SGLD is held on its deterministic part: its noise is
+    a device stream."""
+    from mxnet_tpu_torch import optimizer as topt
+
+    dev = _need_cuda()
+    rng = np.random.RandomState(0)
+    ws = [rng.randn(64, 33).astype(np.float32), rng.randn(17).astype(
+        np.float32)]
+    gs = [[rng.randn(*w.shape).astype(np.float32) for w in ws]
+          for _ in range(4)]
+    out = {}
+    for d in ("cpu", dev):
+        opt = topt.create(name, learning_rate=0.01, wd=0.01,
+                          rescale_grad=0.5, clip_gradient=0.8)
+        weights = [torch.from_numpy(w.copy()).to(d) for w in ws]
+        states = [opt.create_state(i, w) for i, w in enumerate(weights)]
+        for grads in gs:
+            for i, (w, g) in enumerate(zip(weights, grads)):
+                opt.update(i, w, torch.from_numpy(g).to(d), states[i])
+        out[str(d)] = [w.cpu() for w in weights]
+    for a, b in zip(out[str(dev)], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-6,
+                                   atol=1e-6 * max(1.0, float(b.abs().max())))
+
+
+def test_cuda_sgld_deterministic_part_matches_cpu():
+    from mxnet_tpu_torch import optimizer as topt
+
+    dev = _need_cuda()
+    w = torch.randn(128, 64, generator=torch.Generator().manual_seed(0))
+    g = torch.randn(128, 64, generator=torch.Generator().manual_seed(1))
+    t = w.clone().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    topt.SGLD(learning_rate=0.01, wd=0.01, generator=gen).update(
+        0, t, g.to(dev), ())
+    noise = torch.randn(w.shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3)
+                        ) * 0.1
+    det = w - 0.5 * 0.01 * (g + 0.01 * w)
+    torch.testing.assert_close((t - noise).cpu(), det, rtol=0, atol=1e-6)

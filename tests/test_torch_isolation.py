@@ -246,3 +246,60 @@ def test_trainer_keeps_parameters_where_they_are():
                for (p, ptr, dev), a in zip(before, after))
     assert all(s.device == p.device for p, st in zip(after, tr._states)
                for s in st)
+
+
+_TRAINING = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["mxnet_tpu"] = None
+import torch
+import mxnet_tpu_torch as mt
+from mxnet_tpu_torch import initializer, optimizer, parallel
+from mxnet_tpu_torch.gluon import Trainer, loss, metric
+from mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+model = get_resnet(1, 18, device="cpu", trainable=True, classes=10,
+                   thumbnail=True)
+assert model.training and all(p.requires_grad for p in model.parameters())
+initializer.initialize(model, "xavier")
+x, y = torch.rand(2, 3, 16, 16), torch.tensor([1, 7])
+for dtype in (None, "bfloat16"):
+    st = parallel.ShardedTrainer(model, loss.SoftmaxCrossEntropyLoss(), "sgd",
+                                 {"learning_rate": 0.1, "momentum": 0.9},
+                                 dtype=dtype)
+    assert float(st.step(x, y)) > 0 and st.step_flops > 0
+assert model.features[1][0].body[1].running_var.dtype == torch.float32
+acc, top = metric.Accuracy(), metric.TopKAccuracy(5)
+for name in ("nag", "rmsprop", "lamb", "sgld", "ftrl", "dcasgd"):
+    tr = Trainer(model.parameters(), name, {"learning_rate": 1e-3})
+    out = model(x)
+    loss.SoftmaxCrossEntropyLoss()(out, y).sum().backward()
+    tr.step(2)
+    acc.update([y], [out]); top.update([y], [out])
+assert 0 <= acc.get()[1] <= top.get()[1] <= 1
+assert len(loss.CTCLoss()(torch.randn(2, 6, 5), torch.tensor([[1, 2],
+                                                            [3, 0]]))) == 2
+assert not any(m == "jax" or m.startswith(("jax.", "mxnet_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("TRAINING_ISOLATED_OK")
+"""
+
+
+def test_training_surface_runs_without_jax(monkeypatch):
+    """ResNet training (both ``ShardedTrainer`` dtypes), the initializers,
+    optimizers, losses and metrics import and run with JAX blocked; a
+    trainable ResNet still needs ``device="cpu"`` without CUDA."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    proc = subprocess.run([sys.executable, "-c", _TRAINING], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "TRAINING_ISOLATED_OK" in proc.stdout
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        get_resnet(1, 50, trainable=True)

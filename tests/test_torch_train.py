@@ -158,7 +158,7 @@ def test_update_rules_match_jax(name, kw):
 
 def test_optimizer_registry_and_learning_rate():
     with pytest.raises(MXNetError, match="unknown optimizer"):
-        topt.create("lamb")
+        topt.create("no_such_optimizer")
     opt = topt.create("SGD", learning_rate=0.5)
     assert isinstance(opt, topt.SGD) and topt.create(opt) is opt
     assert opt.learning_rate == 0.5
