@@ -112,7 +112,11 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    ``warmup()``. Printed: decode ms a token, tokens a round, acceptance,
    host visits a token, the draft and verify replays' device ms (CUDA
    events) and peak memory.
-6. flash: the three flash-attention kernels (forward, dq, dk/dv) each
+6. flash: each dtype pair's kernel attributes (registers and spilled bytes
+   a thread, blocks an SM, threads, shared memory; ``kernel_attributes``)
+   at D = 64, 128 and 256; the (bf16, bf16) backward must hold at least two
+   blocks an SM at D <= 128. The three flash-attention kernels (forward,
+   dq, dk/dv) each
    against its plain version at the training shape (B=2, H=32, T=2048,
    D=128, causal), non-causal with valid lengths [0, 1000] (dead rows must
    be exact zeros), causal with Tq != Tk, a ragged T=1000, D=64, and a
@@ -789,6 +793,24 @@ def device_kernels(torch, fn):
         torch.cuda.synchronize()
     return {ev.key: ev.device_time_total / 1e3 for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def flash_attributes_phase(fa):
+    """Phase 6, first: each pair's kernel attributes at D = 64, 128 and 256
+    (the instantiation of 16-byte copies), one line a pair and D; the
+    (bf16, bf16) backward holds at least two blocks an SM at D <= 128."""
+    for pair in fa.DTYPE_PAIRS:
+        for d in (64, 128, 256):
+            at = fa.kernel_attributes(pair, d)
+            say("flash attributes", pair=fa.pair_label(pair), D=d,
+                **{n: "/".join(str(a[k]) for k in fa.ATTRIBUTES)
+                   for n, a in at.items()},
+                fields="/".join(fa.ATTRIBUTES))
+            if fa.pair_label(pair) == "bf16" and d <= 128:
+                check(all(at[n]["blocks_per_sm"] >= 2
+                          for n in ("bwd_dq", "bwd_dkv")),
+                      f"flash bf16 backward below two blocks an SM at D {d}:"
+                      f" {at}")
 
 
 def flash_phase(torch, fa, flush, dev):
@@ -3644,6 +3666,7 @@ def main(argv=None):
     # 3. kernel vs plain
     kres = kernel_phase(torch, da, nn_ops, flush, dev)
     if args.quick:
+        flash_attributes_phase(fa)
         flash_phase(torch, fa, flush, dev)
         flash_dtype_phase(torch, fa, flush, dev)
         flash_bert_phase(torch, np, fa, flush, dev)
@@ -3706,6 +3729,7 @@ def main(argv=None):
 
     # 6. flash kernels vs plain, f32 and the other dtype pairs
     flush = torch.empty(64 << 18, device=dev)
+    flash_attributes_phase(fa)
     fres = flash_phase(torch, fa, flush, dev)
     dres = flash_dtype_phase(torch, fa, flush, dev)
     bres = flash_bert_phase(torch, np, fa, flush, dev)

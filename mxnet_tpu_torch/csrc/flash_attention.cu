@@ -7,6 +7,9 @@
 //   flash_bwd_dq_kernel  <- _flash_bwd_dq  (dq)
 //   flash_bwd_dkv_kernel <- _flash_bwd_dkv (dk, dv)
 //
+// and, in the library of the (bf16, bf16) pair, flash_bwd_dq_bf16_kernel and
+// flash_bwd_dkv_bf16_kernel in place of the two backward kernels (below).
+//
 // Over (BH, T, D) tensors, with kvalid (B,) int32 valid key counts
 // (bh / H picks the row) and the causal diagonal offset causal_off = Tk - Tq
 // of the unpadded lengths, each computes what its Pallas kernel computes:
@@ -32,7 +35,10 @@
 // f32 operands arrive by cp.async; a bf16 or f16 operand is read into
 // registers (8-byte loads of four values, all of a thread's loads before
 // its first store), widened and stored, so its loads are not in flight
-// while the previous tile is used.
+// while the previous tile is used. The (bf16, bf16) backward keeps its
+// tiles in bf16 and computes the same values from them (its own section
+// below); every forward, and the backward of every other pair, is this
+// f32 design.
 //
 // Bound: operations. Per kept (query, key) pair the forward does 4 * D
 // flops, dq 6 * D and dk/dv 8 * D, all as 3xTF32 products on the tensor
@@ -111,6 +117,54 @@
 // need five); wgmma's TF32 wants both operands K-major in shared memory,
 // which the transposed products are not; dk/dv runs at the 255-register
 // limit.
+//
+// The (bf16, bf16) backward. Bound: operations at the training shape, where
+// its products take 0.17 ms (dq) + 0.28 ms (dk/dv) at the card's 989
+// TFLOP/s of bf16 (one pass for two bf16 operands, three for P or dS:
+// five passes for dq's three products, eight for dk/dv's four); bytes at
+// BERT-base's (B H = 768, T = 128, D = 64, valid lengths 112-128), 0.019 +
+// 0.022 ms at 3.35 TB/s. Design:
+//  * every product on bf16 mma.sync m16n8k16 with f32 accumulators. S and
+//    dP (dk/dv: their transposes) multiply two bf16 inputs: one pass, the
+//    products exact, summed 32 (dq) or 16 (dk/dv) columns apart and joined
+//    by f32 adds, as above. P and dS stay f32, as the TPU kernels keep them
+//    (rounding them once to bf16, as cuDNN's and FlashAttention-2's
+//    backward do, would move the gradients off the plain versions): dq +=
+//    dS K, dv += P^T dO and dk += dS^T q take each of them in three bf16
+//    pieces, hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), 24
+//    significand bits within 2^-24 |x|, three passes against the bf16
+//    operand, the small pieces first, each tile's product summed apart. Two
+//    adjacent accumulator tiles of P or dS, packed into bf16x2, are the A
+//    operand as they stand (FlashAttention-2's register reuse);
+//  * the tiles stay bf16 in shared memory and arrive by 16-byte cp.async
+//    (eight values) into two stages, the next tile in flight; a D that is
+//    not a multiple of 8, or an operand not 16-byte aligned, takes the same
+//    kernel with the threads copying one value each. Rows of P values (a
+//    multiple of 128 bytes) with 16-byte chunks XOR-swizzled by row % 8 are
+//    read by ldmatrix.x4, .trans where the reduction runs down the stored
+//    rows (K in dS K, dO in P^T dO, q in dS^T q), free of bank conflicts;
+//  * blocks of 4 warps; a warp owns 16 resident rows (dq: queries, dk/dv:
+//    keys) across the whole streamed tile, so no two warps add into one
+//    output and nothing is reduced through shared memory. dq keeps 64 query
+//    rows and streams 32-key tiles, dk/dv keeps 64 keys and streams
+//    32-query tiles (above D = 128: 32 resident rows, two warps splitting
+//    the output columns and repeating the scores). Three dq blocks an SM at
+//    D <= 128 (168 registers; at D = 128 a thread spills 24 bytes, and two
+//    blocks without the spill ran 20% slower on an H100), three dk/dv
+//    blocks at D = 64, two at D = 128 (244 registers) and above. Causal
+//    grids take every head's longest tiles first; the others put a head's
+//    tiles next to each other, so that the second read of the streamed
+//    operand hits L2.
+// What holds it back: at the training shape it reaches a quarter of its
+// operation bound. mma.sync reaches only part of the rate wgmma gives;
+// dq's score products wait on ldmatrix (six 512-byte reads for eight mma:
+// each warp reads the whole K and V tile for its 16 rows); the splits and
+// the softmax issue about as many instructions again; the output products
+// take 43% of dk/dv's time. At BERT's shape the products are only a
+// quarter to a third of the time: the loads, ldmatrix, barriers and the
+// elementwise work of 12 warps an SM are the rest, and the two kernels
+// read every input twice (seven products where one fused pass with
+// atomics would need five).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -219,7 +273,7 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * P + ((((c >> 2) ^ swz_key(r)) << 2) | (c & 3));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(in ? 16 : 0));
@@ -1002,6 +1056,491 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// The (bf16, bf16) backward: bf16 tiles and bf16 mma.sync m16n8k16 products
+
+using bf16 = __nv_bfloat16;
+
+// True in the library of the (bf16, bf16) pair, whose dq and dk/dv kernels
+// are the two below.
+constexpr bool kBf16Bwd =
+    std::is_same<QkT, bf16>::value && std::is_same<VT, bf16>::value;
+
+constexpr int kThreads16 = 128;  // 4 warps a block
+// k16 steps of a score summed apart: 32 columns (dq) and 16 (dk/dv), the
+// spans of kChunkDq and kChunkDkv
+constexpr int kChunk16Dq = 2;
+constexpr int kChunk16Dkv = 1;
+
+// Tile shape of the bf16 backward kernels at row width P: 4 warps, WM x WD,
+// warp (wm, wd) owning resident rows [16 wm, 16 wm + 16) and output columns
+// [wd P / WD, (wd + 1) P / WD) across the whole streamed tile, so that no
+// two warps add into one output. dq streams SDQ keys a tile, dk/dv SDKV
+// queries.
+template <int P_>
+struct Bf16Tile {
+  static constexpr int P = P_;
+  static constexpr int WD = P <= 128 ? 1 : 2;
+  static constexpr int WM = kThreads16 / 32 / WD;
+  static constexpr int R = 16 * WM;
+  static constexpr int SDQ = 32;
+  static constexpr int SDKV = 32;
+};
+
+// Element (r, c) of a swizzled (rows x P) bf16 tile: 16-byte chunk c / 8 of
+// row r sits at chunk (c / 8) ^ (r % 8). The 8 rows that one 8 x 8 matrix
+// of an ldmatrix reads at one chunk then lie in 8 distinct bank groups (a
+// row is a multiple of 128 bytes), with or without .trans.
+template <int P>
+__device__ __forceinline__ int swz16(int r, int c) {
+  return r * P + ((((c >> 3) ^ (r & 7)) << 3) | (c & 7));
+}
+
+// A lane's address in an ldmatrix.x4 over the 16 x 16 block at (rb, cb) of
+// a swizzled tile (rb, cb multiples of 16): row rb + lane % 16, columns
+// cb + 8 (lane / 16) onwards. The XOR touches only a chunk's low three
+// bits, so the byte offset is 2 (rb P + cb & ~63) + off[(cb / 16) % 4],
+// with off computed once.
+template <int P>
+struct LdsmOff {
+  int off[4];
+  __device__ explicit LdsmOff(int lane) {
+    const int r = lane & 15, x = (lane >> 4) ^ (lane & 7);
+#pragma unroll
+    for (int ph = 0; ph < 4; ++ph) off[ph] = 2 * (r * P + (((2 * ph) ^ x) << 3));
+  }
+  __device__ __forceinline__ uint32_t at(uint32_t base, int rb, int cb) const {
+    return base + 2 * (rb * P + (cb & ~63)) + off[(cb >> 4) & 3];
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices; register i holds row lane / 4, columns
+// 2 (lane % 4) and 2 (lane % 4) + 1 of matrix i (of its transpose: .trans).
+// Matrices 0-3 start at the addresses of lanes 0, 8, 16 and 24.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The m16n8k16 fragments, lane = 4 g + t: A (16 x 16) a0 (g, 2t..2t+1),
+// a1 (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..); B (16 x 8)
+// b0 (2t..2t+1, g), b1 (2t + 8.., g); C as m16n8k8's. An ldmatrix.x4 at
+// LdsmOff's addresses gives A of a 16 x 16 block; B of two n-tiles of a
+// block of rows X[n][k] (n0: r0, r2; n0 + 8: r1, r3); and with .trans B of
+// two n-tiles of a block of rows X[k][n] (n0: r0, r1; n0 + 8: r2, r3).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x, y) rounded to bf16 (to nearest), x in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// An f32 A fragment as three bf16 pieces: x = hi + mid + lo + e with
+// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), each rounded
+// to nearest; the subtractions are exact, and |e| <= 2^-24 |x|, f32's own
+// rounding (each piece leaves at most 2^-8 of what it splits).
+struct Frag3 {
+  uint32_t hi[4], mid[4], lo[4];
+};
+
+__device__ __forceinline__ void split3(float x, float y, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  hi = pack_bf16(x, y);
+  x -= __uint_as_float(hi << 16);
+  y -= __uint_as_float(hi & 0xffff0000u);
+  mid = pack_bf16(x, y);
+  x -= __uint_as_float(mid << 16);
+  y -= __uint_as_float(mid & 0xffff0000u);
+  lo = pack_bf16(x, y);
+}
+
+// A (16 x 16) from two adjacent C accumulator tiles, columns 0-7 (c0) and
+// 8-15 (c1), as they stand: the register reuse of FlashAttention-2.
+__device__ __forceinline__ Frag3 frag3_acc(const float (&c0)[4], const float (&c1)[4]) {
+  Frag3 f;
+  split3(c0[0], c0[1], f.hi[0], f.mid[0], f.lo[0]);
+  split3(c0[2], c0[3], f.hi[1], f.mid[1], f.lo[1]);
+  split3(c1[0], c1[1], f.hi[2], f.mid[2], f.lo[2]);
+  split3(c1[2], c1[3], f.hi[3], f.mid[3], f.lo[3]);
+  return f;
+}
+
+// d += a b in three bf16 passes, the small pieces first.
+__device__ __forceinline__ void mma3_bf16(float (&d)[4], const Frag3& a, uint32_t b0,
+                                          uint32_t b1) {
+  mma_bf16(d, a.lo, b0, b1);
+  mma_bf16(d, a.mid, b0, b1);
+  mma_bf16(d, a.hi, b0, b1);
+}
+
+// Rows [r0, r0 + ROWS) of a row-major (T, D) bf16 matrix into a swizzled
+// (ROWS x P) tile; rows at or past T and columns at or past D are zero.
+// VEC: 16-byte cp.async copies of eight values (D % 8 == 0, src 16-byte
+// aligned), in flight until the caller waits; else the threads copy one
+// value each (visible after the next barrier).
+template <int ROWS, int P, bool VEC>
+__device__ __forceinline__ void load_tile16(bf16* dst, const bf16* __restrict__ src, int r0,
+                                            int T, int D) {
+  if constexpr (VEC) {
+    constexpr int PER_ROW = P / 8;
+    static_assert(ROWS * PER_ROW % kThreads16 == 0, "a thread's share of the tile");
+#pragma unroll
+    for (int j = 0; j < ROWS * PER_ROW / kThreads16; ++j) {
+      const int i = threadIdx.x + j * kThreads16;
+      const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
+      const bool in = r0 + r < T && c < D;
+      cp_async16(dst + swz16<P>(r, c), in ? src + static_cast<size_t>(r0 + r) * D + c : src, in);
+    }
+  } else {
+    const uint16_t* s = reinterpret_cast<const uint16_t*>(src);
+    uint16_t* d = reinterpret_cast<uint16_t*>(dst);
+    for (int i = threadIdx.x; i < ROWS * P; i += kThreads16) {
+      const int r = i / P, c = i % P;
+      d[swz16<P>(r, c)] = r0 + r < T && c < D ? s[static_cast<size_t>(r0 + r) * D + c] : 0;
+    }
+  }
+}
+
+// Row `row` of a (T, D) bf16 output from a warp's accumulator tiles: values
+// (acc[n][2h], acc[n][2h + 1]) * mul at columns c0 + 8 n + 2t, + 1.
+template <int NO, bool VEC>
+__device__ __forceinline__ void store_row16(bf16* orow, const float (&acc)[NO][4], int h, int c0,
+                                            int t, int D, float mul) {
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int col = c0 + n * 8 + 2 * t;
+    const float x = acc[n][2 * h] * mul, y = acc[n][2 * h + 1] * mul;
+    if (VEC) {  // D % 8 == 0: col and col + 1 are both in or both out
+      if (col < D) store2(orow + col, x, y);
+    } else {
+      if (col < D) orow[col] = __float2bfloat16_rn(x);
+      if (col + 1 < D) orow[col + 1] = __float2bfloat16_rn(y);
+    }
+  }
+}
+
+// s = A1 X1^T and dp = A2 X2^T for a warp: A1, A2 the 16 rows of swizzled
+// tiles at a1, a2; X1, X2 the N rows at x1, x2; over the columns below
+// dmax, rounded up to 16 CHUNK (past D the tiles hold zeros). One bf16 pass
+// a k16 step, the exact products summed CHUNK k16 steps apart, then joined
+// by f32 adds; the two products interleaved.
+template <int P, int N, int CHUNK>
+__device__ __forceinline__ void scores16(float (&s)[N / 8][4], float (&dp)[N / 8][4],
+                                         uint32_t a1, uint32_t x1, uint32_t a2, uint32_t x2,
+                                         const LdsmOff<P>& lo, int dmax) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < P; kc += 16 * CHUNK) {
+    if (kc >= dmax) break;
+    float ts[N / 8][4], tp[N / 8][4];
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ts[j][c] = tp[j][c] = 0.f;
+#pragma unroll
+    for (int kk = kc; kk < kc + 16 * CHUNK; kk += 16) {
+      uint32_t fa1[4], fa2[4];
+      ldsm4(fa1, lo.at(a1, 0, kk));
+      ldsm4(fa2, lo.at(a2, 0, kk));
+#pragma unroll
+      for (int j = 0; j < N / 8; j += 2) {
+        uint32_t f1[4], f2[4];
+        ldsm4(f1, lo.at(x1, j * 8, kk));
+        ldsm4(f2, lo.at(x2, j * 8, kk));
+        mma_bf16(ts[j], fa1, f1[0], f1[2]);
+        mma_bf16(ts[j + 1], fa1, f1[1], f1[3]);
+        mma_bf16(tp[j], fa2, f2[0], f2[2]);
+        mma_bf16(tp[j + 1], fa2, f2[1], f2[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[j][c] += ts[j][c];
+        dp[j][c] += tp[j][c];
+      }
+  }
+}
+
+// out += X Y for a warp's output columns [c0, c0 + 8 NO): X (16 x N, f32,
+// accumulator tiles) in three bf16 pieces, Y the N rows of a swizzled tile
+// at y (ldmatrix.trans), this tile's product summed apart; output tiles in
+// groups of G under one guard (columns past D skipped), so that the G
+// chains of dependent products of a group overlap.
+template <int P, int N, int NO, int G>
+__device__ __forceinline__ void add_product16(float (&out)[NO][4], const float (&x)[N / 8][4],
+                                              uint32_t y, const LdsmOff<P>& lo, int c0, int D) {
+  Frag3 xa[N / 16];
+#pragma unroll
+  for (int i = 0; i < N / 16; ++i) xa[i] = frag3_acc(x[2 * i], x[2 * i + 1]);
+#pragma unroll
+  for (int ng = 0; ng < NO; ng += G) {
+    if (c0 + ng * 8 >= D) break;
+    float part[G][4] = {};
+#pragma unroll
+    for (int i = 0; i < N / 16; ++i)
+#pragma unroll
+      for (int n = 0; n < G; n += 2) {
+        uint32_t b[4];
+        ldsm4t(b, lo.at(y + 2 * c0, i * 16, (ng + n) * 8));
+        mma3_bf16(part[n], xa[i], b[0], b[1]);
+        mma3_bf16(part[n + 1], xa[i], b[2], b[3]);
+      }
+#pragma unroll
+    for (int n = 0; n < G; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) out[ng + n][c] += part[n][c];
+  }
+}
+
+// dq, (bf16, bf16): one block per (bh, query tile); grid BH * ceil(Tq / R)
+template <int P, bool VEC>
+__global__ void __launch_bounds__(kThreads16, P <= 128 ? 3 : 2)
+    flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const bf16* __restrict__ g,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             const int* __restrict__ kvalid, bf16* __restrict__ dq, int H,
+                             int Tq, int Tk, int D, int causal, int causal_off, float scale) {
+  using C = Bf16Tile<P>;
+  constexpr int BM = C::R;           // query rows of the block
+  constexpr int BN = C::SDQ;         // keys of a streamed tile
+  constexpr int NK = BN / 8;         // their n-tiles
+  constexpr int PW = P / C::WD;      // output columns of a warp
+  constexpr int NO = PW / 8;         // their n-tiles
+  constexpr int STAGE = 2 * BN * P;  // K tile, then V tile
+  extern __shared__ float4 smem_v4[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_v4);  // BM x P, q
+  bf16* g_s = q_s + BM * P;                      // BM x P, dO
+  bf16* kv_s = g_s + BM * P;                     // two stages
+
+  // causal: every head's longest query tiles first, so that the shortest
+  // end the grid; else a head's tiles next to each other, so that the
+  // second read of its K and V hits L2
+  const int n_qt = (Tq + BM - 1) / BM, n_bh = gridDim.x / n_qt;
+  const int bh = causal ? blockIdx.x % n_bh : blockIdx.x / n_qt;
+  const int q0 = (n_qt - 1 - (causal ? blockIdx.x / n_bh : blockIdx.x % n_qt)) * BM;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tc = lane & 3;
+  const int wm = warp % C::WM, wd = warp / C::WM;
+  const int r0 = q0 + wm * 16;  // the warp's first query row
+  const int c0 = wd * PW;       // its first output column
+  const LdsmOff<P> lo(lane);
+  const int kv_len = kvalid[bh / H];
+  const int k_end = key_end<BM>(q0, kv_len, causal, causal_off);
+  const int n_tiles = k_end > 0 ? (k_end + BN - 1) / BN : 0;
+  const size_t qoff = static_cast<size_t>(bh) * Tq;
+  const bf16* kb = k + static_cast<size_t>(bh) * Tk * D;
+  const bf16* vb = v + static_cast<size_t>(bh) * Tk * D;
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+  if (n_tiles > 0) {
+    load_tile16<BM, P, VEC>(q_s, q + qoff * D, q0, Tq, D);
+    load_tile16<BM, P, VEC>(g_s, g + qoff * D, q0, Tq, D);
+    load_tile16<BN, P, VEC>(kv_s, kb, 0, Tk, D);
+    load_tile16<BN, P, VEC>(kv_s + BN * P, vb, 0, Tk, D);
+    cp_async_commit();
+    // lse and delta of the thread's two rows (h = 0: row g, h = 1: g + 8)
+    float lr[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + gr + 8 * h;
+      lr[h] = row < Tq ? lse[qoff + row] : kNegInf;
+      dl[h] = row < Tq ? delta[qoff + row] : 0.f;
+    }
+    const uint32_t qa_s = smem_u32(q_s + wm * 16 * P), ga_s = smem_u32(g_s + wm * 16 * P);
+    const uint32_t kv_a = smem_u32(kv_s);
+    for (int it = 0; it < n_tiles; ++it) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile it landed; every warp is done with tile it - 1
+      if (it + 1 < n_tiles) {
+        bf16* nxt = kv_s + ((it + 1) & 1) * STAGE;
+        load_tile16<BN, P, VEC>(nxt, kb, (it + 1) * BN, Tk, D);
+        load_tile16<BN, P, VEC>(nxt + BN * P, vb, (it + 1) * BN, Tk, D);
+        cp_async_commit();
+      }
+      const int k0 = it * BN;
+      // a warp whose rows see no key of this tile adds 0
+      if (k0 >= kv_len || (causal && k0 > r0 + 15 + causal_off)) continue;
+      const uint32_t k_a = kv_a + 2 * (it & 1) * STAGE, v_a = k_a + 2 * BN * P;
+
+      // S = q K^T and dP = dO V^T for the warp's rows and the tile's keys,
+      // all P columns (past D they are zeros)
+      float s[NK][4], dp[NK][4];
+      scores16<P, BN, kChunk16Dq>(s, dp, qa_s, k_a, ga_s, v_a, lo, P);
+      // dS = P * (dP - delta), P = exp(S scale - lse) on the kept pairs, as
+      // the f32 kernel forms it; full: the mask keeps every pair of the tile
+      const int k_last = k0 + BN - 1;
+      const bool full = k_last < kv_len && (!causal || k_last <= r0 + causal_off);
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int h = c >> 1;
+          const int qpos = r0 + gr + 8 * h;
+          const int kpos = k0 + j * 8 + 2 * tc + (c & 1);
+          const bool keep =
+              lr[h] > kAliveMin && (full || kept(qpos, kpos, kv_len, causal, causal_off));
+          const float p = keep ? exp2f(fmaf(s[j][c], scale * kLog2e, -lr[h] * kLog2e)) : 0.f;
+          s[j][c] = p * (dp[j][c] - dl[h]);
+        }
+      // dq += dS K over the tile's keys
+      add_product16<P, BN, NO, (NO < 8 ? NO : 8)>(acc, s, k_a, lo, c0, D);
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + gr + 8 * h;
+    if (row < Tq) store_row16<NO, VEC>(dq + (qoff + row) * D, acc, h, c0, tc, D, scale);
+  }
+}
+
+// dk, dv, (bf16, bf16): one block per (bh, key tile); grid BH * ceil(Tk / R)
+template <int P, bool VEC>
+__global__ void __launch_bounds__(kThreads16, P <= 64 ? 3 : 2)
+    flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const bf16* __restrict__ g,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              const int* __restrict__ kvalid, bf16* __restrict__ dk,
+                              bf16* __restrict__ dv, int H, int Tq, int Tk, int D, int causal,
+                              int causal_off, float scale) {
+  using C = Bf16Tile<P>;
+  constexpr int BN = C::R;           // keys of the block
+  constexpr int BM = C::SDKV;        // queries of a streamed tile
+  constexpr int NQ = BM / 8;         // their n-tiles
+  constexpr int PW = P / C::WD;      // output columns of a warp
+  constexpr int NO = PW / 8;         // their n-tiles
+  constexpr int STAGE = 2 * BM * P;  // q tile, then dO tile
+  extern __shared__ float4 smem_v4[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_v4);  // BN x P
+  bf16* v_s = k_s + BN * P;                      // BN x P
+  bf16* st_s = v_s + BN * P;                     // two stages
+  float* rows_s = reinterpret_cast<float*>(st_s + 2 * STAGE);  // two stages of lse, delta
+
+  // causal: every head's first key tiles (which see the most queries)
+  // first; else a head's tiles next to each other, as dq's
+  const int n_kt = (Tk + BN - 1) / BN, n_bh = gridDim.x / n_kt;
+  const int bh = causal ? blockIdx.x % n_bh : blockIdx.x / n_kt;
+  const int k0 = (causal ? blockIdx.x / n_bh : blockIdx.x % n_kt) * BN;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tc = lane & 3;
+  const int wm = warp % C::WM, wd = warp / C::WM;
+  const int kr = k0 + wm * 16;  // the warp's first key
+  const int c0 = wd * PW;       // its first output column
+  const LdsmOff<P> lo(lane);
+  const int kv_len = kvalid[bh / H];
+  // the first query tile whose last row sees key k0; a tile past kvalid
+  // gets no gradient
+  const int q_first = causal ? max(0, k0 - causal_off) / BM * BM : 0;
+  const int n_tiles = k0 < kv_len && q_first < Tq ? (Tq - q_first + BM - 1) / BM : 0;
+  const size_t qoff = static_cast<size_t>(bh) * Tq;
+  const size_t koff = static_cast<size_t>(bh) * Tk;
+  const bf16* qb = q + qoff * D;
+  const bf16* gb = g + qoff * D;
+
+  float dk_acc[NO][4], dv_acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk_acc[n][c] = dv_acc[n][c] = 0.f;
+
+  auto load_stage = [&](int st, int q0) {
+    load_tile16<BM, P, VEC>(st_s + st * STAGE, qb, q0, Tq, D);
+    load_tile16<BM, P, VEC>(st_s + st * STAGE + BM * P, gb, q0, Tq, D);
+    load_rows_async<BM>(rows_s + st * 2 * BM, lse + qoff, q0, Tq);
+    load_rows_async<BM>(rows_s + st * 2 * BM + BM, delta + qoff, q0, Tq);
+  };
+
+  if (n_tiles > 0) {
+    load_tile16<BN, P, VEC>(k_s, k + koff * D, k0, Tk, D);
+    load_tile16<BN, P, VEC>(v_s, v + koff * D, k0, Tk, D);
+    load_stage(0, q_first);
+    cp_async_commit();
+    const uint32_t ka_s = smem_u32(k_s + wm * 16 * P), va_s = smem_u32(v_s + wm * 16 * P);
+    const uint32_t st_a = smem_u32(st_s);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int q0 = q_first + it * BM;
+      cp_async_wait<0>();
+      __syncthreads();
+      if (it + 1 < n_tiles) {
+        load_stage((it + 1) & 1, q0 + BM);
+        cp_async_commit();
+      }
+      // a warp whose keys are all masked for this tile's queries adds 0
+      if (kr >= kv_len || (causal && kr > q0 + BM - 1 + causal_off)) continue;
+      const uint32_t q_a = st_a + 2 * (it & 1) * STAGE, g_a = q_a + 2 * BM * P;
+      const float* lse_s = rows_s + (it & 1) * 2 * BM;
+      const float* dl_s = lse_s + BM;
+
+      // S^T = K q^T and dP^T = V dO^T for the warp's keys and the tile's
+      // queries, over the columns below D
+      float s[NQ][4], dp[NQ][4];
+      scores16<P, BM, kChunk16Dkv>(s, dp, ka_s, q_a, va_s, g_a, lo, D);
+      // P^T into s, dS^T into dp, as the f32 kernel forms them; a query's
+      // lse and delta are per column. full: the mask keeps every pair of
+      // the warp's tile
+      const int k_last = kr + 15;
+      const bool full =
+          k_last < kv_len && q0 + BM <= Tq && (!causal || k_last <= q0 + causal_off);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = j * 8 + 2 * tc + (c & 1);
+          const int qpos = q0 + col;
+          const int kpos = kr + gr + 8 * (c >> 1);
+          const float lq = lse_s[col];
+          const bool keep = lq > kAliveMin && (full || (qpos < Tq && kept(qpos, kpos, kv_len,
+                                                                          causal, causal_off)));
+          const float p = keep ? exp2f(fmaf(s[j][c], scale * kLog2e, -lq * kLog2e)) : 0.f;
+          s[j][c] = p;
+          dp[j][c] = p * (dp[j][c] - dl_s[col]);
+        }
+      // dv += P^T dO, then dk += dS^T q, over the tile's queries
+      constexpr int G = NO < 4 ? NO : 4;
+      add_product16<P, BM, NO, G>(dv_acc, s, g_a, lo, c0, D);
+      add_product16<P, BM, NO, G>(dk_acc, dp, q_a, lo, c0, D);
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = kr + gr + 8 * h;
+    if (row >= Tk) continue;
+    store_row16<NO, VEC>(dk + (koff + row) * D, dk_acc, h, c0, tc, D, scale);
+    store_row16<NO, VEC>(dv + (koff + row) * D, dv_acc, h, c0, tc, D, 1.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 
 enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
@@ -1018,12 +1557,25 @@ constexpr size_t smem_floats(int kernel) {
   return 2 * C::R * P + 2 * (2 * C::S * P + (kernel == kDkv ? 2 * C::S : 0));
 }
 
+// Bytes of shared memory of a bf16 backward block: the resident bf16 tiles
+// and two stages (dq: q, dO; K, V. dk/dv: K, V; q, dO, and lse, delta f32).
+template <int P>
+constexpr size_t smem_bytes_bf16(int kernel) {
+  using C = Bf16Tile<P>;
+  return kernel == kDq ? 2 * (2 * C::R * P + 2 * 2 * C::SDQ * P)
+                       : 2 * (2 * C::R * P + 2 * 2 * C::SDKV * P) + 4 * 2 * 2 * C::SDKV;
+}
+
+template <int P>
+constexpr size_t smem_bytes_of(int kernel) {
+  return kBf16Bwd && kernel != kFwd ? smem_bytes_bf16<P>(kernel)
+                                    : smem_floats<P>(kernel) * sizeof(float);
+}
+
 inline size_t smem_bytes(int kernel, int D) {
   const int p = tile_width(D);
-  const size_t floats = p == 64    ? smem_floats<64>(kernel)
-                        : p == 128 ? smem_floats<128>(kernel)
-                                   : smem_floats<256>(kernel);
-  return floats * sizeof(float);
+  return p == 64 ? smem_bytes_of<64>(kernel)
+                 : p == 128 ? smem_bytes_of<128>(kernel) : smem_bytes_of<256>(kernel);
 }
 
 struct Args {
@@ -1039,6 +1591,34 @@ template <class F>
 cudaError_t set_smem(F* fn, size_t smem) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
+}
+
+// The (bf16, bf16) backward kernels.
+template <int P, bool VEC>
+cudaError_t launch_bf16(int kernel, const Args& a, cudaStream_t st) {
+  using C = Bf16Tile<P>;
+  const size_t smem = smem_bytes(kernel, a.D);
+  const int rows = kernel == kDkv ? a.Tk : a.Tq;
+  const dim3 grid(a.BH * ((rows + C::R - 1) / C::R));
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* g = static_cast<const bf16*>(a.g);
+  cudaError_t err;
+  if (kernel == kDq) {
+    err = set_smem(flash_bwd_dq_bf16_kernel<P, VEC>, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_bf16_kernel<P, VEC><<<grid, kThreads16, smem, st>>>(
+        q, k, v, g, a.lse, a.delta, a.kvalid, static_cast<bf16*>(a.o0), a.H, a.Tq, a.Tk, a.D,
+        a.causal, a.causal_off, a.scale);
+  } else {
+    err = set_smem(flash_bwd_dkv_bf16_kernel<P, VEC>, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_bf16_kernel<P, VEC><<<grid, kThreads16, smem, st>>>(
+        q, k, v, g, a.lse, a.delta, a.kvalid, static_cast<bf16*>(a.o0),
+        static_cast<bf16*>(a.o1), a.H, a.Tq, a.Tk, a.D, a.causal, a.causal_off, a.scale);
+  }
+  return cudaGetLastError();
 }
 
 template <int P, bool VEC>
@@ -1058,6 +1638,8 @@ cudaError_t launch_tiles(int kernel, const Args& a, cudaStream_t st) {
     flash_fwd_kernel<P, VEC, QkT, VT><<<grid, kThreads, smem, st>>>(
         q, k, v, a.kvalid, static_cast<QkT*>(a.o0), static_cast<float*>(a.o1), a.H, a.Tq, a.Tk,
         a.D, a.causal, a.causal_off, a.scale);
+  } else if constexpr (kBf16Bwd) {
+    return cudaErrorInvalidValue;  // launch_bf16's
   } else if (kernel == kDq) {
     err = set_smem(flash_bwd_dq_kernel<P, VEC, QkT, VT>, smem);
     if (err != cudaSuccess) return err;
@@ -1080,15 +1662,69 @@ inline bool aligned4(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(E)) == 0;
 }
 
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 // Four values a copy (f32: 16-byte cp.async; bf16/f16: 8-byte loads) where
 // every row of q, k, v, dO (and the forward's out, stored in pairs) starts
-// on four elements, else the same kernel with one value a copy.
+// on four elements, else the same kernel with one value a copy. The bf16
+// backward copies eight values (16 bytes) a copy where every row of q, k,
+// v, dO and of its outputs (stored in pairs) starts on 16 bytes.
+inline bool vec_of(int kernel, const Args& a) {
+  if (kBf16Bwd && kernel != kFwd)
+    return a.D % 8 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+           aligned16(a.g) && aligned16(a.o0) && (kernel != kDkv || aligned16(a.o1));
+  return a.D % 4 == 0 && aligned4<QkT>(a.q) && aligned4<QkT>(a.k) && aligned4<VT>(a.v) &&
+         aligned4<QkT>(a.g) && (kernel != kFwd || aligned4<QkT>(a.o0));
+}
+
 template <int P>
 cudaError_t launch_width(int kernel, const Args& a, cudaStream_t st) {
-  const bool vec = a.D % 4 == 0 && aligned4<QkT>(a.q) && aligned4<QkT>(a.k) &&
-                   aligned4<VT>(a.v) && aligned4<QkT>(a.g) &&
-                   (kernel != kFwd || aligned4<QkT>(a.o0));
+  const bool vec = vec_of(kernel, a);
+  if constexpr (kBf16Bwd) {
+    if (kernel != kFwd)
+      return vec ? launch_bf16<P, true>(kernel, a, st) : launch_bf16<P, false>(kernel, a, st);
+  }
   return vec ? launch_tiles<P, true>(kernel, a, st) : launch_tiles<P, false>(kernel, a, st);
+}
+
+// out = {registers a thread, local (spill) bytes a thread, the most blocks
+// an SM holds at the kernel's dynamic shared memory, threads a block, that
+// shared memory in bytes} of a kernel function.
+template <class F>
+cudaError_t attributes_of(F* fn, size_t smem, int threads, int* out) {
+  cudaError_t err = set_smem(fn, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes at;
+  err = cudaFuncGetAttributes(&at, fn);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
+  out[0] = at.numRegs;
+  out[1] = static_cast<int>(at.localSizeBytes);
+  out[2] = blocks;
+  out[3] = threads;
+  out[4] = static_cast<int>(smem);
+  return err;
+}
+
+template <int P, bool VEC>
+cudaError_t attributes_tiles(int kernel, int D, int* out) {
+  const size_t smem = smem_bytes(kernel, D);
+  if (kernel == kFwd) return attributes_of(flash_fwd_kernel<P, VEC, QkT, VT>, smem, kThreads, out);
+  if constexpr (kBf16Bwd) {
+    return kernel == kDq
+               ? attributes_of(flash_bwd_dq_bf16_kernel<P, VEC>, smem, kThreads16, out)
+               : attributes_of(flash_bwd_dkv_bf16_kernel<P, VEC>, smem, kThreads16, out);
+  } else {
+    return kernel == kDq
+               ? attributes_of(flash_bwd_dq_kernel<P, VEC, QkT, VT>, smem, kThreads, out)
+               : attributes_of(flash_bwd_dkv_kernel<P, VEC, QkT, VT>, smem, kThreads, out);
+  }
+}
+
+template <int P>
+cudaError_t attributes_width(int kernel, int D, bool vec, int* out) {
+  return vec ? attributes_tiles<P, true>(kernel, D, out) : attributes_tiles<P, false>(kernel, D, out);
 }
 
 int launch(int kernel, const Args& a, void* stream) {
@@ -1146,6 +1782,22 @@ int mxtt_flash_dtypes() { return 16 * MXTT_FLASH_QK + MXTT_FLASH_V; }
 // Dynamic shared memory of one block of `kernel` (0 fwd, 1 dq, 2 dk/dv) at D.
 long long mxtt_flash_smem_bytes(int kernel, int D) {
   return static_cast<long long>(smem_bytes(kernel, D));
+}
+
+// The attributes of `kernel` (0 fwd, 1 dq, 2 dk/dv) as launched at D, its
+// instantiation of 16-byte copies (vec != 0) or of narrow ones: out[0]
+// registers a thread, out[1] local bytes a thread (spills), out[2] the most
+// blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its
+// dynamic shared memory), out[3] threads a block, out[4] dynamic shared
+// bytes. Returns a cudaError_t.
+int mxtt_flash_kernel_attributes(int kernel, int D, int vec, int* out) {
+  if (kernel < kFwd || kernel > kDkv || D < 1 || D > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int p = tile_width(D);
+  const cudaError_t err = p == 64    ? attributes_width<64>(kernel, D, vec != 0, out)
+                          : p == 128 ? attributes_width<128>(kernel, D, vec != 0, out)
+                                     : attributes_width<256>(kernel, D, vec != 0, out);
+  return static_cast<int>(err);
 }
 
 const char* mxtt_flash_error_string(int err) {

@@ -9,13 +9,19 @@ hand-written CUDA kernel ``flash_fwd`` and its backward the kernels
 ``mxnet_tpu_torch/csrc/flash_attention.cu``, the ports of the TPU kernels
 ``_flash_fwd``, ``_flash_bwd_dq`` and ``_flash_bwd_dkv``). All three run
 every product on the tensor cores in 3xTF32 (each f32 operand split into
-two TF32 parts, three products summed in f32), which keeps f32 accuracy.
+two TF32 parts, three products summed in f32), which keeps f32 accuracy;
+the (bf16, bf16) pair's backward runs bf16 products instead: one pass for
+two bf16 operands, three for its f32 P and dS, each split into three bf16
+pieces (the same accuracy from bf16 tiles).
 
 Dtypes, as the TPU kernels take them: q and k (and the cotangent g) share
 one dtype and v has its own, each float32, bfloat16 or float16. The kernels
-widen every operand to f32 as it enters shared memory and write ``out`` and
-``dq`` in q's dtype, ``dk`` in k's and ``dv`` in v's; ``lse`` and ``delta``
-are f32. A library of the kernels is built for each (q/k, v) pair of
+compute in f32 (every operand widened to f32 as it enters shared memory,
+except in the (bf16, bf16) backward, whose tiles stay bf16 and whose scores,
+P and dS are f32) and write ``out`` and ``dq`` in q's dtype, ``dk`` in k's
+and ``dv`` in v's; ``lse`` and ``delta`` are f32.
+:func:`kernel_attributes` reads each kernel's registers, spills and blocks
+an SM. A library of the kernels is built for each (q/k, v) pair of
 :data:`DTYPE_PAIRS`: (f32, f32); (f32, bf16) and (f32, f16), which a Llama
 layer's attention gets under ``ShardedTrainer(dtype=...)``, whose f32 RoPE
 tables promote q and k but not v; (bf16, bf16) and (f16, f16). Any other
@@ -274,8 +280,38 @@ def _lib(pair=(_F32, _F32)):
         lib.mxtt_flash_smem_bytes.restype = ctypes.c_longlong
         lib.mxtt_flash_error_string.argtypes = [i32]
         lib.mxtt_flash_error_string.restype = ctypes.c_char_p
+        lib.mxtt_flash_kernel_attributes.argtypes = [
+            i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
+        lib.mxtt_flash_kernel_attributes.restype = ctypes.c_int
         _LIBS[pair] = lib
     return lib
+
+
+ATTRIBUTES = ("registers", "local_bytes", "blocks_per_sm", "threads",
+              "smem_bytes")
+
+
+def kernel_attributes(pair=(_F32, _F32), d=128, vec=True) -> dict:
+    """``{kernel: {attribute: int}}`` of ``pair``'s kernels as they launch at
+    head dim ``d`` (``vec``: the instantiation of 16-byte copies, else the
+    narrow one): registers and local (spill) bytes a thread
+    (``cudaFuncGetAttributes``), the most blocks an SM holds at the kernel's
+    dynamic shared memory (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    threads a block and that shared memory in bytes. Builds the library;
+    needs the card."""
+    pair = tuple(pair)
+    lib = _lib(pair)
+    out = (ctypes.c_int * len(ATTRIBUTES))()
+    res = {}
+    for i, name in enumerate(KERNELS):
+        err = lib.mxtt_flash_kernel_attributes(i, int(d), int(bool(vec)), out)
+        if err != 0:
+            raise MXNetError(
+                f"flash {name} attributes ({pair_label(pair)}, D {d}): "
+                f"{lib.mxtt_flash_error_string(err).decode()} (cudaError "
+                f"{err})")
+        res[name] = dict(zip(ATTRIBUTES, list(out)))
+    return res
 
 
 def build() -> None:

@@ -612,6 +612,85 @@ def test_cuda_flash_bad_dtype_pair_raises():
     assert fa.launch_count() == n0
 
 
+# the (bf16, bf16) backward kernels, written for bf16 mma.sync: BERT-base's
+# attention shape with its key lengths (112 on every fourth row, else 128)
+# and one row of length 0; D = 30 (narrow copies) and D = 256 (two warps a
+# row group, 32-key tiles); D = 64 from inputs 2 bytes off 16-byte
+# alignment (narrow copies at a full row width)
+BF16 = (torch.bfloat16, torch.bfloat16)
+BERT_VL = [112 if i % 4 == 0 else 128 for i in range(64)]
+BERT_VL[1] = 0
+BF16_BWD_CASES = [(64, 12, 128, 128, 64, False, BERT_VL, False),
+                  (2, 2, 333, 333, 30, True, [333, 150], False),
+                  (2, 2, 333, 333, 256, True, [333, 0], False),
+                  (2, 3, 200, 200, 64, False, [200, 77], True)]
+
+
+@pytest.mark.parametrize("case", BF16_BWD_CASES,
+                         ids=["bert", "d30", "d256", "misaligned"])
+def test_cuda_flash_bf16_backward_matches_plain(case):
+    """The (bf16, bf16) dq and dk/dv kernels against their plain versions
+    (within ATOL / RTOL plus one bf16 unit in the last place), launches
+    counted on the pair; the rows of length 0 and the keys past each valid
+    length exact zeros; two calls bit for bit."""
+    dev = _need_cuda()
+    b, h, tq, tk, d, causal, vl, misaligned = case
+    q, k, v, g, kvalid = _flash_inputs(b, h, tq, tk, d, vl, dev, seed=7)
+    q, k, v, g = (x.to(torch.bfloat16) for x in (q, k, v, g))
+    args = (kvalid, causal, tk - tq, d ** -0.5)
+    out, lse = fa.flash_fwd_torch(q, k, v, *args)
+    delta = (g.float() * out.float()).sum(-1)
+    if misaligned:
+        q, k, v, g = (_misaligned(x) for x in (q, k, v, g))
+    n0 = fa.launch_count(BF16)
+    runs = [[fa.flash_bwd_dq(q, k, v, g, lse, delta, *args),
+             *fa.flash_bwd_dkv(q, k, v, g, lse, delta, *args)]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert fa.last_path() == "cuda"
+    counted = fa.launch_count(BF16)
+    assert (counted["bwd_dq"], counted["bwd_dkv"]) == (n0["bwd_dq"] + 2,
+                                                     n0["bwd_dkv"] + 2)
+    refs = [fa.flash_bwd_dq_torch(q, k, v, g, lse, delta, *args),
+            *fa.flash_bwd_dkv_torch(q, k, v, g, lse, delta, *args)]
+    for ours, again, ref in zip(runs[0], runs[1], refs):
+        _dtype_close(ours, ref)
+        assert torch.equal(ours, again)
+    dq, dk, dv = runs[0]
+    dead = lse <= -1e29
+    cut = (torch.arange(tk, device=dev)[None, :]
+           >= kvalid.repeat_interleave(h)[:, None])
+    assert bool(cut.any()) and bool(dead.any()) == (0 in vl)
+    assert not dq[dead].any() and not dk[cut].any() and not dv[cut].any()
+
+
+def test_cuda_flash_bf16_backward_kernel_attributes():
+    """The (bf16, bf16) dq and dk/dv kernels: four warps a block and at
+    least two blocks an SM (three for dq at D <= 128 and for dk/dv at
+    D = 64). dk/dv spills nothing, nor does dq at D = 64, BERT-base's head.
+    dq at D = 128 holds three blocks at the 168 registers they leave a
+    thread and spills a few registers (24 bytes with 16-byte copies, 32
+    without, on an H100 with CUDA 12.8): two blocks at 255 registers spill
+    nothing but ran 20% slower at the Llama training shape. At D = 256 (two
+    blocks, 255 registers) dq spills 40 bytes. Every other pair keeps its
+    one block of eight warps an SM."""
+    _need_cuda()
+    for d in (64, 128, 256):
+        for vec in (True, False):
+            got = fa.kernel_attributes(BF16, d, vec)
+            for name, blocks in (("bwd_dq", 3 if d <= 128 else 2),
+                                 ("bwd_dkv", 3 if d <= 64 else 2)):
+                at = got[name]
+                spill = 64 if name == "bwd_dq" and d > 64 else 0
+                assert at["local_bytes"] <= spill, (d, vec, name, at)
+                assert at["threads"] == 128, (d, vec, name, at)
+                assert at["blocks_per_sm"] >= blocks, (d, vec, name, at)
+    for pair in FLASH_PAIRS[:2]:
+        at = fa.kernel_attributes(pair, 128)
+        assert all(a["threads"] == 256 and a["blocks_per_sm"] == 1
+                   for a in at.values()), (pair, at)
+
+
 def test_cuda_sharded_bf16_step_matches_cpu():
     """Three ``ShardedTrainer(dtype="bfloat16")`` steps of
     ``llama_tiny_test`` with recompute on the card against the same steps

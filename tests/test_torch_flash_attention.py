@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from mxnet_tpu.ops.pallas import flash_attention as jfa
+from mxnet_tpu_torch import flash_variants as fv
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import nn as tops
 from mxnet_tpu_torch.ops.hopper import flash_attention as fa
@@ -323,6 +324,122 @@ def test_three_tf32_products_keep_backward_within_f32_tolerance():
         errs[passes] = max(float((ours - ref).abs().max())
                            for ours, ref in zip(got, want))
     assert errs[1] >= 10 * errs[3], errs
+
+
+def _bf16_pieces(x, n):
+    """``x`` (f32) as ``n`` bf16 values, each rounded to nearest, the way
+    the (bf16, bf16) backward kernels split P and dS: hi = bf16(x),
+    mid = bf16(x - hi), lo = bf16(x - hi - mid); returned in f32, largest
+    first."""
+    pieces, rest = [], x
+    for _ in range(n):
+        piece = rest.to(torch.bfloat16).to(torch.float32)
+        pieces.append(piece)
+        rest = rest - piece
+    return pieces
+
+
+def _bf16_product(a, b, pieces):
+    """a @ b as the (bf16, bf16) backward kernels form it, emulated in f32:
+    ``b`` holds bf16 values; ``pieces=None`` takes ``a`` (bf16 values too)
+    in one pass, exact products summed in f32, else ``a`` (f32) in that
+    many bf16 pieces, one pass each, the small pieces first. As in
+    ``_split_matmul``, the tensor cores' truncating accumulation is not
+    emulated."""
+    if pieces is None:
+        return torch.matmul(a, b)
+    out = None
+    for piece in reversed(_bf16_pieces(a, pieces)):
+        part = torch.matmul(piece, b)
+        out = part if out is None else out + part
+    return out
+
+
+def test_bf16_products_keep_bf16_backward_within_f32_tolerance():
+    """The (bf16, bf16) backward kernels' products on bf16 inputs, emulated
+    in f32 on the CPU: S = q K^T and dP = dO V^T in one pass, dq = dS K,
+    dk = dS^T q and dv = P^T dO with P and dS (f32) in three bf16 pieces,
+    held to the plain f32 versions on the same bf16-valued inputs at the
+    kernels' tolerances (atol 1e-5, rtol 1e-4). Rounding P and dS once to
+    bf16 (one piece, as cuDNN's and FlashAttention-2's backward do) misses
+    by at least ten times as much, which is why the kernels split them."""
+    b, h, tq, tk, d, causal, vl = CASES[3]
+    q, k, v, g = (torch.from_numpy(a.reshape(b * h, -1, d)).to(
+        torch.bfloat16).to(torch.float32)
+        for a in _inputs(b, h, tq, tk, d, seed=7))
+    kvalid = fa.kvalid_of(vl, b, tk, torch.device("cpu"))
+    sc, off = 1.0 / np.sqrt(d), tk - tq
+    out, lse = fa.flash_fwd_torch(q, k, v, kvalid, causal, off, sc)
+    delta = (g * out).sum(-1)
+    args = (kvalid, causal, off, sc)
+    want = [fa.flash_bwd_dq_torch(q, k, v, g, lse, delta, *args),
+            *fa.flash_bwd_dkv_torch(q, k, v, g, lse, delta, *args)]
+    keep = fa._keep_mask(kvalid, b * h, tq, tk, causal, off,
+                         torch.device("cpu"))
+    keep = keep & (lse > -5e29)[:, :, None]
+    s = _bf16_product(q, k.transpose(1, 2), None) * sc
+    p = torch.where(keep, torch.exp(s - lse[:, :, None]), torch.zeros(()))
+    ds = p * (_bf16_product(g, v.transpose(1, 2), None) - delta[:, :, None])
+    errs = {}
+    for pieces in (3, 1):
+        got = [_bf16_product(ds, k, pieces) * sc,
+               _bf16_product(ds.transpose(1, 2), q, pieces) * sc,
+               _bf16_product(p.transpose(1, 2), g, pieces)]
+        if pieces == 3:
+            for ours, ref in zip(got, want):
+                torch.testing.assert_close(ours, ref, atol=1e-5, rtol=1e-4)
+        errs[pieces] = max(float((ours - ref).abs().max())
+                           for ours, ref in zip(got, want))
+    assert errs[1] >= 10 * errs[3], errs
+
+
+def test_three_bf16_pieces_reconstruct_f32():
+    """hi + mid + lo gives an f32 value back within 2^-24 of its size, the
+    bound the kernels' split states: each rounding to bf16's 8 significand
+    bits leaves at most 2^-8 of what it rounds (so one piece misses by up
+    to 2^-8, two by 2^-16), and each subtraction is exact. Every piece is a
+    bf16 value. Checked over P-like values in [0, 1], signed dS-like values
+    across 60 binades, and values whose rounding carries into the next
+    power of two."""
+    rng = np.random.RandomState(11)
+    x = np.concatenate([
+        rng.rand(4000),
+        rng.randn(4000) * 10.0 ** rng.uniform(-20, 8, 4000),
+        np.nextafter(np.float32(2.0) ** np.arange(-30, 30), np.float32(0)),
+        1 + 2.0 ** -8 + 2.0 ** -16 + np.arange(1, 50) * 2.0 ** -23,
+    ]).astype(np.float32)
+    x = torch.from_numpy(x)
+    hi, mid, lo = _bf16_pieces(x, 3)
+    for piece in (hi, mid, lo):
+        assert torch.equal(piece.to(torch.bfloat16).to(torch.float32), piece)
+    mag = x.abs().double()
+    for n, pieces, bound in ((3, (hi, mid, lo), 2.0 ** -24),
+                             (2, (hi, mid), 2.0 ** -16), (1, (hi,), 2.0 ** -8)):
+        total = sum(p.double() for p in pieces)
+        err = (x.double() - total).abs()
+        assert bool((err <= bound * mag).all()), (n, float((err / mag).max()))
+    # the third piece is needed: two leave more than f32's own rounding
+    two = (x.double() - hi.double() - mid.double()).abs()
+    assert float((two / mag).max()) > 2.0 ** -24
+
+
+@pytest.mark.parametrize("name", sorted(fv.VARIANTS))
+def test_flash_variants_apply_to_the_kernel_source(name):
+    """Each variant that ``flash_variants`` builds applies to the kernels'
+    source as it stands: every text it replaces occurs there, and every
+    variant but the source itself changes it."""
+    from mxnet_tpu_torch.ops.hopper._build import CSRC
+
+    source = (CSRC / "flash_attention.cu").read_text()
+    subs = fv.VARIANTS[name]
+    assert (fv.variant_source(source, subs) == source) == (not subs)
+
+
+def test_flash_variants_refuses_missing_text_and_needs_cuda(capsys):
+    with pytest.raises(ValueError, match="not in the source"):
+        fv.variant_source("int x;", [("float y;", "")])
+    assert fv.main() == 2  # no card here: no build, no result
+    assert "CUDA is not available" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("case", [CASES[3], CASES[4]],
