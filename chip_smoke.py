@@ -4,7 +4,7 @@
 Run from the root of a checkout, with one GPU visible:
 
     python3 chip_smoke.py            # every phase; last line is the result
-    python3 chip_smoke.py --quick    # phases 1-3, 6 and 8 (builds + kernels)
+    python3 chip_smoke.py --quick    # phases 1-3b, 6 and 8 (builds + kernels)
 
 Phases, each printed on its own line; the first failed check exits non-zero:
 
@@ -16,8 +16,8 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    one ``nvcc`` per library, all started together (the flash kernels build
    one library per (q/k, v) dtype pair); each kernel's registers
    and spills as ``ptxas -v`` reports them, under the kernel's name (no
-   ``conv1x1_pair`` kernel may spill, nor a ``decode_attention`` kernel for
-   D <= 128).
+   ``conv1x1_pair`` kernel may spill, no kernel of ``int8_dense``, nor a
+   ``decode_attention`` kernel for D <= 128).
 3. kernel: the decode-attention kernel against its plain PyTorch version
    on the card at Llama-3-8B shapes (H=32, KV=8, D=128; f32 and int8 rings),
    each case with its grid (``split_plan``: splits, blocks, workspace) and
@@ -29,11 +29,50 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    S - 1; each point checked against the plain version, timed against its
    bound and, in f32, the library) and a split-aim sweep (the grid aimed at
    1, 2 and 4 blocks a SM, at the main shape and at B=4, S=8192).
+3b. int8: the int8 x int8 product (``ops.hopper.int8_dense``: row
+   quantization, int8 ``mma.sync`` into int32, the rescale fused) at every
+   Llama-3-8B projection shape, (O, U) = (4096, 4096), (1024, 4096),
+   (14336, 4096), (4096, 14336) at M = 1, 4, 20, 256 and 1024 and the head
+   (128256, 4096) at M = 1, 4 and 20, and at M = 3, O = 37, U = 30 and on a
+   misaligned x and weight. Activations are seeded normals with a row of
+   zeros and a row of exact .5 ties, weights uniform in +-0.07 (the
+   model's) quantized per channel. The kernel must equal its plain version
+   bit for bit, two calls must repeat bit for bit, and each row's RMS
+   error against the exact product with the unquantized weight must stay
+   within 1.6e-2 of its RMS output (printed beside the largest error over
+   the row's largest |output|, and beside the same reading of the
+   algorithm with truncation in place of rounding, which the limit tells
+   apart). At M = 4, 256 and 1024: the call's time, K1 (quantization)
+   and the product alone, its bound (bytes at 3.35 TB/s or int8 operations
+   at 1,979 TOP/s), the plain version, the weight-only route
+   (``F.linear(x, qweight.float()) * scale``), f32 ``F.linear`` on the f32
+   weight (the ``pallas`` rung's) and ``torch._int_mm`` where it takes the
+   shape; then their sums over one forward's products (225 at M = 4, 224
+   at prefill) against 2.24 ms, the weight bytes of one decode forward at
+   3.35 TB/s. Then the host's microseconds a call at M = 4, O = 1024,
+   U = 4096 (200 calls back to back), beside f32 ``F.linear``'s.
 4. serve pallas / 5. serve int8: Llama-3-8B at full width and depth with
    seeded random weights, served by ``Generator`` (warmup, then 4 prompts x
    32 greedy tokens): every decode step of every layer must launch the
    kernel, no shape may be new after warmup, and the greedy tokens must be
-   identical to a run with the plain attention forced.
+   identical to a run with the plain attention forced. On ``int8`` that
+   run's tokens are printed (with their first divergence and logit gaps):
+   the route's last-bit differences move activations across int8
+   rounding steps (C4). There every plain call of that run must agree
+   with the kernel on the same inputs (within ATOL plus 1e-4 of the batch
+   row's largest |output|), the first decode step's logits on the two
+   routes, from the same prefill and token, must lie within 0.5 of their
+   norm of each other (the gap after every few layers printed), and a
+   third generate runs every kernel
+   launch also through the plain version on the same inputs (within ATOL
+   plus 1e-4 of the batch row's largest |output|) and must repeat the
+   timed run's tokens. ``int8`` runs with
+   int8 weights (``MXNET_SERVE_DECODE_INT8_WEIGHTS=auto`` on the card,
+   ``int8_weights=True`` printed): every forward launches the int8 product
+   7 x 32 + 1 = 225 times, ``pallas`` none, in this phase and in 5a-5c and
+   5f (prefills and decode iterations, counted at graph replays; 5d and 5e
+   serve ``pallas``: none). The int8 rung's prefill logits' gap to the
+   ``pallas`` rung's is printed (no gate).
 5a. multistep pallas / multistep int8: the same model and prompts through
    ``Generator(multistep=True, decode_steps=8)``, batch buckets (1, 4):
    ``warmup()`` captures every super-step CUDA graph (its signatures,
@@ -43,7 +82,8 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    kernel 32 layers x 8 iterations x 4 visits = 1024 times (counted at
    every graph replay); no graph may be captured after warmup. Then a run
    with the plain attention forced (its graphs are captured on that route)
-   must give the same tokens and launch no kernel. Printed: decode ms a
+   must give the same tokens (on ``int8``: the tokens of phase 5's
+   forced-plain run, C4) and launch no kernel. Printed: decode ms a
    token, tokens/s, host visits a token, peak memory.
 5b. paged: on both rungs the same prompts through ``paged=True``, single-
    and multi-step, must give the ring run's tokens; then two prompts
@@ -109,7 +149,9 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    must be 2 host visits (one draft replay, one verify replay); the
    kernel launches must be the draft's 2 layers x 5 iterations x rounds
    (the verify graph launches none); nothing is captured after
-   ``warmup()``. Printed: decode ms a token, tokens a round, acceptance,
+   ``warmup()``; on ``int8`` a verify replay launches the int8 product 225
+   times and the 2-layer draft 15 a forward. Printed: decode ms a token,
+   tokens a round, acceptance,
    host visits a token, the draft and verify replays' device ms (CUDA
    events) and peak memory.
 6. flash: each dtype pair's kernel attributes (registers and spilled bytes
@@ -319,6 +361,38 @@ DECODE_SWEEP_S = (1024, 2048, 4096, 8192)   # ring lengths of the context sweep
 DECODE_SWEEP_B = (1, 4)
 DECODE_AIMS = (1, 2, 4)     # blocks a SM the split-aim sweep aims the grid at
 DECODE_LONG_S = 8192        # the split-aim sweep's long ring (Llama-3-8B's context)
+INT8_OPS_PER_S = 1979e12   # H100 SXM int8 tensor cores, dense
+INT8_SOURCE = "mxnet_tpu_torch/csrc/int8_dense.cu"
+# not a pallas_call: the TPU ran this branch of quantized_dense on XLA's
+# int8 dot
+INT8_REPLACES = "mxnet_tpu/ops/nn.py:944"
+# phase 3b: Llama-3-8B's projections, (O, U, products in one forward: per
+# layer times 32, the head once); the head runs at decode and verify rows
+# only (prefill gathers the last positions before it)
+INT8_SHAPES = [(4096, 4096, 64), (1024, 4096, 64), (14336, 4096, 64),
+               (4096, 14336, 32), (128256, 4096, 1)]
+INT8_M = (1, 4, 20, 256, 1024)
+INT8_HEAD_M = (1, 4, 20)
+INT8_TIMED_M = (4, 256, 1024)
+INT8_FORWARD = 7 * 32 + 1   # int8 products in one Llama-3-8B forward
+INT8_DECODE_BOUND_MS = 2.24  # 7.50 G weight bytes at 3.35 TB/s
+# phase 3b: each row's RMS error against the f32 product with the
+# unquantized weight, over the row's RMS output. On phase 3b's inputs the
+# reference algorithm reaches about 1.35e-2 (1,024 rows of U = 14,336);
+# the same algorithm with one rounding step lost (truncation) or at half
+# the resolution (sx doubled) exceeds 1.45e-2 on single rows and 1.8e-2
+# on every case of several rows
+INT8_ROW_RMS_LIMIT = 1.6e-2
+# phase 3b: host cost of one call, back to back, without a sync
+INT8_HOST_CALLS = 200
+# phase 5 on int8: the first decode step's logits, kernel against the
+# plain attention on the same prefill and token, within this share of
+# their norm (the largest over rows). The routes differ in the last bits,
+# which move a few activations by one int8 step, and those steps grow
+# from layer to layer: on an H100 the gap read 1.5e-2 of the state after
+# the first layer and 0.232 at the logits; two unrelated logit vectors of
+# one norm lie about 1.41 apart
+INT8_ROUTE_RTOL = 0.5
 KERNEL_SOURCE = "mxnet_tpu_torch/csrc/decode_attention.cu"
 REPLACES = "mxnet_tpu/ops/pallas/decode_attention.py:173"
 FLASH_SOURCE = "mxnet_tpu_torch/csrc/flash_attention.cu"
@@ -2744,6 +2818,25 @@ def resnet_train_phase(torch, np, mt, vision, loss_mod, ShardedTrainer,
     return rows, pairs
 
 
+def replay_logits(da, gen, prompts, tokens, steps, route):
+    """The (prompts, vocab) logits of ``gen`` after its prefill and
+    ``steps`` single decode steps fed ``tokens`` (a run's greedy tokens by
+    row), with the decode attention on ``route`` (``None``: the kernel;
+    ``"torch"``: the plain version)."""
+    da.force_path(route)
+    try:
+        toks, lens, bb = gen._pad_prompts(prompts)
+        lg, cache = gen.prefill(toks, lens, gen._fresh_cache(bb))
+        pos = lens.copy()
+        for j in range(steps):
+            ids = [tokens[r][j] if r < len(tokens) else 0 for r in range(bb)]
+            lg, cache = gen.decode_step(ids, pos, cache)
+            pos = pos + 1
+    finally:
+        da.force_path(None)
+    return lg[:len(prompts)].float()
+
+
 def first_divergence(torch, da, gen, prompts, a, b):
     """Row and step of the first differing greedy token of the kernel run
     ``a`` and the plain run ``b``, with each route's logit gap between the
@@ -2751,20 +2844,8 @@ def first_divergence(torch, da, gen, prompts, a, b):
     row, step = next((i, j) for j in range(NEW_TOKENS)
                      for i in range(len(a)) if a[i][j:j + 1] != b[i][j:j + 1])
     ta, tb = a[row][step], b[row][step]
-    logits = {}
-    for route in (None, "torch"):
-        da.force_path(route)
-        try:
-            toks, lens, bb = gen._pad_prompts(prompts)
-            lg, cache = gen.prefill(toks, lens, gen._fresh_cache(bb))
-            pos = lens.copy()
-            for j in range(step):
-                ids = [b[r][j] if r < len(b) else 0 for r in range(bb)]
-                lg, cache = gen.decode_step(ids, pos, cache)
-                pos = pos + 1
-        finally:
-            da.force_path(None)
-        logits[route] = lg[row].float()
+    logits = {route: replay_logits(da, gen, prompts, b, step, route)[row]
+              for route in (None, "torch")}
     gap_k = float(logits[None][ta] - logits[None][tb])
     gap_p = float(logits["torch"][ta] - logits["torch"][tb])
     diff = float((logits[None] - logits["torch"]).abs().max())
@@ -2773,54 +2854,211 @@ def first_divergence(torch, da, gen, prompts, a, b):
             f"max_logit_diff={diff:.6e}")
 
 
+class ForwardCount:
+    """The eager forward calls of ``model`` from construction to
+    ``close()`` (a forward pre-hook, so graph replays, which run no
+    Python, are not counted): ``calls`` of them, ``prefills`` over more
+    than one position."""
+
+    def __init__(self, model):
+        self.calls = self.prefills = 0
+        self._hook = model.register_forward_pre_hook(self._count)
+
+    def _count(self, module, args):
+        self.calls += 1
+        self.prefills += int(args[0].shape[1] > 1)
+
+    def close(self):
+        self._hook.remove()
+
+
+def int8_expected(rung, prefills, b1_launches, layers, products=INT8_FORWARD):
+    """The int8 products a serving run must launch: ``products`` a forward
+    on the ``int8`` rung (its projections run on int8 weights), none on
+    ``pallas``. The forwards are the eager prefills and the decode
+    iterations, each of which launched B1 once a layer, eagerly or in a
+    replayed graph."""
+    check(b1_launches % layers == 0,
+          f"{b1_launches} B1 launches over {layers} layers")
+    if rung != "int8":
+        return 0
+    return products * (prefills + b1_launches // layers)
+
+
+def int8_gate(phase, rung, got, want):
+    check(got == want, f"{phase}: {got} int8-product launches, expected "
+          f"{want} ({INT8_FORWARD} a forward on int8, 0 on pallas)")
+
+
+def first_step_states(da, gen, prompts, tokens, route):
+    """The first decode step's output of every decoder layer, (prompts,
+    units) each, and its logits: ``gen``'s prefill, then the tokens
+    ``tokens[r][0]``, the decode attention on ``route``."""
+    outs = []
+
+    def keep(module, args, out):
+        if out.shape[1] == 1:
+            outs.append(out[:len(prompts), 0].float().clone())
+
+    hooks = [blk.register_forward_hook(keep) for blk in gen.model._blocks]
+    try:
+        logits = replay_logits(da, gen, prompts, tokens, 1, route)
+    finally:
+        for h in hooks:
+            h.remove()
+    return outs, logits
+
+
+def rel_gap(a, b):
+    """The largest over rows of |a - b| over |b| (2-norms)."""
+    return float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
+
+
+def int8_route_check(torch, da, gen, prompts, out, out_plain, launches):
+    """Phase 5's check of B1 on ``int8``, where greedy tokens move with the
+    attention route (C4: the plain attention's last-bit differences move
+    activations across int8 rounding steps at the next projection, so the
+    forced-plain run's tokens are printed, with the first divergence and
+    its logit gaps): the first decode step's logits on both routes, from
+    the same prefill and token, within INT8_ROUTE_RTOL of their norm (the
+    gap after every few layers printed); then the same generate again with every kernel launch
+    also run through the plain version on the same inputs (``ShadowB1``,
+    within ATOL plus SHADOW_RTOL of the batch row's largest |output|), and
+    its tokens bit for bit the timed run's (same route, same shapes)."""
+    phase = "serve int8"
+    plain, plain_logits = first_step_states(da, gen, prompts, out_plain,
+                                            "torch")
+    states, logits = first_step_states(da, gen, prompts, out_plain, None)
+    gap = rel_gap(logits, plain_logits)
+    picks = sorted({i for i in (0, 1, 3, 7, 15) if i < len(plain)}
+                   | {len(plain) - 1})
+    say(phase, first_step_layer_gaps_to_plain={
+        i: f"{rel_gap(states[i], plain[i]):.3e}" for i in picks},
+        first_step_logit_gap_to_plain=f"{gap:.3e}",
+        limit=INT8_ROUTE_RTOL,
+        logit_max_gap=f"{float((logits - plain_logits).abs().max()):.4e}",
+        largest_logit=f"{float(plain_logits.abs().max()):.4e}",
+        top1_equal_rows=int((logits.argmax(1) == plain_logits.argmax(1)).sum()))
+    check(gap <= INT8_ROUTE_RTOL, f"{phase}: the first decode step's logits "
+          f"lie {gap:.3e} of their norm apart on the two attention routes "
+          f"(limit {INT8_ROUTE_RTOL})")
+    if out != out_plain:
+        say(phase, rows_equal_to_plain=sum(
+            a == b for a, b in zip(out, out_plain)),
+            first_divergence_from_plain=first_divergence(
+                torch, da, gen, prompts, out, out_plain))
+    shadow = ShadowB1(torch, da)
+    shadow.start()
+    try:
+        again, _ = gen.generate(prompts, max_new_tokens=NEW_TOKENS)
+    finally:
+        shadow.stop()
+    check(again == out, f"{phase}: a second generate's tokens differ")
+    check(shadow.calls == launches, f"{phase}: {shadow.calls} shadowed "
+          f"calls for {launches} launches")
+    err = float(shadow.err)
+    check(shadow.within(), f"{phase}: the kernel differs from its plain "
+          f"version on the generator's inputs by up to {err}")
+    say(phase, repeat_tokens_identical=True,
+        kernel_calls_held_to_plain=shadow.calls,
+        kernel_max_abs_err_vs_plain=err,
+        kernel_max_err_over_row_scale=float(shadow.rel))
+
+
 def serve_phase(torch, da, Generator, model, rung, prompts, n_layers, vocab):
     """Phases 4/5: serve the prompts on one rung; returns its numbers."""
+    from mxnet_tpu_torch.ops.hopper import int8_dense as i8
+
     phase = f"serve {rung}"
+    torch.cuda.reset_peak_memory_stats()
     gen = Generator(model, max_seq=MAX_SEQ, batch_buckets=(1, 4),
                     prompt_buckets=(64, 256), decode_path=rung,
                     name=f"llama3_8b_{rung}")
+    int8_weights = bool(gen._qweights)
+    check(int8_weights == (rung == "int8"), f"{rung}: int8 weights "
+          f"{int8_weights} under MXNET_SERVE_DECODE_INT8_WEIGHTS=auto")
+    table_bytes = sum(q.numel() + 4 * sc.numel()
+                      for q, sc in gen._qweights.values())
     w = gen.warmup()
-    say(phase, warmup_s=f"{w['wall_s']:.3f}", signatures=w["signatures"])
+    say(phase, warmup_s=f"{w['wall_s']:.3f}", signatures=w["signatures"],
+        int8_weights=int8_weights, int8_table_bytes=table_bytes)
     toks, lens, bb = gen._pad_prompts(prompts)
     logits, _ = gen.prefill(toks, lens, gen._fresh_cache(bb))
     check(tuple(logits.shape) == (bb, vocab),
           f"prefill logits shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    prefill_logits = logits.float().cpu()
 
     da.force_path(None)
     da.reset_launch_count()
-    out, info = gen.generate(prompts, max_new_tokens=NEW_TOKENS)
+    i8.reset_launch_count()
+    fc = ForwardCount(model)
+    try:
+        out, info = gen.generate(prompts, max_new_tokens=NEW_TOKENS)
+    finally:
+        fc.close()
     launches = da.launch_count()
+    i8_launches = i8.launch_count()
     steps = info["decode_steps"]
     check(steps == NEW_TOKENS - 1, f"{steps} decode steps")
     check(all(len(o) == NEW_TOKENS for o in out), "short output")
     check(launches == n_layers * steps,
           f"{launches} kernel launches for {steps} decode steps x "
           f"{n_layers} layers")
+    check(fc.calls == 1 + steps, f"{fc.calls} forwards for one prefill "
+          f"and {steps} decode steps")
+    int8_gate(phase, rung, i8_launches,
+              int8_expected(rung, fc.prefills, launches, n_layers))
     gen.assert_no_recompiles()
     say(phase, prefill_ms=f"{info['prefill_ms']:.3f}",
         decode_ms_per_token=f"{info['decode_ms'] / steps:.3f}",
         tokens_s=f"{info['tokens_s']:.3f}", decode_steps=steps,
-        kernel_launches=launches, kv_cache_bytes=gen.kv_cache_bytes(),
+        kernel_launches=launches, int8_launches=i8_launches,
+        int8_launches_per_forward=i8_launches / fc.calls,
+        kv_cache_bytes=gen.kv_cache_bytes(),
         peak_mem_bytes=torch.cuda.max_memory_allocated())
 
     da.force_path("torch")
+    i8.reset_launch_count()
+    fc = ForwardCount(model)
+    # on int8 every plain call is also held to the kernel on its inputs
+    shadow = ShadowB1(torch, da, plain_route=True)
+    if rung == "int8":
+        shadow.start()
     try:
         out_plain, info_plain = gen.generate(prompts,
                                              max_new_tokens=NEW_TOKENS)
     finally:
+        shadow.stop()
         da.force_path(None)
-    check(da.launch_count() == launches,
+        fc.close()
+    check(da.launch_count() - shadow.calls == launches,
           "forced-plain run launched the kernel")
+    if rung == "int8":
+        check(shadow.calls == launches, f"{phase}: {shadow.calls} plain "
+              f"calls of the forced-plain run held to the kernel, expected "
+              f"{launches}")
+        check(shadow.within(), f"{phase}: on the forced-plain run's inputs "
+              f"the kernel differs from the plain version by up to "
+              f"{float(shadow.err)}")
+        say(phase, forced_plain_calls_held_to_kernel=shadow.calls,
+            forced_plain_max_abs_err_vs_kernel=float(shadow.err),
+            forced_plain_max_err_over_row_scale=float(shadow.rel))
+    int8_gate(f"{phase} forced-plain attention", rung, i8.launch_count(),
+              INT8_FORWARD * fc.calls if rung == "int8" else 0)
     gen.assert_no_recompiles()
-    if out != out_plain:
+    if rung == "pallas" and out != out_plain:
         raise CheckFailed(f"{rung}: greedy tokens differ from the plain run: "
                           + first_divergence(torch, da, gen, prompts, out,
                                              out_plain))
-    say(phase, tokens_identical_to_plain=True,
+    say(phase, tokens_identical_to_plain=out == out_plain,
         plain_decode_ms_per_token=f"{info_plain['decode_ms'] / steps:.3f}",
         first_tokens=[o[:4] for o in out])
-    return {"launches": launches, "info": info, "out": out}
+    if rung == "int8":
+        int8_route_check(torch, da, gen, prompts, out, out_plain, launches)
+    return {"launches": launches, "int8_launches": i8_launches,
+            "info": info, "out": out, "out_plain": out_plain,
+            "prefill_logits": prefill_logits}
 
 
 def free_cuda(torch):
@@ -2829,9 +3067,12 @@ def free_cuda(torch):
 
 
 def multistep_phase(torch, da, Generator, model, rung, prompts, n_layers,
-                    single_out):
+                    single):
     """Phase 5a on one rung: the super-step's CUDA graphs against the
-    single-step phase's tokens, with replay-aware launch counts."""
+    single-step phase's tokens (``single``: phase 4-5's result), on both
+    attention routes, with replay-aware launch counts."""
+    from mxnet_tpu_torch.ops.hopper import int8_dense as i8
+
     phase = f"multistep {rung}"
     torch.cuda.reset_peak_memory_stats()
     gen = Generator(model, max_seq=MAX_SEQ, batch_buckets=(1, 4),
@@ -2841,7 +3082,8 @@ def multistep_phase(torch, da, Generator, model, rung, prompts, n_layers,
     da.force_path(None)
     w = gen.warmup()
     say(phase, warmup_s=f"{w['wall_s']:.3f}", signatures=w["signatures"],
-        graphs_captured=w["captures"], capture_s=f"{w['capture_s']:.3f}")
+        graphs_captured=w["captures"], capture_s=f"{w['capture_s']:.3f}",
+        int8_weights=bool(gen._qweights))
     check(w["captures"] == 2 * 4, f"{w['captures']} graphs captured")
     captures = gen._msession.captures
     visits = -(-(NEW_TOKENS - 1) // DECODE_STEPS)
@@ -2849,10 +3091,18 @@ def multistep_phase(torch, da, Generator, model, rung, prompts, n_layers,
     runs = []
     for rep in range(3):
         da.reset_launch_count()
-        out, info = gen.generate(prompts, max_new_tokens=NEW_TOKENS)
+        i8.reset_launch_count()
+        fc = ForwardCount(model)
+        try:
+            out, info = gen.generate(prompts, max_new_tokens=NEW_TOKENS)
+        finally:
+            fc.close()
         launches = da.launch_count()
-        check(out == single_out, f"{rung}: multi-step tokens differ from "
-              "the single-step phase's")
+        i8_launches = i8.launch_count()
+        int8_gate(phase, rung, i8_launches,
+                  int8_expected(rung, fc.prefills, launches, n_layers))
+        check(out == single["out"], f"{rung}: multi-step tokens differ "
+              "from the single-step phase's")
         check(info["decode_visits"] == visits,
               f"{info['decode_visits']} host visits, expected {visits}")
         check(info["decode_steps"] == NEW_TOKENS - 1,
@@ -2870,8 +3120,9 @@ def multistep_phase(torch, da, Generator, model, rung, prompts, n_layers,
         tokens_s=[f"{r['tokens_s']:.3f}" for r in runs],
         host_visits_per_token=f"{visits / (NEW_TOKENS - 1):.4f}",
         decode_visits=visits, kernel_launches=launches,
+        int8_launches=i8_launches,
         launches_per_replay=gen._msession.launches(
-            (4, DECODE_STEPS, False, None)),
+            (4, DECODE_STEPS, False, (None, None))),
         prefill_ms=f"{runs[-1]['prefill_ms']:.3f}",
         peak_mem_bytes=torch.cuda.max_memory_allocated())
 
@@ -2886,15 +3137,22 @@ def multistep_phase(torch, da, Generator, model, rung, prompts, n_layers,
     check(plain_launches == 0,
           f"the forced-plain multi-step run launched the kernel "
           f"{plain_launches} times")
-    check(out_plain == out, f"{rung}: forced-plain multi-step tokens "
-          "differ")
-    say(phase, tokens_identical_to_plain=True,
+    # on int8 the route moves tokens (C4): there the plain route is held
+    # to the single-step phase's plain run (same route, same shapes)
+    want = single["out_plain"] if rung == "int8" else out
+    check(out_plain == want, f"{rung}: forced-plain multi-step tokens "
+          "differ from the " + ("single-step forced-plain run's"
+                                if rung == "int8" else "kernel run's"))
+    say(phase, tokens_identical_to_plain=out_plain == out,
+        plain_equal_to_single_step_plain=out_plain == single["out_plain"],
+        rows_equal_to_plain=sum(a == b for a, b in zip(out, out_plain)),
         plain_graphs_captured=gen._msession.captures - captures,
         plain_decode_ms_per_token=(
             f"{info_plain['decode_ms'] / info_plain['decode_steps']:.3f}"))
     del gen
     free_cuda(torch)
-    return {"launches": launches, "decode_ms_per_token": ms_tok}
+    return {"launches": launches, "int8_launches": i8_launches,
+            "decode_ms_per_token": ms_tok}
 
 
 def paged_phase(torch, np, da, Generator, model, prompts, n_layers, vocab,
@@ -2905,6 +3163,8 @@ def paged_phase(torch, np, da, Generator, model, prompts, n_layers, vocab,
     shared = [int(t) for t in rng.randint(1, vocab, size=PREFIX_LEN)]
     px_prompts = [shared + [int(t) for t in rng.randint(1, vocab, size=n)]
                   for n in PREFIX_TAILS]
+    from mxnet_tpu_torch.ops.hopper import int8_dense as i8
+
     kw = dict(max_seq=MAX_SEQ, batch_buckets=(1, 4),
               prompt_buckets=(64, 256))
     for rung in ("pallas", "int8"):
@@ -2914,8 +3174,15 @@ def paged_phase(torch, np, da, Generator, model, prompts, n_layers, vocab,
                             name=f"llama3_8b_{rung}_paged", **kw)
             w = gen.warmup()
             da.reset_launch_count()
-            out, info = gen.generate(prompts, max_new_tokens=NEW_TOKENS)
+            i8.reset_launch_count()
+            fc = ForwardCount(model)
+            try:
+                out, info = gen.generate(prompts, max_new_tokens=NEW_TOKENS)
+            finally:
+                fc.close()
             launches = da.launch_count()
+            int8_gate(f"paged {rung}", rung, i8.launch_count(),
+                      int8_expected(rung, fc.prefills, launches, n_layers))
             check(out == served[rung]["out"], f"{rung}: paged "
                   f"(multistep={multistep}) tokens differ from the ring "
                   "run's")
@@ -2927,6 +3194,8 @@ def paged_phase(torch, np, da, Generator, model, prompts, n_layers, vocab,
                 page_size=gen._fresh_cache(4).page_size,
                 pool_bytes=gen.kv_cache_bytes(),
                 signatures=w["signatures"], kernel_launches=launches,
+                int8_weights=bool(gen._qweights),
+                int8_launches=i8.launch_count(),
                 decode_ms_per_token=(
                     f"{info['decode_ms'] / info['decode_steps']:.3f}"),
                 tokens_identical_to_ring=True)
@@ -2938,8 +3207,17 @@ def paged_phase(torch, np, da, Generator, model, prompts, n_layers, vocab,
         gen = Generator(model, decode_path=rung, prefix_cache=True,
                         multistep=True, decode_steps=DECODE_STEPS, **kw)
         gen.warmup()
-        first, _ = gen.generate(px_prompts, max_new_tokens=NEW_TOKENS)
-        again, info = gen.generate(px_prompts, max_new_tokens=NEW_TOKENS)
+        da.reset_launch_count()
+        i8.reset_launch_count()
+        fc = ForwardCount(model)
+        try:
+            first, _ = gen.generate(px_prompts, max_new_tokens=NEW_TOKENS)
+            again, info = gen.generate(px_prompts, max_new_tokens=NEW_TOKENS)
+        finally:
+            fc.close()
+        int8_gate(f"prefix {rung}", rung, i8.launch_count(),
+                  int8_expected(rung, fc.prefills, da.launch_count(),
+                                n_layers))
         st = gen.stats()["prefix"][4]
         check(st["tokens_matched"] > 0, "the second prefix run matched no "
               "prefix")
@@ -2948,9 +3226,10 @@ def paged_phase(torch, np, da, Generator, model, prompts, n_layers, vocab,
         gen.assert_no_recompiles()
         say("prefix", rung=rung, shared_prefix=PREFIX_LEN,
             tokens_matched=st["tokens_matched"], hits=st["hits"],
-            pages_held=st["pages_held"],
+            second_run_equal_to_ring=again == want,
+            pages_held=st["pages_held"], int8_launches=i8.launch_count(),
             prefill_ms_second_run=f"{info['prefill_ms']:.3f}",
-            tokens_identical_to_ring=True)
+            first_run_identical_to_ring=True)
         del gen
         free_cuda(torch)
 
@@ -3041,13 +3320,18 @@ class ShadowB1:
     also runs the plain version on the same inputs (the engine's gathered
     pages, dead lanes, int8 rings and scales), on the device with no host
     read; ``within()`` says whether every output agreed to ATOL plus
-    SHADOW_RTOL of its batch row's largest |output|, at live rows. On ``int8`` a token comparison cannot hold the kernel to
-    its plain version: every step requantizes the K/V it writes, so the
-    two routes' 1e-6 differences move later inputs by whole quantization
-    steps."""
+    SHADOW_RTOL of its batch row's largest |output|, at live rows. With
+    ``plain_route``, a decode call (T = 1) that took the plain version
+    (the plain attention forced) also launches the kernel on the same
+    inputs, held alike; those launches count in the module's
+    ``launch_count()``. On
+    ``int8`` a token comparison cannot hold the kernel to its plain
+    version: every step requantizes the K/V it writes, so the two routes'
+    1e-6 differences move later inputs by whole quantization steps."""
 
-    def __init__(self, torch, da):
+    def __init__(self, torch, da, plain_route=False):
         self.torch, self.da, self.kernel = torch, da, None
+        self.plain_route = plain_route
         self.calls, self.err, self.excess, self.rel = 0, None, None, None
 
     def start(self):
@@ -3056,14 +3340,23 @@ class ShadowB1:
 
         def shadowed(q, k, v, start_pos, scale=None, k_scale=None,
                      v_scale=None):
-            out = kernel(q, k, v, start_pos, scale=scale, k_scale=k_scale,
-                         v_scale=v_scale)
+            kw = dict(scale=scale, k_scale=k_scale, v_scale=v_scale)
+            out = kernel(q, k, v, start_pos, **kw)
+            got = None
             if da.last_path() == "cuda":
-                ref = da.decode_attention_torch(q, k, v, start_pos,
-                                                scale=scale, k_scale=k_scale,
-                                                v_scale=v_scale)
+                got = out
+                ref = da.decode_attention_torch(q, k, v, start_pos, **kw)
+            elif self.plain_route and q.shape[2] == 1:
+                forced = da.forced_path()
+                da.force_path("cuda")
+                try:
+                    got = kernel(q, k, v, start_pos, **kw)
+                finally:
+                    da.force_path(forced)
+                ref = out
+            if got is not None:
                 live = (start_pos >= 0).view(-1, 1, 1, 1)
-                err = torch.where(live, (out - ref).abs(), 0.0)
+                err = torch.where(live, (got - ref).abs(), 0.0)
                 scale = ref.abs().amax(dim=(1, 2, 3), keepdim=True)
                 excess = (err - ATOL - SHADOW_RTOL * scale).amax()
                 rel = (err / scale.clamp_min(ATOL)).amax()
@@ -3118,7 +3411,11 @@ def continuous_phase(torch, np, da, Generator, ContinuousEngine, percentile,
     (the same shapes, the graph replays the same kernels); the agreement
     with phases 4-5, the batch-1 runs (with the prompt bucket of each
     churn request that differs) and the same engine with the plain
-    attention forced is printed."""
+    attention forced is printed. On ``int8`` every forward (prefill chunks
+    and decode iterations) launches the int8 product 225 times; on
+    ``pallas`` none."""
+    from mxnet_tpu_torch.ops.hopper import int8_dense as i8
+
     rng = np.random.RandomState(5)
     # the first two churn prompts over one chunk, the rest anywhere
     lens = np.concatenate([
@@ -3151,6 +3448,7 @@ def continuous_phase(torch, np, da, Generator, ContinuousEngine, percentile,
                 decode_steps=DECODE_STEPS, max_queue=64,
                 name=f"llama3_8b_{rung}_cb")
             shadow = ShadowB1(torch, da)
+            fc = None
             try:
                 da.force_path(None)
                 w = eng.warmup()
@@ -3158,7 +3456,12 @@ def continuous_phase(torch, np, da, Generator, ContinuousEngine, percentile,
                 check(captures == (4 if multistep else 0),
                       f"{captures} graphs captured by warmup")
                 say(phase, warmup_s=f"{w['wall_s']:.3f}",
-                    signatures=w["signatures"], graphs_captured=captures)
+                    signatures=w["signatures"], graphs_captured=captures,
+                    int8_weights=bool(eng._qweights))
+                check(bool(eng._qweights) == (rung == "int8"),
+                      f"{phase}: int8 weights {bool(eng._qweights)}")
+                b1_0, i8_0 = da.launch_count(), i8.launch_count()
+                fc = ForwardCount(model)
                 eng.start()
                 # the int8 single-step arm shadows every kernel launch
                 shadowing = not exact and not multistep
@@ -3248,12 +3551,19 @@ def continuous_phase(torch, np, da, Generator, ContinuousEngine, percentile,
                       "prefix")
                 clear_trie(eng)
                 miss = engine_run(torch, da, eng, px[1:], [NEW_TOKENS])[0]
-                check(hits[1:] == miss, f"{phase}: the prefix hit's tokens "
+                check(hits[1:] == miss,
+                      f"{phase}: the prefix hit's tokens "
                       "differ from a miss's")
                 eng.assert_no_recompiles()
                 if multistep:
                     check(eng._msession.captures == captures,
                           "a graph was captured after warmup")
+                i8_launches = i8.launch_count() - i8_0
+                int8_gate(phase, rung, i8_launches, int8_expected(
+                    rung, fc.prefills, da.launch_count() - b1_0, n_layers))
+                say(phase, forwards_prefill=fc.prefills,
+                    int8_launches=i8_launches)
+                fc.close()
                 snap = eng.metrics.snapshot()
                 peak = torch.cuda.max_memory_allocated()
                 if shadowing:
@@ -3264,13 +3574,15 @@ def continuous_phase(torch, np, da, Generator, ContinuousEngine, percentile,
                         differing_from_forced_plain=bad)
             finally:
                 shadow.stop()
+                if fc is not None:
+                    fc.close()
                 eng.close()
             eng.prefix.clear()
             pool = eng.stats()["pool"]
             check(pool["pages_owned"] == 0 and pool["pages_used"] == 0,
                   f"pages not recycled: {pool}")
             say(phase, prefix_tokens_matched=matched,
-                prefix_hit_equals_miss=True,
+                prefix_hit_equals_miss=hits[1:] == miss,
                 prefix_hits=snap["prefix_hits"],
                 prefix_evictions=snap["prefix_evictions"],
                 requests=snap["requests"], errors=snap["errors"],
@@ -3296,8 +3608,11 @@ def tenancy_phase(torch, da, ModelRegistry, model, draft_rand, prompts,
               page_size=da.natural_block(), prefill_chunk=CB_CHUNK,
               decode_path="pallas", prefix_cache=True, multistep=True,
               decode_steps=DECODE_STEPS, max_queue=64)
+    from mxnet_tpu_torch.ops.hopper import int8_dense as i8
+
     want = served["pallas"]["out"]
     engines = []
+    i8.reset_launch_count()
 
     def serve(reg, name, batch):
         eng = reg.load(name)
@@ -3339,6 +3654,7 @@ def tenancy_phase(torch, da, ModelRegistry, model, draft_rand, prompts,
               "one reload)")
         secs = reg.load_seconds()
         clear_trie(reg.get("llama3_8b"))
+    int8_gate("tenancy", "pallas", i8.launch_count(), 0)
     for eng in engines:
         eng.prefix.clear()
         pool = eng.stats()["pool"]
@@ -3387,8 +3703,11 @@ def fleet_phase(torch, da, Generator, Replica, Router, fleet_stats, faults,
     faults.install_plan({"rules": [{"site": "replica:dispatch",
                                     "kind": "die", "replica": 0,
                                     "at": [2]}]})
+    from mxnet_tpu_torch.ops.hopper import int8_dense as i8
+
     try:
         da.reset_launch_count()
+        i8.reset_launch_count()
         with Router(reps, name="chip_fleet", probe_ms=25.0) as router:
             futs = [router.submit(p, key=f"req{j}")
                     for j, p in enumerate(requests)]
@@ -3400,6 +3719,7 @@ def fleet_phase(torch, da, Generator, Replica, Router, fleet_stats, faults,
             if r.batcher._thread is not None:
                 r.batcher._thread.join(CB_WAIT)
         launches = da.launch_count()
+        int8_gate("fleet", "pallas", i8.launch_count(), 0)
     finally:
         faults.clear_plan()
     bad = [j for j, o in enumerate(outs) if o != want[j % len(prompts)]]
@@ -3448,6 +3768,8 @@ def speculative_phase(torch, da, Generator, SpeculativeGenerator, get_llama,
     and multi-step. Changes ``model``'s weights in place. Returns the
     draft's kernel launches of the ``pallas`` multi-step copied-draft
     run."""
+    from mxnet_tpu_torch.ops.hopper import int8_dense as i8
+
     t0 = time.perf_counter()
     with torch.no_grad():
         for blk in model._blocks[2:]:
@@ -3484,8 +3806,15 @@ def speculative_phase(torch, da, Generator, SpeculativeGenerator, get_llama,
                 dr0 = sg.draft._msession.replays if multistep else 0
                 events = {"draft": [], "verify": []}
                 da.reset_launch_count()
-                out, info = sg.generate(prompts, max_new_tokens=NEW_TOKENS,
-                                        events=events)
+                i8.reset_launch_count()
+                tfc, dfc = ForwardCount(model), ForwardCount(draft)
+                try:
+                    out, info = sg.generate(prompts,
+                                            max_new_tokens=NEW_TOKENS,
+                                            events=events)
+                finally:
+                    tfc.close()
+                    dfc.close()
                 launches = da.launch_count()
                 torch.cuda.synchronize()
                 rounds = info["rounds"]
@@ -3493,8 +3822,20 @@ def speculative_phase(torch, da, Generator, SpeculativeGenerator, get_llama,
                       f"{phase}: {launches} kernel launches for {rounds} "
                       f"rounds x {SPEC_K + 1} draft iterations x {n_draft} "
                       "layers")
-                check(sg._verify.launches((4, SPEC_K + 1, None)) == [0],
+                # the target's forwards: its prefill and one verify replay
+                # a round (T = k + 1: no B1); the draft's: its prefill and
+                # its k + 1 iterations a round (2 layers: 15 products)
+                verify = sg._verify.launches((4, SPEC_K + 1, (None, None)))
+                check(verify[0] == 0,
                       f"{phase}: the verify graph launches the kernel")
+                draft_products = 7 * n_draft + 1
+                want_i8 = (int8_expected(rung, tfc.prefills + rounds, 0, 1)
+                           + int8_expected(rung, dfc.prefills, launches,
+                                           n_draft, draft_products))
+                int8_gate(phase, rung, i8.launch_count(), want_i8)
+                check(verify[1:] == ([INT8_FORWARD] if rung == "int8"
+                                     else []),
+                      f"{phase}: the verify graph's launches {verify}")
                 check(sg._verify.replays - vr0 == rounds,
                       f"{phase}: {sg._verify.replays - vr0} verify replays "
                       f"for {rounds} rounds")
@@ -3544,6 +3885,8 @@ def speculative_phase(torch, da, Generator, SpeculativeGenerator, get_llama,
                         f"{statistics.mean(dev_ms['verify']):.3f}"
                         if dev_ms["verify"] else None),
                     kernel_launches=launches,
+                    int8_launches=i8.launch_count(),
+                    verify_graph_launches=verify,
                     tokens_vs_target_generator=agree,
                     peak_mem_bytes=torch.cuda.max_memory_allocated())
                 if rung == "pallas" and dname == "copy" and multistep:
@@ -3556,10 +3899,247 @@ def speculative_phase(torch, da, Generator, SpeculativeGenerator, get_llama,
     return result
 
 
+def int8_inputs(torch, dev, m, o, u, seed):
+    """Seeded normal activations (M, U), with a row of zeros and a row of
+    exact .5 ties (amax 127, so sx = 1) where M >= 3, and a weight drawn
+    as the model's (uniform in +-0.07), quantized per output channel as
+    ``serve.generate._quantize_serving_weights`` does. Returns (x, f32
+    weight, int8 weight, scale)."""
+    from mxnet_tpu_torch.ops.hopper import int8_dense as i8
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, u, device=dev, generator=gen)
+    if m >= 3:
+        x[1] = 0.0
+        x[2] = 0.0
+        n = min(u, 6)
+        x[2, :n] = torch.tensor([127.0, 2.5, -3.5, 0.5, -0.5, 1.5][:n],
+                                device=dev)
+    wf = torch.rand(o, u, device=dev, generator=gen) * 0.14 - 0.07
+    scale = i8.int8_scale(wf.abs().amax(dim=1))
+    qw = torch.clamp(torch.round(wf / scale[:, None]), -127, 127).to(
+        torch.int8)
+    return x, wf, qw, scale
+
+
+def int8_bound_ms(m, o, u):
+    """Least time (ms) of one call: x read, the int8 weight and its scales
+    read and the f32 output written once at the memory rate, against
+    2 M O U int8 operations at the tensor cores' rate."""
+    t_bytes = (o * u + 4 * m * u + 4 * o + 4 * m * o) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * o * u / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def row_errors(torch, out, exact):
+    """Each live row's largest |error| over its largest |output|, and its
+    RMS error over its RMS output (float64)."""
+    err = out.double() - exact
+    live = exact.abs().amax(1) > 0
+    err, exact = err[live], exact[live]
+    if not len(exact):
+        return 0.0, 0.0
+    peak = float((err.abs().amax(1) / exact.abs().amax(1)).max())
+    rms = float((err.norm(dim=1) / exact.norm(dim=1)).max())
+    return peak, rms
+
+
+def int8_case(torch, i8, x, wf, qw, scale, what):
+    """The kernel against its plain version (bit for bit), two calls bit
+    for bit, and each row's RMS error against the exact product with the
+    unquantized weight (float64) within INT8_ROW_RMS_LIMIT of its RMS
+    output. The same reading is taken of the algorithm with truncation in
+    place of rounding (one rounding step lost), which the limit must be
+    able to tell apart. Returns the largest difference to the plain
+    version and the readings: largest |error| over the row's largest
+    |output| (the JAX docstring's ~1e-2), the RMS reading, the truncated
+    algorithm's RMS reading."""
+    out = i8.int8_dense(x, qw, scale)
+    again = i8.int8_dense(x, qw, scale)
+    check(i8.last_path() == "cuda", f"int8 {what}: the kernel did not run")
+    ref = i8.int8_dense_torch(x, qw, scale)
+    torch.cuda.synchronize()
+    diff = float((out - ref).abs().max())
+    check(torch.equal(out, ref), f"int8 {what}: the kernel differs from "
+          f"its plain version by up to {diff:.3e}")
+    check(torch.equal(out, again), f"int8 {what}: two calls differ")
+    exact = x.double() @ wf.double().t()
+    peak, rms = row_errors(torch, out, exact)
+    check(rms <= INT8_ROW_RMS_LIMIT, f"int8 {what}: a row's RMS error is "
+          f"{rms:.3e} of its RMS output (limit {INT8_ROW_RMS_LIMIT})")
+    _, sx = i8.quantize_rows_torch(x)
+    xt = torch.clamp(torch.trunc(x / sx), -127, 127)
+    trunc = (xt.double() @ qw.double().t()).float() * sx * scale
+    _, rms_trunc = row_errors(torch, trunc, exact)
+    del exact, xt, trunc
+    return diff, {"peak": peak, "rms": rms, "rms_trunc": rms_trunc}
+
+
+def int8_phase(torch, F, i8, flush, dev):
+    """Phase 3b: the int8 x int8 product at every Llama-3-8B projection
+    shape and the edge cases, against its plain version; times at M = 4,
+    256 and 1024 against the bound, the plain version, the weight-only
+    route, the f32 product and ``torch._int_mm``; then the sums over one
+    forward's products. Returns the JSON rows' numbers by M."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for block_rows in sorted(i8.TILES):
+        say("int8", block_rows=block_rows,
+            block_cols=i8.TILES[block_rows],
+            smem_bytes=i8.smem_bytes(block_rows))
+    for name, a in i8.kernel_attributes().items():
+        say("int8", kernel=name, **a)
+        check(a["local_bytes"] == 0, f"int8 kernel {name} uses "
+              f"{a['local_bytes']} local bytes a thread (a spill)")
+    max_diff, seed = 0.0, 100
+    worst = {"peak": 0.0, "rms": 0.0}
+    # the truncated algorithm's least reading at the projection shapes
+    trunc_least = {"one_row": 1.0, "several_rows": 1.0}
+
+    def keep(m, u, diff, errs):
+        for k in worst:
+            worst[k] = max(worst[k], errs[k])
+        if u >= 4096:
+            rows = "one_row" if m == 1 else "several_rows"
+            trunc_least[rows] = min(trunc_least[rows], errs["rms_trunc"])
+        return max(max_diff, diff)
+
+    def readings(errs):
+        return dict(err_over_row_max=f"{errs['peak']:.3e}",
+                    rms_err_over_row_rms=f"{errs['rms']:.3e}",
+                    truncated_rms_err=f"{errs['rms_trunc']:.3e}")
+    # edge cases: ragged M, O and U; a misaligned x and weight (4-byte
+    # floats and single bytes instead of 16-byte copies)
+    for m, o, u, misaligned in ((3, 37, 30, False), (17, 1024, 4096, True),
+                                (4, 37, 30, True)):
+        seed += 1
+        x, wf, qw, scale = int8_inputs(torch, dev, m, o, u, seed)
+        if misaligned:
+            xf = torch.empty(x.numel() + 1, device=dev)
+            qf = torch.empty(qw.numel() + 1, dtype=torch.int8, device=dev)
+            x = xf[1:].view(m, u).copy_(x)
+            qw = qf[1:].view(o, u).copy_(qw)
+        diff, errs = int8_case(torch, i8, x, wf, qw, scale,
+                               f"M={m} O={o} U={u}")
+        max_diff = keep(m, u, diff, errs)
+        say("int8", M=m, O=o, U=u, misaligned=misaligned,
+            plan=tuple(i8.split_plan(m, o, u, sms)), bitwise=True,
+            repeats_bitwise=True, **readings(errs))
+    sums = {m: {"ms": 0.0, "k1_ms": 0.0, "product_ms": 0.0, "plain_ms": 0.0,
+                "weight_only_ms": 0.0, "f32_ms": 0.0, "bound_ms": 0.0,
+                "library_ms": 0.0, "library_refused": [], "bound_by": set()}
+            for m in INT8_TIMED_M}
+    for o, u, per_forward in INT8_SHAPES:
+        for m in INT8_M:
+            if o == INT8_SHAPES[-1][0] and m not in INT8_HEAD_M:
+                continue
+            seed += 1
+            x, wf, qw, scale = int8_inputs(torch, dev, m, o, u, seed)
+            diff, errs = int8_case(torch, i8, x, wf, qw, scale,
+                                   f"M={m} O={o} U={u}")
+            max_diff = keep(m, u, diff, errs)
+            plan = i8.split_plan(m, o, u, sms)
+            fields = dict(M=m, O=o, U=u, block_rows=plan.block_rows,
+                          slices=plan.slices, blocks=plan.blocks,
+                          workspace_bytes=plan.workspace_bytes,
+                          bitwise=True, repeats_bitwise=True,
+                          **readings(errs))
+            if m not in INT8_TIMED_M:
+                say("int8", **fields)
+                continue
+            xq, sx = i8.quantize_rows(x)
+            t = {"ms": time_ms(torch, lambda: i8.int8_dense(x, qw, scale),
+                               flush),
+                 "k1_ms": time_ms(torch, lambda: i8.quantize_rows(x), flush),
+                 "product_ms": time_ms(torch, lambda: i8.product(
+                     xq, sx, u, qw, scale), flush),
+                 "plain_ms": time_ms(torch, lambda: i8.int8_dense_torch(
+                     x, qw, scale), flush),
+                 "weight_only_ms": time_ms(torch, lambda: F.linear(
+                     x, qw.float()) * scale, flush),
+                 "f32_ms": time_ms(torch, lambda: F.linear(x, wf), flush)}
+            bound, bound_by = int8_bound_ms(m, o, u)
+            try:
+                xq_u = xq[:, :u]
+                lib = time_ms(torch, lambda: torch._int_mm(xq_u, qw.t()),
+                              flush)
+            except RuntimeError as exc:
+                lib = None
+                sums[m]["library_refused"].append(
+                    f"{o}x{u}: {str(exc).splitlines()[0][:80]}")
+            r = sums[m]
+            for k, v in t.items():
+                r[k] += v * per_forward
+            r["bound_ms"] += bound * per_forward
+            r["bound_by"].add(bound_by)
+            if lib is not None and r["library_ms"] is not None:
+                r["library_ms"] += lib * per_forward
+            else:
+                r["library_ms"] = None
+            say("int8", **fields, **{k: f"{v:.6f}" for k, v in t.items()},
+                bound_ms=f"{bound:.6f}", bound_by=bound_by,
+                int_mm_ms="refused" if lib is None else f"{lib:.6f}")
+            del xq, sx
+        del x, wf, qw, scale
+        free_cuda(torch)
+    out = {}
+    for m, r in sums.items():
+        products = sum(n for o, _, n in INT8_SHAPES
+                       if o != INT8_SHAPES[-1][0] or m in INT8_HEAD_M)
+        say("int8 forward", M=m, products=products,
+            **{k: f"{v:.6f}" for k, v in r.items()
+               if isinstance(v, float)},
+            library_ms_int_mm=("null" if r["library_ms"] is None
+                               else f"{r['library_ms']:.6f}"),
+            int_mm_refused=r["library_refused"] or None,
+            bound_by="+".join(sorted(r["bound_by"])),
+            share_of_bound=f"{r['bound_ms'] / r['ms']:.4f}",
+            decode_bound_ms=INT8_DECODE_BOUND_MS if m == 4 else None)
+        out[m] = dict(r, bound_by="bytes" if r["bound_by"] == {"bytes"}
+                      else "operations", max_abs_err=max_diff,
+                      products=products)
+    say("int8", max_abs_err_vs_plain=max_diff,
+        max_err_over_row_max=f"{worst['peak']:.3e}",
+        max_rms_err_over_row_rms=f"{worst['rms']:.3e}",
+        rms_limit=INT8_ROW_RMS_LIMIT,
+        **{f"truncated_least_{k}": f"{v:.3e}"
+           for k, v in trunc_least.items()})
+    int8_host_us(torch, F, i8, dev)
+    return out
+
+
+def int8_host_us(torch, F, i8, dev):
+    """The host's cost of one call at decode's k/v shape (M = 4, O = 1024,
+    U = 4096): INT8_HOST_CALLS calls issued back to back, timed on the
+    host before the sync, beside the device span of the same calls (CUDA
+    events; a span near the host time means the card waited on the host)
+    and the same readings of f32 ``F.linear`` at that shape."""
+    x, wf, qw, scale = int8_inputs(torch, dev, 4, 1024, 4096, 9)
+    fields = {}
+    for name, fn in (("int8_dense", lambda: i8.int8_dense(x, qw, scale)),
+                     ("f32_linear", lambda: F.linear(x, wf))):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        for _ in range(INT8_HOST_CALLS):
+            fn()
+        host = time.perf_counter() - t0
+        e1.record()
+        torch.cuda.synchronize()
+        fields[f"{name}_host_us"] = f"{host / INT8_HOST_CALLS * 1e6:.3f}"
+        fields[f"{name}_span_us"] = (
+            f"{e0.elapsed_time(e1) / INT8_HOST_CALLS * 1e3:.3f}")
+    say("int8 host", M=4, O=1024, U=4096, calls=INT8_HOST_CALLS,
+        forward_calls=INT8_FORWARD, **fields)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
-                    help="run phases 1-3, 6 and 8 only (builds and kernels)")
+                    help="run phases 1-3b, 6 and 8 only (builds and kernels)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3592,6 +4172,7 @@ def main(argv=None):
     from mxnet_tpu_torch.ops.hopper import conv1x1 as c1x1
     from mxnet_tpu_torch.ops.hopper import decode_attention as da
     from mxnet_tpu_torch.ops.hopper import flash_attention as fa
+    from mxnet_tpu_torch.ops.hopper import int8_dense as i8
     from mxnet_tpu_torch.parallel import ShardedTrainer
     from mxnet_tpu_torch.resilience import faults
     from mxnet_tpu_torch.serve import (ContinuousEngine, Generator,
@@ -3630,12 +4211,13 @@ def main(argv=None):
     # 2. build: one nvcc per library, all started together (the flash
     # kernels build one library per dtype pair)
     t0 = time.perf_counter()
-    specs = ([("decode_attention", ()), ("conv1x1", ())]
+    specs = ([("decode_attention", ()), ("conv1x1", ()), ("int8_dense", ())]
              + [fa.build_spec(p) for p in fa.DTYPE_PAIRS])
     _build.build_many(specs)
     da.build()
     fa.build()
     c1x1.build()
+    i8.build()
     spills = []  # gated kernels that spill
     for name, defines in specs:
         key = _build.variant_key(name, defines)
@@ -3651,10 +4233,11 @@ def main(argv=None):
             if any(w in line for w in ("Function properties", "registers",
                                        "spill")):
                 print(f"  ptxas: {line.strip()}", flush=True)
-            # the pair kernels, and the decode kernels for D <= 128 (NC = 1,
-            # the main path's; D > 128 instantiations may spill a few bytes)
-            gated = "conv1x1_pair" in function or (
-                "decode_attention" in function and "ELi2EE" not in function)
+            # the pair kernels, every int8 kernel, and the decode kernels for
+            # D <= 128 (NC = 1, the main path's; D > 128 instantiations may
+            # spill a few bytes)
+            gated = ("conv1x1_pair" in function or name == "int8_dense" or (
+                "decode_attention" in function and "ELi2EE" not in function))
             if ("spill" in line and gated and
                     " 0 bytes spill stores, 0 bytes spill loads" not in line):
                 spills.append(function)
@@ -3665,6 +4248,10 @@ def main(argv=None):
     flush = torch.empty(64 << 18, device=dev)  # 64 MiB > the 50 MB L2
     # 3. kernel vs plain
     kres = kernel_phase(torch, da, nn_ops, flush, dev)
+    # 3b. the int8 x int8 product vs plain
+    t3b = time.perf_counter()
+    ires = int8_phase(torch, F, i8, flush, dev)
+    say("int8", phase_3b_seconds=f"{time.perf_counter() - t3b:.3f}")
     if args.quick:
         flash_attributes_phase(fa)
         flash_phase(torch, fa, flush, dev)
@@ -3693,11 +4280,20 @@ def main(argv=None):
         served[rung] = serve_phase(torch, da, Generator, model, rung, prompts,
                                    cfg["num_layers"], cfg["vocab_size"])
         torch.cuda.empty_cache()
+    # C4: how far the int8 rung's prefill logits lie from the pallas rung's
+    # (int8 weights and KV rings against f32), no gate
+    lp, li = (served[r].pop("prefill_logits") for r in ("pallas", "int8"))
+    say("serve int8", prefill_logit_gap_to_pallas=(
+        f"{float((li - lp).abs().max()):.6e}"),
+        prefill_logit_rel_gap_to_pallas=f"{rel_gap(li, lp):.3e}",
+        largest_pallas_logit=f"{float(lp.abs().max()):.6e}",
+        top1_equal_rows=int((li.argmax(-1) == lp.argmax(-1)).sum()),
+        rows=lp.shape[0])
     # 5a. multi-step decode through CUDA graphs; 5b. paged KV and prefix
     for rung in ("pallas", "int8"):
         served[rung]["multistep"] = multistep_phase(
             torch, da, Generator, model, rung, prompts, cfg["num_layers"],
-            served[rung]["out"])
+            served[rung])
     paged_phase(torch, np, da, Generator, model, prompts, cfg["num_layers"],
                 cfg["vocab_size"], served)
     # 5c. continuous batching: ContinuousEngine over per-slot paged KV
@@ -3824,6 +4420,19 @@ def main(argv=None):
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the int8 products of one forward at decode (M = 4, the 225 of a
+    # forward) and prefill (M = 256 and 1024, the 224 of the layers):
+    # sums over the shapes; launches: phase 5's int8 serve run
+    for m, label in ((4, "decode_m4"), (256, "prefill_m256"),
+                     (1024, "prefill_m1024")):
+        r = ires[m]
+        kernels.append({
+            "name": f"int8_dense_{label}", "route": "cuda",
+            "source": INT8_SOURCE, "replaces": INT8_REPLACES,
+            "launches": served["int8"]["int8_launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     for name in ("bf16", "f32"):
         r = pres[name]
         kernels.append({

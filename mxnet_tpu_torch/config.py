@@ -59,9 +59,11 @@ register_flag(
     "MXNET_SERVE_DECODE_INT8_WEIGHTS", "auto",
     "On the int8 decode rung, also pre-quantize the model's serving "
     "projection weights to per-channel int8 (ops.nn.quantized_dense). "
-    "auto (default): off in the port, as the JAX package keeps it off "
-    "everywhere but a TPU; 1/0 force it on/off. The KV-cache rings stay "
-    "int8 either way.", str)
+    "auto (default): on for a model on a CUDA device, whose projections "
+    "then run the int8 x int8 kernel (ops.hopper.int8_dense), off on the "
+    "CPU, where quantized_dense dequantizes the weight to f32 (as the JAX "
+    "package turns it on for int8-matrix-unit backends only); 1/0 force it "
+    "on/off. The KV-cache rings stay int8 either way.", str)
 register_flag(
     "MXNET_SERVE_KV_PAGED", False,
     "Back serve.Generator KV state with the paged block pool "

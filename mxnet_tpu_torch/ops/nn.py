@@ -18,6 +18,8 @@ from .. import random as _rng
 from ..base import MXNetError
 from .hopper import decode_attention as _da
 from .hopper import flash_attention as _fa
+from .hopper import int8_dense as _i8
+from .hopper.int8_dense import int8_scale
 
 
 _ACTIVATIONS = {
@@ -171,16 +173,6 @@ def kv_cache_write(cache, new, start_pos):
     return cache.scatter_(2, idx4, new)
 
 
-def int8_scale(amax):
-    """Symmetric int8 scale ``max(amax / 127, 1e-8)`` of rows whose largest
-    magnitude is ``amax``. The divisor is a tensor on ``amax``'s device:
-    PyTorch's CUDA division by a Python number multiplies by its
-    reciprocal, one ulp away from the true quotient that ``jnp`` and the
-    CPU give. It is filled on the device (``new_full``), not copied from
-    the host, so the op can be captured in a CUDA graph."""
-    return torch.clamp(amax / amax.new_full((), 127.0), min=1e-8)
-
-
 def kv_cache_write_q(cache_q, cache_scale, new, start_pos):
     """Quantize-on-write into an int8 KV ring: ``new`` (B, H, T, D) f32 is
     symmetric-quantized per token per head (scale = max|row| / 127 over D,
@@ -204,13 +196,30 @@ def kv_cache_write_q(cache_q, cache_scale, new, start_pos):
     return cache_q, cache_scale
 
 
+def _int8_dot(data):
+    """True where ``quantized_dense`` takes the int8 x int8 branch: a
+    tensor on the card, whose tensor cores run int8 natively, as the JAX
+    package takes it on a backend with int8 matrix units."""
+    return data.is_cuda
+
+
 def quantized_dense(data, qweight, scale, bias=None):
-    """int8 fully-connected, weight-only: ``data`` (..., U) f32 against a
-    pre-quantized ``qweight`` (O, U) int8 with per-output-channel ``scale``
-    (O,) f32 — the JAX package's non-TPU formulation (dequantize the weight,
-    f32 gemm, scale the (..., O) output, which is U times cheaper than
-    scaling the weight). The int8 x int8 gemm of its TPU branch needs a
-    kernel of its own and is not ported."""
+    """int8 fully-connected: ``data`` (..., U) f32 against a pre-quantized
+    ``qweight`` (O, U) int8 with per-output-channel ``scale`` (O,) f32 and
+    an optional ``bias`` (O,) f32. The branch follows where the tensors
+    are, as the JAX package's follows its backend:
+
+    * on the card, the JAX package's accelerator branch: each row of
+      ``data`` quantized symmetrically (max|x| / 127), the product int8 x
+      int8 -> int32 on the tensor cores, rescaled to f32 — the hand-written
+      kernels of ``ops/hopper/int8_dense`` (``int8_dense``);
+    * on the CPU, its weight-only branch: dequantize the weight, f32 gemm,
+      scale the (..., O) output (U times cheaper than scaling the weight).
+
+    Serving fast path only: ~1e-2 of the f32 gemm's largest output on the
+    card, never bitwise against it."""
+    if _int8_dot(data):
+        return _i8.int8_dense(data.contiguous(), qweight, scale, bias)
     out = F.linear(data, qweight.to(torch.float32)) * scale
     return out + bias if bias is not None else out
 

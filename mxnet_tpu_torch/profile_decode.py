@@ -28,6 +28,12 @@ prefill, each timed on the device (CUDA events around the replay), and
 with the device time summed by kernel name (the kernels the graph
 replays), beside the single-step profile's T = 1 step.
 
+On the ``int8`` rung the projections run the int8 x int8 kernels
+(``ops/hopper/int8_dense``: int8 weights are on for the card under
+``MXNET_SERVE_DECODE_INT8_WEIGHTS=auto``); each profile then also gives
+their device ms a step (the row quantization, the product and the split's
+sum, 225 calls a forward) beside the other kernels.
+
 Prints one JSON object per rung and mode. Weights are random (seeded); the batch is
 4 prompts of lengths 17, 64, 130 and 250 in a 1024-position ring, as in
 ``chip_smoke.py``. Needs a CUDA GPU.
@@ -113,6 +119,16 @@ def _kernel_times(step, steps):
     return wall_ms, by_name
 
 
+def _int8_split(by_name, steps):
+    """Device ms and kernel calls a step of the int8 product's kernels
+    (names containing ``int8_``), by kernel and together."""
+    parts = {k: (ms / steps, c / steps) for k, (ms, c) in by_name.items()
+             if "int8_" in k}
+    return {"int8_dense_device_ms_per_step": sum(v[0] for v in parts.values()),
+            "int8_dense_kernels": {k[:90]: {"ms": ms, "calls_per_step": c}
+                                   for k, (ms, c) in parts.items()}}
+
+
 def _top(by_name, steps, n=12):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
     return [{"name": k[:90], "ms": ms / steps, "calls_per_step": c / steps}
@@ -131,7 +147,8 @@ def run(rung, steps, model, prompts):
     wall_ms, by_name = _profile(gen, prompts, steps)
     device_ms = sum(ms for ms, _ in by_name.values())
     return {
-        "rung": rung, "steps": steps,
+        "rung": rung, "steps": steps, "int8_weights": bool(gen._qweights),
+        **_int8_split(by_name, steps),
         "decode_step_wall_ms": {k: statistics.median(v)
                                 for k, v in abba.items()},
         "profiled_wall_ms_per_step": wall_ms / steps,
@@ -187,6 +204,7 @@ def run_speculative(rung, steps, model, prompts, k=4):
         "verify_eager_device_ms": device_ms / steps,
         "verify_eager_wall_ms": wall_ms / steps,
         "verify_top_kernels_ms": _top(by_name, steps),
+        **{"verify_" + k: v for k, v in _int8_split(by_name, steps).items()},
         "device": torch.cuda.get_device_name(0),
     }
     del sg, draft

@@ -605,7 +605,8 @@ class GraphSession(_Guarded):
     same signature accounting.
 
     ``counters`` are kernel modules with ``captured_count()`` and
-    ``count_replays(n)`` (``ops.hopper.decode_attention``): a capture
+    ``count_replays(n)`` (``ops.hopper.decode_attention`` and
+    ``ops.hopper.int8_dense``): a capture
     records how many launches each counter saw go into the graph, and
     each replay adds them, so launch counts stay what the card executed.
 

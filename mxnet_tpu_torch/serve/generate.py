@@ -7,7 +7,11 @@ model's cache path, so each generated token costs one T = 1 pass. Every
 decode step of every layer runs its attention through the hand-written
 CUDA decode-attention kernel (``ops/hopper/decode_attention``) on the GPU;
 prefill (T = prompt bucket) runs its plain PyTorch version, as the JAX
-package routes T > 1 to ``_xla_decode``.
+package routes T > 1 to ``_xla_decode``. On the ``int8`` rung with int8
+weights (``MXNET_SERVE_DECODE_INT8_WEIGHTS``; ``auto`` is on for a model
+on the GPU) every projection and the LM head, prefill and decode, run the
+int8 x int8 kernel (``ops/hopper/int8_dense``) on per-channel int8
+weights quantized once when the Generator is built.
 
 Shapes are bucketed the serving way: one decode signature per batch
 bucket, one prefill signature per (batch, prompt) bucket; after
@@ -43,6 +47,7 @@ from .. import random as _rng
 from ..base import MXNetError
 from ..ops import nn as _ops
 from ..ops.hopper import decode_attention as _da
+from ..ops.hopper import int8_dense as _i8
 from ..ops.nn import int8_scale
 from ..profiler import trace as _trace
 from ..resilience import faults as _faults
@@ -505,6 +510,19 @@ class _VerifyInputs(_StaticInputs):
         return out
 
 
+def _graph_counters(qweights):
+    """The kernel modules whose launches a serving :class:`GraphSession`
+    counts at its replays: the decode attention, and the int8 product
+    where the projections run on pre-quantized weights (``qweights``)."""
+    return (_da, _i8) if qweights else (_da,)
+
+
+def _graph_route():
+    """The routing a captured graph keeps, for its key: the decode
+    attention's override and the int8 product's."""
+    return _da.forced_path(), _i8.forced_path()
+
+
 def _replay_super(session, step, inp, steps, flat, arrays, events=None,
                   dispatched=None):
     """The host side of one super-step visit, shared by a
@@ -512,7 +530,7 @@ def _replay_super(session, step, inp, steps, flat, arrays, events=None,
     lattice: write the host ``arrays`` (``_SuperInputs.fill``'s names)
     into the lattice's static buffers ``inp`` and move them to the device
     in one copy, replay the graph of (lanes, ``steps``, greedy or sampled,
-    attention route) in the :class:`GraphSession` — capturing it first on
+    kernel routes) in the :class:`GraphSession` — capturing it first on
     its first use — and read the (lanes, steps + 2) block back in one
     copy. A visit is sampled when any lane's temperature is above 0; greedy
     lanes of a sampled visit still take argmax (``ops.nn.sample_step``).
@@ -536,7 +554,7 @@ def _replay_super(session, step, inp, steps, flat, arrays, events=None,
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-    out = session.run((inp.lanes, steps, sampled, _da.forced_path()), body)
+    out = session.run((inp.lanes, steps, sampled, _graph_route()), body)
     if timed:
         e1.record()
         events.append((e0, e1))
@@ -570,15 +588,16 @@ def resolve_decode_path(decode_path=None):
     return path
 
 
-def _int8_weights_enabled():
-    """Resolve MXNET_SERVE_DECODE_INT8_WEIGHTS for the int8 rung. The JAX
-    package's "auto" enables int8 weights only on a TPU, whose matrix unit
-    runs int8 natively; "auto" stays off here, since the port's
-    ``quantized_dense`` dequantizes the weight to f32 (no int8 gemm kernel
-    yet). "1" forces it on."""
+def _int8_weights_enabled(device):
+    """Resolve MXNET_SERVE_DECODE_INT8_WEIGHTS for the int8 rung on a model
+    that lives on ``device``. "auto" is on for a CUDA device, whose tensor
+    cores run ``quantized_dense``'s int8 x int8 kernel, and off on the CPU,
+    where ``quantized_dense`` dequantizes the weight to f32 (as the JAX
+    package turns it on for backends with int8 matrix units only). "1" and
+    "0" force it on and off."""
     flag = str(config.get("MXNET_SERVE_DECODE_INT8_WEIGHTS")).strip().lower()
     if flag == "auto":
-        return False
+        return torch.device(device).type == "cuda"
     return flag in ("1", "true", "yes", "on")
 
 
@@ -684,7 +703,7 @@ class Generator:
                 "the serving port; use decode_path='pallas' or 'int8'")
         self._quant = "int8" if self.decode_path == "int8" else None
         self._qweights = {}
-        if self._quant and _int8_weights_enabled():
+        if self._quant and _int8_weights_enabled(self.device):
             self._qweights = _quantize_serving_weights(model)
         if prefix_cache is None:
             prefix_cache = bool(config.get("MXNET_SERVE_PREFIX_CACHE"))
@@ -725,9 +744,9 @@ class Generator:
                 model, self.max_seq, path=self.decode_path,
                 quant=self._quant, quant_weights=self._qweights,
                 paged=self._paged)
-            self._msession = GraphSession(f"{name}_multi", self.device,
-                                          counters=(_da,),
-                                          owner=self.session)
+            self._msession = GraphSession(
+                f"{name}_multi", self.device,
+                counters=_graph_counters(self._qweights), owner=self.session)
             self._inputs = {}  # batch bucket -> _SuperInputs
 
     def _fresh_cache(self, batch_bucket):
@@ -1280,9 +1299,10 @@ class SpeculativeGenerator:
             model, self.max_seq, path=self.decode_path,
             quant=self.target._quant, quant_weights=self.target._qweights,
             all_logits=True, paged=self.target._paged)
-        self._verify = GraphSession(f"{name}_verify", self.device,
-                                    counters=(_da,),
-                                    owner=self.target.session)
+        self._verify = GraphSession(
+            f"{name}_verify", self.device,
+            counters=_graph_counters(self.target._qweights),
+            owner=self.target.session)
         self._vinputs = {}  # batch bucket -> _VerifyInputs
         self.metrics = self.target.session.metrics
 
@@ -1322,8 +1342,7 @@ class SpeculativeGenerator:
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-        logits, ids = self._verify.run((b, self.k + 1, _da.forced_path()),
-                                       body)
+        logits, ids = self._verify.run((b, self.k + 1, _graph_route()), body)
         if timed:
             e1.record()
             events.append((e0, e1))

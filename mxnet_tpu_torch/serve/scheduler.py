@@ -37,8 +37,8 @@ step: the ``(num_slots, 1)`` decode and the ``(1, chunk)`` prefill run
 eagerly through an :class:`~.engine.InferenceSession`, as the
 ``Generator``'s single-step path does. Multi-step: each visit is one
 replay of a CUDA graph keyed by (``num_slots``, N or 1, greedy or
-sampled, attention route); :meth:`warmup` captures the four of the live
-route, the page table rides in the super-step's one packed input buffer,
+sampled, kernel routes); :meth:`warmup` captures the four of the live
+routes, the page table rides in the super-step's one packed input buffer,
 and :meth:`assert_no_recompiles` holds across any admits and retires.
 
 A graph has no early exit: where the JAX package's super-step leaves its
@@ -62,7 +62,6 @@ import torch
 
 from .. import config
 from ..base import MXNetError
-from ..ops.hopper import decode_attention as _da
 from ..profiler import attribution as _attr
 from ..profiler import core as _prof
 from ..profiler import trace as _trace
@@ -71,7 +70,8 @@ from .batcher import DynamicBatcher
 from .engine import (DeadlineExceeded, GraphSession, InferenceSession,
                      PoolExhausted, ServeError, ServiceUnavailable)
 from .generate import (_STOP_WIDTH, _CacheForward, _fresh_key_bits,
-                       _int8_weights_enabled, _MultiStepForward,
+                       _graph_counters, _int8_weights_enabled,
+                       _MultiStepForward,
                        _quantize_serving_weights, _replay_super,
                        _stop_matrix, _SuperInputs, resolve_decode_path,
                        sample_tokens)
@@ -179,7 +179,7 @@ class ContinuousEngine:
                 "'int8'")
         self._quant = "int8" if self.decode_path == "int8" else None
         self._qweights = {}
-        if self._quant and _int8_weights_enabled():
+        if self._quant and _int8_weights_enabled(self.device):
             self._qweights = _quantize_serving_weights(model)
         self.pool = PagedKVPool(model, self.num_slots, self.max_seq,
                                 page_size=page_size, num_pages=num_pages,
@@ -237,9 +237,9 @@ class ContinuousEngine:
             self._mstep = _MultiStepForward(
                 model, self.max_seq, path=self.decode_path,
                 quant=self._quant, quant_weights=self._qweights, paged=True)
-            self._msession = GraphSession(f"{name}_multi", self.device,
-                                          counters=(_da,),
-                                          owner=self.session)
+            self._msession = GraphSession(
+                f"{name}_multi", self.device,
+                counters=_graph_counters(self._qweights), owner=self.session)
             self._inputs = _SuperInputs(self.num_slots,
                                         self.pool.pages_per_slot,
                                         self.decode_steps, self.device)
@@ -745,7 +745,7 @@ class ContinuousEngine:
         """Run every live shape once and freeze the signature sets: one
         (1, chunk) prefill chunk plus — single step — one (num_slots, 1)
         decode step, or — multi-step — the super-step's graphs at N and
-        1 iterations, greedy and sampled, on the live attention route
+        1 iterations, greedy and sampled, on the live kernel routes
         (captured on a GPU). Every lane is dead here (null table rows,
         ``remaining = 0``), so warmup writes only the null page. Returns
         the signature count, the wall seconds and, multi-step, the graphs

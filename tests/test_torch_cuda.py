@@ -30,6 +30,7 @@ from mxnet_tpu_torch.gluon import loss as tloss
 from mxnet_tpu_torch.ops.hopper import conv1x1 as c1x1
 from mxnet_tpu_torch.ops.hopper import decode_attention as da
 from mxnet_tpu_torch.ops.hopper import flash_attention as fa
+from mxnet_tpu_torch.ops.hopper import int8_dense as i8
 from mxnet_tpu_torch.serve import Generator
 
 pytestmark = pytest.mark.cuda
@@ -67,6 +68,15 @@ def _inputs(b, h, kv, s, d, quant, dev, seed=0):
     sp = t(np.array([0, 37, s - 1][:b] if b == 3 else [0, s - 1],
                     np.int32))
     return q, k, v, sp, ks, vs
+
+
+def _int8_branch_on_cpu(monkeypatch):
+    """For a card-against-CPU comparison on the ``int8`` rung: int8
+    weights on both sides (``auto`` turns them on for the card only) and
+    the CPU's projections through the int8 branch, whose plain version
+    the card's kernel equals bit for bit."""
+    monkeypatch.setenv("MXNET_SERVE_DECODE_INT8_WEIGHTS", "1")
+    monkeypatch.setattr(tops, "_int8_dot", lambda data: True)
 
 
 def _misaligned(x):
@@ -274,14 +284,17 @@ def test_cuda_wrapper_routing_and_refusals():
 
 
 @pytest.mark.parametrize("rung", ["pallas", "int8"])
-def test_cuda_generator_matches_cpu(rung):
+def test_cuda_generator_matches_cpu(rung, monkeypatch):
     """``Generator`` on the card, every decode step through the kernel,
     against the same weights served on the CPU through the plain version:
     prefill and decode logits within the bounds of the JAX comparison in
     ``test_torch_llama.py`` (1e-4 on ``pallas``, where only the order of
-    f32 sums differs; 1e-2 on ``int8``, where a K/V element a rounding step
-    apart quantizes one int8 step apart), identical greedy tokens, and one
-    launch per layer per decode step."""
+    f32 sums differs; 1e-2 on ``int8``, where a K/V element or an
+    activation a rounding step apart quantizes one int8 step apart),
+    identical greedy tokens, and one launch per layer per decode step. On
+    ``int8`` both sides run int8 weights through the int8 branch: 15 int8
+    products a forward on the card (2 layers x 7 and the head)."""
+    _int8_branch_on_cpu(monkeypatch)
     dev = _need_cuda()
     trandom.seed(0)
     cpu_model = get_llama("llama_tiny_test", device="cpu")
@@ -297,7 +310,7 @@ def test_cuda_generator_matches_cpu(rung):
     gl, gc = gg.prefill(toks, lens, gg._fresh_cache(2))
     errs = [float((cl - gl.cpu()).abs().max())]
     pos = lens.copy()
-    n0 = da.launch_count()
+    n0, q0 = da.launch_count(), i8.launch_count()
     for step in range(8):
         ids = rng.randint(1, 256, size=2).astype(np.int32)
         cl, cc = cg.decode_step(ids, pos, cc)
@@ -305,6 +318,7 @@ def test_cuda_generator_matches_cpu(rung):
         errs.append(float((cl - gl.cpu()).abs().max()))
         pos = pos + 1
     assert da.launch_count() == n0 + 8 * 2  # 8 steps x 2 layers
+    assert i8.launch_count() - q0 == (8 * 15 if rung == "int8" else 0)
     assert max(errs) <= {"pallas": 1e-4, "int8": 1e-2}[rung], errs
 
     prompts = [[3, 1, 4, 1, 5], [9, 2, 6, 5, 3, 5, 8, 9, 7]]
@@ -1050,7 +1064,7 @@ def test_cuda_multistep_graph_replay_equals_eager_body(rung, paged):
                 top_ks=np.full(bb, 4 if sampled else 0, np.int32),
                 stops=np.full((bb, 8), -1, np.int32),
                 key_bits=np.array([3, 2 ** 31 + 5], np.uint32))
-            key = (bb, steps, sampled, None)
+            key = (bb, steps, sampled, (None, None))
             for visit in range(3):
                 rem = np.array([20, 20], np.int32)
                 n0 = da.launch_count()
@@ -1059,7 +1073,8 @@ def test_cuda_multistep_graph_replay_equals_eager_body(rung, paged):
                     arrays["top_ks"], arrays["stops"], arrays["key_bits"],
                     ca)
                 assert da.launch_count() - n0 == 2 * steps
-                assert ga._msession.launches(key) == [2 * steps]
+                assert ga._msession.launches(key) == [2 * steps] + (
+                    [15 * steps] if rung == "int8" else [])
                 packed = _eager_super(gb, cb, steps, sampled, tokens=ids,
                                       start_pos=pos, remaining=rem, **arrays)
                 np.testing.assert_array_equal(blk_a, packed[:, :steps])
@@ -1070,10 +1085,11 @@ def test_cuda_multistep_graph_replay_equals_eager_body(rung, paged):
             ga.assert_no_recompiles()
 
 
-def test_cuda_multistep_generate_matches_single_step_and_cpu():
+def test_cuda_multistep_generate_matches_single_step_and_cpu(monkeypatch):
     """Greedy generate through graphs equals the card's single-step loop
     and the CPU's multi-step loop; launches = layers x N x visits
     (replay-aware: 11 decode tokens at N = 4 are 3 visits, 24 launches)."""
+    _int8_branch_on_cpu(monkeypatch)
     dev = _need_cuda()
     cpu_model, gpu = _tiny_pair(dev)
     for rung in ("pallas", "int8"):
@@ -1112,7 +1128,7 @@ def test_cuda_multistep_force_path_reroutes():
         da.force_path(None)
     assert got == want
     assert gen._msession.captures == captures + 1
-    assert gen._msession.launches((2, 4, False, "torch")) == [0]
+    assert gen._msession.launches((2, 4, False, ("torch", None))) == [0]
     n0 = da.launch_count()
     assert gen.generate(MS_PROMPTS, max_new_tokens=12)[0] == want
     assert da.launch_count() - n0 == 2 * 4 * 3
@@ -1147,7 +1163,7 @@ def test_cuda_multistep_body_makes_no_host_sync():
         torch.cuda.set_sync_debug_mode("error")
         try:
             out = gen._msession.run(
-                (bb, 4, True, None),
+                (bb, 4, True, (None, None)),
                 lambda: gen._mstep(*inp.views(), *flat, steps=4,
                                    sampled=True))
         finally:
@@ -1235,11 +1251,12 @@ def _cb_engine(model, **kw):
 
 
 @pytest.mark.parametrize("rung", ["pallas", "int8"])
-def test_cuda_engine_captures_only_in_warmup_across_churn(rung):
+def test_cuda_engine_captures_only_in_warmup_across_churn(rung, monkeypatch):
     """warmup() captures the super-step's four graphs (N and 1, greedy and
     sampled); 24 requests churning through 2 slots on the scheduler thread
     capture none, keep every signature, recycle every page and give the
     CPU engine's greedy tokens."""
+    _int8_branch_on_cpu(monkeypatch)
     dev = _need_cuda()
     cpu_model, gpu = _tiny_pair(dev)
     prompts = _cb_prompts(24, seed=1)
@@ -1383,7 +1400,8 @@ def test_cuda_verify_graph_replay_equals_eager_body(rung, paged):
         np.testing.assert_array_equal(
             ids, torch.argmax(want, -1).to(torch.int32).cpu().numpy())
         pos = pos + 2
-    assert sa._verify.launches((bb, 4, None)) == [0]
+    assert sa._verify.launches((bb, 4, (None, None))) == [0] + (
+        [15] if rung == "int8" else [])
     sa.assert_no_recompiles()
 
 
@@ -1901,3 +1919,123 @@ def test_cuda_sgld_deterministic_part_matches_cpu():
                         ) * 0.1
     det = w - 0.5 * 0.01 * (g + 0.01 * w)
     torch.testing.assert_close((t - noise).cpu(), det, rtol=0, atol=1e-6)
+
+
+# -- the int8 x int8 product (ops/hopper/int8_dense) ---------------------------
+
+
+def _int8_inputs(m, o, u, dev, seed=0):
+    """Normal activations with a row of zeros and a row of exact .5 ties
+    (amax 127, so sx = 1), a random int8 weight and per-channel scales."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(m, u).astype(np.float32)
+    if m >= 3:
+        x[1] = 0.0
+        x[2] = 0.0
+        x[2, :6] = [127.0, 2.5, -3.5, 0.5, -0.5, 1.5][:min(u, 6)]
+    w = rng.randint(-127, 128, size=(o, u)).astype(np.int8)
+    s = rng.uniform(1e-3, 1e-2, size=o).astype(np.float32)
+    b = rng.randn(o).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (x, w, s, b))
+
+
+@pytest.mark.parametrize("m", [1, 4, 17, 130])
+@pytest.mark.parametrize("u,o", [(30, 37), (4096, 1024)])
+def test_cuda_int8_dense_matches_plain_bitwise(m, u, o):
+    """The kernel equals its plain version bit for bit (the int32 sums
+    are exact and the rescale rounds op by op in both), split or not, and
+    two calls repeat bit for bit; one launch a call."""
+    dev = _need_cuda()
+    x, w, s, b = _int8_inputs(m, o, u, dev, seed=m)
+    n0 = i8.launch_count()
+    for bias in (None, b):
+        out = i8.int8_dense(x, w, s, bias)
+        assert i8.last_path() == "cuda"
+        again = i8.int8_dense(x, w, s, bias)
+        ref = i8.int8_dense_torch(x, w, s, bias)
+        assert torch.equal(out, ref), float((out - ref).abs().max())
+        assert torch.equal(out, again)
+    assert i8.launch_count() == n0 + 4
+    plan = i8.split_plan(m, o, u, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    if (m, u) == (4, 4096):
+        assert plan.slices > 1  # the decode shape splits U
+
+
+def test_cuda_int8_dense_misaligned_and_batched():
+    """A weight and an x that start off a 16-byte boundary (byte and float
+    loads) and a (2, 3, U) x give the plain version's bits; the pieces
+    (row quantization, product) give the whole call's."""
+    dev = _need_cuda()
+    x, w, s, b = _int8_inputs(6, 1024, 4096, dev, seed=9)
+    xm, wm = _misaligned(x), _misaligned(w)
+    assert xm.data_ptr() % 16 and wm.data_ptr() % 16
+    ref = i8.int8_dense_torch(x, w, s, b)
+    assert torch.equal(i8.int8_dense(xm, wm, s, b), ref)
+    x3 = x.reshape(2, 3, 4096)
+    assert torch.equal(i8.int8_dense(x3, w, s), i8.int8_dense_torch(x3, w, s))
+    xq, sx = i8.quantize_rows(x)
+    pq, psx = i8.quantize_rows_torch(x)
+    assert torch.equal(xq[:, :4096], pq) and torch.equal(sx, psx[:, 0])
+    assert torch.equal(i8.product(xq, sx, 4096, w, s, b), ref)
+
+
+def test_cuda_int8_dense_replays_in_a_cuda_graph():
+    """One call captured in a CUDA graph records one launch
+    (``captured_count``), runs none, and replays after x changes in place
+    give the plain version's bits; ``count_replays`` adds each replay."""
+    dev = _need_cuda()
+    x, w, s, _ = _int8_inputs(4, 1024, 4096, dev, seed=3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        i8.int8_dense(x, w, s)  # warm: builds the library, sizes the pool
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n0, c0 = i8.launch_count(), i8.captured_count()
+    with torch.cuda.graph(graph):
+        out = i8.int8_dense(x, w, s)
+    assert i8.captured_count() == c0 + 1 and i8.launch_count() == n0
+    for seed in (4, 5, 6):
+        x.copy_(_int8_inputs(4, 1024, 4096, dev, seed=seed)[0])
+        graph.replay()
+        i8.count_replays(1)
+        torch.cuda.synchronize()
+        assert torch.equal(out, i8.int8_dense_torch(x, w, s))
+    assert i8.launch_count() == n0 + 3
+
+
+def test_cuda_int8_dense_kernels_do_not_spill():
+    dev = _need_cuda()
+    del dev
+    attrs = i8.kernel_attributes()
+    assert sorted(attrs) == sorted(i8.KERNELS)
+    for name, a in attrs.items():
+        assert a["local_bytes"] == 0, (name, a)
+        assert a["registers"] <= 255
+
+
+def test_cuda_int8_dense_refusals_and_forced_plain():
+    """Wrong dtypes, shapes, devices or contiguity raise and launch
+    nothing; ``force_path("torch")`` takes the plain version on the card."""
+    dev = _need_cuda()
+    x, w, s, b = _int8_inputs(4, 37, 30, dev)
+    n0 = i8.launch_count()
+    for args, match in (((x.double(), w, s), "float32"),
+                        ((x, w.float(), s), "int8"),
+                        ((x[:, :16], w, s), "does not match"),
+                        ((x, w, s.double()), "scale must be float32"),
+                        ((x, w, s[:5]), "scale must be float32"),
+                        ((x, w, s, b.cpu()), "bias on cpu"),
+                        ((x, w.t().contiguous().t(), s), "not contiguous")):
+        with pytest.raises(MXNetError, match=match):
+            i8.int8_dense(*args)
+    assert i8.launch_count() == n0
+    i8.force_path("torch")
+    try:
+        out = i8.int8_dense(x, w, s)
+        assert i8.last_path() == "torch" and i8.launch_count() == n0
+    finally:
+        i8.force_path(None)
+    assert torch.equal(out, i8.int8_dense_torch(x, w, s))
+    assert torch.equal(tops.quantized_dense(x, w, s), out)
