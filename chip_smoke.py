@@ -157,7 +157,9 @@ Phases, each printed on its own line; the first failed check exits non-zero:
 6. flash: each dtype pair's kernel attributes (registers and spilled bytes
    a thread, blocks an SM, threads, shared memory; ``kernel_attributes``)
    at D = 64, 128 and 256; the (bf16, bf16) backward must hold at least two
-   blocks an SM at D <= 128. The three flash-attention kernels (forward,
+   blocks an SM at D <= 128, and that pair's forward
+   (``flash_fwd_bf16_kernel``: bf16 tiles, bf16 ``mma.sync``, P in three
+   bf16 pieces) at least three. The three flash-attention kernels (forward,
    dq, dk/dv) each
    against its plain version at the training shape (B=2, H=32, T=2048,
    D=128, causal), non-causal with valid lengths [0, 1000] (dead rows must
@@ -175,14 +177,16 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    ((f32, bf16), (f32, f16), (bf16, bf16), (f16, f16) as (q/k, v)) against
    its plain version on the same cases, within ATOL / RTOL plus one unit in
    the last place of each output's dtype, launches counted on its pair;
-   at the training shape two calls bit for bit, its time, bound and plain
-   time, and for the one-dtype pairs the library forward and backward in
-   that dtype. No library time may beat its row's bound. Then BERT-base's
+   at the training shape two calls bit for bit, its time, bound, share of
+   the bound and plain time, its attributes at that D, and for the
+   one-dtype pairs the library forward and backward in that dtype. No
+   library time may beat its row's bound. Then BERT-base's
    attention shape (B=64, H=12, T=128, D=64, non-causal, valid lengths 112
    on every fourth row, 0 on row 1, else 128) in f32 and (bf16, bf16):
    each kernel against its plain version, the row of length 0 and the
    masked keys exact zeros, two calls bit for bit; each kernel's time,
-   bound (the masked keys and the dead row's queries not read) and plain
+   bound (the masked keys and the dead row's queries not read), share of
+   the bound, attributes and plain
    time, and ``scaled_dot_product_attention`` in the same dtype with a
    boolean key mask as the yardstick, with the device kernels it ran (its
    backend). Then Transformer-base's shapes as 10c runs them (B=192, H=8,
@@ -270,7 +274,7 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    from each other of each. Printed for the bf16 and f32 runs: step ms,
    samples/s over a window of RATE_STEPS steps (its fastest, median and
    slowest step), peak memory, and from one profiled step the flash
-   kernels' device ms and share.
+   kernels' device ms and share, and the forward's device ms of it.
 10c. transformer: Transformer-base (units 512, FFN 2048, 8 heads, 6 + 6
    layers, a tied 37000-token vocabulary, dropout 0.1), three f32 Adam
    steps of ``gluon.Trainer`` at B=192, T_src = T_tgt = 128 with seeded
@@ -872,19 +876,27 @@ def device_kernels(torch, fn):
 def flash_attributes_phase(fa):
     """Phase 6, first: each pair's kernel attributes at D = 64, 128 and 256
     (the instantiation of 16-byte copies), one line a pair and D; the
-    (bf16, bf16) backward holds at least two blocks an SM at D <= 128."""
+    (bf16, bf16) backward holds at least two blocks an SM at D <= 128, its
+    forward at least three."""
     for pair in fa.DTYPE_PAIRS:
         for d in (64, 128, 256):
             at = fa.kernel_attributes(pair, d)
             say("flash attributes", pair=fa.pair_label(pair), D=d,
-                **{n: "/".join(str(a[k]) for k in fa.ATTRIBUTES)
-                   for n, a in at.items()},
+                **{n: attribute_text(fa, a) for n, a in at.items()},
                 fields="/".join(fa.ATTRIBUTES))
             if fa.pair_label(pair) == "bf16" and d <= 128:
                 check(all(at[n]["blocks_per_sm"] >= 2
                           for n in ("bwd_dq", "bwd_dkv")),
                       f"flash bf16 backward below two blocks an SM at D {d}:"
                       f" {at}")
+                check(at["fwd"]["blocks_per_sm"] >= 3,
+                      f"flash bf16 forward below three blocks an SM at D {d}:"
+                      f" {at['fwd']}")
+
+
+def attribute_text(fa, at):
+    """One kernel's ``kernel_attributes`` as "registers/local_bytes/..."."""
+    return "/".join(str(at[k]) for k in fa.ATTRIBUTES)
 
 
 def flash_phase(torch, fa, flush, dev):
@@ -1170,6 +1182,7 @@ def flash_dtype_phase(torch, fa, flush, dev):
                         lib_out, (qr, kr, vr), g4, retain_graph=True), flush)
                 del qr, kr, vr, lib_out
             types = fa.pair_label((qk, qk)), fa.pair_label((vt, vt))
+            attrs = fa.kernel_attributes(pair, d)
             for name in fa.KERNELS:
                 k_ms = time_ms(torch, calls[name], flush)
                 p_ms = time_ms(torch, plains[name], flush)
@@ -1180,9 +1193,11 @@ def flash_dtype_phase(torch, fa, flush, dev):
                 say("flash dtypes", pair=label, kernel=name, B=b, H=h, T=tq,
                     D=d, causal=causal, kernel_ms=f"{k_ms:.6f}",
                     bound_ms=f"{bound:.6f}", bound_by=bound_by,
+                    bound_share=f"{bound / k_ms:.4f}",
                     bound_f32_ms=f"{bound_f32:.6f}", plain_ms=f"{p_ms:.6f}",
                     library_ms=("none" if lib[name] is None
-                                else f"{lib[name]:.6f}"))
+                                else f"{lib[name]:.6f}"),
+                    attributes=attribute_text(fa, attrs[name]))
         out[label] = res
     torch.cuda.empty_cache()
     return out
@@ -1328,6 +1343,7 @@ def flash_bert_phase(torch, np, fa, flush, dev):
             sdpa_forward_kernels=json.dumps(sorted(fwd_kernels)),
             sdpa_backward_kernels=json.dumps(sorted(bwd_kernels)))
         del qr, kr, vr, lib_out
+        attrs = fa.kernel_attributes((dtype, dtype), d)
         for name in fa.KERNELS:
             k_ms = time_ms(torch, calls[name], flush)
             p_ms = time_ms(torch, plains[name], flush)
@@ -1338,9 +1354,11 @@ def flash_bert_phase(torch, np, fa, flush, dev):
                              bound_by=bound_by, library_ms=lib_ms)
             say("flash bert", pair=label, kernel=name, kernel_ms=f"{k_ms:.6f}",
                 bound_ms=f"{bound:.6f}", bound_by=bound_by,
+                bound_share=f"{bound / k_ms:.4f}",
                 bound_f32_ms=f"{bound_f32:.6f}", plain_ms=f"{p_ms:.6f}",
                 library_ms=f"{lib_ms:.6f}",
-                kernel_over_library=f"{k_ms / lib_ms:.3f}")
+                kernel_over_library=f"{k_ms / lib_ms:.3f}",
+                attributes=attribute_text(fa, attrs[name]))
         out[label] = res
     svl = [int(x) for x in mt_data(np)[3]]
     for what, causal, lengths in (("transformer decoder self", True, None),
@@ -1957,6 +1975,12 @@ def flash_share(torch, kernels):
     return flash, sum(kernels.values())
 
 
+def flash_fwd_ms(kernels):
+    """Device ms of the flash forward kernel in a ``device_kernels``
+    reading."""
+    return sum(ms for name, ms in kernels.items() if "flash_fwd" in name)
+
+
 def bert_serve_phase(torch, np, mt, fa, models, Session, dev):
     """Phase 10a: BERT-base's classifier (f32, eval) behind ``BERTStep``,
     served by ``InferenceSession`` over (batch, seq) buckets. Returns the
@@ -2118,7 +2142,8 @@ def bert_train_run(torch, mt, fa, models, ShardedTrainer, Trainer, loss_mod,
                 t0 = time.perf_counter()
                 float(step())
                 window.append((time.perf_counter() - t0) * 1e3)
-            prof = flash_share(torch, device_kernels(torch, step))
+            kernels = device_kernels(torch, step)
+            prof = flash_share(torch, kernels) + (flash_fwd_ms(kernels),)
     finally:
         fa.force_path(None)
     del net, trainer, tokens, mlm, nsp
@@ -2208,9 +2233,10 @@ def bert_train_phase(torch, np, mt, fa, models, ShardedTrainer, Trainer,
                           f"{statistics.median(w):.3f}/{max(w):.3f}",
                           window_samples_s=f"{r['rate']:.3f}")
         if r["prof"] and r["prof"][1]:
-            flash, total = r["prof"]
+            flash, total, fwd = r["prof"]
             fields.update(step_device_ms=f"{total:.3f}",
                           flash_ms_per_step=f"{flash:.3f}",
+                          flash_fwd_ms_per_step=f"{fwd:.3f}",
                           flash_share=f"{flash / total:.4f}")
         elif r["prof"]:
             fields.update(step_device_ms="not measured (no device time in "

@@ -7,8 +7,9 @@
 //   flash_bwd_dq_kernel  <- _flash_bwd_dq  (dq)
 //   flash_bwd_dkv_kernel <- _flash_bwd_dkv (dk, dv)
 //
-// and, in the library of the (bf16, bf16) pair, flash_bwd_dq_bf16_kernel and
-// flash_bwd_dkv_bf16_kernel in place of the two backward kernels (below).
+// and, in the library of the (bf16, bf16) pair, flash_fwd_bf16_kernel,
+// flash_bwd_dq_bf16_kernel and flash_bwd_dkv_bf16_kernel in place of the
+// three (below).
 //
 // Over (BH, T, D) tensors, with kvalid (B,) int32 valid key counts
 // (bh / H picks the row) and the causal diagonal offset causal_off = Tk - Tq
@@ -35,10 +36,9 @@
 // f32 operands arrive by cp.async; a bf16 or f16 operand is read into
 // registers (8-byte loads of four values, all of a thread's loads before
 // its first store), widened and stored, so its loads are not in flight
-// while the previous tile is used. The (bf16, bf16) backward keeps its
-// tiles in bf16 and computes the same values from them (its own section
-// below); every forward, and the backward of every other pair, is this
-// f32 design.
+// while the previous tile is used. The (bf16, bf16) kernels keep their
+// tiles in bf16 and compute the same values from them (their own section
+// below); the kernels of every other pair are this f32 design.
 //
 // Bound: operations. Per kept (query, key) pair the forward does 4 * D
 // flops, dq 6 * D and dk/dv 8 * D, all as 3xTF32 products on the tensor
@@ -118,7 +118,8 @@
 // which the transposed products are not; dk/dv runs at the 255-register
 // limit.
 //
-// The (bf16, bf16) backward. Bound: operations at the training shape, where
+// The (bf16, bf16) kernels, backward first. Bound: operations at the
+// training shape, where
 // its products take 0.17 ms (dq) + 0.28 ms (dk/dv) at the card's 989
 // TFLOP/s of bf16 (one pass for two bf16 operands, three for P or dS:
 // five passes for dq's three products, eight for dk/dv's four); bytes at
@@ -165,6 +166,42 @@
 // elementwise work of 12 warps an SM are the rest, and the two kernels
 // read every input twice (seven products where one fused pass with
 // atomics would need five).
+//
+// The (bf16, bf16) forward, flash_fwd_bf16_kernel: the backward's design
+// turned round. Bound: bytes at BERT-base's shape (0.0147 ms), operations
+// at the training shape (0.139 ms: one pass for S and three for P V at 989
+// TFLOP/s). Design:
+//  * S = q K^T in one bf16 mma.sync pass over the bf16 tiles (score16: the
+//    exact products summed 32 columns apart, then f32 adds), scaled in f32
+//    inside exp2's argument; the f32 forward's online softmax in f32, P by
+//    ex2.approx; out = out alpha + P V with P in three bf16 pieces
+//    against bf16 V, each tile's product summed apart (one fmaf joins it),
+//    P's accumulator tiles the A operand as they stand; out / l at the end
+//    rounded as the plain version's division rounds it. One bf16 rounding
+//    of P, as cuDNN's and FlashAttention-2's forward take, would move out
+//    off the plain version;
+//  * q, K and V arrive by 16-byte cp.async into swizzled bf16 rows (one
+//    value a thread for a narrow or misaligned operand) and are read by
+//    ldmatrix.x4, .trans for V; K and V stream in 32-key tiles through
+//    three stages, the next two in flight (3% faster than two stages at
+//    BERT's shape);
+//  * blocks of 4 warps over 64 query rows, a warp owning 16 rows across
+//    the whole key tile (above D = 128: 32 rows, two warps splitting the
+//    output columns and repeating the scores): four blocks an SM at D = 64
+//    (128 registers; three for the narrow copies, which spilled at four),
+//    three at D = 128 (168, a few bytes spilled; two blocks ran 9%
+//    slower), two at D = 256. dq's grid order and the f32 forward's
+//    whole-tile skip; no atomics.
+// What holds it back (python -m mxnet_tpu_torch.flash_variants on an
+// H100): at BERT's shape latency, not bytes or products. A warp's tile is
+// one dependent chain (scores, max, exp, split, P V) and an SM holds 16
+// warps; dropping the global copies saves 19% of the time, the score
+// products 6%, the output products 8%, the splits 3%, the exponentials
+// and ldmatrix 1% each (exp2f in place of ex2.approx costs 7%). Five
+// blocks an SM (96 registers, a spill) ran no faster, three ran 8%
+// slower; 64-key tiles were slower and 64-column score sums no faster.
+// At the training shape it reaches a quarter of its operation bound, and
+// the products are half of the time: mma.sync, and three passes for P V.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -1056,13 +1093,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The (bf16, bf16) backward: bf16 tiles and bf16 mma.sync m16n8k16 products
+// The (bf16, bf16) kernels: bf16 tiles and bf16 mma.sync m16n8k16 products
 
 using bf16 = __nv_bfloat16;
 
-// True in the library of the (bf16, bf16) pair, whose dq and dk/dv kernels
-// are the two below.
-constexpr bool kBf16Bwd =
+// True in the library of the (bf16, bf16) pair, whose forward, dq and dk/dv
+// kernels are the three below.
+constexpr bool kBf16Pair =
     std::is_same<QkT, bf16>::value && std::is_same<VT, bf16>::value;
 
 constexpr int kThreads16 = 128;  // 4 warps a block
@@ -1071,17 +1108,19 @@ constexpr int kThreads16 = 128;  // 4 warps a block
 constexpr int kChunk16Dq = 2;
 constexpr int kChunk16Dkv = 1;
 
-// Tile shape of the bf16 backward kernels at row width P: 4 warps, WM x WD,
-// warp (wm, wd) owning resident rows [16 wm, 16 wm + 16) and output columns
+// Tile shape of the bf16 kernels at row width P: 4 warps, WM x WD, warp
+// (wm, wd) owning resident rows [16 wm, 16 wm + 16) and output columns
 // [wd P / WD, (wd + 1) P / WD) across the whole streamed tile, so that no
-// two warps add into one output. dq streams SDQ keys a tile, dk/dv SDKV
-// queries.
+// two warps add into one output. The forward and dq stream SFWD and SDQ
+// keys a tile, dk/dv SDKV queries.
 template <int P_>
 struct Bf16Tile {
   static constexpr int P = P_;
   static constexpr int WD = P <= 128 ? 1 : 2;
   static constexpr int WM = kThreads16 / 32 / WD;
   static constexpr int R = 16 * WM;
+  static constexpr int SFWD = 32;
+  static constexpr int STAGES_FWD = 3;  // the forward's stages of K and V
   static constexpr int SDQ = 32;
   static constexpr int SDKV = 32;
 };
@@ -1283,14 +1322,53 @@ __device__ __forceinline__ void scores16(float (&s)[N / 8][4], float (&dp)[N / 8
   }
 }
 
+// s = A X^T for a warp, scores16's sums for one product: A the 16 rows of a
+// swizzled tile at a, X the N rows at x, over the columns below dmax.
+template <int P, int N, int CHUNK>
+__device__ __forceinline__ void score16(float (&s)[N / 8][4], uint32_t a, uint32_t x,
+                                        const LdsmOff<P>& lo, int dmax) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < P; kc += 16 * CHUNK) {
+    if (kc >= dmax) break;
+    float ts[N / 8][4];
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ts[j][c] = 0.f;
+#pragma unroll
+    for (int kk = kc; kk < kc + 16 * CHUNK; kk += 16) {
+      uint32_t fa[4];
+      ldsm4(fa, lo.at(a, 0, kk));
+#pragma unroll
+      for (int j = 0; j < N / 8; j += 2) {
+        uint32_t f[4];
+        ldsm4(f, lo.at(x, j * 8, kk));
+        mma_bf16(ts[j], fa, f[0], f[2]);
+        mma_bf16(ts[j + 1], fa, f[1], f[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] += ts[j][c];
+  }
+}
+
 // out += X Y for a warp's output columns [c0, c0 + 8 NO): X (16 x N, f32,
 // accumulator tiles) in three bf16 pieces, Y the N rows of a swizzled tile
 // at y (ldmatrix.trans), this tile's product summed apart; output tiles in
 // groups of G under one guard (columns past D skipped), so that the G
-// chains of dependent products of a group overlap.
-template <int P, int N, int NO, int G>
+// chains of dependent products of a group overlap. RESCALE: out = out
+// alpha + X Y instead, alpha[h] the factor of rows g + 8 h (the forward's
+// online softmax), in one fmaf.
+template <int P, int N, int NO, int G, bool RESCALE = false>
 __device__ __forceinline__ void add_product16(float (&out)[NO][4], const float (&x)[N / 8][4],
-                                              uint32_t y, const LdsmOff<P>& lo, int c0, int D) {
+                                              uint32_t y, const LdsmOff<P>& lo, int c0, int D,
+                                              const float* alpha = nullptr) {
   Frag3 xa[N / 16];
 #pragma unroll
   for (int i = 0; i < N / 16; ++i) xa[i] = frag3_acc(x[2 * i], x[2 * i + 1]);
@@ -1310,7 +1388,170 @@ __device__ __forceinline__ void add_product16(float (&out)[NO][4], const float (
 #pragma unroll
     for (int n = 0; n < G; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) out[ng + n][c] += part[n][c];
+      for (int c = 0; c < 4; ++c)
+        out[ng + n][c] = RESCALE ? fmaf(out[ng + n][c], alpha[c >> 1], part[n][c])
+                                 : out[ng + n][c] + part[n][c];
+  }
+}
+
+// 2^x by the multi-function unit's ex2.approx.ftz, on which exp2f is built:
+// exp2f adds a rescaling step for results below 2^-126, which P does not
+// need (a P flushed to 0 there is far below the rounding of its row's sum,
+// which is at least 1). 6-7% faster than exp2f in the forward on an H100.
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// forward, (bf16, bf16): one block per (bh, query tile); grid
+// BH * ceil(Tq / R). S = q K^T is formed from the bf16 values and scaled in
+// f32, where the TPU kernel scales q in f32 first: the two agree bit for
+// bit when scale is a power of two (1/8 at D = 64) and otherwise differ in
+// the last bit of a score.
+template <int P, bool VEC>
+__global__ void __launch_bounds__(kThreads16, P <= 64 && VEC ? 4 : P <= 128 ? 3 : 2)
+    flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const int* __restrict__ kvalid,
+                          bf16* __restrict__ out, float* __restrict__ lse, int H, int Tq, int Tk,
+                          int D, int causal, int causal_off, float scale) {
+  using C = Bf16Tile<P>;
+  constexpr int BM = C::R;           // query rows of the block
+  constexpr int BN = C::SFWD;        // keys of a streamed tile
+  constexpr int NK = BN / 8;         // their n-tiles
+  constexpr int PW = P / C::WD;      // output columns of a warp
+  constexpr int NO = PW / 8;         // their n-tiles
+  constexpr int STAGE = 2 * BN * P;  // K tile, then V tile
+  constexpr int NS = C::STAGES_FWD;
+  extern __shared__ float4 smem_v4[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_v4);  // BM x P, q
+  bf16* kv_s = q_s + BM * P;                     // NS stages
+
+  // causal: every head's longest query tiles first; else a head's tiles
+  // next to each other, as dq's
+  const int n_qt = (Tq + BM - 1) / BM, n_bh = gridDim.x / n_qt;
+  const int bh = causal ? blockIdx.x % n_bh : blockIdx.x / n_qt;
+  const int q0 = (n_qt - 1 - (causal ? blockIdx.x / n_bh : blockIdx.x % n_qt)) * BM;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tc = lane & 3;
+  const int wm = warp % C::WM, wd = warp / C::WM;
+  const int r0 = q0 + wm * 16;  // the warp's first query row
+  const int c0 = wd * PW;       // its first output column
+  const LdsmOff<P> lo(lane);
+  const int kv_len = min(kvalid[bh / H], Tk);
+  const int k_end = key_end<BM>(q0, kv_len, causal, causal_off);
+  const int n_tiles = k_end > 0 ? (k_end + BN - 1) / BN : 0;
+  const size_t qoff = static_cast<size_t>(bh) * Tq;
+  const bf16* kb = k + static_cast<size_t>(bh) * Tk * D;
+  const bf16* vb = v + static_cast<size_t>(bh) * Tk * D;
+  const float sl = scale * kLog2e;  // a score's factor in exp2
+
+  // the output rows, their running max (of the unscaled scores) and sum
+  // (h = 0: row gr, h = 1: gr + 8)
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  // tile t's K and V into stage t % NS; one commit group a tile, empty
+  // past the last, so that group t always holds tile t (and group 0 q)
+  auto load_stage = [&](int t) {
+    if (t < n_tiles) {
+      bf16* st = kv_s + (t % NS) * STAGE;
+      load_tile16<BN, P, VEC>(st, kb, t * BN, Tk, D);
+      load_tile16<BN, P, VEC>(st + BN * P, vb, t * BN, Tk, D);
+    }
+    cp_async_commit();
+  };
+  if (n_tiles > 0) {
+    load_tile16<BM, P, VEC>(q_s, q + qoff * D, q0, Tq, D);
+#pragma unroll
+    for (int t = 0; t < NS - 1; ++t) load_stage(t);
+    const uint32_t qa_s = smem_u32(q_s + wm * 16 * P), kv_a = smem_u32(kv_s);
+    for (int it = 0; it < n_tiles; ++it) {
+      cp_async_wait<NS - 2>();
+      __syncthreads();  // tile it landed; every warp is done with tile it - 1
+      load_stage(it + NS - 1);  // into the stage of tile it - 1
+      const int k0 = it * BN;
+      // a warp whose rows see no key of this tile leaves m, l and its rows
+      // as they are, which is what the softmax of a dropped tile gives
+      if (causal && k0 > r0 + 15 + causal_off) continue;
+      const uint32_t k_a = kv_a + 2 * (it % NS) * STAGE, v_a = k_a + 2 * BN * P;
+
+      // S = q K^T for the warp's rows and the tile's keys, unscaled
+      float s[NK][4];
+      score16<P, BN, kChunk16Dq>(s, qa_s, k_a, lo, D);
+      // the online softmax of the f32 forward, with scale folded into
+      // exp2: dropped scores to -1e30, the rows' new max over the quad,
+      // P = exp((S - m) scale) on the alive rows, l and the output rows
+      // rescaled by alpha = exp((m_old - m) scale); full: the mask keeps
+      // every pair of the tile
+      const int k_last = k0 + BN - 1;
+      const bool full = k_last < kv_len && (!causal || k_last <= r0 + causal_off);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int h = c >> 1;
+          if (!full && !kept(r0 + gr + 8 * h, k0 + j * 8 + 2 * tc + (c & 1), kv_len, causal,
+                             causal_off))
+            s[j][c] = kNegInf;
+          mx[h] = fmaxf(mx[h], s[j][c]);
+        }
+      float alpha[2], mb[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        alpha[h] = exp2f((m[h] - m_new) * sl);
+        m[h] = m_new;
+        mb[h] = m_new * sl;
+      }
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int h = c >> 1;
+          const float p = m[h] > kAliveMin ? ex2_ftz(fmaf(s[j][c], sl, -mb[h])) : 0.f;
+          s[j][c] = p;
+          sum[h] += p;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        l[h] = l[h] * alpha[h] + sum[h];
+      }
+      // out = out alpha + P V over the tile's keys, P in three bf16 pieces
+      add_product16<P, BN, NO, (NO < 8 ? NO : 8), true>(acc, s, v_a, lo, c0, D, alpha);
+    }
+  }
+
+  // out = acc / l (l = 0 on a dead row, whose acc is 0), lse = m scale + log
+  // l. The quotient is rounded as a division rounds it, as the plain
+  // version divides (a product by the rounded 1 / l alone would move every
+  // bf16 rounding of a row the same way), by Markstein's correction of
+  // that product: two fmaf, cheaper than a division
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + gr + 8 * h;
+    if (row >= Tq) continue;
+    const float lsafe = l[h] == 0.f ? 1.f : l[h];
+    const float rl = 1.f / lsafe;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = acc[n][2 * h + e], qt = x * rl;
+        acc[n][2 * h + e] = fmaf(fmaf(-qt, lsafe, x), rl, qt);
+      }
+    store_row16<NO, VEC>(out + (qoff + row) * D, acc, h, c0, tc, D, 1.f);
+    if (wd == 0 && tc == 0) lse[qoff + row] = l[h] == 0.f ? kNegInf : m[h] * scale + logf(lsafe);
   }
 }
 
@@ -1557,19 +1798,20 @@ constexpr size_t smem_floats(int kernel) {
   return 2 * C::R * P + 2 * (2 * C::S * P + (kernel == kDkv ? 2 * C::S : 0));
 }
 
-// Bytes of shared memory of a bf16 backward block: the resident bf16 tiles
-// and two stages (dq: q, dO; K, V. dk/dv: K, V; q, dO, and lse, delta f32).
+// Bytes of shared memory of a bf16 block: the resident bf16 tiles and the
+// stages (forward: q; STAGES_FWD of K, V. dq: q, dO; two of K, V. dk/dv: K,
+// V; two of q, dO, and lse, delta f32).
 template <int P>
 constexpr size_t smem_bytes_bf16(int kernel) {
   using C = Bf16Tile<P>;
-  return kernel == kDq ? 2 * (2 * C::R * P + 2 * 2 * C::SDQ * P)
-                       : 2 * (2 * C::R * P + 2 * 2 * C::SDKV * P) + 4 * 2 * 2 * C::SDKV;
+  return kernel == kFwd ? 2 * (C::R * P + C::STAGES_FWD * 2 * C::SFWD * P)
+         : kernel == kDq ? 2 * (2 * C::R * P + 2 * 2 * C::SDQ * P)
+                         : 2 * (2 * C::R * P + 2 * 2 * C::SDKV * P) + 4 * 2 * 2 * C::SDKV;
 }
 
 template <int P>
 constexpr size_t smem_bytes_of(int kernel) {
-  return kBf16Bwd && kernel != kFwd ? smem_bytes_bf16<P>(kernel)
-                                    : smem_floats<P>(kernel) * sizeof(float);
+  return kBf16Pair ? smem_bytes_bf16<P>(kernel) : smem_floats<P>(kernel) * sizeof(float);
 }
 
 inline size_t smem_bytes(int kernel, int D) {
@@ -1593,7 +1835,7 @@ cudaError_t set_smem(F* fn, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// The (bf16, bf16) backward kernels.
+// The (bf16, bf16) kernels.
 template <int P, bool VEC>
 cudaError_t launch_bf16(int kernel, const Args& a, cudaStream_t st) {
   using C = Bf16Tile<P>;
@@ -1605,7 +1847,13 @@ cudaError_t launch_bf16(int kernel, const Args& a, cudaStream_t st) {
   const bf16* v = static_cast<const bf16*>(a.v);
   const bf16* g = static_cast<const bf16*>(a.g);
   cudaError_t err;
-  if (kernel == kDq) {
+  if (kernel == kFwd) {
+    err = set_smem(flash_fwd_bf16_kernel<P, VEC>, smem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_bf16_kernel<P, VEC><<<grid, kThreads16, smem, st>>>(
+        q, k, v, a.kvalid, static_cast<bf16*>(a.o0), static_cast<float*>(a.o1), a.H, a.Tq, a.Tk,
+        a.D, a.causal, a.causal_off, a.scale);
+  } else if (kernel == kDq) {
     err = set_smem(flash_bwd_dq_bf16_kernel<P, VEC>, smem);
     if (err != cudaSuccess) return err;
     flash_bwd_dq_bf16_kernel<P, VEC><<<grid, kThreads16, smem, st>>>(
@@ -1638,8 +1886,6 @@ cudaError_t launch_tiles(int kernel, const Args& a, cudaStream_t st) {
     flash_fwd_kernel<P, VEC, QkT, VT><<<grid, kThreads, smem, st>>>(
         q, k, v, a.kvalid, static_cast<QkT*>(a.o0), static_cast<float*>(a.o1), a.H, a.Tq, a.Tk,
         a.D, a.causal, a.causal_off, a.scale);
-  } else if constexpr (kBf16Bwd) {
-    return cudaErrorInvalidValue;  // launch_bf16's
   } else if (kernel == kDq) {
     err = set_smem(flash_bwd_dq_kernel<P, VEC, QkT, VT>, smem);
     if (err != cudaSuccess) return err;
@@ -1666,11 +1912,12 @@ inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 1
 
 // Four values a copy (f32: 16-byte cp.async; bf16/f16: 8-byte loads) where
 // every row of q, k, v, dO (and the forward's out, stored in pairs) starts
-// on four elements, else the same kernel with one value a copy. The bf16
-// backward copies eight values (16 bytes) a copy where every row of q, k,
-// v, dO and of its outputs (stored in pairs) starts on 16 bytes.
+// on four elements, else the same kernel with one value a copy. The
+// (bf16, bf16) kernels copy eight values (16 bytes) a copy where every row
+// of q, k, v, dO (the forward has none: g is null) and of the bf16 outputs
+// (stored in pairs) starts on 16 bytes.
 inline bool vec_of(int kernel, const Args& a) {
-  if (kBf16Bwd && kernel != kFwd)
+  if (kBf16Pair)
     return a.D % 8 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
            aligned16(a.g) && aligned16(a.o0) && (kernel != kDkv || aligned16(a.o1));
   return a.D % 4 == 0 && aligned4<QkT>(a.q) && aligned4<QkT>(a.k) && aligned4<VT>(a.v) &&
@@ -1680,11 +1927,10 @@ inline bool vec_of(int kernel, const Args& a) {
 template <int P>
 cudaError_t launch_width(int kernel, const Args& a, cudaStream_t st) {
   const bool vec = vec_of(kernel, a);
-  if constexpr (kBf16Bwd) {
-    if (kernel != kFwd)
-      return vec ? launch_bf16<P, true>(kernel, a, st) : launch_bf16<P, false>(kernel, a, st);
-  }
-  return vec ? launch_tiles<P, true>(kernel, a, st) : launch_tiles<P, false>(kernel, a, st);
+  if constexpr (kBf16Pair)
+    return vec ? launch_bf16<P, true>(kernel, a, st) : launch_bf16<P, false>(kernel, a, st);
+  else
+    return vec ? launch_tiles<P, true>(kernel, a, st) : launch_tiles<P, false>(kernel, a, st);
 }
 
 // out = {registers a thread, local (spill) bytes a thread, the most blocks
@@ -1710,12 +1956,14 @@ cudaError_t attributes_of(F* fn, size_t smem, int threads, int* out) {
 template <int P, bool VEC>
 cudaError_t attributes_tiles(int kernel, int D, int* out) {
   const size_t smem = smem_bytes(kernel, D);
-  if (kernel == kFwd) return attributes_of(flash_fwd_kernel<P, VEC, QkT, VT>, smem, kThreads, out);
-  if constexpr (kBf16Bwd) {
-    return kernel == kDq
+  if constexpr (kBf16Pair) {
+    return kernel == kFwd ? attributes_of(flash_fwd_bf16_kernel<P, VEC>, smem, kThreads16, out)
+           : kernel == kDq
                ? attributes_of(flash_bwd_dq_bf16_kernel<P, VEC>, smem, kThreads16, out)
                : attributes_of(flash_bwd_dkv_bf16_kernel<P, VEC>, smem, kThreads16, out);
   } else {
+    if (kernel == kFwd)
+      return attributes_of(flash_fwd_kernel<P, VEC, QkT, VT>, smem, kThreads, out);
     return kernel == kDq
                ? attributes_of(flash_bwd_dq_kernel<P, VEC, QkT, VT>, smem, kThreads, out)
                : attributes_of(flash_bwd_dkv_kernel<P, VEC, QkT, VT>, smem, kThreads, out);

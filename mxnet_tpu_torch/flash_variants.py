@@ -8,24 +8,38 @@ replaced (every replaced text must occur in the source), built with
 ``nvcc`` for the (bf16, bf16) pair into ``build/flash_variants/``,
 one process each, all started together. For each variant the script prints
 its kernels' attributes (registers, local bytes and blocks an SM at D = 64,
-128 and 256, 16-byte copies), holds its dq and dk/dv kernels against their plain
-versions at BERT-base's attention shape and the Llama training shape
-(within ATOL / RTOL plus one unit in the last place, two calls bit for
-bit; a diagnostic variant that drops work fails this and is timed all the
-same), and times each kernel at both shapes: the median of 25 launches
-timed by CUDA events with the L2 cache flushed before each, over two
-rounds, the second in reverse order. One ``scaled_dot_product_attention``
-backward in the pair's dtype is timed beside them. The first line is the
-card's name and power limit; each variant's line gives its times, and a
-last line per shape the variants' best times.
+128 and 256, 16-byte copies), holds its forward, dq and dk/dv kernels
+against their plain versions at BERT-base's attention shape and the Llama
+training shape (within ATOL / RTOL plus one unit in the last place, two
+calls bit for bit; a diagnostic variant that drops work fails this and is
+timed all the same), and times each kernel at both shapes: the median of
+25 launches timed by CUDA events with the L2 cache flushed before each,
+over two rounds, the second in reverse order. One
+``scaled_dot_product_attention`` forward and one backward in the pair's
+dtype are timed beside them. The first line is the card's name and power
+limit; each variant's line gives its times, and a last line per shape the
+variants' best forward and backward (dq + dk/dv) times.
 
-The variants of the (bf16, bf16) dq and dk/dv kernels: ``source``;
-``two_dq_blocks`` (two dq blocks an SM at D = 128, where the source holds
-three); ``head_major_causal`` (causal grids in a head's-tiles-together
-order too, as the non-causal ones); and diagnostics that each drop one part
-of the work: ``no_score_mma``, ``no_output_mma``, ``no_ldmatrix`` (fragments
-from registers), ``no_split`` (one real bf16 piece of P and dS, two dummy
-ones), ``no_exp2``, ``no_copies`` (no global-to-shared copies).
+The variants of the (bf16, bf16) kernels: ``source``; for the forward,
+``fwd_keys64`` (64-key tiles, where the source streams 32),
+``fwd_three_blocks`` and ``fwd_two_blocks`` (registers held to three or
+two blocks an SM at D = 64, where the source asks for four),
+``fwd_five_blocks`` (five at D = 64, output tiles in groups of 4 rather
+than 8), ``fwd_two_stages`` (two stages of K and V, where the source has
+three), ``fwd_rescale_apart`` (the output rows rescaled by alpha before the
+tile's product is added, where the source joins them in one fmaf),
+``fwd_divide`` and ``fwd_reciprocal`` (out / l by a division, or by the
+product with the rounded 1 / l alone, where the source corrects that
+product to the division's rounding with two fmaf), ``fwd_score_chunk64``
+(the score summed 64 columns apart, where the source sums 32) and
+``fwd_exp2f`` (P by ``exp2f`` rather than ``ex2.approx.ftz``); for the
+backward, ``two_dq_blocks`` (two dq blocks an SM at D = 128, where the
+source holds three) and ``head_major_causal`` (causal grids in a
+head's-tiles-together order too, as the non-causal ones); and diagnostics
+that each drop one part of the work of all three kernels:
+``no_score_mma``, ``no_output_mma``, ``no_ldmatrix`` (fragments from
+registers), ``no_split`` (one real bf16 piece of P and dS, two dummy ones),
+``no_exp2``, ``no_copies`` (no global-to-shared copies).
 """
 from __future__ import annotations
 
@@ -39,6 +53,9 @@ _SCORE_MMA = """        mma_bf16(ts[j], fa1, f1[0], f1[2]);
         mma_bf16(ts[j + 1], fa1, f1[1], f1[3]);
         mma_bf16(tp[j], fa2, f2[0], f2[2]);
         mma_bf16(tp[j + 1], fa2, f2[1], f2[3]);
+"""
+_SCORE_MMA_FWD = """        mma_bf16(ts[j], fa, f[0], f[2]);
+        mma_bf16(ts[j + 1], fa, f[1], f[3]);
 """
 _OUTPUT_MMA = """        mma3_bf16(part[n], xa[i], b[0], b[1]);
         mma3_bf16(part[n + 1], xa[i], b[2], b[3]);
@@ -60,6 +77,10 @@ _SPLIT = """  x -= __uint_as_float(hi << 16);
   lo = pack_bf16(x, y);"""
 _EXP_DQ = "exp2f(fmaf(s[j][c], scale * kLog2e, -lr[h] * kLog2e))"
 _EXP_DKV = "exp2f(fmaf(s[j][c], scale * kLog2e, -lq * kLog2e))"
+_EXP_FWD = "ex2_ftz(fmaf(s[j][c], sl, -mb[h]))"
+_FWD_QUOTIENT = "acc[n][2 * h + e] = fmaf(fmaf(-qt, lsafe, x), rl, qt);"
+_FWD_BLOCKS = ("__launch_bounds__(kThreads16, P <= 64 && VEC ? 4 : P <= 128 "
+               "? 3 : 2)")
 _COPY = ("      cp_async16(dst + swz16<P>(r, c), in ? src + "
          "static_cast<size_t>(r0 + r) * D + c : src, in);")
 _ORDER_DQ = (
@@ -70,9 +91,32 @@ _ORDER_DKV = (
     "  const int bh = causal ? blockIdx.x % n_bh : blockIdx.x / n_kt;\n"
     "  const int k0 = (causal ? blockIdx.x / n_bh : blockIdx.x % n_kt) * BN;")
 
-KERNELS = ("bwd_dq", "bwd_dkv")
+KERNELS = ("fwd", "bwd_dq", "bwd_dkv")
 VARIANTS = {
     "source": [],
+    "fwd_keys64": [("static constexpr int SFWD = 32;",
+                    "static constexpr int SFWD = 64;")],
+    "fwd_three_blocks": [(_FWD_BLOCKS, "__launch_bounds__(kThreads16, "
+                                       "P <= 128 ? 3 : 2)")],
+    "fwd_two_blocks": [(_FWD_BLOCKS, "__launch_bounds__(kThreads16, 2)")],
+    "fwd_five_blocks": [
+        (_FWD_BLOCKS, "__launch_bounds__(kThreads16, P <= 64 && VEC ? 5 : "
+                      "P <= 128 ? 3 : 2)"),
+        ("add_product16<P, BN, NO, (NO < 8 ? NO : 8), true>",
+         "add_product16<P, BN, NO, (NO < 4 ? NO : 4), true>")],
+    "fwd_divide": [(_FWD_QUOTIENT, "acc[n][2 * h + e] = x / lsafe;")],
+    "fwd_reciprocal": [(_FWD_QUOTIENT, "acc[n][2 * h + e] = qt;")],
+    "fwd_rescale_apart": [(
+        "      add_product16<P, BN, NO, (NO < 8 ? NO : 8), true>(acc, s, v_a, "
+        "lo, c0, D, alpha);",
+        "      for (int n = 0; n < NO; ++n)\n        for (int c = 0; c < 4; "
+        "++c) acc[n][c] *= alpha[c >> 1];\n      add_product16<P, BN, NO, "
+        "(NO < 8 ? NO : 8)>(acc, s, v_a, lo, c0, D);")],
+    "fwd_score_chunk64": [("score16<P, BN, kChunk16Dq>(s, qa_s, k_a, lo, D);",
+                           "score16<P, BN, 4>(s, qa_s, k_a, lo, D);")],
+    "fwd_exp2f": [(_EXP_FWD, "exp2f" + _EXP_FWD[7:])],
+    "fwd_two_stages": [("static constexpr int STAGES_FWD = 3;",
+                        "static constexpr int STAGES_FWD = 2;")],
     "two_dq_blocks": [(
         "__launch_bounds__(kThreads16, P <= 128 ? 3 : 2)",
         "__launch_bounds__(kThreads16, P <= 64 ? 3 : 2)")],
@@ -82,12 +126,13 @@ VARIANTS = {
                     " * BM;"),
         (_ORDER_DKV, "  const int bh = blockIdx.x / n_kt;"
                      "\n  const int k0 = blockIdx.x % n_kt * BN;")],
-    "no_score_mma": [(_SCORE_MMA, "")],
+    "no_score_mma": [(_SCORE_MMA, ""), (_SCORE_MMA_FWD, "")],
     "no_output_mma": [(_OUTPUT_MMA, _OUTPUT_SINK)],
     "no_ldmatrix": [(_LDSM.format(""), _LDSM_FAKE),
                     (_LDSM.format(".trans"), _LDSM_FAKE)],
     "no_split": [(_SPLIT, "  mid = hi ^ 1u;\n  lo = hi ^ 2u;")],
-    "no_exp2": [(_EXP_DQ, _EXP_DQ[6:-1]), (_EXP_DKV, _EXP_DKV[6:-1])],
+    "no_exp2": [(_EXP_DQ, _EXP_DQ[6:-1]), (_EXP_DKV, _EXP_DKV[6:-1]),
+                (_EXP_FWD, _EXP_FWD[8:-1])],
     "no_copies": [(_COPY, "      (void)in;")],
 }
 
@@ -224,7 +269,8 @@ def main():
         args = (kvalid, causal, tk - tq, d ** -0.5)
         ref_out, lse = fa.flash_fwd_torch(q, k, v, *args)
         delta = (g.float() * ref_out.float()).sum(-1)
-        refs = {"bwd_dq": (fa.flash_bwd_dq_torch(q, k, v, g, lse, delta,
+        refs = {"fwd": (ref_out, lse),
+                "bwd_dq": (fa.flash_bwd_dq_torch(q, k, v, g, lse, delta,
                                                  *args),),
                 "bwd_dkv": fa.flash_bwd_dkv_torch(q, k, v, g, lse, delta,
                                                   *args)}
@@ -233,7 +279,11 @@ def main():
 
         def calls(lib):
             dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+            out, lse_out = torch.empty_like(q), torch.empty_like(lse)
             return {
+                "fwd": ((out, lse_out), lambda: lib.mxtt_flash_fwd(
+                    *ptrs[:3], kvalid.data_ptr(), out.data_ptr(),
+                    lse_out.data_ptr(), *ints, d ** -0.5, stream)),
                 "bwd_dq": ((dq,), lambda: lib.mxtt_flash_bwd_dq(
                     *ptrs, dq.data_ptr(), *ints, d ** -0.5, stream)),
                 "bwd_dkv": ((dk, dv), lambda: lib.mxtt_flash_bwd_dkv(
@@ -280,7 +330,12 @@ def main():
                                                  is_causal=causal)
         lib_ms = _time_ms(torch, lambda: torch.autograd.grad(
             lib_out, (qr, kr, vr), g4, retain_graph=True), flush)
-        best = {n: sum(min(times[(n, kk)]) for kk in KERNELS)
+        lib_fwd_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, is_causal=causal), flush)
+        print(f"[variant] shape={shape} sdpa_forward_ms={lib_fwd_ms:.6f} "
+              + " ".join(f"{n}={min(times[(n, 'fwd')]):.6f}" for n in libs),
+              flush=True)
+        best = {n: sum(min(times[(n, kk)]) for kk in KERNELS[1:])
                 for n in libs}
         print(f"[variant] shape={shape} sdpa_backward_ms={lib_ms:.6f} "
               + " ".join(f"{n}={ms:.6f}" for n, ms in best.items()),

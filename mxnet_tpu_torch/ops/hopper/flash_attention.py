@@ -10,14 +10,15 @@ hand-written CUDA kernel ``flash_fwd`` and its backward the kernels
 ``_flash_fwd``, ``_flash_bwd_dq`` and ``_flash_bwd_dkv``). All three run
 every product on the tensor cores in 3xTF32 (each f32 operand split into
 two TF32 parts, three products summed in f32), which keeps f32 accuracy;
-the (bf16, bf16) pair's backward runs bf16 products instead: one pass for
-two bf16 operands, three for its f32 P and dS, each split into three bf16
-pieces (the same accuracy from bf16 tiles).
+the (bf16, bf16) pair's three kernels (``flash_fwd_bf16_kernel``,
+``flash_bwd_dq_bf16_kernel``, ``flash_bwd_dkv_bf16_kernel``) run bf16
+products instead: one pass for two bf16 operands, three for the f32 P and
+dS, each split into three bf16 pieces (the same accuracy from bf16 tiles).
 
 Dtypes, as the TPU kernels take them: q and k (and the cotangent g) share
 one dtype and v has its own, each float32, bfloat16 or float16. The kernels
 compute in f32 (every operand widened to f32 as it enters shared memory,
-except in the (bf16, bf16) backward, whose tiles stay bf16 and whose scores,
+except in the (bf16, bf16) kernels, whose tiles stay bf16 and whose scores,
 P and dS are f32) and write ``out`` and ``dq`` in q's dtype, ``dk`` in k's
 and ``dv`` in v's; ``lse`` and ``delta`` are f32.
 :func:`kernel_attributes` reads each kernel's registers, spills and blocks

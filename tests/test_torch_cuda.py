@@ -678,24 +678,68 @@ def test_cuda_flash_bf16_backward_matches_plain(case):
     assert not dq[dead].any() and not dk[cut].any() and not dv[cut].any()
 
 
+# the (bf16, bf16) forward, written for bf16 mma.sync: the backward's cases
+# and a causal grid with Tq < Tk at D = 128
+BF16_FWD_CASES = BF16_BWD_CASES + [(2, 2, 100, 300, 128, True, None, False)]
+
+
+@pytest.mark.parametrize("case", BF16_FWD_CASES,
+                         ids=["bert", "d30", "d256", "misaligned",
+                              "causal-tq<tk-d128"])
+def test_cuda_flash_bf16_forward_matches_plain(case):
+    """The (bf16, bf16) forward kernel against its plain version: out
+    within ATOL / RTOL plus one bf16 unit in the last place, lse within the
+    f32 tolerance; launches counted on the pair; a row with no kept key
+    gives exact zeros and lse = -1e30; two calls bit for bit."""
+    dev = _need_cuda()
+    b, h, tq, tk, d, causal, vl, misaligned = case
+    q, k, v, _, kvalid = _flash_inputs(b, h, tq, tk, d, vl, dev, seed=8)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    if misaligned:
+        q, k, v = (_misaligned(x) for x in (q, k, v))
+    args = (kvalid, causal, tk - tq, d ** -0.5)
+    n0 = fa.launch_count(BF16)
+    runs = [fa.flash_fwd(q, k, v, *args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert fa.last_path() == "cuda"
+    assert fa.launch_count(BF16)["fwd"] == n0["fwd"] + 2
+    ref_out, ref_lse = fa.flash_fwd_torch(q, k, v, *args)
+    (out, lse), (out2, lse2) = runs
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    _dtype_close(out, ref_out)
+    _dtype_close(lse, ref_lse)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    dead = ref_lse <= -1e29
+    assert torch.equal(lse <= -1e29, dead)
+    assert bool((lse[dead] == -1e30).all()) and not out[dead].any()
+    if vl is not None and 0 in vl:
+        assert bool(dead.any())
+
+
 def test_cuda_flash_bf16_backward_kernel_attributes():
-    """The (bf16, bf16) dq and dk/dv kernels: four warps a block and at
-    least two blocks an SM (three for dq at D <= 128 and for dk/dv at
-    D = 64). dk/dv spills nothing, nor does dq at D = 64, BERT-base's head.
-    dq at D = 128 holds three blocks at the 168 registers they leave a
-    thread and spills a few registers (24 bytes with 16-byte copies, 32
-    without, on an H100 with CUDA 12.8): two blocks at 255 registers spill
-    nothing but ran 20% slower at the Llama training shape. At D = 256 (two
-    blocks, 255 registers) dq spills 40 bytes. Every other pair keeps its
-    one block of eight warps an SM."""
+    """The (bf16, bf16) forward, dq and dk/dv kernels: four warps a block
+    and at least two blocks an SM (the forward four at D = 64 with 16-byte
+    copies, three with narrow ones, which spilled 8 bytes at four, and
+    three at D = 128; dq three at D <= 128, dk/dv three at D = 64). dk/dv
+    spills nothing, nor do the forward and dq at D = 64, BERT-base's head. dq at
+    D = 128 holds three blocks at the 168 registers they leave a thread
+    and spills a few registers (24 bytes with 16-byte copies, 32 without,
+    on an H100 with CUDA 12.8): two blocks at 255 registers spill nothing
+    but ran 20% slower at the Llama training shape. The forward at D = 128
+    spills a few bytes at three blocks too (8 with 16-byte copies): two
+    blocks spill nothing but ran 9% slower there. At D = 256 (two blocks,
+    255 registers) dq spills 40 bytes. Every other pair keeps its one
+    block of eight warps an SM."""
     _need_cuda()
     for d in (64, 128, 256):
         for vec in (True, False):
             got = fa.kernel_attributes(BF16, d, vec)
-            for name, blocks in (("bwd_dq", 3 if d <= 128 else 2),
+            for name, blocks in (("fwd", 4 if d <= 64 and vec else 3
+                                  if d <= 128 else 2),
+                                 ("bwd_dq", 3 if d <= 128 else 2),
                                  ("bwd_dkv", 3 if d <= 64 else 2)):
                 at = got[name]
-                spill = 64 if name == "bwd_dq" and d > 64 else 0
+                spill = 64 if name != "bwd_dkv" and d > 64 else 0
                 assert at["local_bytes"] <= spill, (d, vec, name, at)
                 assert at["threads"] == 128, (d, vec, name, at)
                 assert at["blocks_per_sm"] >= blocks, (d, vec, name, at)

@@ -393,6 +393,45 @@ def test_bf16_products_keep_bf16_backward_within_f32_tolerance():
     assert errs[1] >= 10 * errs[3], errs
 
 
+@pytest.mark.parametrize("case", [CASES[3], CASES[4]],
+                         ids=["tq<tk-d64", "tq>tk-d64"])
+def test_bf16_products_keep_bf16_forward_within_f32_tolerance(case):
+    """The (bf16, bf16) forward kernel's products on bf16 inputs, emulated
+    in f32 on the CPU: S = q K^T in one pass (exact products summed in
+    f32, then scaled), the softmax between them formed as
+    ``flash_fwd_torch`` forms it, and P V with P (f32) in three bf16
+    pieces, held to ``flash_fwd_torch`` on the same bf16-valued inputs at
+    the kernels' tolerances (atol 1e-5, rtol 1e-4). Rounding P once to bf16
+    (one piece, as cuDNN's and FlashAttention-2's forward do) misses by at
+    least ten times as much, which is why the kernel splits it."""
+    b, h, tq, tk, d, causal, vl = case
+    q, k, v = (torch.from_numpy(a.reshape(b * h, -1, d)).to(
+        torch.bfloat16).to(torch.float32)
+        for a in _inputs(b, h, tq, tk, d, seed=8)[:3])
+    kvalid = fa.kvalid_of(vl, b, tk, torch.device("cpu"))
+    sc, off = 1.0 / np.sqrt(d), tk - tq
+    want = fa.flash_fwd_torch(q, k, v, kvalid, causal, off, sc)
+    keep = fa._keep_mask(kvalid, b * h, tq, tk, causal, off,
+                         torch.device("cpu"))
+    neg = torch.tensor(-1e30)
+    s = torch.where(keep, _bf16_product(q, k.transpose(1, 2), None) * sc,
+                    neg)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.where(m > -5e29, torch.exp(s - m), torch.zeros(()))
+    l = p.sum(dim=-1, keepdim=True)
+    lsafe = torch.where(l == 0, torch.ones_like(l), l)
+    lse = torch.where(l == 0, neg, m + torch.log(lsafe))[..., 0]
+    errs = {}
+    for pieces in (3, 1):
+        got = [_bf16_product(p, v, pieces) / lsafe, lse]
+        if pieces == 3:
+            for ours, ref in zip(got, want):
+                torch.testing.assert_close(ours, ref, atol=1e-5, rtol=1e-4)
+        errs[pieces] = max(float((ours - ref).abs().max())
+                           for ours, ref in zip(got, want))
+    assert errs[1] >= 10 * errs[3], errs
+
+
 def test_three_bf16_pieces_reconstruct_f32():
     """hi + mid + lo gives an f32 value back within 2^-24 of its size, the
     bound the kernels' split states: each rounding to bf16's 8 significand
