@@ -30,7 +30,10 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    bound and, in f32, the library) and a split-aim sweep (the grid aimed at
    1, 2 and 4 blocks a SM, at the main shape and at B=4, S=8192).
 3b. int8: the int8 x int8 product (``ops.hopper.int8_dense``: row
-   quantization, int8 ``mma.sync`` into int32, the rescale fused) at every
+   quantization, then int8 products into int32 with the rescale fused:
+   ``wgmma`` + TMA for prefill rows, M > 32, on an aligned weight;
+   ``mma.sync`` for decode rows and ragged or misaligned weights; each call
+   must take the kernel ``takes_wgmma`` names) at every
    Llama-3-8B projection shape, (O, U) = (4096, 4096), (1024, 4096),
    (14336, 4096), (4096, 14336) at M = 1, 4, 20, 256 and 1024 and the head
    (128256, 4096) at M = 1, 4 and 20, and at M = 3, O = 37, U = 30 and on a
@@ -43,14 +46,16 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    the row's largest |output|, and beside the same reading of the
    algorithm with truncation in place of rounding, which the limit tells
    apart). At M = 4, 256 and 1024: the call's time, K1 (quantization)
-   and the product alone, its bound (bytes at 3.35 TB/s or int8 operations
-   at 1,979 TOP/s), the plain version, the weight-only route
-   (``F.linear(x, qweight.float()) * scale``), f32 ``F.linear`` on the f32
-   weight (the ``pallas`` rung's) and ``torch._int_mm`` where it takes the
-   shape; then their sums over one forward's products (225 at M = 4, 224
+   and the product alone, the ``mma.sync`` kernel's product on the same
+   call (a yardstick at prefill rows), its bound (bytes at 3.35 TB/s or
+   int8 operations at 1,979 TOP/s) and share of it, the plain version,
+   the weight-only route (``F.linear(x, qweight.float()) * scale``), f32
+   ``F.linear`` on the f32 weight (the ``pallas`` rung's) and
+   ``torch._int_mm`` where it takes the shape; then their sums over one forward's products (225 at M = 4, 224
    at prefill) against 2.24 ms, the weight bytes of one decode forward at
    3.35 TB/s. Then the host's microseconds a call at M = 4, O = 1024,
-   U = 4096 (200 calls back to back), beside f32 ``F.linear``'s.
+   U = 4096 and at M = 1024, O = U = 4096 (200 calls back to back),
+   beside f32 ``F.linear``'s.
 4. serve pallas / 5. serve int8: Llama-3-8B at full width and depth with
    seeded random weights, served by ``Generator`` (warmup, then 4 prompts x
    32 greedy tokens): every decode step of every layer must launch the
@@ -69,10 +74,13 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    timed run's tokens. ``int8`` runs with
    int8 weights (``MXNET_SERVE_DECODE_INT8_WEIGHTS=auto`` on the card,
    ``int8_weights=True`` printed): every forward launches the int8 product
-   7 x 32 + 1 = 225 times, ``pallas`` none, in this phase and in 5a-5c and
+   7 x 32 + 1 = 225 times (a prefill's 224 layer products on the wgmma
+   kernel, its head and every decode step's on ``mma.sync``), ``pallas``
+   none, in this phase and in 5a-5c and
    5f (prefills and decode iterations, counted at graph replays; 5d and 5e
    serve ``pallas``: none). The int8 rung's prefill logits' gap to the
-   ``pallas`` rung's is printed (no gate).
+   ``pallas`` rung's is printed (no gate), and each rung's prefill ms: the
+   generate's reading and three synchronised prefills alone.
 5a. multistep pallas / multistep int8: the same model and prompts through
    ``Generator(multistep=True, decode_steps=8)``, batch buckets (1, 4):
    ``warmup()`` captures every super-step CUDA graph (its signatures,
@@ -337,6 +345,7 @@ BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 and f16 tensor cores, dense
 CONFIG = "llama3_8b"
 PROMPT_LENS = (17, 64, 130, 250)
 NEW_TOKENS = 32
+PREFILL_REPEATS = 3  # phases 4-5: the prefill alone, synchronised
 DECODE_STEPS = 8            # iterations a multi-step super-step runs
 PREFIX_LEN, PREFIX_TAILS = 64, (20, 45)   # phase 5b's shared-prefix prompts
 CB_SLOTS, CB_CHUNK = 4, 256  # phase 5c: the engine's lanes and prefill chunk
@@ -379,6 +388,7 @@ INT8_M = (1, 4, 20, 256, 1024)
 INT8_HEAD_M = (1, 4, 20)
 INT8_TIMED_M = (4, 256, 1024)
 INT8_FORWARD = 7 * 32 + 1   # int8 products in one Llama-3-8B forward
+INT8_PREFILL_PRODUCTS = 7 * 32  # of a prefill's, prefill rows (not the head)
 INT8_DECODE_BOUND_MS = 2.24  # 7.50 G weight bytes at 3.35 TB/s
 # phase 3b: each row's RMS error against the f32 product with the
 # unquantized weight, over the row's RMS output. On phase 3b's inputs the
@@ -3014,6 +3024,17 @@ def serve_phase(torch, da, Generator, model, rung, prompts, n_layers, vocab):
           f"prefill logits shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
     prefill_logits = logits.float().cpu()
+    # the prefill alone, synchronised, a few times: the generate's
+    # prefill_ms below is one host reading
+    prefill_sync_ms = []
+    for _ in range(PREFILL_REPEATS):
+        cache = gen._fresh_cache(bb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen.prefill(toks, lens, cache)
+        torch.cuda.synchronize()
+        prefill_sync_ms.append(f"{(time.perf_counter() - t0) * 1e3:.3f}")
+    del cache
 
     da.force_path(None)
     da.reset_launch_count()
@@ -3025,6 +3046,7 @@ def serve_phase(torch, da, Generator, model, rung, prompts, n_layers, vocab):
         fc.close()
     launches = da.launch_count()
     i8_launches = i8.launch_count()
+    i8_routes = i8.route_launches()
     steps = info["decode_steps"]
     check(steps == NEW_TOKENS - 1, f"{steps} decode steps")
     check(all(len(o) == NEW_TOKENS for o in out), "short output")
@@ -3035,11 +3057,18 @@ def serve_phase(torch, da, Generator, model, rung, prompts, n_layers, vocab):
           f"and {steps} decode steps")
     int8_gate(phase, rung, i8_launches,
               int8_expected(rung, fc.prefills, launches, n_layers))
+    # a prefill's layer projections are prefill rows (the wgmma kernel);
+    # its head (the last positions) and every decode step, decode rows
+    want = INT8_PREFILL_PRODUCTS * fc.prefills if rung == "int8" else 0
+    check(i8_routes["wgmma"] == want, f"{phase}: {i8_routes['wgmma']} "
+          f"int8 products on the wgmma kernel, expected {want}")
     gen.assert_no_recompiles()
     say(phase, prefill_ms=f"{info['prefill_ms']:.3f}",
+        prefill_sync_ms=prefill_sync_ms,
         decode_ms_per_token=f"{info['decode_ms'] / steps:.3f}",
         tokens_s=f"{info['tokens_s']:.3f}", decode_steps=steps,
         kernel_launches=launches, int8_launches=i8_launches,
+        int8_launches_by_kernel=i8_routes,
         int8_launches_per_forward=i8_launches / fc.calls,
         kv_cache_bytes=gen.kv_cache_bytes(),
         peak_mem_bytes=torch.cuda.max_memory_allocated())
@@ -3083,6 +3112,7 @@ def serve_phase(torch, da, Generator, model, rung, prompts, n_layers, vocab):
     if rung == "int8":
         int8_route_check(torch, da, gen, prompts, out, out_plain, launches)
     return {"launches": launches, "int8_launches": i8_launches,
+            "wgmma_launches": i8_routes["wgmma"],
             "info": info, "out": out, "out_plain": out_plain,
             "prefill_logits": prefill_logits}
 
@@ -3979,10 +4009,18 @@ def int8_case(torch, i8, x, wf, qw, scale, what):
     able to tell apart. Returns the largest difference to the plain
     version and the readings: largest |error| over the row's largest
     |output| (the JAX docstring's ~1e-2), the RMS reading, the truncated
-    algorithm's RMS reading."""
+    algorithm's RMS reading. Each call must take the product kernel
+    ``takes_wgmma`` names."""
+    route = ("wgmma" if i8.takes_wgmma(x.shape[0], x.shape[1], qw.data_ptr())
+             else "mma_sync")
+    r0 = i8.route_launches()
     out = i8.int8_dense(x, qw, scale)
     again = i8.int8_dense(x, qw, scale)
     check(i8.last_path() == "cuda", f"int8 {what}: the kernel did not run")
+    r1 = i8.route_launches()
+    check({k: r1[k] - r0[k] for k in r1} == {
+        k: 2 if k == route else 0 for k in r1}, f"int8 {what}: the calls "
+        f"did not both take the {route} kernel ({r0} -> {r1})")
     ref = i8.int8_dense_torch(x, qw, scale)
     torch.cuda.synchronize()
     diff = float((out - ref).abs().max())
@@ -3998,7 +4036,8 @@ def int8_case(torch, i8, x, wf, qw, scale, what):
     trunc = (xt.double() @ qw.double().t()).float() * sx * scale
     _, rms_trunc = row_errors(torch, trunc, exact)
     del exact, xt, trunc
-    return diff, {"peak": peak, "rms": rms, "rms_trunc": rms_trunc}
+    return diff, {"peak": peak, "rms": rms, "rms_trunc": rms_trunc,
+                  "route": route}
 
 
 def int8_phase(torch, F, i8, flush, dev):
@@ -4009,15 +4048,23 @@ def int8_phase(torch, F, i8, flush, dev):
     forward's products. Returns the JSON rows' numbers by M."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for block_rows in sorted(i8.TILES):
-        say("int8", block_rows=block_rows,
+        say("int8", kernel="mma_sync", block_rows=block_rows,
             block_cols=i8.TILES[block_rows],
             smem_bytes=i8.smem_bytes(block_rows))
+    for block_cols in i8.WGMMA_COLS:
+        say("int8", kernel="wgmma", block_rows=i8.WGMMA_ROWS,
+            block_cols=block_cols, stage_bytes_of_u=i8.WGMMA_CHUNK,
+            smem_bytes=i8.wgmma_smem_bytes(block_cols))
     for name, a in i8.kernel_attributes().items():
         say("int8", kernel=name, **a)
         check(a["local_bytes"] == 0, f"int8 kernel {name} uses "
               f"{a['local_bytes']} local bytes a thread (a spill)")
     max_diff, seed = 0.0, 100
     worst = {"peak": 0.0, "rms": 0.0}
+
+    def plan_of(m, o, u, route):
+        return (i8.wgmma_plan if route == "wgmma" else i8.split_plan)(
+            m, o, u, sms)
     # the truncated algorithm's least reading at the projection shapes
     trunc_least = {"one_row": 1.0, "several_rows": 1.0}
 
@@ -4030,7 +4077,8 @@ def int8_phase(torch, F, i8, flush, dev):
         return max(max_diff, diff)
 
     def readings(errs):
-        return dict(err_over_row_max=f"{errs['peak']:.3e}",
+        return dict(route=errs["route"],
+                    err_over_row_max=f"{errs['peak']:.3e}",
                     rms_err_over_row_rms=f"{errs['rms']:.3e}",
                     truncated_rms_err=f"{errs['rms_trunc']:.3e}")
     # edge cases: ragged M, O and U; a misaligned x and weight (4-byte
@@ -4048,9 +4096,10 @@ def int8_phase(torch, F, i8, flush, dev):
                                f"M={m} O={o} U={u}")
         max_diff = keep(m, u, diff, errs)
         say("int8", M=m, O=o, U=u, misaligned=misaligned,
-            plan=tuple(i8.split_plan(m, o, u, sms)), bitwise=True,
+            plan=tuple(plan_of(m, o, u, errs["route"])), bitwise=True,
             repeats_bitwise=True, **readings(errs))
-    sums = {m: {"ms": 0.0, "k1_ms": 0.0, "product_ms": 0.0, "plain_ms": 0.0,
+    sums = {m: {"ms": 0.0, "k1_ms": 0.0, "product_ms": 0.0,
+                "mma_sync_ms": 0.0, "plain_ms": 0.0,
                 "weight_only_ms": 0.0, "f32_ms": 0.0, "bound_ms": 0.0,
                 "library_ms": 0.0, "library_refused": [], "bound_by": set()}
             for m in INT8_TIMED_M}
@@ -4063,8 +4112,9 @@ def int8_phase(torch, F, i8, flush, dev):
             diff, errs = int8_case(torch, i8, x, wf, qw, scale,
                                    f"M={m} O={o} U={u}")
             max_diff = keep(m, u, diff, errs)
-            plan = i8.split_plan(m, o, u, sms)
+            plan = plan_of(m, o, u, errs["route"])
             fields = dict(M=m, O=o, U=u, block_rows=plan.block_rows,
+                          block_cols=plan.block_cols,
                           slices=plan.slices, blocks=plan.blocks,
                           workspace_bytes=plan.workspace_bytes,
                           bitwise=True, repeats_bitwise=True,
@@ -4078,6 +4128,10 @@ def int8_phase(torch, F, i8, flush, dev):
                  "k1_ms": time_ms(torch, lambda: i8.quantize_rows(x), flush),
                  "product_ms": time_ms(torch, lambda: i8.product(
                      xq, sx, u, qw, scale), flush),
+                 # the mma.sync kernel on the same call: at prefill rows
+                 # the yardstick of the wgmma kernel
+                 "mma_sync_ms": time_ms(torch, lambda: i8.product(
+                     xq, sx, u, qw, scale, route="mma_sync"), flush),
                  "plain_ms": time_ms(torch, lambda: i8.int8_dense_torch(
                      x, qw, scale), flush),
                  "weight_only_ms": time_ms(torch, lambda: F.linear(
@@ -4103,6 +4157,8 @@ def int8_phase(torch, F, i8, flush, dev):
                 r["library_ms"] = None
             say("int8", **fields, **{k: f"{v:.6f}" for k, v in t.items()},
                 bound_ms=f"{bound:.6f}", bound_by=bound_by,
+                share_of_bound=f"{bound / t['ms']:.4f}",
+                product_share_of_bound=f"{bound / t['product_ms']:.4f}",
                 int_mm_ms="refused" if lib is None else f"{lib:.6f}")
             del xq, sx
         del x, wf, qw, scale
@@ -4119,6 +4175,10 @@ def int8_phase(torch, F, i8, flush, dev):
             int_mm_refused=r["library_refused"] or None,
             bound_by="+".join(sorted(r["bound_by"])),
             share_of_bound=f"{r['bound_ms'] / r['ms']:.4f}",
+            product_share_of_bound=f"{r['bound_ms'] / r['product_ms']:.4f}",
+            mma_sync_over_product=f"{r['mma_sync_ms'] / r['product_ms']:.4f}",
+            product_over_int_mm=("null" if r["library_ms"] is None else
+                                 f"{r['product_ms'] / r['library_ms']:.4f}"),
             decode_bound_ms=INT8_DECODE_BOUND_MS if m == 4 else None)
         out[m] = dict(r, bound_by="bytes" if r["bound_by"] == {"bytes"}
                       else "operations", max_abs_err=max_diff,
@@ -4135,31 +4195,37 @@ def int8_phase(torch, F, i8, flush, dev):
 
 def int8_host_us(torch, F, i8, dev):
     """The host's cost of one call at decode's k/v shape (M = 4, O = 1024,
-    U = 4096): INT8_HOST_CALLS calls issued back to back, timed on the
-    host before the sync, beside the device span of the same calls (CUDA
+    U = 4096, the ``mma.sync`` kernel) and at a prefill shape (M = 1024,
+    O = U = 4096, the wgmma kernel, whose call also encodes two tensor
+    maps): INT8_HOST_CALLS calls issued back to back, timed on the host
+    before the sync, beside the device span of the same calls (CUDA
     events; a span near the host time means the card waited on the host)
     and the same readings of f32 ``F.linear`` at that shape."""
-    x, wf, qw, scale = int8_inputs(torch, dev, 4, 1024, 4096, 9)
-    fields = {}
-    for name, fn in (("int8_dense", lambda: i8.int8_dense(x, qw, scale)),
-                     ("f32_linear", lambda: F.linear(x, wf))):
-        for _ in range(10):
-            fn()
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        t0 = time.perf_counter()
-        for _ in range(INT8_HOST_CALLS):
-            fn()
-        host = time.perf_counter() - t0
-        e1.record()
-        torch.cuda.synchronize()
-        fields[f"{name}_host_us"] = f"{host / INT8_HOST_CALLS * 1e6:.3f}"
-        fields[f"{name}_span_us"] = (
-            f"{e0.elapsed_time(e1) / INT8_HOST_CALLS * 1e3:.3f}")
-    say("int8 host", M=4, O=1024, U=4096, calls=INT8_HOST_CALLS,
-        forward_calls=INT8_FORWARD, **fields)
+    for m, o, u in ((4, 1024, 4096), (1024, 4096, 4096)):
+        x, wf, qw, scale = int8_inputs(torch, dev, m, o, u, 9)
+        fields = {}
+        for name, fn in (("int8_dense", lambda: i8.int8_dense(x, qw, scale)),
+                         ("f32_linear", lambda: F.linear(x, wf))):
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            for _ in range(INT8_HOST_CALLS):
+                fn()
+            host = time.perf_counter() - t0
+            e1.record()
+            torch.cuda.synchronize()
+            fields[f"{name}_host_us"] = f"{host / INT8_HOST_CALLS * 1e6:.3f}"
+            fields[f"{name}_span_us"] = (
+                f"{e0.elapsed_time(e1) / INT8_HOST_CALLS * 1e3:.3f}")
+        say("int8 host", M=m, O=o, U=u, calls=INT8_HOST_CALLS,
+            forward_calls=INT8_FORWARD,
+            kernel="wgmma" if i8.takes_wgmma(m, u, qw.data_ptr())
+            else "mma_sync", **fields)
+        del x, wf, qw, scale
 
 
 def main(argv=None):
@@ -4447,15 +4513,19 @@ def main(argv=None):
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     # the int8 products of one forward at decode (M = 4, the 225 of a
-    # forward) and prefill (M = 256 and 1024, the 224 of the layers):
-    # sums over the shapes; launches: phase 5's int8 serve run
-    for m, label in ((4, "decode_m4"), (256, "prefill_m256"),
-                     (1024, "prefill_m1024")):
+    # forward: the mma.sync kernel) and prefill (M = 256 and 1024, the 224
+    # of the layers: the wgmma kernel): sums over the shapes; launches:
+    # phase 5's int8 serve run, by kernel
+    i8_wgmma = served["int8"]["wgmma_launches"]
+    for m, label, launches in (
+            (4, "decode_m4", served["int8"]["int8_launches"] - i8_wgmma),
+            (256, "wgmma_prefill_m256", i8_wgmma),
+            (1024, "wgmma_prefill_m1024", i8_wgmma)):
         r = ires[m]
         kernels.append({
             "name": f"int8_dense_{label}", "route": "cuda",
             "source": INT8_SOURCE, "replaces": INT8_REPLACES,
-            "launches": served["int8"]["int8_launches"],
+            "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

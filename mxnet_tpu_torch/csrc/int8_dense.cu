@@ -13,25 +13,48 @@
 //
 // The epilogue is done op by op (__fmul_rn, __fadd_rn: no contraction into
 // an FMA) and the divisions with __fdiv_rn, so with exact int32 sums the
-// result equals the plain version's (ops/hopper/int8_dense.py) bit for bit.
+// result equals the plain version's (ops/hopper/int8_dense.py) bit for bit,
+// whichever product kernel ran and however U was split.
 // Never build this file with --use_fast_math.
 //
-// Three kernels, one call of the wrapper:
+// One call of the wrapper is K1, one product kernel (K2 or K2w) and, where
+// the plan splits U, K3:
 //  K1 int8_quantize_rows_kernel: one block a row of x; the row's max |x| by
 //     a block reduction, then xq, zero-filled from U to Up = U rounded up
 //     to 64 bytes, so the product reads whole 64-byte chunks of xq;
-//  K2 int8_dense_kernel: a block's tile is BM rows x BN output channels over
-//     one slice of U, in 64-byte chunks through a ring of STAGES shared
-//     memory stages filled by 16-byte cp.async (the weight's ragged edge,
-//     and rows past M, zero-filled by the copy's src-size 0). Each chunk is
-//     two mma.sync.m16n8k32 s8 x s8 -> s32 products a warp tile. The weight
-//     (O, U) row-major is already the .col B operand. A thread reads its
-//     fragments as one 16-byte shared load a row: thread t of a quad takes
-//     bytes [16 t, 16 t + 16) of the chunk, the first 8 for the first
-//     product and the last 8 for the second. That permutes the k index
-//     inside a chunk, the same way for xq and w, which leaves every dot
-//     product as it is. Rows are 64 bytes apart, so the 8 lanes of a
-//     quarter warp read 128 contiguous bytes: no bank conflict;
+//  K2w int8_dense_wgmma_kernel, for prefill rows (M > 32) on a weight whose
+//     rows are a multiple of 16 bytes and which starts 16-byte aligned (the
+//     wrapper's routing predicate): a block's tile is 128 rows x BN = 128 or
+//     256 output channels over one slice of U. One producer warpgroup (one
+//     thread of it, 40 registers by setmaxnreg) keeps a ring of 3 (BN = 256)
+//     or 5 (BN = 128) stages full with TMA: a stage is 128 bytes of U of xq
+//     (128 rows) and of w (BN rows), copied as two boxes of 2-D tensor maps
+//     with the 128-byte swizzle, completion counted by an mbarrier in bytes.
+//     TMA zero-fills rows past M and O and bytes past U, so no thread masks
+//     an edge. Two consumer warpgroups (232 registers each) take 64 rows
+//     each and run wgmma.mma_async m64nBNk32 s8 x s8 -> s32 straight from
+//     the swizzled stage (xq and w are both K-major, the only layout wgmma
+//     takes for 8-bit operands), four a stage, and hand the stage back to
+//     the producer as soon as its products are done. The int32 sums stay in
+//     registers (BN / 2 a thread) until the epilogue, which is K2's
+//     rescale. The tensor maps are encoded on the host for each call
+//     (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
+//     nothing links libcuda) and passed as __grid_constant__ parameters, so
+//     a call can be captured in a CUDA graph;
+//  K2 int8_dense_kernel, for every other CUDA call (decode and verify rows
+//     at M <= 32, a ragged or misaligned weight at any M): a block's tile is
+//     BM rows x BN output channels over one slice of U, in 64-byte chunks
+//     through a ring of STAGES shared memory stages filled by 16-byte
+//     cp.async (the weight's ragged edge, and rows past M, zero-filled by
+//     the copy's src-size 0). Each chunk is two mma.sync.m16n8k32 s8 x s8
+//     -> s32 products a warp tile. The weight (O, U) row-major is already
+//     the .col B operand. A thread reads its fragments as one 16-byte
+//     shared load a row: thread t of a quad takes bytes [16 t, 16 t + 16)
+//     of the chunk, the first 8 for the first product and the last 8 for
+//     the second. That permutes the k index inside a chunk, the same way
+//     for xq and w, which leaves every dot product as it is. Rows are 64
+//     bytes apart, so the 8 lanes of a quarter warp read 128 contiguous
+//     bytes: no bank conflict;
 //  K3 int8_dense_reduce_kernel: where the tiles alone leave SMs idle (the
 //     decode projections at M <= 20, k/v at O = 1024) the wrapper splits U
 //     into S slices of whole chunks; each block writes its int32 partial to
@@ -42,23 +65,32 @@
 // captured in a CUDA graph.
 //
 // Bound. At decode (M <= 20) the call is a weight stream, O x U bytes at
-// 3.35 TB/s; the grid (split_plan in the wrapper) aims at 2 blocks of
-// BM = 16 an SM, each with up to 3 stages of copies in flight. At
-// prefill (M = 256-1024) the product is bound by int8 operations (1,979
-// TOP/s dense on an H100 SXM), of which mma.sync reaches a part: a wgmma
-// kernel is later work.
+// 3.35 TB/s; K2's grid (split_plan in the wrapper) aims at 2 blocks of
+// BM = 16 an SM, each with up to 3 stages of copies in flight. At prefill
+// the product is bound by int8 operations (1,979 TOP/s dense on an H100
+// SXM) at M = 1024 and by the weight's bytes at M = 256. mma.sync cannot
+// reach that rate, so prefill rows take K2w: wgmma is the only way to the
+// int8 tensor-core rate, TMA spends no thread's registers or instructions
+// on the copies, and 128-byte stages of 128 x 256 tiles halve the shared
+// memory and L2 traffic of K2's 64-byte stages of 128 x 128. Its grid
+// (wgmma_plan in the wrapper) runs the row tiles fastest, so the blocks in
+// flight share their weight boxes in L2, takes BN = 256 where those tiles
+// alone give half the SMs a block and splits U where even BN = 128 falls
+// short of that.
 //
-// Tiles: BM = 16 (decode and the verify pass), 64 (M <= 256) and 128.
+// K2's tiles: BM = 16 (decode and the verify pass), 64 (M <= 256) and 128.
 //  16 x 64,   4 warps as 1 x 4, 4 stages: a warp 16 x 16 (2 n-tiles);
 //  64 x 128,  4 warps as 2 x 2, 3 stages: a warp 32 x 64 (2 x 8 tiles);
 //  128 x 128, 8 warps as 4 x 2, 3 stages: a warp 32 x 64.
 // A warp of the larger tiles holds 64 int32 accumulators.
 //
-// Loads: the weight streams by 16-byte cp.async when U is a multiple of 16
-// and the weight's pointer 16-byte aligned (wvec), else by byte loads stored
-// to the same ring (a ragged or misaligned weight: correct, not fast). x is
-// read as float4 when U is a multiple of 4 and its pointer 16-byte aligned,
-// else as floats; xq is the wrapper's own padded buffer, always aligned.
+// K2's loads: the weight streams by 16-byte cp.async when U is a multiple of
+// 16 and the weight's pointer 16-byte aligned (wvec), else by byte loads
+// stored to the same ring (a ragged or misaligned weight: correct, not
+// fast). x is read as float4 when U is a multiple of 4 and its pointer
+// 16-byte aligned, else as floats; xq is the wrapper's own padded buffer,
+// always aligned.
+#include <cuda.h>  // CUtensorMap and its enums only: nothing links libcuda
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -312,6 +344,16 @@ cudaError_t quantize_rows(const float* x, signed char* xq, float* sx, int M, int
   return cudaGetLastError();
 }
 
+// K3 over the slices' partials in ws, where a product split U
+cudaError_t reduce_slices(const int* ws, const float* sx, const float* s, const float* bias,
+                          float* out, int M, int O, int slices, cudaStream_t st) {
+  const size_t items = static_cast<size_t>(M) * O;
+  const size_t want = (items + kRThreads - 1) / kRThreads;
+  const unsigned blocks = static_cast<unsigned>(want < 8192 ? want : 8192);
+  int8_dense_reduce_kernel<<<blocks, kRThreads, 0, st>>>(ws, sx, s, bias, out, M, O, slices);
+  return cudaGetLastError();
+}
+
 cudaError_t product(const signed char* xq, const float* sx, const signed char* w, const float* s,
                     const float* bias, float* out, int* ws, int M, int O, int U, int Up,
                     int block_rows, int cps, int slices, int wvec, cudaStream_t st) {
@@ -330,11 +372,7 @@ cudaError_t product(const signed char* xq, const float* sx, const signed char* w
                                            slices, wvec, st);
   }
   if (err != cudaSuccess || slices == 1) return err;
-  const size_t items = static_cast<size_t>(M) * O;
-  const size_t want = (items + kRThreads - 1) / kRThreads;
-  const unsigned blocks = static_cast<unsigned>(want < 8192 ? want : 8192);
-  int8_dense_reduce_kernel<<<blocks, kRThreads, 0, st>>>(ws, sx, s, bias, out, M, O, slices);
-  return cudaGetLastError();
+  return reduce_slices(ws, sx, s, bias, out, M, O, slices, st);
 }
 
 bool valid(int M, int O, int U, int Up, int block_rows, int cps, int slices) {
@@ -342,6 +380,392 @@ bool valid(int M, int O, int U, int Up, int block_rows, int cps, int slices) {
   return M >= 1 && O >= 1 && U >= 1 && Up % kBK == 0 && Up >= U && Up - U < kBK &&
          block_cols(block_rows) > 0 && cps >= 1 && slices >= 1 &&
          (slices - 1) * cps < chunks && slices * cps >= chunks;
+}
+
+// -- K2w: the wgmma product for prefill rows ----------------------------------
+
+constexpr int kWRows = 128;     // rows of a block: two consumer warpgroups of 64
+constexpr int kWChunk = 128;    // bytes of U a stage: one 128-byte swizzled row
+constexpr int kWThreads = 384;  // two consumer warpgroups and the producer's
+// error codes beside cudaError_t's: a tensor map the driver refused
+// (kEncodeFailed + its CUresult), or no cuTensorMapEncodeTiled at all
+constexpr int kEncodeFailed = 100000;
+constexpr int kNoEncoder = 200000;
+
+template <int BN>
+struct WTile {
+  static constexpr int kStages = BN == 256 ? 3 : 5;
+  static constexpr int kA = kWRows * kWChunk;                // xq's box, 16 KB
+  static constexpr int kStage = (kWRows + BN) * kWChunk;     // the bytes TMA lands a stage
+  static constexpr int kSmem = kStages * kStage + 1024;      // + room to align to 1024
+  static_assert(kSmem <= 227 * 1024, "shared memory of one block");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// spin until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// arrive, and expect `bytes` more of TMA's before the phase completes
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// the box of `map` at (c0 bytes of U, c1 rows) into shared memory at dst
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma's descriptor of a K-major tile as TMA lays it with the 128-byte
+// swizzle: rows of 128 bytes, groups of 8 rows 1024 bytes apart (the stride
+// offset), the leading offset unused; the tile starts 1024-byte aligned.
+// Adding 2 (32 bytes) steps one k32 product along U inside the row.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of v across the wgmma
+// instructions, which update it asynchronously
+__device__ __forceinline__ void fence_reg(int& v) { asm volatile("" : "+r"(v)::"memory"); }
+
+// acc += A (64 x 32 bytes) . B (128 x 32 bytes)^T, both K-major in shared memory
+__device__ __forceinline__ void wgmma_n128(int* acc, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]),
+        "+r"(acc[4]), "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7]),
+        "+r"(acc[8]), "+r"(acc[9]), "+r"(acc[10]), "+r"(acc[11]),
+        "+r"(acc[12]), "+r"(acc[13]), "+r"(acc[14]), "+r"(acc[15]),
+        "+r"(acc[16]), "+r"(acc[17]), "+r"(acc[18]), "+r"(acc[19]),
+        "+r"(acc[20]), "+r"(acc[21]), "+r"(acc[22]), "+r"(acc[23]),
+        "+r"(acc[24]), "+r"(acc[25]), "+r"(acc[26]), "+r"(acc[27]),
+        "+r"(acc[28]), "+r"(acc[29]), "+r"(acc[30]), "+r"(acc[31]),
+        "+r"(acc[32]), "+r"(acc[33]), "+r"(acc[34]), "+r"(acc[35]),
+        "+r"(acc[36]), "+r"(acc[37]), "+r"(acc[38]), "+r"(acc[39]),
+        "+r"(acc[40]), "+r"(acc[41]), "+r"(acc[42]), "+r"(acc[43]),
+        "+r"(acc[44]), "+r"(acc[45]), "+r"(acc[46]), "+r"(acc[47]),
+        "+r"(acc[48]), "+r"(acc[49]), "+r"(acc[50]), "+r"(acc[51]),
+        "+r"(acc[52]), "+r"(acc[53]), "+r"(acc[54]), "+r"(acc[55]),
+        "+r"(acc[56]), "+r"(acc[57]), "+r"(acc[58]), "+r"(acc[59]),
+        "+r"(acc[60]), "+r"(acc[61]), "+r"(acc[62]), "+r"(acc[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// acc += A (64 x 32 bytes) . B (256 x 32 bytes)^T, both K-major in shared memory
+__device__ __forceinline__ void wgmma_n256(int* acc, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,"
+      "%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,"
+      "%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,"
+      "%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,%111,"
+      "%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122,%123,%124,%125,%126,%127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]),
+        "+r"(acc[4]), "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7]),
+        "+r"(acc[8]), "+r"(acc[9]), "+r"(acc[10]), "+r"(acc[11]),
+        "+r"(acc[12]), "+r"(acc[13]), "+r"(acc[14]), "+r"(acc[15]),
+        "+r"(acc[16]), "+r"(acc[17]), "+r"(acc[18]), "+r"(acc[19]),
+        "+r"(acc[20]), "+r"(acc[21]), "+r"(acc[22]), "+r"(acc[23]),
+        "+r"(acc[24]), "+r"(acc[25]), "+r"(acc[26]), "+r"(acc[27]),
+        "+r"(acc[28]), "+r"(acc[29]), "+r"(acc[30]), "+r"(acc[31]),
+        "+r"(acc[32]), "+r"(acc[33]), "+r"(acc[34]), "+r"(acc[35]),
+        "+r"(acc[36]), "+r"(acc[37]), "+r"(acc[38]), "+r"(acc[39]),
+        "+r"(acc[40]), "+r"(acc[41]), "+r"(acc[42]), "+r"(acc[43]),
+        "+r"(acc[44]), "+r"(acc[45]), "+r"(acc[46]), "+r"(acc[47]),
+        "+r"(acc[48]), "+r"(acc[49]), "+r"(acc[50]), "+r"(acc[51]),
+        "+r"(acc[52]), "+r"(acc[53]), "+r"(acc[54]), "+r"(acc[55]),
+        "+r"(acc[56]), "+r"(acc[57]), "+r"(acc[58]), "+r"(acc[59]),
+        "+r"(acc[60]), "+r"(acc[61]), "+r"(acc[62]), "+r"(acc[63]),
+        "+r"(acc[64]), "+r"(acc[65]), "+r"(acc[66]), "+r"(acc[67]),
+        "+r"(acc[68]), "+r"(acc[69]), "+r"(acc[70]), "+r"(acc[71]),
+        "+r"(acc[72]), "+r"(acc[73]), "+r"(acc[74]), "+r"(acc[75]),
+        "+r"(acc[76]), "+r"(acc[77]), "+r"(acc[78]), "+r"(acc[79]),
+        "+r"(acc[80]), "+r"(acc[81]), "+r"(acc[82]), "+r"(acc[83]),
+        "+r"(acc[84]), "+r"(acc[85]), "+r"(acc[86]), "+r"(acc[87]),
+        "+r"(acc[88]), "+r"(acc[89]), "+r"(acc[90]), "+r"(acc[91]),
+        "+r"(acc[92]), "+r"(acc[93]), "+r"(acc[94]), "+r"(acc[95]),
+        "+r"(acc[96]), "+r"(acc[97]), "+r"(acc[98]), "+r"(acc[99]),
+        "+r"(acc[100]), "+r"(acc[101]), "+r"(acc[102]), "+r"(acc[103]),
+        "+r"(acc[104]), "+r"(acc[105]), "+r"(acc[106]), "+r"(acc[107]),
+        "+r"(acc[108]), "+r"(acc[109]), "+r"(acc[110]), "+r"(acc[111]),
+        "+r"(acc[112]), "+r"(acc[113]), "+r"(acc[114]), "+r"(acc[115]),
+        "+r"(acc[116]), "+r"(acc[117]), "+r"(acc[118]), "+r"(acc[119]),
+        "+r"(acc[120]), "+r"(acc[121]), "+r"(acc[122]), "+r"(acc[123]),
+        "+r"(acc[124]), "+r"(acc[125]), "+r"(acc[126]), "+r"(acc[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma(int* acc, uint64_t da, uint64_t db) {
+  if constexpr (BN == 256)
+    wgmma_n256(acc, da, db);
+  else
+    wgmma_n128(acc, da, db);
+}
+
+// K2w: out (or the slice's int32 partial in ws) of the block's 128 x BN tile.
+// ta: xq (M rows of U bytes, Up apart) in boxes of 128 rows x 128 bytes; tb:
+// w (O rows of U bytes) in boxes of BN rows x 128 bytes. chunks = ceil(U /
+// 128); slice z takes chunks [z cps, min((z + 1) cps, chunks)), none empty.
+// Row tiles run fastest in the grid, so the blocks in flight together share
+// their weight boxes in L2: Llama-3-8B's gate/up weight (58.7 MB) is more
+// than L2 holds, and there column tiles fastest ran 20% slower at M = 1024
+// on an H100 (int8_variants' columns_fast).
+template <int BN>
+__global__ void __launch_bounds__(kWThreads, 1)
+    int8_dense_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                            const __grid_constant__ CUtensorMap tb, const float* __restrict__ sx,
+                            const float* __restrict__ s, const float* __restrict__ bias,
+                            float* __restrict__ out, int* __restrict__ ws, int M, int O,
+                            int chunks, int cps) {
+  using T = WTile<BN>;
+  extern __shared__ unsigned char wsmem[];
+  __shared__ __align__(8) uint64_t full[T::kStages], empty[T::kStages];
+  // the 128-byte swizzle repeats every 1024 bytes: stages start on it
+  unsigned char* smem = wsmem + ((1024u - (smem_u32(wsmem) & 1023u)) & 1023u);
+  const int m0 = blockIdx.x * kWRows, o0 = blockIdx.y * BN, z = blockIdx.z;
+  const int kbeg = z * cps;
+  const int n = min(cps, chunks - kbeg);
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < T::kStages; ++i) {
+      mbar_init(&full[i], 1);   // the producer's arrival, then TMA's bytes
+      mbar_init(&empty[i], 2);  // one arrival of each consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 2 * 128) {
+      for (int j = 0; j < n; ++j) {
+        const int st = j % T::kStages;
+        // a fresh barrier counts as having completed the phase before its
+        // first, so the first round over the ring does not wait
+        mbar_wait(&empty[st], ((j / T::kStages) & 1) ^ 1);
+        unsigned char* a = smem + st * T::kStage;
+        mbar_expect_tx(&full[st], T::kStage);
+        const int k0 = (kbeg + j) * kWChunk;
+        tma_load(a, &ta, &full[st], k0, m0);
+        tma_load(a + T::kA, &tb, &full[st], k0, o0);
+      }
+    }
+  } else {  // consumer warpgroup wg: rows [64 wg, 64 wg + 64) of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    int acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    for (int j = 0; j < n; ++j) {
+      const int st = j % T::kStages;
+      mbar_wait(&full[st], (j / T::kStages) & 1);
+      const unsigned char* a = smem + st * T::kStage + wg * 64 * kWChunk;
+      const uint64_t da = sw128_desc(a), db = sw128_desc(smem + st * T::kStage + T::kA);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWChunk / 32; ++kk) wgmma<BN>(acc, da + 2 * kk, db + 2 * kk);
+      wgmma_commit();
+      // hand the stage back as soon as its products are done (the other
+      // warpgroup keeps the tensor cores busy meanwhile): keeping one
+      // stage's products in flight and handing back the one before ran no
+      // faster on an H100 (int8_variants' hand_back_late)
+      wgmma_wait_all();
+      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[st]);
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+
+    // accumulator fragment: warp w of the group holds rows 16 w + g and
+    // 16 w + g + 8; in each 8-column block j, acc[4 j + 2 h + e] is column
+    // 8 j + 2 t + e of row 16 w + g + 8 h (g = lane / 4, t = lane % 4)
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int row = m0 + wg * 64 + warp * 16 + g;
+    const bool pairs = (O & 1) == 0;  // two neighbours 8-byte aligned
+    float sxm[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) sxm[h] = ws || row + 8 * h >= M ? 0.f : sx[row + 8 * h];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int o = o0 + 8 * j + 2 * t;
+      // loads clamped in bounds, so that none waits on a guard: the guards
+      // below skip stores only, and the compiler can issue every load of
+      // the tile ahead of them (a guarded load a column serialised the
+      // epilogue on their latency)
+      const int o1 = min(o + 1, O - 1), oc = min(o, O - 1);
+      const float s0 = s[oc], s1 = s[o1];
+      const float b0 = bias ? bias[oc] : 0.f, b1 = bias ? bias[o1] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = row + 8 * h;
+        if (m >= M || o >= O) continue;
+        const int v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if (ws) {
+          int* dst = ws + (static_cast<size_t>(z) * M + m) * O + o;
+          if (pairs) {
+            *reinterpret_cast<int2*>(dst) = make_int2(v0, v1);
+          } else {
+            dst[0] = v0;
+            if (o + 1 < O) dst[1] = v1;
+          }
+        } else {
+          // rescale's operations, with the scales and bias loaded above
+          float r0 = __fmul_rn(__fmul_rn(__int2float_rn(v0), sxm[h]), s0);
+          float r1 = __fmul_rn(__fmul_rn(__int2float_rn(v1), sxm[h]), s1);
+          if (bias) {
+            r0 = __fadd_rn(r0, b0);
+            r1 = __fadd_rn(r1, b1);
+          }
+          float* dst = out + static_cast<size_t>(m) * O + o;
+          if (pairs) {
+            *reinterpret_cast<float2*>(dst) = make_float2(r0, r1);
+          } else {
+            dst[0] = r0;
+            if (o + 1 < O) dst[1] = r1;
+          }
+        }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, or null
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &got);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
+#endif
+    return err == cudaSuccess && got == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// map: `rows` rows of `cols` int8, `pitch` bytes apart, read in boxes of
+// box_rows rows x 128 bytes with the 128-byte swizzle; reads past either
+// edge give zeros. Returns 0, kNoEncoder or kEncodeFailed + the CUresult.
+int encode_rows(CUtensorMap* map, const void* base, int rows, int cols, int pitch,
+                int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (!fn) return kNoEncoder;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kWChunk), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+                        strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(r);
+}
+
+int wgmma_smem_bytes(int block_cols) {
+  return block_cols == 128 ? WTile<128>::kSmem : block_cols == 256 ? WTile<256>::kSmem : -1;
+}
+
+template <int BN>
+int launch_wgmma(const signed char* xq, const float* sx, const signed char* w, const float* s,
+                 const float* bias, float* out, int* ws, int M, int O, int U, int Up, int cps,
+                 int slices, cudaStream_t st) {
+  using T = WTile<BN>;
+  CUtensorMap ta, tb;
+  int e = encode_rows(&ta, xq, M, U, Up, kWRows);
+  if (e == 0) e = encode_rows(&tb, w, O, U, U, BN);
+  if (e != 0) return e;
+  cudaError_t err = cudaFuncSetAttribute(int8_dense_wgmma_kernel<BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = (M + kWRows - 1) / kWRows;
+  const dim3 grid(rows, (O + BN - 1) / BN, slices);
+  int8_dense_wgmma_kernel<BN><<<grid, kWThreads, T::kSmem, st>>>(
+      ta, tb, sx, s, bias, out, slices > 1 ? ws : nullptr, M, O, (U + kWChunk - 1) / kWChunk,
+      cps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int product_wgmma(const signed char* xq, const float* sx, const signed char* w, const float* s,
+                  const float* bias, float* out, int* ws, int M, int O, int U, int Up,
+                  int block_cols, int cps, int slices, cudaStream_t st) {
+  const int err =
+      block_cols == 256
+          ? launch_wgmma<256>(xq, sx, w, s, bias, out, ws, M, O, U, Up, cps, slices, st)
+          : launch_wgmma<128>(xq, sx, w, s, bias, out, ws, M, O, U, Up, cps, slices, st);
+  if (err != 0 || slices == 1) return err;
+  return static_cast<int>(reduce_slices(ws, sx, s, bias, out, M, O, slices, st));
+}
+
+bool valid_wgmma(const void* w, int M, int O, int U, int Up, int block_cols, int cps,
+                 int slices) {
+  const int chunks = (U + kWChunk - 1) / kWChunk;
+  return M >= 1 && O >= 1 && U >= 16 && U % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+         Up % kBK == 0 && Up >= U && Up - U < kBK && wgmma_smem_bytes(block_cols) > 0 &&
+         cps >= 1 && slices >= 1 && (slices - 1) * cps < chunks && slices * cps >= chunks;
 }
 
 }  // namespace
@@ -405,16 +829,60 @@ int mxtt_int8_dense(const void* x, void* xq, void* sx, const void* w, const void
       Up, block_rows, cps, slices, wvec, st));
 }
 
+// Bytes of U a stage of K2w, its rows a block, and the dynamic shared
+// memory of a block of block_cols (128 or 256) output channels, or -1.
+int mxtt_int8_dense_wgmma_chunk() { return kWChunk; }
+int mxtt_int8_dense_wgmma_rows() { return kWRows; }
+int mxtt_int8_dense_wgmma_smem_bytes(int block_cols) { return wgmma_smem_bytes(block_cols); }
+
+// K2w (and K3 at slices > 1) alone, as mxtt_int8_dense_product: block_cols
+// 128 or 256; the U bytes split into `slices` slices of cps 128-byte chunks
+// (ceil(U / 128) of them), none empty. w 16-byte aligned, U % 16 == 0.
+// Returns a cudaError_t, or kEncodeFailed + the CUresult of a tensor map the
+// driver refused, or kNoEncoder.
+int mxtt_int8_dense_wgmma_product(const void* xq, const void* sx, const void* w, const void* s,
+                                  const void* bias, void* out, void* ws, int M, int O, int U,
+                                  int Up, int block_cols, int cps, int slices, void* stream) {
+  if (!valid_wgmma(w, M, O, U, Up, block_cols, cps, slices) || (slices > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return product_wgmma(static_cast<const signed char*>(xq), static_cast<const float*>(sx),
+                       static_cast<const signed char*>(w), static_cast<const float*>(s),
+                       static_cast<const float*>(bias), static_cast<float*>(out),
+                       static_cast<int*>(ws), M, O, U, Up, block_cols, cps, slices,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The whole call on K2w: K1 into xq and sx, then K2w (and K3).
+int mxtt_int8_dense_wgmma(const void* x, void* xq, void* sx, const void* w, const void* s,
+                          const void* bias, void* out, void* ws, int M, int O, int U, int Up,
+                          int block_cols, int cps, int slices, int xvec, void* stream) {
+  if (!valid_wgmma(w, M, O, U, Up, block_cols, cps, slices) || (slices > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = quantize_rows(static_cast<const float*>(x),
+                                        static_cast<signed char*>(xq), static_cast<float*>(sx),
+                                        M, U, Up, xvec, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return product_wgmma(static_cast<const signed char*>(xq), static_cast<const float*>(sx),
+                       static_cast<const signed char*>(w), static_cast<const float*>(s),
+                       static_cast<const float*>(bias), static_cast<float*>(out),
+                       static_cast<int*>(ws), M, O, U, Up, block_cols, cps, slices, st);
+}
+
 // Registers, local (spilled or stack) bytes a thread and the most threads a
-// block of kernel `which`: 0 K1, 1-3 K2 at 16, 64 and 128 rows, 4 K3.
+// block of kernel `which`: 0 K1, 1-3 K2 at 16, 64 and 128 rows, 4 K3, 5-6
+// K2w at 128 and 256 output channels. K2w's registers are those it is
+// launched with, before setmaxnreg moves them between its warpgroups.
 int mxtt_int8_dense_attributes(int which, int* regs, int* local_bytes, int* max_threads) {
   const void* fns[] = {
       reinterpret_cast<const void*>(int8_quantize_rows_kernel),
       reinterpret_cast<const void*>(int8_dense_kernel<16, 64, 1, 4, 4>),
       reinterpret_cast<const void*>(int8_dense_kernel<64, 128, 2, 2, 3>),
       reinterpret_cast<const void*>(int8_dense_kernel<128, 128, 4, 2, 3>),
-      reinterpret_cast<const void*>(int8_dense_reduce_kernel)};
-  if (which < 0 || which > 4) return static_cast<int>(cudaErrorInvalidValue);
+      reinterpret_cast<const void*>(int8_dense_reduce_kernel),
+      reinterpret_cast<const void*>(int8_dense_wgmma_kernel<128>),
+      reinterpret_cast<const void*>(int8_dense_wgmma_kernel<256>)};
+  if (which < 0 || which > 6) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -425,6 +893,8 @@ int mxtt_int8_dense_attributes(int which, int* regs, int* local_bytes, int* max_
 }
 
 const char* mxtt_int8_error_string(int err) {
+  if (err == kNoEncoder) return "the driver has no cuTensorMapEncodeTiled";
+  if (err >= kEncodeFailed) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

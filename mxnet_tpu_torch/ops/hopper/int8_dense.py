@@ -11,19 +11,25 @@ port. :func:`int8_dense` computes, per row of ``x`` flattened to (M, U)::
     out = (acc * sx) * scale [+ bias]                  # f32, op by op
 
 On CUDA tensors it launches the hand-written kernels of
-``mxnet_tpu_torch/csrc/int8_dense.cu`` (the row quantization, the int8
-``mma.sync`` product with the rescale fused and, where :func:`split_plan`
-splits U across blocks, the in-order sum of the int32 partials); on CPU
-tensors it takes :func:`int8_dense_torch`, the plain version. Nothing
-falls back: a CUDA call the kernel does not take raises. The plain version
-takes its product in float64, which is exact here (each partial sum stays
-below 127**2 * U < 2**53), so the kernel equals it bit for bit.
+``mxnet_tpu_torch/csrc/int8_dense.cu``: the row quantization, one of two
+product kernels with the rescale fused and, where the plan splits U across
+blocks, the in-order sum of the int32 partials. :func:`takes_wgmma` routes
+the product: prefill rows (M > 32) on a weight whose rows are a multiple of
+16 bytes and which starts 16-byte aligned run the ``wgmma`` + TMA kernel
+(grid: :func:`wgmma_plan`); every other CUDA call (decode and verify rows,
+a ragged or misaligned weight) runs the ``mma.sync`` kernel (grid:
+:func:`split_plan`). On CPU tensors it takes :func:`int8_dense_torch`, the
+plain version. Nothing falls back: a CUDA call the kernels do not take
+raises. The plain version takes its product in float64, which is exact
+here (each partial sum stays below 127**2 * U < 2**53), so either kernel
+equals it bit for bit.
 
 ``force_path("torch")`` takes the plain version for CUDA tensors too (the
 yardstick the kernel is held against on the card); ``force_path("cuda")``
 insists on the kernel and raises for CPU tensors. ``last_path()`` says
 which version the last call took, and ``launch_count()`` counts the calls
-the card ran (one per call, whatever kernels it took). A call made while a
+the card ran (one per call, whatever kernels it took); ``route_launches()``
+splits the eager calls by product kernel. A call made while a
 CUDA graph is being captured only records the launch: it counts in
 ``captured_count()``, and whoever replays the graph adds the launches it
 holds with ``count_replays(n)`` (``serve.engine.GraphSession`` does).
@@ -47,10 +53,18 @@ TILES = {16: 64, 64: 128, 128: 128}
 # least time on an H100 at M = 4, 256 and 1024
 BLOCKS_PER_SM = {16: 2, 64: 2, 128: 1}
 
+# the wgmma kernel: a block's rows (two consumer warpgroups of 64), the
+# bytes of U a stage of its ring, its tile widths
+WGMMA_ROWS = 128
+WGMMA_CHUNK = 128
+WGMMA_COLS = (128, 256)
+ROUTES = ("wgmma", "mma_sync")
+
 _LAST_PATH = None  # "cuda" | "torch": the version the last call took
 _FORCE_PATH = None
 _LAUNCHES = 0     # calls the card ran: eager calls and graph replays
 _CAPTURED = 0     # calls recorded into CUDA graphs while capturing
+_ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)  # eager calls by product kernel
 _COUNT_LOCK = threading.Lock()
 _LIB = None
 _SM_COUNT = {}  # device index -> multiprocessors
@@ -83,9 +97,21 @@ def launch_count() -> int:
 
 
 def reset_launch_count() -> None:
+    """Zero :func:`launch_count` and :func:`route_launches`."""
     global _LAUNCHES
     with _COUNT_LOCK:
         _LAUNCHES = 0
+        for r in ROUTES:
+            _ROUTE_LAUNCHES[r] = 0
+
+
+def route_launches() -> dict:
+    """Eager calls since import (or the last reset) by the product kernel
+    they ran: ``"wgmma"`` or ``"mma_sync"``. Calls captured into CUDA
+    graphs and their replays count in :func:`captured_count` and
+    :func:`launch_count` only."""
+    with _COUNT_LOCK:
+        return dict(_ROUTE_LAUNCHES)
 
 
 def captured_count() -> int:
@@ -141,10 +167,10 @@ def int8_dense_torch(x, qweight, scale, bias=None):
 
 class SplitPlan(NamedTuple):
     """How one launch covers (M, O) and splits U: tiles of ``block_rows``
-    x ``block_cols``, ``slices`` slices of ``chunks_per_slice`` 64-byte
-    chunks of U (the last may be shorter), ``grid`` the (O tiles, M tiles,
-    slices) of blocks, ``workspace_bytes`` the int32 partials (0 at one
-    slice)."""
+    x ``block_cols``, ``slices`` slices of ``chunks_per_slice`` chunks of U
+    (64 bytes on the ``mma.sync`` kernel, 128 on wgmma; the last slice may
+    be shorter), ``grid`` the (O tiles, M tiles, slices) of blocks,
+    ``workspace_bytes`` the int32 partials (0 at one slice)."""
     block_rows: int
     block_cols: int
     slices: int
@@ -177,17 +203,62 @@ def split_plan(m, o, u, sm_count) -> SplitPlan:
     bm = block_rows_for(m)
     bn = TILES[bm]
     grid = (-(-o // bn), -(-m // bm))
-    tiles = grid[0] * grid[1]
     chunks = padded_u(u) // CHUNK
-    aim = sm_count * BLOCKS_PER_SM[bm]
+    per = _chunks_per_slice(grid[0] * grid[1], chunks,
+                            sm_count * BLOCKS_PER_SM[bm])
+    slices = -(-chunks // per)  # no empty slice
+    return SplitPlan(bm, bn, slices, per, (*grid, slices),
+                     slices * m * o * 4 if slices > 1 else 0)
+
+
+def _chunks_per_slice(tiles, chunks, aim) -> int:
+    """All ``chunks`` in one slice where ``tiles`` blocks reach ``aim``;
+    else the fewest slices of whole chunks that do, or one chunk a slice
+    where even that falls short."""
     per = chunks
     if tiles < aim:
         for s in range(2, chunks + 1):
             per = -(-chunks // s)
             if tiles * -(-chunks // per) >= aim:
                 break
+    return per
+
+
+def takes_wgmma(m, u, qweight_ptr) -> bool:
+    """The routing predicate of a CUDA call of ``m`` rows against a weight
+    of ``u`` int8 columns at address ``qweight_ptr``: True for the wgmma
+    kernel, which takes prefill rows (more than 32; :func:`block_rows_for`
+    gives them 64 or 128 on the ``mma.sync`` kernel) on a weight TMA can
+    read (rows a multiple of 16 bytes, the start 16-byte aligned); False
+    for the ``mma.sync`` kernel, which takes the rest."""
+    return m > 32 and u % 16 == 0 and qweight_ptr % 16 == 0
+
+
+def wgmma_aim(sm_count) -> int:
+    """The blocks a wgmma grid aims at: half the SMs. On an H100 more
+    blocks than that (narrower tiles, more U slices) gained little at
+    Llama-3-8B's prefill shapes and cost the split's int32 sums
+    (``python -m mxnet_tpu_torch.int8_variants`` times the grids)."""
+    return sm_count // 2
+
+
+@functools.lru_cache(maxsize=1024)
+def wgmma_plan(m, o, u, sm_count) -> SplitPlan:
+    """The wgmma kernel's grid, from shapes and the SM count alone: tiles
+    of 128 rows and 256 output channels where those alone reach
+    :func:`wgmma_aim`, else 128 channels; where the tiles still fall short
+    of the aim, U splits into the fewest slices of whole 128-byte chunks
+    (none empty) that reach it, or one chunk a slice. ``grid`` is (O tiles,
+    M tiles, slices) as :func:`split_plan`'s (the kernel runs the row tiles
+    fastest); ``chunks_per_slice`` counts 128-byte chunks."""
+    chunks = -(-u // WGMMA_CHUNK)
+    rows = -(-m // WGMMA_ROWS)
+    aim = wgmma_aim(sm_count)
+    bn = 256 if rows * -(-o // 256) >= aim else 128
+    grid = (-(-o // bn), rows)
+    per = _chunks_per_slice(grid[0] * grid[1], chunks, aim)
     slices = -(-chunks // per)  # no empty slice
-    return SplitPlan(bm, bn, slices, per, (*grid, slices),
+    return SplitPlan(WGMMA_ROWS, bn, slices, per, (*grid, slices),
                      slices * m * o * 4 if slices > 1 else 0)
 
 
@@ -215,6 +286,16 @@ def _lib():
         lib.mxtt_int8_quantize_rows.restype = i32
         lib.mxtt_int8_dense_product.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
         lib.mxtt_int8_dense_product.restype = i32
+        lib.mxtt_int8_dense_wgmma.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
+        lib.mxtt_int8_dense_wgmma.restype = i32
+        lib.mxtt_int8_dense_wgmma_product.argtypes = [ptr] * 7 + [i32] * 7 + [
+            ptr]
+        lib.mxtt_int8_dense_wgmma_product.restype = i32
+        for name in ("chunk", "rows"):
+            fn = getattr(lib, f"mxtt_int8_dense_wgmma_{name}")
+            fn.argtypes, fn.restype = [], i32
+        lib.mxtt_int8_dense_wgmma_smem_bytes.argtypes = [i32]
+        lib.mxtt_int8_dense_wgmma_smem_bytes.restype = i32
         for name in ("chunk", "block_cols", "smem_bytes"):
             fn = getattr(lib, f"mxtt_int8_dense_{name}")
             fn.argtypes = [] if name == "chunk" else [i32]
@@ -230,6 +311,15 @@ def _lib():
             raise MXNetError(f"int8_dense.cu takes chunks of {got[0]} bytes "
                              f"and tiles {got[1]}, but the wrapper assumes "
                              f"{CHUNK} and {TILES}")
+        got = (lib.mxtt_int8_dense_wgmma_chunk(),
+               lib.mxtt_int8_dense_wgmma_rows(),
+               [bn for bn in WGMMA_COLS
+                if lib.mxtt_int8_dense_wgmma_smem_bytes(bn) > 0])
+        want = (WGMMA_CHUNK, WGMMA_ROWS, list(WGMMA_COLS))
+        if got != want:
+            raise MXNetError(f"int8_dense.cu's wgmma kernel takes (stage "
+                             f"bytes, rows, widths) {got}, but the wrapper "
+                             f"assumes {want}")
         _LIB = lib
     return _LIB
 
@@ -241,12 +331,19 @@ def build() -> None:
 
 
 def smem_bytes(block_rows) -> int:
-    """Dynamic shared memory of a block of ``block_rows`` rows (builds the
-    library)."""
+    """Dynamic shared memory of a block of the ``mma.sync`` kernel of
+    ``block_rows`` rows (builds the library)."""
     return _lib().mxtt_int8_dense_smem_bytes(block_rows)
 
 
-KERNELS = ("quantize_rows", "dense_16", "dense_64", "dense_128", "reduce")
+def wgmma_smem_bytes(block_cols) -> int:
+    """Dynamic shared memory of a block of the wgmma kernel of
+    ``block_cols`` output channels (builds the library)."""
+    return _lib().mxtt_int8_dense_wgmma_smem_bytes(block_cols)
+
+
+KERNELS = ("quantize_rows", "dense_16", "dense_64", "dense_128", "reduce",
+           "dense_wgmma_128", "dense_wgmma_256")
 
 
 def kernel_attributes() -> dict:
@@ -310,15 +407,24 @@ def _check(x, qweight, scale, bias):
                          "elements")
 
 
-def _raise_if(err, what, x, qweight, plan):
+_ENCODE_FAILED = 100000  # int8_dense.cu's kEncodeFailed (+ the CUresult)
+
+
+def _raise_if(err, what, x, qweight, plan, route="mma_sync"):
     if err == 0:
         return
     lib = _lib()
+    smem = (lib.mxtt_int8_dense_wgmma_smem_bytes(plan.block_cols)
+            if route == "wgmma" else
+            lib.mxtt_int8_dense_smem_bytes(plan.block_rows))
+    code = (f"CUresult {err - _ENCODE_FAILED}" if err >= _ENCODE_FAILED
+            else f"cudaError {err}")
     raise MXNetError(
-        f"int8_dense {what} launch failed: "
-        f"{lib.mxtt_int8_error_string(err).decode()} (cudaError {err}; x "
-        f"{tuple(x.shape)}, qweight {tuple(qweight.shape)}, plan {plan}, "
-        f"shared memory {lib.mxtt_int8_dense_smem_bytes(plan.block_rows)} B)")
+        f"int8_dense {what} launch of the {route} kernel failed: "
+        f"{lib.mxtt_int8_error_string(err).decode()} ({code}; x "
+        f"{tuple(x.shape)}, qweight {tuple(qweight.shape)} at "
+        f"{qweight.data_ptr() % 16} bytes past 16, plan {plan}, shared "
+        f"memory {smem} B)")
 
 
 def _buffers(x2, o, plan):
@@ -343,29 +449,43 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _plan(route, m, o, u, dev):
+    return (wgmma_plan if route == "wgmma" else split_plan)(
+        m, o, u, _sm_count(dev))
+
+
 def _launch(x2, qweight, scale, bias):
-    """All of a call on the card: quantize the rows, then the product.
-    ``x2`` is (M, U) f32 with M >= 1; returns (M, O) f32."""
+    """All of a call on the card: quantize the rows, then the product on
+    the kernel :func:`takes_wgmma` picks. ``x2`` is (M, U) f32 with M >= 1;
+    returns (M, O) f32."""
     global _LAUNCHES, _CAPTURED
     m, u = x2.shape
     o = qweight.shape[0]
-    plan = split_plan(m, o, u, _sm_count(x2.device))
+    route = "wgmma" if takes_wgmma(m, u, qweight.data_ptr()) else "mma_sync"
+    plan = _plan(route, m, o, u, x2.device)
     xq, sx, out, ws = _buffers(x2, o, plan)
     lib = _lib()
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
-        err = lib.mxtt_int8_dense(
-            x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), qweight.data_ptr(),
-            scale.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(ws), m, o, u,
-            xq.shape[1], plan.block_rows, plan.chunks_per_slice, plan.slices,
-            _vec(x2, 4), _vec(qweight, 16), stream)
-    _raise_if(err, "", x2, qweight, plan)
+        common = (x2.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+                  qweight.data_ptr(), scale.data_ptr(), _ptr(bias),
+                  out.data_ptr(), _ptr(ws), m, o, u, xq.shape[1])
+        if route == "wgmma":
+            err = lib.mxtt_int8_dense_wgmma(
+                *common, plan.block_cols, plan.chunks_per_slice, plan.slices,
+                _vec(x2, 4), stream)
+        else:
+            err = lib.mxtt_int8_dense(
+                *common, plan.block_rows, plan.chunks_per_slice, plan.slices,
+                _vec(x2, 4), _vec(qweight, 16), stream)
+    _raise_if(err, "", x2, qweight, plan, route)
     capturing = torch.cuda.is_current_stream_capturing()
     with _COUNT_LOCK:
         if capturing:
             _CAPTURED += 1
         else:
             _LAUNCHES += 1
+            _ROUTE_LAUNCHES[route] += 1
     return out
 
 
@@ -389,23 +509,41 @@ def quantize_rows(x2):
     return xq, sx
 
 
-def product(xq, sx, u, qweight, scale, bias=None):
+def product(xq, sx, u, qweight, scale, bias=None, route=None):
     """The product kernel (and the split's sum) alone, from
     :func:`quantize_rows`' ``xq`` and ``sx`` at ``u`` columns: returns
-    (M, O) f32. For timing and tests; uncounted."""
+    (M, O) f32. ``route`` names the kernel, ``"wgmma"`` (which raises where
+    :func:`takes_wgmma` is False) or ``"mma_sync"`` (which takes any call);
+    None takes the one :func:`int8_dense` would. For timing the two on one
+    call and for tests; uncounted."""
     m = xq.shape[0]
     o = qweight.shape[0]
-    plan = split_plan(m, o, u, _sm_count(xq.device))
+    takes = takes_wgmma(m, u, qweight.data_ptr())
+    if route is None:
+        route = "wgmma" if takes else "mma_sync"
+    if route not in ROUTES or (route == "wgmma" and not takes):
+        raise MXNetError(f"int8_dense product: route {route!r} does not "
+                         f"take M={m}, U={u}, qweight at "
+                         f"{qweight.data_ptr() % 16} bytes past 16")
+    plan = _plan(route, m, o, u, xq.device)
     out = torch.empty((m, o), dtype=torch.float32, device=xq.device)
     ws = (torch.empty(plan.workspace_bytes // 4, dtype=torch.int32,
                       device=xq.device) if plan.slices > 1 else None)
+    lib = _lib()
     with torch.cuda.device(xq.device):
-        err = _lib().mxtt_int8_dense_product(
-            xq.data_ptr(), sx.data_ptr(), qweight.data_ptr(),
-            scale.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(ws), m, o, u,
-            xq.shape[1], plan.block_rows, plan.chunks_per_slice, plan.slices,
-            _vec(qweight, 16), torch.cuda.current_stream(xq.device).cuda_stream)
-    _raise_if(err, "product", xq, qweight, plan)
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+        common = (xq.data_ptr(), sx.data_ptr(), qweight.data_ptr(),
+                  scale.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(ws), m,
+                  o, u, xq.shape[1])
+        if route == "wgmma":
+            err = lib.mxtt_int8_dense_wgmma_product(
+                *common, plan.block_cols, plan.chunks_per_slice, plan.slices,
+                stream)
+        else:
+            err = lib.mxtt_int8_dense_product(
+                *common, plan.block_rows, plan.chunks_per_slice, plan.slices,
+                _vec(qweight, 16), stream)
+    _raise_if(err, "product", xq, qweight, plan, route)
     return out
 
 

@@ -2,7 +2,7 @@
 one GPU.
 
     python -m mxnet_tpu_torch.profile_decode [--rung pallas|int8] [--steps N]
-        [--multistep] [--speculative]
+        [--multistep] [--speculative] [--prefill]
 
 For each rung: warm the generator up, then
 
@@ -27,6 +27,11 @@ prefill, each timed on the device (CUDA events around the replay), and
 ``--steps`` passes of the verify body run eagerly under ``torch.profiler``
 with the device time summed by kernel name (the kernels the graph
 replays), beside the single-step profile's T = 1 step.
+
+With ``--prefill``, the prefill alone in place of the decode steps: the
+4 prompts padded to (4, 256), ``--steps`` prefills each timed on the host
+clock to a synchronisation, and ``--steps`` more under ``torch.profiler``
+with the device time summed by kernel name and the busy share.
 
 On the ``int8`` rung the projections run the int8 x int8 kernels
 (``ops/hopper/int8_dense``: int8 weights are on for the card under
@@ -159,6 +164,40 @@ def run(rung, steps, model, prompts):
     }
 
 
+def run_prefill(rung, steps, model, prompts):
+    """Host wall (synchronised) and device time by kernel of ``steps``
+    prefills of the padded prompts."""
+    gen = Generator(model, max_seq=1024, batch_buckets=(4,),
+                    prompt_buckets=(256,), decode_path=rung)
+    gen.warmup()
+    toks, lens, bb = gen._pad_prompts(prompts)
+
+    def prefill():
+        gen.prefill(toks, lens, gen._fresh_cache(bb))
+
+    walls = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms, by_name = _kernel_times(prefill, steps)
+    device_ms = sum(ms for ms, _ in by_name.values())
+    return {
+        "rung": rung, "mode": "prefill", "steps": steps,
+        "int8_weights": bool(gen._qweights),
+        **{k.replace("per_step", "per_prefill"): v
+           for k, v in _int8_split(by_name, steps).items()},
+        "prefill_wall_ms": walls,
+        "profiled_wall_ms_per_prefill": wall_ms / steps,
+        "device_ms_per_prefill": device_ms / steps,
+        "device_busy_share": device_ms / wall_ms,
+        "top_kernels_ms_per_prefill": _top(by_name, steps),
+        "device": torch.cuda.get_device_name(0),
+    }
+
+
 def run_speculative(rung, steps, model, prompts, k=4):
     """Device ms of the verify and draft replays of a speculative round,
     and the verify body's device time by kernel (run eagerly)."""
@@ -256,6 +295,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--multistep", action="store_true")
     ap.add_argument("--speculative", action="store_true")
+    ap.add_argument("--prefill", action="store_true",
+                    help="profile the prefill in place of decode steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: needs a CUDA GPU", file=sys.stderr)
@@ -267,6 +308,11 @@ def main(argv=None):
     prompts = [[int(t) for t in rs.randint(1, cfg["vocab_size"], size=n)]
                for n in PROMPT_LENS]
     for rung in args.rung or ("pallas", "int8"):
+        if args.prefill:
+            print(json.dumps(run_prefill(rung, args.steps, model, prompts)),
+                  flush=True)
+            torch.cuda.empty_cache()
+            continue
         print(json.dumps(run(rung, args.steps, model, prompts)), flush=True)
         torch.cuda.empty_cache()
         if args.multistep:

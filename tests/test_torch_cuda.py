@@ -2083,3 +2083,87 @@ def test_cuda_int8_dense_refusals_and_forced_plain():
         i8.force_path(None)
     assert torch.equal(out, i8.int8_dense_torch(x, w, s))
     assert torch.equal(tops.quantized_dense(x, w, s), out)
+
+
+# -- the int8 product's prefill rows on the wgmma kernel ----------------------
+
+
+@pytest.mark.parametrize("m", [33, 64, 130, 256, 1024])
+@pytest.mark.parametrize("u,o", [(4096, 4096), (4096, 1024), (4096, 14336),
+                                 (14336, 4096), (4096, 1001)])
+def test_cuda_int8_dense_wgmma_matches_plain_bitwise(m, u, o):
+    """Prefill rows on an aligned weight take the wgmma kernel, which
+    equals the plain version bit for bit (with and without a bias, split
+    or not; O = 1001 leaves a ragged last tile at either width and output
+    rows that are not 8-byte aligned), and two calls repeat bit for bit;
+    one launch a call."""
+    dev = _need_cuda()
+    x, w, s, b = _int8_inputs(m, o, u, dev, seed=m + o)
+    assert i8.takes_wgmma(m, u, w.data_ptr())
+    n0, r0 = i8.launch_count(), i8.route_launches()
+    for bias in (None, b):
+        out = i8.int8_dense(x, w, s, bias)
+        again = i8.int8_dense(x, w, s, bias)
+        ref = i8.int8_dense_torch(x, w, s, bias)
+        assert torch.equal(out, ref), float((out - ref).abs().max())
+        assert torch.equal(out, again)
+    assert i8.launch_count() == n0 + 4
+    r1 = i8.route_launches()
+    assert r1["wgmma"] == r0["wgmma"] + 4 and r1["mma_sync"] == r0["mma_sync"]
+
+
+def test_cuda_int8_dense_wgmma_and_mma_sync_products_agree():
+    """On one prefill call the two product kernels (``product(route=)``,
+    the diagnostic entry) give the plain version's bits, split or not."""
+    dev = _need_cuda()
+    for m, o, u in ((256, 1024, 4096), (1024, 4096, 4096), (130, 1000, 4096)):
+        x, w, s, b = _int8_inputs(m, o, u, dev, seed=o)
+        xq, sx = i8.quantize_rows(x)
+        ref = i8.int8_dense_torch(x, w, s, b)
+        for route in i8.ROUTES:
+            assert torch.equal(i8.product(xq, sx, u, w, s, b, route=route),
+                               ref), route
+
+
+def test_cuda_int8_dense_misaligned_weight_at_prefill_takes_mma_sync():
+    """A weight off a 16-byte boundary, or with rows not a multiple of 16
+    bytes, at M = 256 runs the ``mma.sync`` kernel and still gives the
+    plain version's bits."""
+    dev = _need_cuda()
+    x, w, s, b = _int8_inputs(256, 1024, 4096, dev, seed=21)
+    wm = _misaligned(w)
+    xr, wr, sr, br = _int8_inputs(256, 64, 4100, dev, seed=22)
+    for args in ((x, wm, s, b), (xr, wr, sr, br)):
+        assert not i8.takes_wgmma(256, args[1].shape[1], args[1].data_ptr())
+        r0 = i8.route_launches()
+        out = i8.int8_dense(*args)
+        r1 = i8.route_launches()
+        assert r1["mma_sync"] == r0["mma_sync"] + 1
+        assert r1["wgmma"] == r0["wgmma"]
+        assert torch.equal(out, i8.int8_dense_torch(*args))
+
+
+def test_cuda_int8_dense_wgmma_replays_in_a_cuda_graph():
+    """A prefill call on the wgmma kernel (its tensor maps encoded on the
+    host and passed by value) captured in a graph records one launch and
+    replays after x changes in place with the plain version's bits."""
+    dev = _need_cuda()
+    x, w, s, b = _int8_inputs(256, 1024, 4096, dev, seed=31)
+    assert i8.takes_wgmma(256, 4096, w.data_ptr())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        i8.int8_dense(x, w, s, b)  # warm: builds the library, sizes the pool
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n0, c0 = i8.launch_count(), i8.captured_count()
+    with torch.cuda.graph(graph):
+        out = i8.int8_dense(x, w, s, b)
+    assert i8.captured_count() == c0 + 1 and i8.launch_count() == n0
+    for seed in (32, 33, 34):
+        x.copy_(_int8_inputs(256, 1024, 4096, dev, seed=seed)[0])
+        graph.replay()
+        i8.count_replays(1)
+        torch.cuda.synchronize()
+        assert torch.equal(out, i8.int8_dense_torch(x, w, s, b))
+    assert i8.launch_count() == n0 + 3

@@ -32,6 +32,7 @@ from mxnet_tpu import numpy as mnp
 from mxnet_tpu.models.llama import get_llama as jax_get_llama
 from mxnet_tpu.ops import nn as jops
 from mxnet_tpu.serve import Generator as JaxGenerator
+from mxnet_tpu_torch import int8_variants
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.models import get_llama, load_reference_params
 from mxnet_tpu_torch.ops import nn as tops
@@ -324,3 +325,160 @@ def test_int8_slice_matches_jax_int8_branch(monkeypatch):
     jout, _ = jg.generate(prompts, max_new_tokens=8)
     pout, _ = pg.generate(prompts, max_new_tokens=8)
     assert [[int(t) for t in o] for o in jout] == pout
+
+
+# -- the wgmma route for prefill rows -----------------------------------------
+
+# Llama-3-8B's projections, (O, U): q and o, k and v, gate and up, down
+LLAMA_PROJECTIONS = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336)]
+
+
+@pytest.mark.parametrize("m", [33, 256, 1024])
+@pytest.mark.parametrize("o,u", LLAMA_PROJECTIONS + [(1000, 4096), (37, 16)])
+def test_wgmma_plan_depends_on_shapes_and_sm_count_alone(m, o, u):
+    """The plan is a pure function of (M, O, U, SMs): recomputed from a
+    cleared cache it is the same, and other SM counts give their own."""
+    plans = {sms: i8.wgmma_plan(m, o, u, sms) for sms in (132, 114, 66)}
+    i8.wgmma_plan.cache_clear()
+    for sms, plan in plans.items():
+        assert i8.wgmma_plan(m, o, u, sms) == plan
+        assert plan.block_rows == i8.WGMMA_ROWS
+        assert plan.block_cols in i8.WGMMA_COLS
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("m", [33, 130, 256, 1024, 4096])
+@pytest.mark.parametrize("o,u", LLAMA_PROJECTIONS + [(1000, 4096), (37, 16),
+                                                    (128256, 4096)])
+def test_wgmma_plan_covers_m_o_without_empty_u_slices(m, o, u, sms):
+    plan = i8.wgmma_plan(m, o, u, sms)
+    chunks = -(-u // i8.WGMMA_CHUNK)
+    assert plan.grid == (-(-o // plan.block_cols), -(-m // plan.block_rows),
+                         plan.slices)
+    assert plan.grid[0] * plan.block_cols >= o
+    assert plan.grid[1] * plan.block_rows >= m
+    assert (plan.slices - 1) * plan.chunks_per_slice < chunks
+    assert plan.slices * plan.chunks_per_slice >= chunks
+    assert plan.workspace_bytes == (plan.slices * m * o * 4
+                                    if plan.slices > 1 else 0)
+    tiles = plan.grid[0] * plan.grid[1]
+    aim = i8.wgmma_aim(sms)
+    # the wide tile where its tiles reach the aim; a split only where the
+    # tiles fall short of it, with the fewest slices that reach it
+    wide = -(-o // 256) * -(-m // 128)
+    assert plan.block_cols == (256 if wide >= aim else 128)
+    if plan.slices > 1:
+        assert tiles < aim
+        fewer = -(-chunks // (plan.slices - 1))  # the next longer slices
+        assert tiles * -(-chunks // fewer) < aim
+    assert plan.blocks >= aim or plan.chunks_per_slice == 1
+
+
+@pytest.mark.parametrize("m", [256, 1024])
+@pytest.mark.parametrize("o,u", LLAMA_PROJECTIONS)
+def test_wgmma_plan_fills_132_sms_at_llama_prefill(m, o, u):
+    """Every Llama-3-8B prefill projection, at the engine's (1, 256) chunk
+    and the generator's (4, 256) batch, gets blocks for half of 132 SMs at
+    least, and slices of 7 chunks (896 bytes of U) or more."""
+    plan = i8.wgmma_plan(m, o, u, 132)
+    assert i8.wgmma_aim(132) == 66
+    assert plan.blocks >= 66, plan
+    assert plan.chunks_per_slice >= 7, plan
+
+
+def _aligned_int8(n, offset):
+    """An int8 CPU tensor of n elements starting ``offset`` bytes past a
+    16-byte boundary."""
+    base = torch.zeros(n + 32, dtype=torch.int8)
+    skip = (-base.data_ptr()) % 16 + offset
+    return base[skip:skip + n]
+
+
+@pytest.mark.parametrize("m", [1, 4, 20, 32])
+def test_takes_wgmma_leaves_decode_rows_to_mma_sync(m):
+    for _, u in LLAMA_PROJECTIONS:
+        assert not i8.takes_wgmma(m, u, _aligned_int8(64, 0).data_ptr())
+
+
+@pytest.mark.parametrize("m", [33, 256, 1024])
+def test_takes_wgmma_routes_ragged_and_misaligned_weights(m):
+    aligned = _aligned_int8(64, 0).data_ptr()
+    assert aligned % 16 == 0
+    for u in (30, 4100, 4104, 14328 + 4):  # rows not a multiple of 16 bytes
+        assert not i8.takes_wgmma(m, u, aligned)
+    for offset in (1, 4, 8):
+        ptr = _aligned_int8(64, offset).data_ptr()
+        assert ptr % 16 == offset
+        assert not i8.takes_wgmma(m, 4096, ptr)
+    assert i8.takes_wgmma(m, 16, aligned)
+
+
+@pytest.mark.parametrize("m", [256, 1024])
+@pytest.mark.parametrize("o,u", LLAMA_PROJECTIONS)
+def test_takes_wgmma_takes_every_llama_prefill_projection(m, o, u):
+    w = _aligned_int8(o * u, 0).view(o, u)
+    assert i8.takes_wgmma(m, u, w.data_ptr())
+
+
+def test_cpu_tensors_take_the_plain_version_at_prefill_rows(monkeypatch):
+    """A CPU call of prefill rows still takes ``int8_dense_torch`` and
+    counts no launch of either kernel; ``quantized_dense`` on the CPU
+    keeps the weight-only branch there too."""
+    rng = np.random.RandomState(11)
+    x = rng.randn(64, 256).astype(np.float32)
+    w = rng.randint(-127, 128, size=(48, 256)).astype(np.int8)
+    s = rng.uniform(1e-3, 1e-2, size=48).astype(np.float32)
+    assert i8.takes_wgmma(64, 256, _t(w).data_ptr()) == (
+        _t(w).data_ptr() % 16 == 0)
+    routes, n0 = i8.route_launches(), i8.launch_count()
+    out = i8.int8_dense(_t(x), _t(w), _t(s))
+    assert i8.last_path() == "torch"
+    np.testing.assert_array_equal(
+        out.numpy(), i8.int8_dense_torch(_t(x), _t(w), _t(s)).numpy())
+    assert i8.route_launches() == routes and i8.launch_count() == n0
+    np.testing.assert_allclose(
+        tops.quantized_dense(_t(x), _t(w), _t(s)).numpy(),
+        (x @ w.astype(np.float32).T) * s, rtol=1e-5, atol=1e-5)
+
+
+def test_reset_launch_count_zeroes_both_counts():
+    i8.reset_launch_count()
+    assert i8.launch_count() == 0
+    assert i8.route_launches() == {"wgmma": 0, "mma_sync": 0}
+
+
+def test_product_refuses_a_route_that_does_not_take_the_call():
+    """``product(route="wgmma")`` raises for decode rows, a ragged U or a
+    misaligned weight before it touches the card; an unknown route
+    raises too."""
+    xq = torch.zeros(4, 64, dtype=torch.int8)
+    sx = torch.ones(4)
+    s = torch.ones(8)
+    w = _aligned_int8(8 * 64, 0).view(8, 64)
+    with pytest.raises(MXNetError, match="does not take"):
+        i8.product(xq, sx, 64, w, s, route="wgmma")  # M = 4
+    xq = torch.zeros(64, 64, dtype=torch.int8)
+    sx = torch.ones(64)
+    with pytest.raises(MXNetError, match="does not take"):
+        i8.product(xq, sx, 64, _aligned_int8(8 * 64, 1).view(8, 64), s,
+                   route="wgmma")
+    with pytest.raises(MXNetError, match="does not take"):
+        i8.product(xq, sx, 64, w, s, route="tensor_cores")
+
+
+@pytest.mark.parametrize("name", sorted(int8_variants.VARIANTS))
+def test_int8_variants_apply_to_the_kernel_source(name):
+    """Each variant that ``int8_variants`` builds applies to the kernel's
+    source as it stands: every text it replaces occurs there, and every
+    variant but the source itself changes it."""
+    from mxnet_tpu_torch.ops.hopper._build import CSRC
+
+    source = (CSRC / "int8_dense.cu").read_text()
+    subs = int8_variants.VARIANTS[name]
+    assert (int8_variants.variant_source(source, subs) == source) == (
+        not subs)
+
+
+def test_int8_variants_needs_cuda(capsys):
+    assert int8_variants.main() == 2  # no card here: no build, no result
+    assert "CUDA is not available" in capsys.readouterr().err
