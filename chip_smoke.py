@@ -30,10 +30,12 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    bound and, in f32, the library) and a split-aim sweep (the grid aimed at
    1, 2 and 4 blocks a SM, at the main shape and at B=4, S=8192).
 3b. int8: the int8 x int8 product (``ops.hopper.int8_dense``: row
-   quantization, then int8 products into int32 with the rescale fused:
-   ``wgmma`` + TMA for prefill rows, M > 32, on an aligned weight;
-   ``mma.sync`` for decode rows and ragged or misaligned weights; each call
-   must take the kernel ``takes_wgmma`` names) at every
+   quantization on a cluster of blocks a row, then int8 products into
+   int32 with the rescale fused: the weight-streaming ``decode`` kernel for
+   decode and verify rows, M <= 32, and ``wgmma`` + TMA for prefill rows,
+   both on an aligned weight; ``mma.sync`` for ragged or misaligned
+   weights; each call must take the kernel ``route_for`` names; the decode
+   kernel's tile, stages, bytes in flight and shared memory printed) at every
    Llama-3-8B projection shape, (O, U) = (4096, 4096), (1024, 4096),
    (14336, 4096), (4096, 14336) at M = 1, 4, 20, 256 and 1024 and the head
    (128256, 4096) at M = 1, 4 and 20, and at M = 3, O = 37, U = 30 and on a
@@ -45,17 +47,22 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    within 1.6e-2 of its RMS output (printed beside the largest error over
    the row's largest |output|, and beside the same reading of the
    algorithm with truncation in place of rounding, which the limit tells
-   apart). At M = 4, 256 and 1024: the call's time, K1 (quantization)
-   and the product alone, the ``mma.sync`` kernel's product on the same
-   call (a yardstick at prefill rows), its bound (bytes at 3.35 TB/s or
+   apart). At M = 1, 4, 20, 256 and 1024: the call's time, K1
+   (quantization) and the product alone, the ``mma.sync`` kernel's product
+   on the same call (the tile kernel: the yardstick of the other two; at
+   M <= 20 the call and both products also after a flush that leaves L2
+   clean, ``_clean_l2``), its bound (bytes at 3.35 TB/s or
    int8 operations at 1,979 TOP/s) and share of it, the plain version,
    the weight-only route (``F.linear(x, qweight.float()) * scale``), f32
    ``F.linear`` on the f32 weight (the ``pallas`` rung's) and
-   ``torch._int_mm`` where it takes the shape; then their sums over one forward's products (225 at M = 4, 224
-   at prefill) against 2.24 ms, the weight bytes of one decode forward at
-   3.35 TB/s. Then the host's microseconds a call at M = 4, O = 1024,
-   U = 4096 and at M = 1024, O = U = 4096 (200 calls back to back),
-   beside f32 ``F.linear``'s.
+   ``torch._int_mm`` where it takes the shape; then their sums over one
+   forward's products (225 at M <= 20, 224 at prefill) against 2.24 ms, the
+   weight bytes of one decode forward at 3.35 TB/s. Then the host's
+   microseconds a call at M = 4, O = 1024, U = 4096 and at M = 1024,
+   O = U = 4096 (200 calls an arm back to back, in 10 rounds with the
+   arms in turn), beside f32 ``F.linear``'s; at M = 4 also on a misaligned
+   copy of the weight (the ``mma.sync`` route), which the decode route's
+   may not exceed by more than 15%.
 4. serve pallas / 5. serve int8: Llama-3-8B at full width and depth with
    seeded random weights, served by ``Generator`` (warmup, then 4 prompts x
    32 greedy tokens): every decode step of every layer must launch the
@@ -75,7 +82,10 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    int8 weights (``MXNET_SERVE_DECODE_INT8_WEIGHTS=auto`` on the card,
    ``int8_weights=True`` printed): every forward launches the int8 product
    7 x 32 + 1 = 225 times (a prefill's 224 layer products on the wgmma
-   kernel, its head and every decode step's on ``mma.sync``), ``pallas``
+   kernel at M = 1024, its head and every decode step's on the decode
+   kernel at M = 4, none on ``mma.sync``; phase 5 checks the counts by
+   kernel and rows, and the JSON line's int8 rows are those pairs),
+   ``pallas``
    none, in this phase and in 5a-5c and
    5f (prefills and decode iterations, counted at graph replays; 5d and 5e
    serve ``pallas``: none). The int8 rung's prefill logits' gap to the
@@ -386,7 +396,8 @@ INT8_SHAPES = [(4096, 4096, 64), (1024, 4096, 64), (14336, 4096, 64),
                (4096, 14336, 32), (128256, 4096, 1)]
 INT8_M = (1, 4, 20, 256, 1024)
 INT8_HEAD_M = (1, 4, 20)
-INT8_TIMED_M = (4, 256, 1024)
+INT8_TIMED_M = (1, 4, 20, 256, 1024)
+INT8_DECODE_M = (1, 4, 20)  # the decode kernel's timed rows
 INT8_FORWARD = 7 * 32 + 1   # int8 products in one Llama-3-8B forward
 INT8_PREFILL_PRODUCTS = 7 * 32  # of a prefill's, prefill rows (not the head)
 INT8_DECODE_BOUND_MS = 2.24  # 7.50 G weight bytes at 3.35 TB/s
@@ -397,8 +408,16 @@ INT8_DECODE_BOUND_MS = 2.24  # 7.50 G weight bytes at 3.35 TB/s
 # the resolution (sx doubled) exceeds 1.45e-2 on single rows and 1.8e-2
 # on every case of several rows
 INT8_ROW_RMS_LIMIT = 1.6e-2
-# phase 3b: host cost of one call, back to back, without a sync
+# phase 3b: host cost of one call, back to back, without a sync, in
+# rounds of INT8_HOST_CALLS / INT8_HOST_ROUNDS calls an arm, the arms in
+# turn (reversed every other round), so the host's drift falls on all
 INT8_HOST_CALLS = 200
+INT8_HOST_ROUNDS = 10
+# phase 3b: the decode route's host cost a call at most this times the
+# mma.sync route's on the same shape (both are the same Python and three
+# launches; measured one after the other on an H100's host the two read
+# 0.92-1.03 times each other)
+INT8_HOST_GROWTH = 1.15
 # phase 5 on int8: the first decode step's logits, kernel against the
 # plain attention on the same prefill and token, within this share of
 # their norm (the largest over rows). The routes differ in the last bits,
@@ -3047,6 +3066,7 @@ def serve_phase(torch, da, Generator, model, rung, prompts, n_layers, vocab):
     launches = da.launch_count()
     i8_launches = i8.launch_count()
     i8_routes = i8.route_launches()
+    i8_rows = i8.row_launches()
     steps = info["decode_steps"]
     check(steps == NEW_TOKENS - 1, f"{steps} decode steps")
     check(all(len(o) == NEW_TOKENS for o in out), "short output")
@@ -3057,11 +3077,18 @@ def serve_phase(torch, da, Generator, model, rung, prompts, n_layers, vocab):
           f"and {steps} decode steps")
     int8_gate(phase, rung, i8_launches,
               int8_expected(rung, fc.prefills, launches, n_layers))
-    # a prefill's layer projections are prefill rows (the wgmma kernel);
-    # its head (the last positions) and every decode step, decode rows
-    want = INT8_PREFILL_PRODUCTS * fc.prefills if rung == "int8" else 0
-    check(i8_routes["wgmma"] == want, f"{phase}: {i8_routes['wgmma']} "
-          f"int8 products on the wgmma kernel, expected {want}")
+    # a prefill's layer projections are prefill rows (the wgmma kernel, M =
+    # the padded batch x the padded prompt); its head (the last positions)
+    # and every decode step, decode rows (the decode kernel, M = the padded
+    # batch); no weight of the model is ragged or misaligned
+    wgmma = INT8_PREFILL_PRODUCTS * fc.prefills if rung == "int8" else 0
+    want = {"wgmma": wgmma, "decode": i8_launches - wgmma, "mma_sync": 0}
+    check(i8_routes == want, f"{phase}: int8 products by kernel "
+          f"{i8_routes}, expected {want}")
+    want = {k: n for k, n in ((("wgmma", toks.shape[0] * toks.shape[1]),
+                               wgmma), (("decode", bb), want["decode"])) if n}
+    check(i8_rows == want, f"{phase}: int8 products by (kernel, rows) "
+          f"{i8_rows}, expected {want}")
     gen.assert_no_recompiles()
     say(phase, prefill_ms=f"{info['prefill_ms']:.3f}",
         prefill_sync_ms=prefill_sync_ms,
@@ -3069,6 +3096,7 @@ def serve_phase(torch, da, Generator, model, rung, prompts, n_layers, vocab):
         tokens_s=f"{info['tokens_s']:.3f}", decode_steps=steps,
         kernel_launches=launches, int8_launches=i8_launches,
         int8_launches_by_kernel=i8_routes,
+        int8_launches_by_kernel_and_rows=sorted(i8_rows.items()),
         int8_launches_per_forward=i8_launches / fc.calls,
         kv_cache_bytes=gen.kv_cache_bytes(),
         peak_mem_bytes=torch.cuda.max_memory_allocated())
@@ -3112,7 +3140,7 @@ def serve_phase(torch, da, Generator, model, rung, prompts, n_layers, vocab):
     if rung == "int8":
         int8_route_check(torch, da, gen, prompts, out, out_plain, launches)
     return {"launches": launches, "int8_launches": i8_launches,
-            "wgmma_launches": i8_routes["wgmma"],
+            "int8_routes": i8_routes, "int8_rows": i8_rows,
             "info": info, "out": out, "out_plain": out_plain,
             "prefill_logits": prefill_logits}
 
@@ -4010,9 +4038,8 @@ def int8_case(torch, i8, x, wf, qw, scale, what):
     version and the readings: largest |error| over the row's largest
     |output| (the JAX docstring's ~1e-2), the RMS reading, the truncated
     algorithm's RMS reading. Each call must take the product kernel
-    ``takes_wgmma`` names."""
-    route = ("wgmma" if i8.takes_wgmma(x.shape[0], x.shape[1], qw.data_ptr())
-             else "mma_sync")
+    ``route_for`` names."""
+    route = i8.route_for(x.shape[0], x.shape[1], qw.data_ptr())
     r0 = i8.route_launches()
     out = i8.int8_dense(x, qw, scale)
     again = i8.int8_dense(x, qw, scale)
@@ -4046,6 +4073,8 @@ def int8_phase(torch, F, i8, flush, dev):
     256 and 1024 against the bound, the plain version, the weight-only
     route, the f32 product and ``torch._int_mm``; then the sums over one
     forward's products. Returns the JSON rows' numbers by M."""
+    from mxnet_tpu_torch.int8_variants import ReadFlush
+
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for block_rows in sorted(i8.TILES):
         say("int8", kernel="mma_sync", block_rows=block_rows,
@@ -4055,6 +4084,15 @@ def int8_phase(torch, F, i8, flush, dev):
         say("int8", kernel="wgmma", block_rows=i8.WGMMA_ROWS,
             block_cols=block_cols, stage_bytes_of_u=i8.WGMMA_CHUNK,
             smem_bytes=i8.wgmma_smem_bytes(block_cols))
+    stage_bytes = i8.DECODE_STAGE_ROWS * i8.DECODE_STAGE
+    say("int8", kernel="decode", block_cols=i8.DECODE_COLS,
+        max_rows=i8.DECODE_ROWS, stages=i8.DECODE_STAGES,
+        stage_channels=i8.DECODE_STAGE_ROWS,
+        stage_bytes_of_u=i8.DECODE_STAGE, stage_weight_bytes=stage_bytes,
+        weight_bytes_in_flight_a_block=i8.DECODE_STAGES * stage_bytes,
+        xq_slice_bytes_at_most=i8.DECODE_XQ_BYTES,
+        quantize_threads=i8.QUANT_THREADS,
+        quantize_blocks_a_row_at_most=i8.QUANT_CLUSTER_MAX)
     for name, a in i8.kernel_attributes().items():
         say("int8", kernel=name, **a)
         check(a["local_bytes"] == 0, f"int8 kernel {name} uses "
@@ -4063,8 +4101,7 @@ def int8_phase(torch, F, i8, flush, dev):
     worst = {"peak": 0.0, "rms": 0.0}
 
     def plan_of(m, o, u, route):
-        return (i8.wgmma_plan if route == "wgmma" else i8.split_plan)(
-            m, o, u, sms)
+        return i8.PLANS[route](m, o, u, sms)
     # the truncated algorithm's least reading at the projection shapes
     trunc_least = {"one_row": 1.0, "several_rows": 1.0}
 
@@ -4103,6 +4140,9 @@ def int8_phase(torch, F, i8, flush, dev):
                 "weight_only_ms": 0.0, "f32_ms": 0.0, "bound_ms": 0.0,
                 "library_ms": 0.0, "library_refused": [], "bound_by": set()}
             for m in INT8_TIMED_M}
+    for m in INT8_DECODE_M:
+        sums[m].update(ms_clean_l2=0.0, product_clean_l2_ms=0.0,
+                       mma_sync_clean_l2_ms=0.0)
     for o, u, per_forward in INT8_SHAPES:
         for m in INT8_M:
             if o == INT8_SHAPES[-1][0] and m not in INT8_HEAD_M:
@@ -4117,8 +4157,15 @@ def int8_phase(torch, F, i8, flush, dev):
                           block_cols=plan.block_cols,
                           slices=plan.slices, blocks=plan.blocks,
                           workspace_bytes=plan.workspace_bytes,
+                          quantize_blocks_a_row=i8.quantize_cluster(m, u,
+                                                                    sms),
                           bitwise=True, repeats_bitwise=True,
                           **readings(errs))
+            if errs["route"] == "decode":
+                fields["smem_bytes"] = i8.decode_smem_bytes(
+                    plan.block_rows, plan.chunks_per_slice)
+                fields["slice_bytes_of_u"] = (plan.chunks_per_slice
+                                              * i8.DECODE_CHUNK)
             if m not in INT8_TIMED_M:
                 say("int8", **fields)
                 continue
@@ -4128,8 +4175,8 @@ def int8_phase(torch, F, i8, flush, dev):
                  "k1_ms": time_ms(torch, lambda: i8.quantize_rows(x), flush),
                  "product_ms": time_ms(torch, lambda: i8.product(
                      xq, sx, u, qw, scale), flush),
-                 # the mma.sync kernel on the same call: at prefill rows
-                 # the yardstick of the wgmma kernel
+                 # the mma.sync tile kernel on the same call: the
+                 # yardstick of the decode and wgmma kernels
                  "mma_sync_ms": time_ms(torch, lambda: i8.product(
                      xq, sx, u, qw, scale, route="mma_sync"), flush),
                  "plain_ms": time_ms(torch, lambda: i8.int8_dense_torch(
@@ -4137,6 +4184,14 @@ def int8_phase(torch, F, i8, flush, dev):
                  "weight_only_ms": time_ms(torch, lambda: F.linear(
                      x, qw.float()) * scale, flush),
                  "f32_ms": time_ms(torch, lambda: F.linear(x, wf), flush)}
+            if m in INT8_DECODE_M:  # the stream after a flush that leaves L2 clean
+                clean = ReadFlush(flush)
+                t["ms_clean_l2"] = time_ms(
+                    torch, lambda: i8.int8_dense(x, qw, scale), clean)
+                t["product_clean_l2_ms"] = time_ms(torch, lambda: i8.product(
+                    xq, sx, u, qw, scale), clean)
+                t["mma_sync_clean_l2_ms"] = time_ms(torch, lambda: i8.product(
+                    xq, sx, u, qw, scale, route="mma_sync"), clean)
             bound, bound_by = int8_bound_ms(m, o, u)
             try:
                 xq_u = xq[:, :u]
@@ -4177,9 +4232,11 @@ def int8_phase(torch, F, i8, flush, dev):
             share_of_bound=f"{r['bound_ms'] / r['ms']:.4f}",
             product_share_of_bound=f"{r['bound_ms'] / r['product_ms']:.4f}",
             mma_sync_over_product=f"{r['mma_sync_ms'] / r['product_ms']:.4f}",
+            k1_share_of_call=f"{r['k1_ms'] / r['ms']:.4f}",
             product_over_int_mm=("null" if r["library_ms"] is None else
                                  f"{r['product_ms'] / r['library_ms']:.4f}"),
-            decode_bound_ms=INT8_DECODE_BOUND_MS if m == 4 else None)
+            decode_bound_ms=INT8_DECODE_BOUND_MS if m in INT8_DECODE_M
+            else None)
         out[m] = dict(r, bound_by="bytes" if r["bound_by"] == {"bytes"}
                       else "operations", max_abs_err=max_diff,
                       products=products)
@@ -4195,36 +4252,68 @@ def int8_phase(torch, F, i8, flush, dev):
 
 def int8_host_us(torch, F, i8, dev):
     """The host's cost of one call at decode's k/v shape (M = 4, O = 1024,
-    U = 4096, the ``mma.sync`` kernel) and at a prefill shape (M = 1024,
+    U = 4096, the decode kernel; and on a misaligned copy of the weight,
+    which takes the ``mma.sync`` kernel) and at a prefill shape (M = 1024,
     O = U = 4096, the wgmma kernel, whose call also encodes two tensor
-    maps): INT8_HOST_CALLS calls issued back to back, timed on the host
-    before the sync, beside the device span of the same calls (CUDA
-    events; a span near the host time means the card waited on the host)
-    and the same readings of f32 ``F.linear`` at that shape."""
+    maps): INT8_HOST_CALLS calls an arm issued back to back in
+    INT8_HOST_ROUNDS rounds, the arms in turn, each round's calls timed on
+    the host before the sync, beside the device span of the same calls
+    (CUDA events; a span near the host time means the card waited on the
+    host) and the same readings of f32 ``F.linear`` at that shape. The
+    decode route's host time may not exceed the ``mma.sync`` route's by
+    more than INT8_HOST_GROWTH times."""
+    per_round = INT8_HOST_CALLS // INT8_HOST_ROUNDS
     for m, o, u in ((4, 1024, 4096), (1024, 4096, 4096)):
         x, wf, qw, scale = int8_inputs(torch, dev, m, o, u, 9)
-        fields = {}
-        for name, fn in (("int8_dense", lambda: i8.int8_dense(x, qw, scale)),
-                         ("f32_linear", lambda: F.linear(x, wf))):
+        arms = [("int8_dense", qw), ("f32_linear", None)]
+        if m == 4:
+            qf = torch.empty(qw.numel() + 1, dtype=torch.int8, device=dev)
+            arms.insert(1, ("int8_dense_mma_sync",
+                            qf[1:].view(o, u).copy_(qw)))
+        fields, fns = {}, {}
+        for name, w in arms:
+            if w is None:
+                fns[name] = lambda: F.linear(x, wf)  # noqa: E731
+            else:
+                fields[f"{name}_kernel"] = i8.route_for(m, u, w.data_ptr())
+                fns[name] = (lambda w=w:  # noqa: E731
+                             i8.int8_dense(x, w, scale))
             for _ in range(10):
-                fn()
-            torch.cuda.synchronize()
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            t0 = time.perf_counter()
-            for _ in range(INT8_HOST_CALLS):
-                fn()
-            host = time.perf_counter() - t0
-            e1.record()
-            torch.cuda.synchronize()
-            fields[f"{name}_host_us"] = f"{host / INT8_HOST_CALLS * 1e6:.3f}"
-            fields[f"{name}_span_us"] = (
-                f"{e0.elapsed_time(e1) / INT8_HOST_CALLS * 1e3:.3f}")
-        say("int8 host", M=m, O=o, U=u, calls=INT8_HOST_CALLS,
-            forward_calls=INT8_FORWARD,
-            kernel="wgmma" if i8.takes_wgmma(m, u, qw.data_ptr())
-            else "mma_sync", **fields)
+                fns[name]()
+        torch.cuda.synchronize()
+        host, span = dict.fromkeys(fns, 0.0), dict.fromkeys(fns, 0.0)
+        for r in range(INT8_HOST_ROUNDS):
+            for name in list(fns)[::-1] if r % 2 else list(fns):
+                fn = fns[name]
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                t0 = time.perf_counter()
+                for _ in range(per_round):
+                    fn()
+                host[name] += time.perf_counter() - t0
+                e1.record()
+                torch.cuda.synchronize()
+                span[name] += e0.elapsed_time(e1) * 1e-3
+        calls = per_round * INT8_HOST_ROUNDS
+        for name in fns:
+            fields[f"{name}_host_us"] = f"{host[name] / calls * 1e6:.3f}"
+            fields[f"{name}_span_us"] = f"{span[name] / calls * 1e6:.3f}"
+        say("int8 host", M=m, O=o, U=u, calls=calls,
+            rounds=INT8_HOST_ROUNDS, forward_calls=INT8_FORWARD, **fields)
+        if m == 4:
+            check(fields["int8_dense_kernel"] == "decode"
+                  and fields["int8_dense_mma_sync_kernel"] == "mma_sync",
+                  f"int8 host: the arms took {fields}")
+            growth = host["int8_dense"] / host["int8_dense_mma_sync"]
+            say("int8 host", decode_over_mma_sync=f"{growth:.4f}",
+                limit=INT8_HOST_GROWTH)
+            check(growth <= INT8_HOST_GROWTH,
+                  f"int8 host: the decode route's call costs "
+                  f"{fields['int8_dense_host_us']} us on the host, "
+                  f"{growth:.4f} times the mma.sync route's "
+                  f"{fields['int8_dense_mma_sync_host_us']} (limit "
+                  f"{INT8_HOST_GROWTH})")
         del x, wf, qw, scale
 
 
@@ -4512,16 +4601,17 @@ def main(argv=None):
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    # the int8 products of one forward at decode (M = 4, the 225 of a
-    # forward: the mma.sync kernel) and prefill (M = 256 and 1024, the 224
-    # of the layers: the wgmma kernel): sums over the shapes; launches:
-    # phase 5's int8 serve run, by kernel
-    i8_wgmma = served["int8"]["wgmma_launches"]
-    for m, label, launches in (
-            (4, "decode_m4", served["int8"]["int8_launches"] - i8_wgmma),
-            (256, "wgmma_prefill_m256", i8_wgmma),
-            (1024, "wgmma_prefill_m1024", i8_wgmma)):
+    # the int8 products of one forward at the rows phase 5's int8 serve run
+    # launched each kernel at (decode rows M = 4, the 225 of a forward: the
+    # decode kernel; prefill rows M = 1024, the 224 of the layers: the
+    # wgmma kernel), the whole call (the row quantization, the product, the
+    # split's sum): phase 3b's sums over the shapes; launches: that run's,
+    # by kernel and rows. Phase 3b prints the other rows' times.
+    for (route, m), launches in sorted(served["int8"]["int8_rows"].items()):
+        check(m in ires, f"phase 5 launched the {route} kernel at M = {m}, "
+              "which phase 3b does not time")
         r = ires[m]
+        label = f"decode_m{m}" if route == "decode" else f"wgmma_prefill_m{m}"
         kernels.append({
             "name": f"int8_dense_{label}", "route": "cuda",
             "source": INT8_SOURCE, "replaces": INT8_REPLACES,

@@ -17,11 +17,45 @@
 // whichever product kernel ran and however U was split.
 // Never build this file with --use_fast_math.
 //
-// One call of the wrapper is K1, one product kernel (K2 or K2w) and, where
-// the plan splits U, K3:
-//  K1 int8_quantize_rows_kernel: one block a row of x; the row's max |x| by
-//     a block reduction, then xq, zero-filled from U to Up = U rounded up
-//     to 64 bytes, so the product reads whole 64-byte chunks of xq;
+// One call of the wrapper is K1, one product kernel (K2d, K2w or K2) and,
+// where the plan splits U, K3:
+//  K1 int8_quantize_rows_kernel: a cluster of `cluster` blocks a row of x
+//     (1 to 8, the wrapper's quantize_cluster: enough blocks that a few
+//     decode rows spread over many SMs). Each block reads its span of the
+//     row once into registers (8 float4 a thread; past 8 blocks of 8,192
+//     values a row reads the rest twice), takes its max |x| by a block reduction, and the
+//     blocks of the cluster read each other's maxima from shared memory
+//     (DSMEM); fmaxf is exact, so the order of the max moves no bit. It
+//     then writes xq from the registers, zero-filled from U to Up = U
+//     rounded up to 64 bytes, so the products read whole chunks of xq;
+//  K2d int8_dense_decode_kernel, for decode and verify rows (M <= 32) on a
+//     weight whose rows are a multiple of 16 bytes and which starts 16-byte
+//     aligned (the wrapper's routing): a weight stream, not a GEMM tile. A
+//     block takes 64 output channels over one slice of U. One producer
+//     warp keeps a ring of kDStages stages full with 1-D bulk copies
+//     (cp.async.bulk, one a channel row of 1 KB, completion counted by an
+//     mbarrier in bytes: no tensor map, so no host encoding), and issues
+//     its first stages before the grid-dependency wait, since the weight
+//     does not depend on K1. A stage is 16 channels x 1,024 bytes of U: on
+//     an H100 the bulk copies' count, not the bytes in flight, set the
+//     stream's rate (64 x 256 ran 1.6 times slower at the head). Four
+//     consumer warps wait for K1 (griddepcontrol.wait), copy the block's
+//     M x slice bytes of xq into shared memory once, and split each stage's
+//     bytes four ways, each keeping its own sums for the block's 64
+//     channels; the block adds the four in shared memory at the end, in
+//     a fixed order. The products are mma.sync.m16n8k32 with the weight as
+//     the A operand: the (O, U) row-major weight is already a .row A (16
+//     channels x 32 bytes) and xq (M, Up) row-major a .col B (32 bytes x 8
+//     rows), so M <= 8 fills one n-tile with no padding and M <= 32 takes
+//     four (the template's NT). A thread reads 32 bytes of a row at
+//     [32 t, 32 t + 32) of each 128-byte chunk, as two 16-byte shared
+//     loads, and feeds 8 of them to each of the chunk's four products: the
+//     k index is permuted alike in w and xq, which leaves every dot
+//     product as it is. Rows lie 16 bytes past a multiple of 128 apart, so
+//     the 8 lanes of a quarter warp hit 8 distinct bank groups. A consumer
+//     warp hands a stage back with one mbarrier arrival: no __syncthreads
+//     a chunk. The epilogue is K2's, with neighbouring threads on
+//     neighbouring output channels;
 //  K2w int8_dense_wgmma_kernel, for prefill rows (M > 32) on a weight whose
 //     rows are a multiple of 16 bytes and which starts 16-byte aligned (the
 //     wrapper's routing predicate): a block's tile is 128 rows x BN = 128 or
@@ -41,8 +75,8 @@
 //     (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
 //     nothing links libcuda) and passed as __grid_constant__ parameters, so
 //     a call can be captured in a CUDA graph;
-//  K2 int8_dense_kernel, for every other CUDA call (decode and verify rows
-//     at M <= 32, a ragged or misaligned weight at any M): a block's tile is
+//  K2 int8_dense_kernel, for a ragged or misaligned weight at any M (and
+//     the yardstick the other two are timed against): a block's tile is
 //     BM rows x BN output channels over one slice of U, in 64-byte chunks
 //     through a ring of STAGES shared memory stages filled by 16-byte
 //     cp.async (the weight's ragged edge, and rows past M, zero-filled by
@@ -55,30 +89,40 @@
 //     for xq and w, which leaves every dot product as it is. Rows are 64
 //     bytes apart, so the 8 lanes of a quarter warp read 128 contiguous
 //     bytes: no bank conflict;
-//  K3 int8_dense_reduce_kernel: where the tiles alone leave SMs idle (the
-//     decode projections at M <= 20, k/v at O = 1024) the wrapper splits U
-//     into S slices of whole chunks; each block writes its int32 partial to
-//     a workspace (S, M, O) and K3 sums the slices in order and applies the
-//     epilogue. int32 sums are exact in any order, so a split changes no
-//     bit, and with no atomics nothing needs zeroing.
+//  K3 int8_dense_reduce_kernel: where the tiles alone leave SMs idle the
+//     wrapper splits U into S slices of whole chunks; each block writes its
+//     int32 partial to a workspace (S, M, O) and K3 sums the slices in
+//     order and applies the epilogue. int32 sums are exact in any order, so
+//     a split changes no bit, and with no atomics nothing needs zeroing.
+// On the decode route K1, K2d and K3 are launched with programmatic
+// dependent launch (the programmatic-stream-serialization attribute): K1
+// and K2d signal griddepcontrol.launch_dependents as they start, and each
+// kernel waits (griddepcontrol.wait) before it reads what the kernel
+// before it wrote; K2d's producer never waits, since only the weight,
+// which no kernel writes, is read before the wait. So K1, the launch
+// ramps and K3's launch hide behind the weight stream, and a call whose
+// product signals early lets the next call's quantization and stream start
+// while it ends. Graph capture keeps the programmatic edges on an H100;
+// where a capture turns one into a full dependency the result is the same.
 // Nothing is allocated and nothing is read back to the host: a call can be
 // captured in a CUDA graph.
 //
-// Bound. At decode (M <= 20) the call is a weight stream, O x U bytes at
-// 3.35 TB/s; K2's grid (split_plan in the wrapper) aims at 2 blocks of
-// BM = 16 an SM, each with up to 3 stages of copies in flight. At prefill
-// the product is bound by int8 operations (1,979 TOP/s dense on an H100
-// SXM) at M = 1024 and by the weight's bytes at M = 256. mma.sync cannot
-// reach that rate, so prefill rows take K2w: wgmma is the only way to the
-// int8 tensor-core rate, TMA spends no thread's registers or instructions
-// on the copies, and 128-byte stages of 128 x 256 tiles halve the shared
-// memory and L2 traffic of K2's 64-byte stages of 128 x 128. Its grid
-// (wgmma_plan in the wrapper) runs the row tiles fastest, so the blocks in
-// flight share their weight boxes in L2, takes BN = 256 where those tiles
-// alone give half the SMs a block and splits U where even BN = 128 falls
-// short of that.
+// Bound. At decode (M <= 32) the call is a weight stream, O x U bytes at
+// 3.35 TB/s: Little's law at ~1 us of latency asks for ~25 KB in flight an
+// SM. K2d's grid (decode_plan in the wrapper) gives every SM blocks, each
+// with up to kDStages x 16 KB of copies in flight, and two blocks fit an
+// SM. At prefill the product is bound by int8 operations (1,979 TOP/s
+// dense on an H100 SXM) at M = 1024 and by the weight's bytes at M = 256.
+// mma.sync cannot reach that rate, so prefill rows take K2w: wgmma is the
+// only way to the int8 tensor-core rate, TMA spends no thread's registers
+// or instructions on the copies, and 128-byte stages of 128 x 256 tiles
+// halve the shared memory and L2 traffic of K2's 64-byte stages of
+// 128 x 128. Its grid (wgmma_plan in the wrapper) runs the row tiles
+// fastest, so the blocks in flight share their weight boxes in L2, takes
+// BN = 256 where those tiles alone give half the SMs a block and splits U
+// where even BN = 128 falls short of that.
 //
-// K2's tiles: BM = 16 (decode and the verify pass), 64 (M <= 256) and 128.
+// K2's tiles: BM = 16 (M <= 32), 64 (M <= 256) and 128.
 //  16 x 64,   4 warps as 1 x 4, 4 stages: a warp 16 x 16 (2 n-tiles);
 //  64 x 128,  4 warps as 2 x 2, 3 stages: a warp 32 x 64 (2 x 8 tiles);
 //  128 x 128, 8 warps as 4 x 2, 3 stages: a warp 32 x 64.
@@ -94,10 +138,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kBK = 64;          // bytes of U a chunk
 constexpr int kQThreads = 256;   // K1's block
+constexpr int kQKeep = 8;        // groups of 4 values a K1 thread keeps in registers
+constexpr int kQClusterMax = 8;  // K1's blocks a row (the portable cluster size)
 constexpr int kRThreads = 256;   // K3's block
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
@@ -136,47 +184,150 @@ __device__ __forceinline__ float rescale(int acc, float sxm, float so, const flo
   return bias ? __fadd_rn(r, bias[o]) : r;
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// spin until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// arrive, and expect `bytes` more of TMA's before the phase completes
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// programmatic dependent launch: let the next kernel of the stream start
+// its blocks, and wait until the kernel before has completed and its writes
+// are visible (a no-op where this kernel was launched without the
+// attribute)
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the float at `p` in the shared memory of block `rank` of this cluster
+__device__ __forceinline__ float ld_cluster_f32(const float* p, unsigned rank) {
+  uint32_t a;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+
 __device__ __forceinline__ float abs_max4(float4 v) {
   return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
 }
 
-// K1: one block a row of x (M, U); xq (M, Up), sx (M,)
+// elements [4 g, 4 g + 4) of a row of U floats, zeros past U
+__device__ __forceinline__ float4 load_group(const float* row, int g, int U, int vec) {
+  if (vec) return 4 * g < U ? reinterpret_cast<const float4*>(row)[g] : make_float4(0, 0, 0, 0);
+  const int e = 4 * g;
+  return make_float4(e < U ? row[e] : 0.f, e + 1 < U ? row[e + 1] : 0.f,
+                     e + 2 < U ? row[e + 2] : 0.f, e + 3 < U ? row[e + 3] : 0.f);
+}
+
+__device__ __forceinline__ char4 quantize4(float4 v, float scale) {
+  return make_char4(quantize(v.x, scale), quantize(v.y, scale), quantize(v.z, scale),
+                    quantize(v.w, scale));
+}
+
+// K1: a cluster of `cluster` blocks a row of x (M, U); block r of the
+// cluster takes bytes [r span, (r + 1) span) of the row's Up of xq (the
+// same elements of x); xq (M, Up), sx (M,). vec: x 16-byte aligned and
+// U % 4 == 0 (a group of 4 lies wholly inside or past U). A thread keeps
+// kQKeep groups of 4 in registers.
 __global__ void __launch_bounds__(kQThreads)
     int8_quantize_rows_kernel(const float* __restrict__ x, signed char* __restrict__ xq,
-                              float* __restrict__ sx, int U, int Up, int vec) {
-  const int m = blockIdx.x;
+                              float* __restrict__ sx, int U, int Up, int span, int cluster,
+                              int vec) {
+  launch_dependents();     // the product's blocks may start streaming the weight
+  grid_dependency_wait();  // x is written (where K1 starts early itself)
+  const int m = blockIdx.x / cluster, rank = blockIdx.x % cluster;
   const float* row = x + static_cast<size_t>(m) * U;
-  const float4* row4 = reinterpret_cast<const float4*>(row);
+  const int g0 = rank * span / 4, g1 = min((rank + 1) * span, Up) / 4;  // groups of 4
+  float4 v[kQKeep];
   float amax = 0.f;
-  if (vec) {
-    for (int i = threadIdx.x; i < U / 4; i += kQThreads) amax = fmaxf(amax, abs_max4(row4[i]));
-  } else {
-    for (int i = threadIdx.x; i < U; i += kQThreads) amax = fmaxf(amax, fabsf(row[i]));
+#pragma unroll
+  for (int i = 0; i < kQKeep; ++i) {
+    const int g = g0 + threadIdx.x + i * kQThreads;
+    v[i] = g < g1 ? load_group(row, g, U, vec) : make_float4(0, 0, 0, 0);
+    amax = fmaxf(amax, abs_max4(v[i]));
   }
+  // past what the registers keep (a span over kQKeep groups a thread): read twice
+  for (int g = g0 + threadIdx.x + kQKeep * kQThreads; g < g1; g += kQThreads)
+    amax = fmaxf(amax, abs_max4(load_group(row, g, U, vec)));
 #pragma unroll
   for (int off = 16; off; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
   __shared__ float part[kQThreads / 32];
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = amax;
+  __shared__ float block_max, row_max;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) part[warp] = amax;
   __syncthreads();
   amax = part[0];
 #pragma unroll
   for (int i = 1; i < kQThreads / 32; ++i) amax = fmaxf(amax, part[i]);
-  const float scale = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
-  if (threadIdx.x == 0) sx[m] = scale;
-  signed char* q = xq + static_cast<size_t>(m) * Up;
-  if (vec) {  // U and Up multiples of 4: a group of 4 lies wholly inside or past U
-    for (int i = threadIdx.x; i < Up / 4; i += kQThreads) {
-      char4 c = make_char4(0, 0, 0, 0);
-      if (4 * i < U) {
-        const float4 v = row4[i];
-        c = make_char4(quantize(v.x, scale), quantize(v.y, scale), quantize(v.z, scale),
-                       quantize(v.w, scale));
-      }
-      reinterpret_cast<char4*>(q)[i] = c;
+  if (cluster > 1) {  // the row's max over the cluster's blocks, read from their shared memory
+    if (threadIdx.x == 0) block_max = amax;
+    cluster_arrive_release();
+    cluster_wait();
+    if (warp == 0) {
+      float r = lane < cluster ? ld_cluster_f32(&block_max, lane) : 0.f;
+#pragma unroll
+      for (int off = 16; off; off >>= 1) r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, off));
+      if (lane == 0) row_max = r;
     }
-  } else {
-    for (int i = threadIdx.x; i < Up; i += kQThreads) q[i] = i < U ? quantize(row[i], scale) : 0;
+    cluster_arrive_relaxed();  // done reading the others' shared memory
+    __syncthreads();
+    amax = row_max;
   }
+  const float scale = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
+  if (rank == 0 && threadIdx.x == 0) sx[m] = scale;
+  char4* q = reinterpret_cast<char4*>(xq + static_cast<size_t>(m) * Up);
+#pragma unroll
+  for (int i = 0; i < kQKeep; ++i) {
+    const int g = g0 + threadIdx.x + i * kQThreads;
+    if (g < g1) q[g] = quantize4(v[i], scale);  // zeros past U quantize to 0
+  }
+  for (int g = g0 + threadIdx.x + kQKeep * kQThreads; g < g1; g += kQThreads)
+    q[g] = quantize4(load_group(row, g, U, vec), scale);
+  if (cluster > 1) cluster_wait();  // no block leaves while another reads its block_max
 }
 
 template <int BM, int BN, int WM, int WN, int STAGES>
@@ -304,13 +455,14 @@ __global__ void __launch_bounds__(kRThreads)
     int8_dense_reduce_kernel(const int* __restrict__ ws, const float* __restrict__ sx,
                              const float* __restrict__ s, const float* __restrict__ bias,
                              float* __restrict__ out, int M, int O, int S) {
+  grid_dependency_wait();  // the product's partials (and K1's sx) are written
   const size_t items = static_cast<size_t>(M) * O;
   for (size_t i = static_cast<size_t>(blockIdx.x) * kRThreads + threadIdx.x; i < items;
        i += static_cast<size_t>(gridDim.x) * kRThreads) {
     int v = 0;
-    for (int z = 0; z < S; ++z) v += ws[z * items + i];
+    for (int z = 0; z < S; ++z) v += __ldcg(ws + z * items + i);
     const int m = static_cast<int>(i / O), o = static_cast<int>(i % O);
-    out[i] = rescale(v, sx[m], s[o], bias, o);
+    out[i] = rescale(v, __ldcg(sx + m), s[o], bias, o);
   }
 }
 
@@ -338,20 +490,59 @@ int smem_bytes(int block_rows) {
   }
 }
 
-cudaError_t quantize_rows(const float* x, signed char* xq, float* sx, int M, int U, int Up,
-                          int xvec, cudaStream_t st) {
-  int8_quantize_rows_kernel<<<M, kQThreads, 0, st>>>(x, xq, sx, U, Up, xvec);
-  return cudaGetLastError();
+// the launch attribute that lets a kernel start while the one before it in
+// the stream runs (programmatic dependent launch); returns the attributes set
+int pdl_attribute(cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr->val.programmaticStreamSerializationAllowed = 1;
+  return 1;
 }
 
-// K3 over the slices' partials in ws, where a product split U
+// K1 on a cluster of `cluster` blocks a row (1 to kQClusterMax); chained
+// (the decode route): K1 starts while the kernel before it runs and waits
+// for it on the card
+cudaError_t quantize_rows(const float* x, signed char* xq, float* sx, int M, int U, int Up,
+                          int cluster, int xvec, cudaStream_t st, bool chained = false) {
+  const int span = ((Up + cluster - 1) / cluster + kBK - 1) / kBK * kBK;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(M) * cluster);
+  cfg.blockDim = dim3(kQThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[2];
+  cfg.attrs = attr;
+  cfg.numAttrs = chained ? pdl_attribute(attr) : 0;
+  if (cluster > 1) {
+    cudaLaunchAttribute& a = attr[cfg.numAttrs++];
+    a.id = cudaLaunchAttributeClusterDimension;
+    a.val.clusterDim.x = cluster;
+    a.val.clusterDim.y = 1;
+    a.val.clusterDim.z = 1;
+  }
+  return cudaLaunchKernelEx(&cfg, int8_quantize_rows_kernel, x, xq, sx, U, Up, span, cluster,
+                            xvec);
+}
+
+bool valid_quantize(int M, int U, int Up, int cluster) {
+  return M >= 1 && U >= 1 && Up % kBK == 0 && Up >= U && Up - U < kBK && cluster >= 1 &&
+         cluster <= kQClusterMax;
+}
+
+// K3 over the slices' partials in ws, where a product split U; chained
+// (the decode route): K3 starts while the product runs and waits for it on
+// the card
 cudaError_t reduce_slices(const int* ws, const float* sx, const float* s, const float* bias,
-                          float* out, int M, int O, int slices, cudaStream_t st) {
+                          float* out, int M, int O, int slices, cudaStream_t st,
+                          bool chained = false) {
   const size_t items = static_cast<size_t>(M) * O;
   const size_t want = (items + kRThreads - 1) / kRThreads;
-  const unsigned blocks = static_cast<unsigned>(want < 8192 ? want : 8192);
-  int8_dense_reduce_kernel<<<blocks, kRThreads, 0, st>>>(ws, sx, s, bias, out, M, O, slices);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(want < 8192 ? want : 8192));
+  cfg.blockDim = dim3(kRThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  cfg.attrs = attr;
+  cfg.numAttrs = chained ? pdl_attribute(attr) : 0;
+  return cudaLaunchKernelEx(&cfg, int8_dense_reduce_kernel, ws, sx, s, bias, out, M, O, slices);
 }
 
 cudaError_t product(const signed char* xq, const float* sx, const signed char* w, const float* s,
@@ -382,6 +573,259 @@ bool valid(int M, int O, int U, int Up, int block_rows, int cps, int slices) {
          (slices - 1) * cps < chunks && slices * cps >= chunks;
 }
 
+// -- K2d: the weight stream for decode and verify rows -----------------------
+
+constexpr int kDCols = 64;        // output channels a block
+constexpr int kDChunk = 128;      // bytes of U of one k-step group (four k32 products)
+constexpr int kDStageRows = 16;   // channel rows a stage (16, 32 or 64)
+constexpr int kDStage = 1024;     // bytes of U a stage row: one bulk copy
+constexpr int kDStages = 4;       // the ring
+constexpr int kDThreads = 160;    // four consumer warps and the producer warp
+constexpr int kDMaxRows = 32;     // M at most: four n-tiles of 8 rows
+constexpr int kDPitch = kDStage + 16;               // a channel row in a stage
+constexpr int kDStageBytes = kDStageRows * kDPitch;  // a stage's shared memory
+constexpr int kDGroups = kDStageRows / 16;   // 16-channel groups a stage
+constexpr int kDParts = 4 / kDGroups;        // consumer warps a group: they split the bytes
+constexpr int kDSubs = kDCols / kDStageRows;  // stages a block takes for a piece of U
+constexpr int kDWarpChunks = kDStage / kDChunk / kDParts;  // chunks a warp takes a stage
+constexpr int kDMaxSmem = 227 * 1024 - 1024;      // dynamic shared memory a block, at most
+static_assert(kDGroups * kDParts == 4 && kDSubs * kDStageRows == kDCols && kDWarpChunks >= 1 &&
+                  kDWarpChunks * kDChunk * kDParts == kDStage,
+              "stage shape");
+
+// 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned),
+// completion counted on `bar` in bytes. The weight is read once a forward
+// and is far larger than L2, so its lines go first (evict_first): on an
+// H100 a forward's decode products took 5.02 ms with the hint and 5.62
+// without, after a flush that left L2 dirty (int8_variants'
+// decode_no_evict_first).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ uint4 lds128(const unsigned char* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// the dynamic shared memory of a K2d block of `rows` (8 NT) rows whose
+// slices hold cps 128-byte chunks: the ring, then xq's slice
+int decode_smem_bytes(int rows, int cps) {
+  return kDStages * kDStageBytes + rows * (cps * kDChunk + 16);
+}
+
+// K2d: out (or the slice's int32 partial in ws) of the block's 64 output
+// channels over slice z of U: 128-byte chunks [z cps, min((z + 1) cps,
+// chunks)), chunks = ceil(U / 128). NT n-tiles of 8 rows cover M. The
+// block takes the slice kDStage bytes at a time, and each such piece in
+// kDSubs stages of kDStageRows channels; consumer warp w takes channel
+// group w % kDGroups of every stage and its bytes' part w / kDGroups.
+template <int NT>
+__global__ void __launch_bounds__(kDThreads)
+    int8_dense_decode_kernel(const signed char* __restrict__ xq, const float* __restrict__ sx,
+                             const signed char* __restrict__ w, const float* __restrict__ s,
+                             const float* __restrict__ bias, float* __restrict__ out,
+                             int* __restrict__ ws, int M, int O, int U, int Up, int cps) {
+  // the warps' int32 partials, summed in the epilogue, reuse the ring and
+  // the xq slice (at least a chunk a row) once every stage is consumed
+  static_assert(kDParts * kDCols * (8 * NT + 1) * 4 <=
+                    kDStages * kDStageBytes + 8 * NT * (kDChunk + 16),
+                "partials");
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  __shared__ __align__(8) uint64_t full[kDStages], empty[kDStages];
+  const int o0 = blockIdx.x * kDCols, z = blockIdx.y;
+  const int chunks = (U + kDChunk - 1) / kDChunk;
+  const int kb = z * cps * kDChunk;                     // the slice's bytes of U:
+  const int ke = min((z + 1) * cps, chunks) * kDChunk;  // [kb, ke), ke up to 112 past U
+  const int len = ke - kb;
+  const int n = (len + kDStage - 1) / kDStage * kDSubs;  // stages of the block
+  const int xpitch = cps * kDChunk + 16;                 // an xq row in shared memory
+  unsigned char* ring = dsmem;
+  unsigned char* xs = dsmem + kDStages * kDStageBytes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < kDStages; ++i) {
+      mbar_init(&full[i], 1);   // the producer's arrival, then the copies' bytes
+      mbar_init(&empty[i], 4);  // one arrival of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  launch_dependents();  // K3 may start; it waits for this grid before it reads
+
+  if (warp == 4) {  // the producer: the weight does not depend on K1, so no wait
+    const int kvalid = min(ke, U);
+    for (int j = 0; j < n; ++j) {
+      const int st = j % kDStages;
+      // a fresh barrier counts as having completed the phase before its
+      // first, so the first round over the ring does not wait
+      mbar_wait(&empty[st], ((j / kDStages) & 1) ^ 1);
+      const int k0 = kb + (j / kDSubs) * kDStage, c0 = o0 + (j % kDSubs) * kDStageRows;
+      const int rows = max(0, min(kDStageRows, O - c0));
+      const int bytes = min(kDStage, kvalid - k0);  // a multiple of 16: U % 16 == 0
+      unsigned char* dst = ring + st * kDStageBytes;
+      if (lane == 0) mbar_expect_tx(&full[st], static_cast<unsigned>(rows * bytes));
+      __syncwarp();
+      for (int r = lane; r < rows; r += 32)
+        bulk_load(dst + r * kDPitch, w + static_cast<size_t>(c0 + r) * U + k0, bytes, &full[st]);
+    }
+    return;
+  }
+
+  grid_dependency_wait();  // K1's xq and sx are written
+  {  // xq's slice, rows [0, 8 NT), once: zeros past M and past Up. Every
+     // piece is in flight at once
+    const int pieces = len / 16;
+    for (int i = threadIdx.x; i < 8 * NT * pieces; i += 128) {
+      const int r = i / pieces, c = (i - r * pieces) * 16;
+      const bool in = r < M && kb + c < Up;
+      cp_async16(xs + r * xpitch + c, in ? xq + static_cast<size_t>(r) * Up + kb + c : xq, in);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the four consumer warps only
+
+  const int g = lane >> 2, t = lane & 3;
+  const int group = warp % kDGroups, part = warp / kDGroups;
+  int acc[kDSubs][NT][4];
+#pragma unroll
+  for (int q = 0; q < kDSubs; ++q)
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][i][e] = 0;
+  for (int j0 = 0; j0 < n; j0 += kDSubs) {
+    const int kp = j0 / kDSubs * kDStage;  // the piece's first byte in the slice
+#pragma unroll
+    for (int q = 0; q < kDSubs; ++q) {
+      const int j = j0 + q, st = j % kDStages;
+      mbar_wait(&full[st], (j / kDStages) & 1);
+      // rows g and g + 8 of the warp's 16 channels, bytes [32 t, 32 t + 32)
+      // of each 128-byte chunk of its part
+      const int k = part * kDWarpChunks * kDChunk + 32 * t;
+      const unsigned char* a = ring + st * kDStageBytes + (16 * group + g) * kDPitch + k;
+      const unsigned char* b = xs + g * xpitch + kp + k;
+#pragma unroll
+      for (int c = 0; c < kDWarpChunks; ++c) {
+        if (kp + (part * kDWarpChunks + c) * kDChunk >= len) break;
+        const uint4 a0 = lds128(a + c * kDChunk), a0b = lds128(a + c * kDChunk + 16);
+        const uint4 a1 = lds128(a + 8 * kDPitch + c * kDChunk);
+        const uint4 a1b = lds128(a + 8 * kDPitch + c * kDChunk + 16);
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+          const unsigned char* bi = b + 8 * i * xpitch + c * kDChunk;
+          const uint4 b0 = lds128(bi), b1 = lds128(bi + 16);
+          mma_s8(acc[q][i], a0.x, a1.x, a0.y, a1.y, b0.x, b0.y);
+          mma_s8(acc[q][i], a0.z, a1.z, a0.w, a1.w, b0.z, b0.w);
+          mma_s8(acc[q][i], a0b.x, a1b.x, a0b.y, a1b.y, b1.x, b1.y);
+          mma_s8(acc[q][i], a0b.z, a1b.z, a0b.w, a1b.w, b1.z, b1.w);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // the stage goes back to the producer
+    }
+  }
+
+  // every stage is consumed (the producer issues no more): the ring and
+  // the xq slice after it hold the warps' partials, red[part][channel][row],
+  // 8 NT + 1 rows apart
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  int* red = reinterpret_cast<int*>(ring);
+  constexpr int kRP = 8 * NT + 1;
+  // accumulator fragment of stage q, n-tile i: acc[q][i][e] is channel
+  // 16 group + g + 8 (e >> 1) of that stage's rows and row 8 i + 2 t + (e & 1)
+#pragma unroll
+  for (int q = 0; q < kDSubs; ++q)
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ch = q * kDStageRows + 16 * group + g + (e >> 1) * 8;
+        red[(part * kDCols + ch) * kRP + 8 * i + 2 * t + (e & 1)] = acc[q][i][e];
+      }
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  // the parts' sum of each (row, channel), neighbouring threads on
+  // neighbouring channels
+  for (int i = threadIdx.x; i < 8 * NT * kDCols; i += 128) {
+    const int m = i / kDCols, ch = i % kDCols, o = o0 + ch;
+    if (m >= M || o >= O) continue;
+    int v = 0;
+#pragma unroll
+    for (int p = 0; p < kDParts; ++p) v += red[(p * kDCols + ch) * kRP + m];
+    if (ws)
+      ws[(static_cast<size_t>(z) * M + m) * O + o] = v;
+    else
+      out[static_cast<size_t>(m) * O + o] = rescale(v, __ldcg(sx + m), s[o], bias, o);
+  }
+}
+
+template <int NT>
+cudaError_t launch_decode(const signed char* xq, const float* sx, const signed char* w,
+                          const float* s, const float* bias, float* out, int* ws, int M, int O,
+                          int U, int Up, int cps, int slices, cudaStream_t st) {
+  const int smem = decode_smem_bytes(8 * NT, cps);
+  // opt in to kDMaxSmem once a device (the ring alone is above 48 KB)
+  static std::atomic<unsigned long long> opted{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(opted.load() & bit)) {
+    err = cudaFuncSetAttribute(int8_dense_decode_kernel<NT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kDMaxSmem);
+    if (err != cudaSuccess) return err;
+    opted.fetch_or(bit);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((O + kDCols - 1) / kDCols, slices);
+  cfg.blockDim = dim3(kDThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl_attribute(attr);
+  return cudaLaunchKernelEx(&cfg, int8_dense_decode_kernel<NT>, xq, sx, w, s, bias, out,
+                            slices > 1 ? ws : nullptr, M, O, U, Up, cps);
+}
+
+// K2d, then K3 where U is split, each chained to the kernel before it
+cudaError_t product_decode(const signed char* xq, const float* sx, const signed char* w,
+                           const float* s, const float* bias, float* out, int* ws, int M, int O,
+                           int U, int Up, int cps, int slices, cudaStream_t st) {
+  cudaError_t err;
+  switch ((M + 7) / 8) {
+    case 1:
+      err = launch_decode<1>(xq, sx, w, s, bias, out, ws, M, O, U, Up, cps, slices, st);
+      break;
+    case 2:
+      err = launch_decode<2>(xq, sx, w, s, bias, out, ws, M, O, U, Up, cps, slices, st);
+      break;
+    case 3:
+      err = launch_decode<3>(xq, sx, w, s, bias, out, ws, M, O, U, Up, cps, slices, st);
+      break;
+    default:
+      err = launch_decode<4>(xq, sx, w, s, bias, out, ws, M, O, U, Up, cps, slices, st);
+  }
+  if (err != cudaSuccess || slices == 1) return err;
+  return reduce_slices(ws, sx, s, bias, out, M, O, slices, st, true);
+}
+
+bool valid_decode(const void* w, int M, int O, int U, int Up, int cps, int slices) {
+  const int chunks = (U + kDChunk - 1) / kDChunk;
+  return M >= 1 && M <= kDMaxRows && O >= 1 && U >= 16 && U % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(w) % 16 == 0 && Up % kBK == 0 && Up >= U && Up - U < kBK &&
+         cps >= 1 && slices >= 1 && (slices - 1) * cps < chunks && slices * cps >= chunks &&
+         decode_smem_bytes(8 * ((M + 7) / 8), cps) <= kDMaxSmem;
+}
+
 // -- K2w: the wgmma product for prefill rows ----------------------------------
 
 constexpr int kWRows = 128;     // rows of a block: two consumer warpgroups of 64
@@ -400,40 +844,6 @@ struct WTile {
   static constexpr int kSmem = kStages * kStage + 1024;      // + room to align to 1024
   static_assert(kSmem <= 227 * 1024, "shared memory of one block");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-// spin until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// arrive, and expect `bytes` more of TMA's before the phase completes
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
 
 // the box of `map` at (c0 bytes of U, c1 rows) into shared memory at dst
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
@@ -781,15 +1191,25 @@ int mxtt_int8_dense_block_cols(int block_rows) { return block_cols(block_rows); 
 // Dynamic shared memory of a block of block_rows rows, or -1.
 int mxtt_int8_dense_smem_bytes(int block_rows) { return smem_bytes(block_rows); }
 
+// K1's block threads, the values a thread keeps in registers, the most
+// blocks a row.
+int mxtt_int8_quantize_config(int* threads, int* keep, int* cluster_max) {
+  *threads = kQThreads;
+  *keep = 4 * kQKeep;
+  *cluster_max = kQClusterMax;
+  return 0;
+}
+
 // K1 alone: xq (M, Up) int8 and sx (M,) f32 from x (M, U) f32, all
-// contiguous on the device; xvec: x 16-byte aligned and U % 4 == 0.
-int mxtt_int8_quantize_rows(const void* x, void* xq, void* sx, int M, int U, int Up, int xvec,
-                            void* stream) {
-  if (M < 1 || U < 1 || Up % kBK != 0 || Up < U || Up - U >= kBK)
-    return static_cast<int>(cudaErrorInvalidValue);
+// contiguous on the device, on `cluster` blocks a row (1 to 8); xvec: x
+// 16-byte aligned and U % 4 == 0.
+int mxtt_int8_quantize_rows(const void* x, void* xq, void* sx, int M, int U, int Up, int cluster,
+                            int xvec, void* stream) {
+  if (!valid_quantize(M, U, Up, cluster)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(quantize_rows(static_cast<const float*>(x),
                                         static_cast<signed char*>(xq), static_cast<float*>(sx),
-                                        M, U, Up, xvec, static_cast<cudaStream_t>(stream)));
+                                        M, U, Up, cluster, xvec,
+                                        static_cast<cudaStream_t>(stream)));
 }
 
 // K2 (and K3 at slices > 1) alone: out (M, O) f32 from K1's xq and sx, the
@@ -809,24 +1229,84 @@ int mxtt_int8_dense_product(const void* xq, const void* sx, const void* w, const
       Up, block_rows, cps, slices, wvec, static_cast<cudaStream_t>(stream)));
 }
 
-// The whole call: K1 into xq and sx, then the product. Launches on `stream`
-// without synchronising and returns cudaGetLastError() of the first launch
-// that failed (cudaErrorInvalidValue for a bad shape, tile or split).
+// The whole call on K2: K1 into xq and sx (on `cluster` blocks a row), then
+// the product. Launches on `stream` without synchronising and returns
+// cudaGetLastError() of the first launch that failed (cudaErrorInvalidValue
+// for a bad shape, tile or split).
 int mxtt_int8_dense(const void* x, void* xq, void* sx, const void* w, const void* s,
                     const void* bias, void* out, void* ws, int M, int O, int U, int Up,
-                    int block_rows, int cps, int slices, int xvec, int wvec, void* stream) {
-  if (!valid(M, O, U, Up, block_rows, cps, slices) || (slices > 1 && ws == nullptr))
+                    int block_rows, int cps, int slices, int cluster, int xvec, int wvec,
+                    void* stream) {
+  if (!valid(M, O, U, Up, block_rows, cps, slices) || !valid_quantize(M, U, Up, cluster) ||
+      (slices > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = quantize_rows(static_cast<const float*>(x),
                                         static_cast<signed char*>(xq), static_cast<float*>(sx),
-                                        M, U, Up, xvec, st);
+                                        M, U, Up, cluster, xvec, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(product(
       static_cast<const signed char*>(xq), static_cast<const float*>(sx),
       static_cast<const signed char*>(w), static_cast<const float*>(s),
       static_cast<const float*>(bias), static_cast<float*>(out), static_cast<int*>(ws), M, O, U,
       Up, block_rows, cps, slices, wvec, st));
+}
+
+// K2d's output channels a block, bytes of U a chunk (the unit of its U
+// slices), channel rows and bytes of U a stage, stages, threads and most
+// rows.
+int mxtt_int8_dense_decode_config(int* cols, int* chunk, int* stage_rows, int* stage,
+                                  int* stages, int* threads, int* max_rows) {
+  *cols = kDCols;
+  *chunk = kDChunk;
+  *stage_rows = kDStageRows;
+  *stage = kDStage;
+  *stages = kDStages;
+  *threads = kDThreads;
+  *max_rows = kDMaxRows;
+  return 0;
+}
+
+// Dynamic shared memory of a K2d block of `rows` rows (rounded up to 8)
+// whose slices hold cps 128-byte chunks: the ring and xq's slice.
+int mxtt_int8_dense_decode_smem_bytes(int rows, int cps) {
+  return decode_smem_bytes(8 * ((rows + 7) / 8), cps);
+}
+
+// K2d (and K3 at slices > 1) alone, as mxtt_int8_dense_product: M <= 32;
+// the U bytes split into `slices` slices of cps 128-byte chunks (ceil(U /
+// 128) of them), none empty; w 16-byte aligned, U % 16 == 0. K2d and K3
+// are launched with programmatic dependent launch.
+int mxtt_int8_dense_decode_product(const void* xq, const void* sx, const void* w, const void* s,
+                                   const void* bias, void* out, void* ws, int M, int O, int U,
+                                   int Up, int cps, int slices, void* stream) {
+  if (!valid_decode(w, M, O, U, Up, cps, slices) || (slices > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(product_decode(
+      static_cast<const signed char*>(xq), static_cast<const float*>(sx),
+      static_cast<const signed char*>(w), static_cast<const float*>(s),
+      static_cast<const float*>(bias), static_cast<float*>(out), static_cast<int*>(ws), M, O, U,
+      Up, cps, slices, static_cast<cudaStream_t>(stream)));
+}
+
+// The whole call on K2d: K1, K2d (and K3), each launched with programmatic
+// dependent launch (K1 on the kernel before the call).
+int mxtt_int8_dense_decode(const void* x, void* xq, void* sx, const void* w, const void* s,
+                           const void* bias, void* out, void* ws, int M, int O, int U, int Up,
+                           int cps, int slices, int cluster, int xvec, void* stream) {
+  if (!valid_decode(w, M, O, U, Up, cps, slices) || !valid_quantize(M, U, Up, cluster) ||
+      (slices > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = quantize_rows(static_cast<const float*>(x),
+                                        static_cast<signed char*>(xq), static_cast<float*>(sx),
+                                        M, U, Up, cluster, xvec, st, true);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(product_decode(
+      static_cast<const signed char*>(xq), static_cast<const float*>(sx),
+      static_cast<const signed char*>(w), static_cast<const float*>(s),
+      static_cast<const float*>(bias), static_cast<float*>(out), static_cast<int*>(ws), M, O, U,
+      Up, cps, slices, st));
 }
 
 // Bytes of U a stage of K2w, its rows a block, and the dynamic shared
@@ -855,13 +1335,15 @@ int mxtt_int8_dense_wgmma_product(const void* xq, const void* sx, const void* w,
 // The whole call on K2w: K1 into xq and sx, then K2w (and K3).
 int mxtt_int8_dense_wgmma(const void* x, void* xq, void* sx, const void* w, const void* s,
                           const void* bias, void* out, void* ws, int M, int O, int U, int Up,
-                          int block_cols, int cps, int slices, int xvec, void* stream) {
-  if (!valid_wgmma(w, M, O, U, Up, block_cols, cps, slices) || (slices > 1 && ws == nullptr))
+                          int block_cols, int cps, int slices, int cluster, int xvec,
+                          void* stream) {
+  if (!valid_wgmma(w, M, O, U, Up, block_cols, cps, slices) ||
+      !valid_quantize(M, U, Up, cluster) || (slices > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = quantize_rows(static_cast<const float*>(x),
                                         static_cast<signed char*>(xq), static_cast<float*>(sx),
-                                        M, U, Up, xvec, st);
+                                        M, U, Up, cluster, xvec, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return product_wgmma(static_cast<const signed char*>(xq), static_cast<const float*>(sx),
                        static_cast<const signed char*>(w), static_cast<const float*>(s),
@@ -871,8 +1353,9 @@ int mxtt_int8_dense_wgmma(const void* x, void* xq, void* sx, const void* w, cons
 
 // Registers, local (spilled or stack) bytes a thread and the most threads a
 // block of kernel `which`: 0 K1, 1-3 K2 at 16, 64 and 128 rows, 4 K3, 5-6
-// K2w at 128 and 256 output channels. K2w's registers are those it is
-// launched with, before setmaxnreg moves them between its warpgroups.
+// K2w at 128 and 256 output channels, 7-10 K2d at 8, 16, 24 and 32 rows.
+// K2w's registers are those it is launched with, before setmaxnreg moves
+// them between its warpgroups.
 int mxtt_int8_dense_attributes(int which, int* regs, int* local_bytes, int* max_threads) {
   const void* fns[] = {
       reinterpret_cast<const void*>(int8_quantize_rows_kernel),
@@ -881,8 +1364,13 @@ int mxtt_int8_dense_attributes(int which, int* regs, int* local_bytes, int* max_
       reinterpret_cast<const void*>(int8_dense_kernel<128, 128, 4, 2, 3>),
       reinterpret_cast<const void*>(int8_dense_reduce_kernel),
       reinterpret_cast<const void*>(int8_dense_wgmma_kernel<128>),
-      reinterpret_cast<const void*>(int8_dense_wgmma_kernel<256>)};
-  if (which < 0 || which > 6) return static_cast<int>(cudaErrorInvalidValue);
+      reinterpret_cast<const void*>(int8_dense_wgmma_kernel<256>),
+      reinterpret_cast<const void*>(int8_dense_decode_kernel<1>),
+      reinterpret_cast<const void*>(int8_dense_decode_kernel<2>),
+      reinterpret_cast<const void*>(int8_dense_decode_kernel<3>),
+      reinterpret_cast<const void*>(int8_dense_decode_kernel<4>)};
+  if (which < 0 || which >= static_cast<int>(sizeof(fns) / sizeof(fns[0])))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
   if (err != cudaSuccess) return static_cast<int>(err);

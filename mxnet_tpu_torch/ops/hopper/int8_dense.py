@@ -11,18 +11,21 @@ port. :func:`int8_dense` computes, per row of ``x`` flattened to (M, U)::
     out = (acc * sx) * scale [+ bias]                  # f32, op by op
 
 On CUDA tensors it launches the hand-written kernels of
-``mxnet_tpu_torch/csrc/int8_dense.cu``: the row quantization, one of two
+``mxnet_tpu_torch/csrc/int8_dense.cu``: the row quantization, one of three
 product kernels with the rescale fused and, where the plan splits U across
-blocks, the in-order sum of the int32 partials. :func:`takes_wgmma` routes
-the product: prefill rows (M > 32) on a weight whose rows are a multiple of
-16 bytes and which starts 16-byte aligned run the ``wgmma`` + TMA kernel
-(grid: :func:`wgmma_plan`); every other CUDA call (decode and verify rows,
-a ragged or misaligned weight) runs the ``mma.sync`` kernel (grid:
-:func:`split_plan`). On CPU tensors it takes :func:`int8_dense_torch`, the
-plain version. Nothing falls back: a CUDA call the kernels do not take
-raises. The plain version takes its product in float64, which is exact
-here (each partial sum stays below 127**2 * U < 2**53), so either kernel
-equals it bit for bit.
+blocks, the in-order sum of the int32 partials. :func:`route_for` names the
+product kernel: on a weight whose rows are a multiple of 16 bytes and
+which starts 16-byte aligned, decode and verify rows (M <= 32) take the
+weight-streaming ``decode`` kernel (grid: :func:`decode_plan`; its launch,
+and the sum's, chained to the quantization by programmatic dependent
+launch) and prefill rows the ``wgmma`` + TMA kernel (grid:
+:func:`wgmma_plan`); a ragged or misaligned weight at any M takes the
+``mma_sync`` kernel (grid: :func:`split_plan`). The quantization runs on
+:func:`quantize_cluster` blocks a row. On CPU tensors it takes
+:func:`int8_dense_torch`, the plain version. Nothing falls back: a CUDA
+call the kernels do not take raises. The plain version takes its product
+in float64, which is exact here (each partial sum stays below
+127**2 * U < 2**53), so every kernel equals it bit for bit.
 
 ``force_path("torch")`` takes the plain version for CUDA tensors too (the
 yardstick the kernel is held against on the card); ``force_path("cuda")``
@@ -58,13 +61,36 @@ BLOCKS_PER_SM = {16: 2, 64: 2, 128: 1}
 WGMMA_ROWS = 128
 WGMMA_CHUNK = 128
 WGMMA_COLS = (128, 256)
-ROUTES = ("wgmma", "mma_sync")
+# the decode kernel: output channels a block, bytes of U a chunk (its
+# slices' unit), channel rows and bytes of U a stage (a stage row is one
+# bulk copy), stages in its ring, the most rows it takes
+DECODE_COLS = 64
+DECODE_CHUNK = 128
+DECODE_STAGE_ROWS = 16
+DECODE_STAGE = 1024
+DECODE_STAGES = 4
+DECODE_ROWS = 32
+# a decode block's slice of xq in shared memory at most: with the ring's
+# 65 KB, two blocks fit an SM
+DECODE_XQ_BYTES = 40 * 1024
+# a decode slice holds at least this many chunks where U has them
+DECODE_MIN_CHUNKS = 2
+# what decode_plan charges a block beyond its weight bytes (its start, the
+# xq copy, the epilogue), in bytes of weight streamed in that time
+DECODE_BLOCK_BYTES = 16 * 1024
+# the quantization: values a thread keeps in registers, its block's
+# threads, the most blocks a row (a cluster)
+QUANT_KEEP = 32
+QUANT_THREADS = 256
+QUANT_CLUSTER_MAX = 8
+ROUTES = ("wgmma", "decode", "mma_sync")
 
 _LAST_PATH = None  # "cuda" | "torch": the version the last call took
 _FORCE_PATH = None
 _LAUNCHES = 0     # calls the card ran: eager calls and graph replays
 _CAPTURED = 0     # calls recorded into CUDA graphs while capturing
 _ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)  # eager calls by product kernel
+_ROW_LAUNCHES = {}  # eager calls by (product kernel, rows M)
 _COUNT_LOCK = threading.Lock()
 _LIB = None
 _SM_COUNT = {}  # device index -> multiprocessors
@@ -97,21 +123,30 @@ def launch_count() -> int:
 
 
 def reset_launch_count() -> None:
-    """Zero :func:`launch_count` and :func:`route_launches`."""
+    """Zero :func:`launch_count`, :func:`route_launches` and
+    :func:`row_launches`."""
     global _LAUNCHES
     with _COUNT_LOCK:
         _LAUNCHES = 0
         for r in ROUTES:
             _ROUTE_LAUNCHES[r] = 0
+        _ROW_LAUNCHES.clear()
 
 
 def route_launches() -> dict:
     """Eager calls since import (or the last reset) by the product kernel
-    they ran: ``"wgmma"`` or ``"mma_sync"``. Calls captured into CUDA
-    graphs and their replays count in :func:`captured_count` and
+    they ran: ``"wgmma"``, ``"decode"`` or ``"mma_sync"``. Calls captured
+    into CUDA graphs and their replays count in :func:`captured_count` and
     :func:`launch_count` only."""
     with _COUNT_LOCK:
         return dict(_ROUTE_LAUNCHES)
+
+
+def row_launches() -> dict:
+    """The eager calls of :func:`route_launches` by (product kernel, rows
+    M of the call), only the pairs that ran."""
+    with _COUNT_LOCK:
+        return dict(_ROW_LAUNCHES)
 
 
 def captured_count() -> int:
@@ -168,9 +203,11 @@ def int8_dense_torch(x, qweight, scale, bias=None):
 class SplitPlan(NamedTuple):
     """How one launch covers (M, O) and splits U: tiles of ``block_rows``
     x ``block_cols``, ``slices`` slices of ``chunks_per_slice`` chunks of U
-    (64 bytes on the ``mma.sync`` kernel, 128 on wgmma; the last slice may
-    be shorter), ``grid`` the (O tiles, M tiles, slices) of blocks,
-    ``workspace_bytes`` the int32 partials (0 at one slice)."""
+    (64 bytes on the ``mma.sync`` kernel, 128 on wgmma and decode; the last
+    slice may be shorter), ``grid`` the (O tiles, M tiles, slices) of
+    blocks, ``workspace_bytes`` the int32 partials (0 at one slice). The
+    decode kernel's block takes every row: ``block_rows`` is M rounded up
+    to 8."""
     block_rows: int
     block_cols: int
     slices: int
@@ -224,14 +261,76 @@ def _chunks_per_slice(tiles, chunks, aim) -> int:
     return per
 
 
+def _bulk_readable(u, qweight_ptr) -> bool:
+    """A weight TMA and bulk copies can read: rows a multiple of 16 bytes,
+    the start 16-byte aligned."""
+    return u % 16 == 0 and qweight_ptr % 16 == 0
+
+
 def takes_wgmma(m, u, qweight_ptr) -> bool:
-    """The routing predicate of a CUDA call of ``m`` rows against a weight
-    of ``u`` int8 columns at address ``qweight_ptr``: True for the wgmma
-    kernel, which takes prefill rows (more than 32; :func:`block_rows_for`
-    gives them 64 or 128 on the ``mma.sync`` kernel) on a weight TMA can
-    read (rows a multiple of 16 bytes, the start 16-byte aligned); False
-    for the ``mma.sync`` kernel, which takes the rest."""
-    return m > 32 and u % 16 == 0 and qweight_ptr % 16 == 0
+    """True where the wgmma kernel takes a CUDA call of ``m`` rows against
+    a weight of ``u`` int8 columns at address ``qweight_ptr``: prefill rows
+    (more than 32) on a weight TMA can read (rows a multiple of 16 bytes,
+    the start 16-byte aligned)."""
+    return m > DECODE_ROWS and _bulk_readable(u, qweight_ptr)
+
+
+def route_for(m, u, qweight_ptr) -> str:
+    """The product kernel of a CUDA call: ``"decode"`` for M <= 32 and
+    ``"wgmma"`` for more rows on a weight whose rows are a multiple of 16
+    bytes and which starts 16-byte aligned, ``"mma_sync"`` for a ragged or
+    misaligned weight at any M."""
+    if not _bulk_readable(u, qweight_ptr):
+        return "mma_sync"
+    return "decode" if m <= DECODE_ROWS else "wgmma"
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_plan(m, o, u, sm_count) -> SplitPlan:
+    """The decode kernel's grid, from shapes and the SM count alone. A
+    block takes 64 output channels over one slice of U in whole 128-byte
+    chunks, all M rows; a slice holds at most what fits
+    ``DECODE_XQ_BYTES`` of xq (its rows rounded up to 8) and at least
+    ``DECODE_MIN_CHUNKS`` chunks. Of those slice lengths it takes, first,
+    one that gives every SM
+    a block; then the least time an SM streams, reckoned as the blocks its
+    fullest share holds (``ceil(blocks / sm_count)``) times a block's
+    weight bytes plus ``DECODE_BLOCK_BYTES``; then the fewest slices (the
+    least partial sums). Every slice is as long as the others but the
+    last, and none is empty."""
+    rows = 8 * -(-m // 8)
+    tiles = -(-o // DECODE_COLS)
+    chunks = -(-u // DECODE_CHUNK)
+    longest = max(1, min(chunks, DECODE_XQ_BYTES // (rows * DECODE_CHUNK)))
+    best = None
+    for per in range(longest, min(longest, DECODE_MIN_CHUNKS) - 1, -1):
+        slices = -(-chunks // per)
+        if -(-chunks // slices) != per:  # the same slices, evened out
+            continue
+        blocks = tiles * slices
+        cost = -(-blocks // sm_count) * (per * DECODE_CHUNK * DECODE_COLS
+                                         + DECODE_BLOCK_BYTES)
+        key = (blocks < sm_count, cost, slices)
+        if best is None or key < best[0]:
+            best = (key, per, slices)
+    _, per, slices = best
+    return SplitPlan(rows, DECODE_COLS, slices, per, (tiles, 1, slices),
+                     slices * m * o * 4 if slices > 1 else 0)
+
+
+@functools.lru_cache(maxsize=1024)
+def quantize_cluster(m, u, sm_count) -> int:
+    """The row quantization's blocks a row, from shapes and the SM count
+    alone: doubled from 1 while the rows' blocks leave SMs without one, or
+    a block would keep more than ``QUANT_THREADS * QUANT_KEEP`` values, up
+    to ``QUANT_CLUSTER_MAX`` and as long as each block still takes 64
+    bytes of the padded row or more."""
+    chunks = padded_u(u) // CHUNK
+    c = 1
+    while (c < QUANT_CLUSTER_MAX and 2 * c <= chunks
+           and (m * c < sm_count or u > c * QUANT_THREADS * QUANT_KEEP)):
+        c *= 2
+    return c
 
 
 def wgmma_aim(sm_count) -> int:
@@ -280,17 +379,21 @@ def _lib():
 
         lib = load("int8_dense")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mxtt_int8_dense.argtypes = [ptr] * 8 + [i32] * 9 + [ptr]
-        lib.mxtt_int8_dense.restype = i32
-        lib.mxtt_int8_quantize_rows.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
-        lib.mxtt_int8_quantize_rows.restype = i32
-        lib.mxtt_int8_dense_product.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
-        lib.mxtt_int8_dense_product.restype = i32
-        lib.mxtt_int8_dense_wgmma.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
-        lib.mxtt_int8_dense_wgmma.restype = i32
-        lib.mxtt_int8_dense_wgmma_product.argtypes = [ptr] * 7 + [i32] * 7 + [
-            ptr]
-        lib.mxtt_int8_dense_wgmma_product.restype = i32
+        for name, pointers, ints in (
+                ("dense", 8, 10), ("quantize_rows", 3, 5),
+                ("dense_product", 7, 8), ("dense_wgmma", 8, 9),
+                ("dense_wgmma_product", 7, 7), ("dense_decode", 8, 8),
+                ("dense_decode_product", 7, 6)):
+            fn = getattr(lib, f"mxtt_int8_{name}")
+            fn.argtypes = [ptr] * pointers + [i32] * ints + [ptr]
+            fn.restype = i32
+        i32p = ctypes.POINTER(i32)
+        lib.mxtt_int8_quantize_config.argtypes = [i32p] * 3
+        lib.mxtt_int8_dense_decode_config.argtypes = [i32p] * 7
+        lib.mxtt_int8_dense_decode_smem_bytes.argtypes = [i32, i32]
+        for name in ("quantize_config", "dense_decode_config",
+                     "dense_decode_smem_bytes"):
+            getattr(lib, f"mxtt_int8_{name}").restype = i32
         for name in ("chunk", "rows"):
             fn = getattr(lib, f"mxtt_int8_dense_wgmma_{name}")
             fn.argtypes, fn.restype = [], i32
@@ -320,8 +423,29 @@ def _lib():
             raise MXNetError(f"int8_dense.cu's wgmma kernel takes (stage "
                              f"bytes, rows, widths) {got}, but the wrapper "
                              f"assumes {want}")
+        got = _ints(lib.mxtt_int8_dense_decode_config, 7)
+        want = (DECODE_COLS, DECODE_CHUNK, DECODE_STAGE_ROWS, DECODE_STAGE,
+                DECODE_STAGES, got[5], DECODE_ROWS)
+        if got != want:
+            raise MXNetError(f"int8_dense.cu's decode kernel takes (channels, "
+                             f"chunk, stage rows, stage bytes, stages, "
+                             f"threads, rows) {got}, but the wrapper assumes "
+                             f"{want}")
+        got = _ints(lib.mxtt_int8_quantize_config, 3)
+        want = (QUANT_THREADS, QUANT_KEEP, QUANT_CLUSTER_MAX)
+        if got != want:
+            raise MXNetError(f"int8_dense.cu's row quantization takes "
+                             f"(threads, values kept, blocks a row) {got}, "
+                             f"but the wrapper assumes {want}")
         _LIB = lib
     return _LIB
+
+
+def _ints(fn, n):
+    """The ``n`` ints a C query ``fn(int*, ...)`` writes."""
+    vals = [ctypes.c_int() for _ in range(n)]
+    fn(*(ctypes.byref(v) for v in vals))
+    return tuple(v.value for v in vals)
 
 
 def build() -> None:
@@ -342,8 +466,16 @@ def wgmma_smem_bytes(block_cols) -> int:
     return _lib().mxtt_int8_dense_wgmma_smem_bytes(block_cols)
 
 
+def decode_smem_bytes(rows, chunks_per_slice) -> int:
+    """Dynamic shared memory of a block of the decode kernel of ``rows``
+    rows whose slices hold ``chunks_per_slice`` 128-byte chunks: the ring
+    and the slice of xq (builds the library)."""
+    return _lib().mxtt_int8_dense_decode_smem_bytes(rows, chunks_per_slice)
+
+
 KERNELS = ("quantize_rows", "dense_16", "dense_64", "dense_128", "reduce",
-           "dense_wgmma_128", "dense_wgmma_256")
+           "dense_wgmma_128", "dense_wgmma_256", "dense_decode_8",
+           "dense_decode_16", "dense_decode_24", "dense_decode_32")
 
 
 def kernel_attributes() -> dict:
@@ -416,6 +548,9 @@ def _raise_if(err, what, x, qweight, plan, route="mma_sync"):
     lib = _lib()
     smem = (lib.mxtt_int8_dense_wgmma_smem_bytes(plan.block_cols)
             if route == "wgmma" else
+            lib.mxtt_int8_dense_decode_smem_bytes(plan.block_rows,
+                                                  plan.chunks_per_slice)
+            if route == "decode" else
             lib.mxtt_int8_dense_smem_bytes(plan.block_rows))
     code = (f"CUresult {err - _ENCODE_FAILED}" if err >= _ENCODE_FAILED
             else f"cudaError {err}")
@@ -449,19 +584,22 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# each route's grid: plan(m, o, u, sm_count)
+PLANS = {"wgmma": wgmma_plan, "decode": decode_plan, "mma_sync": split_plan}
+
+
 def _plan(route, m, o, u, dev):
-    return (wgmma_plan if route == "wgmma" else split_plan)(
-        m, o, u, _sm_count(dev))
+    return PLANS[route](m, o, u, _sm_count(dev))
 
 
 def _launch(x2, qweight, scale, bias):
     """All of a call on the card: quantize the rows, then the product on
-    the kernel :func:`takes_wgmma` picks. ``x2`` is (M, U) f32 with M >= 1;
+    the kernel :func:`route_for` names. ``x2`` is (M, U) f32 with M >= 1;
     returns (M, O) f32."""
     global _LAUNCHES, _CAPTURED
     m, u = x2.shape
     o = qweight.shape[0]
-    route = "wgmma" if takes_wgmma(m, u, qweight.data_ptr()) else "mma_sync"
+    route = route_for(m, u, qweight.data_ptr())
     plan = _plan(route, m, o, u, x2.device)
     xq, sx, out, ws = _buffers(x2, o, plan)
     lib = _lib()
@@ -470,14 +608,16 @@ def _launch(x2, qweight, scale, bias):
         common = (x2.data_ptr(), xq.data_ptr(), sx.data_ptr(),
                   qweight.data_ptr(), scale.data_ptr(), _ptr(bias),
                   out.data_ptr(), _ptr(ws), m, o, u, xq.shape[1])
-        if route == "wgmma":
-            err = lib.mxtt_int8_dense_wgmma(
-                *common, plan.block_cols, plan.chunks_per_slice, plan.slices,
-                _vec(x2, 4), stream)
+        split = (plan.chunks_per_slice, plan.slices,
+                 quantize_cluster(m, u, _sm_count(x2.device)), _vec(x2, 4))
+        if route == "decode":
+            err = lib.mxtt_int8_dense_decode(*common, *split, stream)
+        elif route == "wgmma":
+            err = lib.mxtt_int8_dense_wgmma(*common, plan.block_cols, *split,
+                                            stream)
         else:
-            err = lib.mxtt_int8_dense(
-                *common, plan.block_rows, plan.chunks_per_slice, plan.slices,
-                _vec(x2, 4), _vec(qweight, 16), stream)
+            err = lib.mxtt_int8_dense(*common, plan.block_rows, *split,
+                                      _vec(qweight, 16), stream)
     _raise_if(err, "", x2, qweight, plan, route)
     capturing = torch.cuda.is_current_stream_capturing()
     with _COUNT_LOCK:
@@ -486,6 +626,7 @@ def _launch(x2, qweight, scale, bias):
         else:
             _LAUNCHES += 1
             _ROUTE_LAUNCHES[route] += 1
+            _ROW_LAUNCHES[route, m] = _ROW_LAUNCHES.get((route, m), 0) + 1
     return out
 
 
@@ -504,7 +645,8 @@ def quantize_rows(x2):
     with torch.cuda.device(x2.device):
         err = _lib().mxtt_int8_quantize_rows(
             x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, u, xq.shape[1],
-            _vec(x2, 4), torch.cuda.current_stream(x2.device).cuda_stream)
+            quantize_cluster(m, u, _sm_count(x2.device)), _vec(x2, 4),
+            torch.cuda.current_stream(x2.device).cuda_stream)
     _raise_if(err, "quantize", x2, xq, split_plan(m, 1, u, 1))
     return xq, sx
 
@@ -512,19 +654,19 @@ def quantize_rows(x2):
 def product(xq, sx, u, qweight, scale, bias=None, route=None):
     """The product kernel (and the split's sum) alone, from
     :func:`quantize_rows`' ``xq`` and ``sx`` at ``u`` columns: returns
-    (M, O) f32. ``route`` names the kernel, ``"wgmma"`` (which raises where
-    :func:`takes_wgmma` is False) or ``"mma_sync"`` (which takes any call);
-    None takes the one :func:`int8_dense` would. For timing the two on one
-    call and for tests; uncounted."""
+    (M, O) f32. ``route`` names the kernel: ``"wgmma"`` or ``"decode"``
+    (each raises where :func:`route_for` names another) or ``"mma_sync"``
+    (which takes any call); None takes the one :func:`int8_dense` would.
+    For timing the kernels on one call and for tests; uncounted."""
     m = xq.shape[0]
     o = qweight.shape[0]
-    takes = takes_wgmma(m, u, qweight.data_ptr())
+    ptr = qweight.data_ptr()
     if route is None:
-        route = "wgmma" if takes else "mma_sync"
-    if route not in ROUTES or (route == "wgmma" and not takes):
+        route = route_for(m, u, ptr)
+    if route not in ("mma_sync", route_for(m, u, ptr)):
         raise MXNetError(f"int8_dense product: route {route!r} does not "
-                         f"take M={m}, U={u}, qweight at "
-                         f"{qweight.data_ptr() % 16} bytes past 16")
+                         f"take M={m}, U={u}, qweight at {ptr % 16} bytes "
+                         "past 16")
     plan = _plan(route, m, o, u, xq.device)
     out = torch.empty((m, o), dtype=torch.float32, device=xq.device)
     ws = (torch.empty(plan.workspace_bytes // 4, dtype=torch.int32,
@@ -532,17 +674,17 @@ def product(xq, sx, u, qweight, scale, bias=None, route=None):
     lib = _lib()
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream(xq.device).cuda_stream
-        common = (xq.data_ptr(), sx.data_ptr(), qweight.data_ptr(),
-                  scale.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(ws), m,
-                  o, u, xq.shape[1])
-        if route == "wgmma":
+        common = (xq.data_ptr(), sx.data_ptr(), ptr, scale.data_ptr(),
+                  _ptr(bias), out.data_ptr(), _ptr(ws), m, o, u, xq.shape[1])
+        split = (plan.chunks_per_slice, plan.slices)
+        if route == "decode":
+            err = lib.mxtt_int8_dense_decode_product(*common, *split, stream)
+        elif route == "wgmma":
             err = lib.mxtt_int8_dense_wgmma_product(
-                *common, plan.block_cols, plan.chunks_per_slice, plan.slices,
-                stream)
+                *common, plan.block_cols, *split, stream)
         else:
             err = lib.mxtt_int8_dense_product(
-                *common, plan.block_rows, plan.chunks_per_slice, plan.slices,
-                _vec(qweight, 16), stream)
+                *common, plan.block_rows, *split, _vec(qweight, 16), stream)
     _raise_if(err, "product", xq, qweight, plan, route)
     return out
 

@@ -18,7 +18,10 @@ With ``--multistep``, also a multi-step ``Generator``
 graphs): ``--steps`` super-steps after one prefill, each timed on the
 device (CUDA events around the graph replay) and on the host (from the
 input copy to the host read of the token block), giving device ms a visit
-and a token, host wall ms a visit, and the busy share (device over host).
+and a token, host wall ms a visit, and the busy share (device over host);
+then two visits under ``torch.profiler``, the graph's kernels back to back,
+giving the int8 kernels' device ms a token step (``graph_int8_*``) and the
+union of every kernel's intervals a token step.
 
 With ``--speculative``, also a ``SpeculativeGenerator`` (k = 4, a
 multi-step draft: a seeded random 2-layer model of the same widths) over
@@ -37,7 +40,11 @@ On the ``int8`` rung the projections run the int8 x int8 kernels
 (``ops/hopper/int8_dense``: int8 weights are on for the card under
 ``MXNET_SERVE_DECODE_INT8_WEIGHTS=auto``); each profile then also gives
 their device ms a step (the row quantization, the product and the split's
-sum, 225 calls a forward) beside the other kernels.
+sum, 225 calls a forward) beside the other kernels: summed by kernel, and
+as the union of their intervals on the device (``_union``), since the
+decode route's product and sum start early under programmatic dependent
+launch and wait on the card, so their durations overlap. The step's
+device time is given both ways too.
 
 Prints one JSON object per rung and mode. Weights are random (seeded); the batch is
 4 prompts of lengths 17, 64, 130 and 250 in a 1024-position ring, as in
@@ -99,12 +106,29 @@ def _profile(gen, prompts, steps):
         state["ids"] = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
         state["pos"] = state["pos"] + 1
 
-    return _kernel_times(step, steps)
+    spans = {}
+    return (*_kernel_times(step, steps, spans), spans)
 
 
-def _kernel_times(step, steps):
+def _union_ms(spans):
+    """Milliseconds of the union of (start, end) intervals in microseconds:
+    the time at least one of them ran."""
+    total, lo, hi = 0.0, None, None
+    for a, b in sorted(spans):
+        if hi is None or a > hi:
+            if hi is not None:
+                total += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return (total + (hi - lo if hi is not None else 0.0)) / 1e3
+
+
+def _kernel_times(step, steps, spans):
     """Run ``step`` ``steps`` times under ``torch.profiler``; returns the
-    host wall (ms) and ``{kernel name: (device ms, calls)}``."""
+    host wall (ms) and ``{kernel name: (device ms, calls)}``, and fills
+    ``spans`` with each kernel's (start, end) on the device, in
+    microseconds, by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -121,15 +145,25 @@ def _kernel_times(step, steps):
                          getattr(ev, "self_cuda_time_total", 0))
         if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             by_name[ev.key] = (dev_us / 1e3, ev.count)
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            spans.setdefault(ev.name, []).append(
+                (ev.time_range.start, ev.time_range.end))
     return wall_ms, by_name
 
 
-def _int8_split(by_name, steps):
+def _int8_split(by_name, steps, spans):
     """Device ms and kernel calls a step of the int8 product's kernels
-    (names containing ``int8_``), by kernel and together."""
+    (names containing ``int8_``), by kernel and together: summed, and as
+    the union of their intervals on the device (``_union``). Under
+    programmatic dependent launch a kernel starts while the one before it
+    runs and waits on the card, so its duration overlaps the other's and
+    the sum counts that time twice; the union counts it once."""
     parts = {k: (ms / steps, c / steps) for k, (ms, c) in by_name.items()
              if "int8_" in k}
+    mine = [iv for k, ivs in spans.items() if "int8_" in k for iv in ivs]
     return {"int8_dense_device_ms_per_step": sum(v[0] for v in parts.values()),
+            "int8_dense_device_ms_per_step_union": _union_ms(mine) / steps,
             "int8_dense_kernels": {k[:90]: {"ms": ms, "calls_per_step": c}
                                    for k, (ms, c) in parts.items()}}
 
@@ -149,15 +183,17 @@ def run(rung, steps, model, prompts):
         name = "kernel" if route is None else "plain"
         abba.setdefault(name, []).extend(
             _decode_walls(gen, prompts, steps, route))
-    wall_ms, by_name = _profile(gen, prompts, steps)
+    wall_ms, by_name, spans = _profile(gen, prompts, steps)
     device_ms = sum(ms for ms, _ in by_name.values())
+    busy_ms = _union_ms([iv for ivs in spans.values() for iv in ivs])
     return {
         "rung": rung, "steps": steps, "int8_weights": bool(gen._qweights),
-        **_int8_split(by_name, steps),
+        **_int8_split(by_name, steps, spans),
         "decode_step_wall_ms": {k: statistics.median(v)
                                 for k, v in abba.items()},
         "profiled_wall_ms_per_step": wall_ms / steps,
         "device_ms_per_step": device_ms / steps,
+        "device_ms_per_step_union": busy_ms / steps,
         "device_busy_share": device_ms / wall_ms,
         "top_kernels_ms_per_step": _top(by_name, steps),
         "device": torch.cuda.get_device_name(0),
@@ -182,13 +218,14 @@ def run_prefill(rung, steps, model, prompts):
         prefill()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    wall_ms, by_name = _kernel_times(prefill, steps)
+    spans = {}
+    wall_ms, by_name = _kernel_times(prefill, steps, spans)
     device_ms = sum(ms for ms, _ in by_name.values())
     return {
         "rung": rung, "mode": "prefill", "steps": steps,
         "int8_weights": bool(gen._qweights),
         **{k.replace("per_step", "per_prefill"): v
-           for k, v in _int8_split(by_name, steps).items()},
+           for k, v in _int8_split(by_name, steps, spans).items()},
         "prefill_wall_ms": walls,
         "profiled_wall_ms_per_prefill": wall_ms / steps,
         "device_ms_per_prefill": device_ms / steps,
@@ -232,7 +269,8 @@ def run_speculative(rung, steps, model, prompts, k=4):
             sg._verify_step(*inp.views(), *flat)
 
     verify()
-    wall_ms, by_name = _kernel_times(verify, steps)
+    spans = {}
+    wall_ms, by_name = _kernel_times(verify, steps, spans)
     device_ms = sum(ms for ms, _ in by_name.values())
     out = {
         "rung": rung, "mode": "speculative", "k": k, "steps": steps,
@@ -243,7 +281,8 @@ def run_speculative(rung, steps, model, prompts, k=4):
         "verify_eager_device_ms": device_ms / steps,
         "verify_eager_wall_ms": wall_ms / steps,
         "verify_top_kernels_ms": _top(by_name, steps),
-        **{"verify_" + k: v for k, v in _int8_split(by_name, steps).items()},
+        **{"verify_" + k: v
+           for k, v in _int8_split(by_name, steps, spans).items()},
         "device": torch.cuda.get_device_name(0),
     }
     del sg, draft
@@ -276,6 +315,22 @@ def run_multistep(rung, visits, model, prompts):
         pos = pos + steps
     device = [a.elapsed_time(b) for a, b in events]
     dev_ms, wall_ms = statistics.median(device), statistics.median(walls)
+    launches = (da.launch_count() - n0) / visits
+    # two more visits under the profiler: the graph's kernels back to back
+    state = {"ids": ids, "pos": pos, "cache": cache}
+
+    def visit():
+        block, _, _, state["cache"] = gen.decode_super(
+            state["ids"], state["pos"], steps, np.full(bb, 1 << 20, np.int32),
+            zeros, np.zeros(bb, np.float32), zeros, stops,
+            np.zeros(2, np.uint32), state["cache"])
+        state["ids"] = block[:, -1].copy()
+        state["pos"] = state["pos"] + steps
+
+    spans = {}
+    _, by_name = _kernel_times(visit, 2, spans)
+    traced = {k: v for k, v in _int8_split(by_name, 2 * steps, spans).items()
+              if k != "int8_dense_kernels"}
     return {
         "rung": rung, "mode": "multistep", "decode_steps": steps,
         "visits": visits, "graphs_captured": w["captures"],
@@ -284,7 +339,10 @@ def run_multistep(rung, visits, model, prompts):
         "device_ms_per_token_step": dev_ms / steps,
         "wall_ms_per_token_step": wall_ms / steps,
         "device_busy_share": dev_ms / wall_ms,
-        "kernel_launches_per_visit": (da.launch_count() - n0) / visits,
+        "kernel_launches_per_visit": launches,
+        **{f"graph_{k}": v for k, v in traced.items()},
+        "graph_device_ms_per_step_union": _union_ms(
+            [iv for ivs in spans.values() for iv in ivs]) / (2 * steps),
         "device": torch.cuda.get_device_name(0),
     }
 

@@ -2120,7 +2120,7 @@ def test_cuda_int8_dense_wgmma_and_mma_sync_products_agree():
         x, w, s, b = _int8_inputs(m, o, u, dev, seed=o)
         xq, sx = i8.quantize_rows(x)
         ref = i8.int8_dense_torch(x, w, s, b)
-        for route in i8.ROUTES:
+        for route in ("wgmma", "mma_sync"):  # the decode kernel takes M <= 32
             assert torch.equal(i8.product(xq, sx, u, w, s, b, route=route),
                                ref), route
 
@@ -2167,3 +2167,201 @@ def test_cuda_int8_dense_wgmma_replays_in_a_cuda_graph():
         torch.cuda.synchronize()
         assert torch.equal(out, i8.int8_dense_torch(x, w, s, b))
     assert i8.launch_count() == n0 + 3
+
+
+# -- the int8 product's decode rows on the decode kernel -----------------------
+
+# Llama-3-8B's projections at decode, (O, U): q and o, k and v, gate and up,
+# down, and the head
+DECODE_SHAPES = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
+                 (128256, 4096)]
+_DEVICE_WEIGHT = {}
+
+
+def _device_int8_weight(o, u, dev):
+    """A seeded int8 weight (O, U) with per-channel scales and a bias, made
+    on the card; the last one is kept for the next test (the head's is
+    525 MB)."""
+    key = (o, u, dev.index)
+    if key not in _DEVICE_WEIGHT:
+        _DEVICE_WEIGHT.clear()
+        gen = torch.Generator(device=dev).manual_seed(o + u)
+        w = torch.randint(-127, 128, (o, u), dtype=torch.int8, device=dev,
+                          generator=gen)
+        s = torch.rand(o, device=dev, generator=gen) * 9e-3 + 1e-3
+        b = torch.randn(o, device=dev, generator=gen)
+        _DEVICE_WEIGHT[key] = (w, s, b)
+    return _DEVICE_WEIGHT[key]
+
+
+def _decode_x(m, u, dev, seed):
+    """Normal activations with a row of zeros and a row of exact .5 ties
+    (amax 127, so sx = 1) where M >= 3."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, u, device=dev, generator=gen)
+    if m >= 3:
+        x[1] = 0.0
+        x[2] = 0.0
+        x[2, :6] = torch.tensor([127.0, 2.5, -3.5, 0.5, -0.5, 1.5],
+                                device=dev)
+    return x
+
+
+@pytest.mark.parametrize("m", [1, 4, 17, 20, 32])
+@pytest.mark.parametrize("o,u", DECODE_SHAPES)
+def test_cuda_int8_dense_decode_matches_plain_bitwise(m, o, u):
+    """Decode and verify rows on an aligned weight take the decode kernel
+    (K1, K2d and, where the plan splits U, K3, chained by programmatic
+    dependent launch), which equals the plain version bit for bit with and
+    without a bias; two calls repeat bit for bit; one launch a call."""
+    dev = _need_cuda()
+    w, s, b = _device_int8_weight(o, u, dev)
+    x = _decode_x(m, u, dev, seed=m + o)
+    assert i8.route_for(m, u, w.data_ptr()) == "decode"
+    n0, r0 = i8.launch_count(), i8.route_launches()
+    for bias in (None, b):
+        out = i8.int8_dense(x, w, s, bias)
+        again = i8.int8_dense(x, w, s, bias)
+        ref = i8.int8_dense_torch(x, w, s, bias)
+        assert torch.equal(out, ref), float((out - ref).abs().max())
+        assert torch.equal(out, again)
+    assert i8.launch_count() == n0 + 4
+    r1 = i8.route_launches()
+    assert {k: r1[k] - r0[k] for k in r1} == {"wgmma": 0, "decode": 4,
+                                               "mma_sync": 0}
+
+
+@pytest.mark.parametrize("m", [1, 4, 20, 32])
+@pytest.mark.parametrize("o,u", DECODE_SHAPES[:4] + [(1000, 4096), (96, 208)])
+def test_cuda_int8_dense_decode_and_mma_sync_products_agree(m, o, u):
+    """On one call's xq the decode kernel's product and the ``mma.sync``
+    tile kernel's product give the same bits, the plain version's (O = 1000
+    leaves a ragged last block of channels, U = 208 a partial chunk)."""
+    dev = _need_cuda()
+    w, s, b = _device_int8_weight(o, u, dev)
+    x = _decode_x(m, u, dev, seed=7 * m + u)
+    xq, sx = i8.quantize_rows(x)
+    ref = i8.int8_dense_torch(x, w, s, b)
+    for route in ("decode", "mma_sync"):
+        assert torch.equal(i8.product(xq, sx, u, w, s, b, route=route),
+                           ref), route
+
+
+@pytest.mark.parametrize("m", [1, 4, 1024])
+@pytest.mark.parametrize("u", [30, 4096, 14336, 70000])
+def test_cuda_int8_quantize_rows_matches_plain_with_zero_and_tie_rows(m, u):
+    """The row quantization (a cluster of blocks a row, the row read once
+    into registers; past 8 blocks' registers, read twice) gives the plain
+    version's xq and sx, zero rows and .5 ties included, zeros from U to
+    the padded width, on an aligned and on a misaligned x."""
+    dev = _need_cuda()
+    x = _decode_x(m, u, dev, seed=u + m)
+    pq, psx = i8.quantize_rows_torch(x)
+    for xin in (x, _misaligned(x)):
+        xq, sx = i8.quantize_rows(xin)
+        assert xq.shape == (m, i8.padded_u(u))
+        assert torch.equal(xq[:, :u], pq) and torch.equal(sx, psx[:, 0])
+        assert not xq[:, u:].any()
+    if m >= 3:
+        assert sx[1].item() == np.float32(1e-8) and sx[2].item() == 1.0
+        assert xq[2, :6].tolist() == [127, 2, -4, 0, 0, 2]
+
+
+def test_cuda_int8_dense_decode_chained_calls_without_a_sync():
+    """Calls that each read the one before's output, issued back to back
+    with no sync (as a layer's projections run), give the plain chain's
+    bits: each quantization waits for the product before it although the
+    products start early under programmatic dependent launch."""
+    dev = _need_cuda()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    weights = []
+    for o, u in ((1024, 4096), (14336, 1024), (4096, 14336), (4096, 4096)):
+        w = torch.randint(-127, 128, (o, u), dtype=torch.int8, device=dev,
+                          generator=gen)
+        s = torch.rand(o, device=dev, generator=gen) * 1e-3 + 1e-4
+        weights.append((w, s))
+    x = torch.randn(4, 4096, device=dev, generator=gen)
+    h, ref = x, x
+    for w, s in weights:
+        assert i8.route_for(4, w.shape[1], w.data_ptr()) == "decode"
+        h = i8.int8_dense(h, w, s)
+        ref = i8.int8_dense_torch(ref, w, s)
+    torch.cuda.synchronize()
+    assert torch.equal(h, ref)
+
+
+@pytest.mark.parametrize("o,u", [(1024, 4096), (14336, 4096)])
+def test_cuda_int8_dense_decode_replays_in_a_cuda_graph(o, u):
+    """A decode call (the K1 -> K2d -> K3 chain by programmatic dependent
+    launch at k/v's split shape, K1 -> K2d at gate/up's unsplit one)
+    captured in a CUDA graph records one launch, runs none, and replays
+    after x changes in place with the plain version's bits."""
+    dev = _need_cuda()
+    w, s, b = _device_int8_weight(o, u, dev)
+    x = _decode_x(4, u, dev, seed=40)
+    assert i8.route_for(4, u, w.data_ptr()) == "decode"
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (i8.decode_plan(4, o, u, sms).slices > 1) == (o == 1024)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        i8.int8_dense(x, w, s, b)  # warm: builds the library, sizes the pool
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n0, c0 = i8.launch_count(), i8.captured_count()
+    with torch.cuda.graph(graph):
+        out = i8.int8_dense(x, w, s, b)
+    assert i8.captured_count() == c0 + 1 and i8.launch_count() == n0
+    for seed in (41, 42, 43):
+        x.copy_(_decode_x(4, u, dev, seed=seed))
+        graph.replay()
+        i8.count_replays(1)
+        torch.cuda.synchronize()
+        assert torch.equal(out, i8.int8_dense_torch(x, w, s, b))
+    assert i8.launch_count() == n0 + 3
+
+
+def test_cuda_int8_dense_row_launches_count_eager_calls_by_kernel_and_rows():
+    """Each eager call adds one to its (kernel, rows M) pair of
+    ``row_launches``, on every route; calls captured into a graph add
+    none."""
+    dev = _need_cuda()
+    i8.reset_launch_count()
+    calls = [(4, 1024, 4096, False), (4, 1024, 4096, False),
+             (20, 1024, 4096, False), (64, 1024, 4096, False),
+             (4, 1024, 4096, True)]
+    for m, o, u, misaligned in calls:
+        x, w, s, b = _int8_inputs(m, o, u, dev, seed=m + 30)
+        i8.int8_dense(x, _misaligned(w) if misaligned else w, s, b)
+    assert i8.row_launches() == {("decode", 4): 2, ("decode", 20): 1,
+                                 ("wgmma", 64): 1, ("mma_sync", 4): 1}
+    assert sum(i8.row_launches().values()) == sum(
+        i8.route_launches().values()) == i8.launch_count()
+    x, w, s, b = _int8_inputs(4, 1024, 4096, dev, seed=35)
+    i8.int8_dense(x, w, s, b)  # warm on the stream before capture
+    torch.cuda.synchronize()
+    before = i8.row_launches()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        i8.int8_dense(x, w, s, b)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert i8.row_launches() == before
+
+
+def test_cuda_int8_dense_misaligned_weight_at_decode_takes_mma_sync():
+    """A weight off a 16-byte boundary, or with rows not a multiple of 16
+    bytes, at M = 4 runs the ``mma.sync`` kernel and gives the plain
+    version's bits."""
+    dev = _need_cuda()
+    x, w, s, b = _int8_inputs(4, 1024, 4096, dev, seed=23)
+    xr, wr, sr, br = _int8_inputs(4, 64, 4100, dev, seed=24)
+    for args in ((x, _misaligned(w), s, b), (xr, wr, sr, br)):
+        assert i8.route_for(4, args[1].shape[1],
+                            args[1].data_ptr()) == "mma_sync"
+        r0 = i8.route_launches()
+        out = i8.int8_dense(*args)
+        r1 = i8.route_launches()
+        assert {k: r1[k] - r0[k] for k in r1} == {"wgmma": 0, "decode": 0,
+                                                   "mma_sync": 1}
+        assert torch.equal(out, i8.int8_dense_torch(*args))

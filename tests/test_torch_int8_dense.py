@@ -444,7 +444,7 @@ def test_cpu_tensors_take_the_plain_version_at_prefill_rows(monkeypatch):
 def test_reset_launch_count_zeroes_both_counts():
     i8.reset_launch_count()
     assert i8.launch_count() == 0
-    assert i8.route_launches() == {"wgmma": 0, "mma_sync": 0}
+    assert i8.route_launches() == {"wgmma": 0, "decode": 0, "mma_sync": 0}
 
 
 def test_product_refuses_a_route_that_does_not_take_the_call():
@@ -466,6 +466,152 @@ def test_product_refuses_a_route_that_does_not_take_the_call():
         i8.product(xq, sx, 64, w, s, route="tensor_cores")
 
 
+# -- the decode route: decode and verify rows on aligned weights -------------
+
+LLAMA_DECODE_SHAPES = LLAMA_PROJECTIONS + [(128256, 4096)]  # and the head
+DECODE_M = [1, 4, 17, 20, 32]
+
+
+@pytest.mark.parametrize("m", DECODE_M)
+def test_route_for_sends_decode_rows_to_the_decode_kernel(m):
+    """Every Llama-3-8B projection and the head at decode and verify rows
+    take the decode kernel on an aligned weight; ragged rows (U = 30, or
+    not a multiple of 16 bytes) and a weight off a 16-byte boundary take
+    ``mma_sync``."""
+    for o, u in LLAMA_DECODE_SHAPES:
+        w = _aligned_int8(o * 16, 0)  # only the address matters here
+        assert i8.route_for(m, u, w.data_ptr()) == "decode"
+        assert not i8.takes_wgmma(m, u, w.data_ptr())
+    aligned = _aligned_int8(64, 0).data_ptr()
+    for u in (30, 4100, 4104):
+        assert i8.route_for(m, u, aligned) == "mma_sync"
+    for offset in (1, 4, 8):
+        ptr = _aligned_int8(64, offset).data_ptr()
+        assert i8.route_for(m, 4096, ptr) == "mma_sync"
+
+
+@pytest.mark.parametrize("m", [33, 256, 1024])
+def test_route_for_sends_prefill_rows_to_wgmma(m):
+    aligned = _aligned_int8(64, 0).data_ptr()
+    for _, u in LLAMA_DECODE_SHAPES:
+        assert i8.route_for(m, u, aligned) == "wgmma"
+        assert i8.takes_wgmma(m, u, aligned)
+    assert i8.route_for(m, 30, aligned) == "mma_sync"
+    assert i8.route_for(m, 4096, _aligned_int8(64, 4).data_ptr()) == \
+        "mma_sync"
+
+
+@pytest.mark.parametrize("m", DECODE_M)
+@pytest.mark.parametrize("o,u", LLAMA_DECODE_SHAPES + [(1000, 4096),
+                                                       (37, 16), (64, 208)])
+def test_decode_plan_depends_on_shapes_and_sm_count_alone(m, o, u):
+    """The plan is a pure function of (M, O, U, SMs): recomputed from a
+    cleared cache it is the same; its block takes every row (M rounded up
+    to 8) and 64 output channels."""
+    plans = {sms: i8.decode_plan(m, o, u, sms) for sms in (132, 114, 66)}
+    i8.decode_plan.cache_clear()
+    for sms, plan in plans.items():
+        assert i8.decode_plan(m, o, u, sms) == plan
+        assert plan.block_rows == 8 * -(-m // 8)
+        assert plan.block_cols == i8.DECODE_COLS
+        assert plan.grid[1] == 1
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("m", DECODE_M)
+@pytest.mark.parametrize("o,u", LLAMA_DECODE_SHAPES + [(1000, 4096),
+                                                       (37, 16), (64, 208)])
+def test_decode_plan_covers_u_without_empty_slices(m, o, u, sms):
+    """The slices cover U's 128-byte chunks with none empty, each slice's
+    xq fits the kernel's budget and, where U has them, holds a whole
+    stage; the workspace holds the partials of a split."""
+    plan = i8.decode_plan(m, o, u, sms)
+    chunks = -(-u // i8.DECODE_CHUNK)
+    assert plan.grid == (-(-o // i8.DECODE_COLS), 1, plan.slices)
+    assert (plan.slices - 1) * plan.chunks_per_slice < chunks
+    assert plan.slices * plan.chunks_per_slice >= chunks
+    assert (plan.block_rows * plan.chunks_per_slice * i8.DECODE_CHUNK
+            <= max(i8.DECODE_XQ_BYTES, plan.block_rows * i8.DECODE_CHUNK))
+    assert plan.chunks_per_slice >= min(chunks, i8.DECODE_MIN_CHUNKS)
+    assert plan.workspace_bytes == (plan.slices * m * o * 4
+                                    if plan.slices > 1 else 0)
+
+
+@pytest.mark.parametrize("m", DECODE_M)
+@pytest.mark.parametrize("o,u", LLAMA_DECODE_SHAPES)
+def test_decode_plan_gives_every_sm_work_at_llama_decode(m, o, u):
+    """At every Llama-3-8B decode and verify shape each of 132 SMs gets a
+    block at least, and no SM's share of the weight is more than half
+    again the mean share (the plan's blocks spread over the SMs)."""
+    plan = i8.decode_plan(m, o, u, 132)
+    assert plan.blocks >= 132, plan
+    block_bytes = plan.chunks_per_slice * i8.DECODE_CHUNK * i8.DECODE_COLS
+    fullest = -(-plan.blocks // 132) * block_bytes
+    assert fullest <= 1.5 * o * u / 132 + block_bytes, plan
+
+
+@pytest.mark.parametrize("m", [1, 4, 20, 256, 1024])
+@pytest.mark.parametrize("u", [16, 30, 64, 4096, 14336, 70000])
+def test_quantize_cluster_spreads_few_rows_and_keeps_a_row_in_registers(m, u):
+    """The row quantization takes 1 to 8 blocks a row, each with at least
+    64 bytes of the padded row; few rows spread over the SMs, and a row
+    stays within what its blocks keep in registers wherever 8 blocks can
+    hold it."""
+    c = i8.quantize_cluster(m, u, 132)
+    chunks = i8.padded_u(u) // i8.CHUNK
+    assert c in (1, 2, 4, 8) and c <= max(1, chunks)
+    keep = c * i8.QUANT_THREADS * i8.QUANT_KEEP
+    if 2 * c <= chunks and c < i8.QUANT_CLUSTER_MAX:
+        assert m * c >= 132 and u <= keep
+    if u <= i8.QUANT_CLUSTER_MAX * i8.QUANT_THREADS * i8.QUANT_KEEP:
+        assert u <= keep or 2 * c > chunks
+    assert i8.quantize_cluster(m, u, 132) == c
+
+
+def test_route_launches_count_decode_and_cpu_calls_count_none():
+    """The route counters name the decode kernel; a CPU call of decode
+    rows takes the plain version and counts no launch on any route."""
+    x, w, s, b = _inputs("llama_width")
+    i8.reset_launch_count()
+    out = i8.int8_dense(_t(x), _t(w), _t(s), _t(b))
+    assert i8.last_path() == "torch"
+    np.testing.assert_array_equal(
+        out.numpy(), i8.int8_dense_torch(_t(x), _t(w), _t(s), _t(b)).numpy())
+    assert i8.route_launches() == dict.fromkeys(i8.ROUTES, 0)
+    assert i8.launch_count() == 0
+    assert set(i8.ROUTES) == {"wgmma", "decode", "mma_sync"}
+
+
+def test_row_launches_reset_empty_and_cpu_calls_count_none():
+    """``row_launches`` splits the eager calls by (kernel, rows M):
+    ``reset_launch_count`` empties it, and CPU calls, which take the plain
+    version, add no pair."""
+    x, w, s, b = _inputs("llama_width")
+    i8.reset_launch_count()
+    assert i8.row_launches() == {}
+    i8.int8_dense(_t(x), _t(w), _t(s), _t(b))
+    i8.int8_dense(_t(x[:1]), _t(w), _t(s))
+    assert i8.last_path() == "torch"
+    assert i8.row_launches() == {}
+
+
+def test_product_refuses_decode_past_32_rows_or_on_an_unreadable_weight():
+    """``product(route="decode")`` raises for M > 32, a ragged U or a
+    misaligned weight before it touches the card."""
+    s = torch.ones(8)
+    w = _aligned_int8(8 * 64, 0).view(8, 64)
+    xq, sx = torch.zeros(33, 64, dtype=torch.int8), torch.ones(33)
+    with pytest.raises(MXNetError, match="does not take"):
+        i8.product(xq, sx, 64, w, s, route="decode")
+    xq, sx = torch.zeros(4, 64, dtype=torch.int8), torch.ones(4)
+    with pytest.raises(MXNetError, match="does not take"):
+        i8.product(xq, sx, 64, _aligned_int8(8 * 64, 1).view(8, 64), s,
+                   route="decode")
+    w30 = _aligned_int8(8 * 30, 0).view(8, 30)
+    with pytest.raises(MXNetError, match="does not take"):
+        i8.product(xq, sx, 30, w30, s, route="decode")
+
+
 @pytest.mark.parametrize("name", sorted(int8_variants.VARIANTS))
 def test_int8_variants_apply_to_the_kernel_source(name):
     """Each variant that ``int8_variants`` builds applies to the kernel's
@@ -477,6 +623,16 @@ def test_int8_variants_apply_to_the_kernel_source(name):
     subs = int8_variants.VARIANTS[name]
     assert (int8_variants.variant_source(source, subs) == source) == (
         not subs)
+
+
+def test_int8_variants_builds_only_known_variants():
+    """Every variant each part of the probe builds is one of ``VARIANTS``,
+    and the two parts between them build every one."""
+    parts = (int8_variants.PREFILL_VARIANTS, int8_variants.DECODE_VARIANTS)
+    for names in parts:
+        assert set(names) <= set(int8_variants.VARIANTS), names
+        assert "source" in names
+    assert set().union(*parts) == set(int8_variants.VARIANTS)
 
 
 def test_int8_variants_needs_cuda(capsys):
