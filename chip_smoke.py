@@ -4,7 +4,7 @@
 Run from the root of a checkout, with one GPU visible:
 
     python3 chip_smoke.py            # every phase; last line is the result
-    python3 chip_smoke.py --quick    # phases 1-3b, 6 and 8 (builds + kernels)
+    python3 chip_smoke.py --quick    # phases 1-3c, 6 and 8 (builds + kernels)
 
 Phases, each printed on its own line; the first failed check exits non-zero:
 
@@ -16,8 +16,8 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    one ``nvcc`` per library, all started together (the flash kernels build
    one library per (q/k, v) dtype pair); each kernel's registers
    and spills as ``ptxas -v`` reports them, under the kernel's name (no
-   ``conv1x1_pair`` kernel may spill, no kernel of ``int8_dense``, nor a
-   ``decode_attention`` kernel for D <= 128).
+   ``conv1x1_pair`` kernel may spill, no kernel of ``int8_dense`` or
+   ``stable_ops``, nor a ``decode_attention`` kernel for D <= 128).
 3. kernel: the decode-attention kernel against its plain PyTorch version
    on the card at Llama-3-8B shapes (H=32, KV=8, D=128; f32 and int8 rings),
    each case with its grid (``split_plan``: splits, blocks, workspace) and
@@ -63,6 +63,30 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    arms in turn), beside f32 ``F.linear``'s; at M = 4 also on a misaligned
    copy of the weight (the ``mma.sync`` route), which the decode route's
    may not exceed by more than 15%.
+3c. stable: the strict ``baseline`` rung's shape-stable kernels
+   (``ops.hopper.stable_ops``, whose arithmetic for one output is a
+   function of the reduced length alone), each against its plain version
+   within STABLE_REL of the largest |output| and two calls bit for bit:
+   S1 (``stable_dense``) at every Llama-3-8B projection shape at 1024 rows
+   (the head at 20), rows at M = 1 and 4 bit for bit the same rows inside
+   that call (first, middle and last places), every instantiation of the
+   kernel bit for bit the others, a misaligned copy (scalar loads) bit for
+   bit the aligned call, a ragged U with a bias; S2 (the mul+reduce
+   ``cached_attention``) at B = 4, H = 32, KV = 8, D = 128 over a
+   1024-position ring at T = 1 (the middle of a generate) and T = 256
+   (from position 0), a T = 1 query bit for bit the same row inside T =
+   256, misaligned rings, MHA at D = 30 and GQA at D = 256; S3 (the row
+   norm) at 1024 rows of 4096 (4 rows bit for bit inside them), misaligned
+   and a ragged 4095. No kernel may spill. Times: S1 at M = 4 and 1024 for
+   each shape and over one forward (225 products at decode rows, a
+   prefill's 224 at 1024), S2 at T = 1 and 256 over one forward's 32
+   layers, S3 at 4 and 1024 rows over one forward's 65 and 64, each beside
+   its bound (bytes at 3.35 TB/s or its f32 products at three TF32
+   passes), its plain version and the library call for the same function
+   (f32 ``F.linear``; f32 ``scaled_dot_product_attention`` on the expanded
+   heads with a boolean mask; ``F.rms_norm``); and whether each library
+   call, and the port's own ``ops.nn.rms_norm``, is itself row-invariant
+   at these shapes (printed, no gate).
 4. serve pallas / 5. serve int8: Llama-3-8B at full width and depth with
    seeded random weights, served by ``Generator`` (warmup, then 4 prompts x
    32 greedy tokens): every decode step of every layer must launch the
@@ -91,6 +115,20 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    serve ``pallas``: none). The int8 rung's prefill logits' gap to the
    ``pallas`` rung's is printed (no gate), and each rung's prefill ms: the
    generate's reading and three synchronised prefills alone.
+serve baseline (after 5, before 5a): the strict rung on the same model
+   and prompts (``Generator(decode_path="baseline")``, buckets (1, 4) x
+   (64, 256), 32 greedy tokens): every forward launches S1 225 times, S2 32
+   and S3 65 (by rows: a prefill's layer products at 1024 rows, its head
+   and every decode step at 4), nothing is new after warmup; at decode
+   steps 1 and 6 every row's logits are bit for bit those of a fresh full
+   prefill of its prefix at bucket 256; a paged ``Generator``'s prefill
+   and decode logits are bit for bit the ring run's and its tokens the
+   same; a multi-step (N = 8, CUDA graphs) run and a ``ContinuousEngine``
+   ((1, 256) prefill chunks, 4 slots) give the single-step tokens; with
+   ``MXNET_SERVE_STRICT_PARITY=1`` a default ``Generator`` serves the rung
+   and its tokens. Printed: decode ms a token, prefill ms, the phase's
+   seconds, the tokens' agreement with the ``pallas`` rung and the prefill
+   logits' gap to it (no gate: other products give other last bits).
 5a. multistep pallas / multistep int8: the same model and prompts through
    ``Generator(multistep=True, decode_steps=8)``, batch buckets (1, 4):
    ``warmup()`` captures every super-step CUDA graph (its signatures,
@@ -332,7 +370,8 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    ``step()`` runs from the f32 ``ShardedTrainer`` steps. The phase adds
    no kernel.
 
-Then one JSON line of per-kernel numbers, the card's name and power limit,
+Then one JSON line of per-kernel numbers (S1-S3 at the rows serve
+baseline ran them, with its launches), the card's name and power limit,
 and, last, the result line. Without CUDA, or without the package next to
 this file, it exits non-zero and prints no result.
 """
@@ -543,6 +582,28 @@ C3_OP_TOL = 1e-5
 # against the CPU's f32 step was wrong
 C3_MODEL_SCALE, C3_MODEL_ATOL = 2.0, 1e-6
 C3_MODEL_BATCH = 8
+# phase 3c and serve baseline: the strict rung's shape-stable kernels
+# (ops.hopper.stable_ops), port-only as the int8 product is: the JAX
+# package runs these formulas on XLA (no pallas_call)
+STABLE_SOURCE = "mxnet_tpu_torch/csrc/stable_ops.cu"
+STABLE_REPLACES = {"dense": "mxnet_tpu/ops/nn.py:1053",
+                   "attention": "mxnet_tpu/ops/nn.py:1018",
+                   "norm": "mxnet_tpu/ops/nn.py:497"}
+# kernel against plain: the same f32 sums in another order, within this
+# share of the largest |output|
+STABLE_REL = 1e-5
+STABLE_EPS = 1e-5           # Llama's norm epsilon
+STABLE_DECODE_M = 4         # decode rows: the batch bucket
+STABLE_PREFILL_M = 4 * 256  # prefill rows: batch x prompt bucket
+STABLE_LAYERS = 32
+STABLE_PRODUCTS = 7 * 32 + 1   # S1 launches a forward (the head included)
+STABLE_NORMS = 2 * 32 + 1      # S3 launches a forward (the final norm too)
+# phase 3c's decode positions: the middle of a 32-token generate of
+# phase 4-5's prompts
+STABLE_DECODE_SP = [n + NEW_TOKENS // 2 for n in PROMPT_LENS]
+# serve baseline: the decode steps whose logits must equal a full
+# prefill's (the sixth is the last whose prefixes all fit bucket 256)
+PARITY_STEPS = (1, 6)
 
 
 class CheckFailed(Exception):
@@ -4317,10 +4378,453 @@ def int8_host_us(torch, F, i8, dev):
         del x, wf, qw, scale
 
 
+def stable_close(torch, out, ref, what):
+    """S1-S3 against their plain versions: within STABLE_REL of the
+    largest |output| (the same f32 sums in another order). Returns the max
+    abs error."""
+    err = float((out - ref).abs().max())
+    check(bool(torch.isfinite(out).all()), f"{what}: output not finite")
+    check(err <= STABLE_REL * float(ref.abs().max()),
+          f"{what}: kernel differs from plain by {err} (largest |output| "
+          f"{float(ref.abs().max())})")
+    return err
+
+
+def stable_dense_bound(m, o, u):
+    """S1's least time (ms): the bytes of x, w and out at the memory rate
+    against its f32 products at three TF32 passes (the table's rule)."""
+    t_bytes = 4 * (m * u + o * u + m * o) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * o * u * 3 / TF32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def stable_attention_bound(b, h, kv, t, d, sp):
+    """S2's least time (ms) for one launch: q, out and each batch row's
+    live K/V rows (up to start_pos + T) read once, against its 4 D f32
+    products a live (query, position) pair at three TF32 passes."""
+    kv_rows = sum(min(p + t, MAX_SEQ) for p in sp)
+    pairs = sum(min(p + i + 1, MAX_SEQ) for p in sp for i in range(t)) * h
+    t_bytes = 4 * (2 * b * h * t * d + 2 * kv * kv_rows * d + b) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * d * pairs * 3 / TF32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_attention(torch, F, q, k, v, sp):
+    """The library's call for S2: f32 ``scaled_dot_product_attention`` on
+    the expanded heads with a boolean mask of the live positions."""
+    b, h, t, _ = q.shape
+    s = k.shape[2]
+    rep = h // k.shape[1]
+    ke = k.repeat_interleave(rep, dim=1)
+    ve = v.repeat_interleave(rep, dim=1)
+    pos = sp.long()[:, None] + torch.arange(t, device=q.device)
+    mask = (torch.arange(s, device=q.device)[None, None, :]
+            <= pos[:, :, None])[:, None]
+    return lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
+
+
+def stable_phase(torch, F, st, nn_ops, flush, dev):
+    """Phase 3c: S1-S3 (``ops.hopper.stable_ops``) at Llama-3-8B's shapes
+    against their plain versions, bitwise repeats, bitwise row invariance,
+    misaligned and ragged inputs; times over one forward beside the bound,
+    the plain version and the library call, and whether each library call
+    is row-invariant. Returns the JSON rows' numbers by name."""
+    phase = "stable"
+    for name, a in st.kernel_attributes().items():
+        say(phase, kernel=name, **a)
+        check(a["local_bytes"] == 0, f"stable kernel {name} uses "
+              f"{a['local_bytes']} local bytes a thread (a spill)")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rows, lib_inv = {}, {}
+    err = {"dense": 0.0, "attention": 0.0, "norm": 0.0}
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def weight(o, u):
+        return (torch.rand(o, u, device=dev, generator=gen) - 0.5) * 0.14
+
+    # S1 at every projection shape: decode (1, 4), verify (20) and prefill
+    # (1024) rows; sums over one forward at M = 4 (225 products) and 1024
+    # (the 224 layer products; a prefill's head runs at M = 4)
+    sums = {m: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                "bound_ms": 0.0, "ops_ms": 0.0}
+            for m in (STABLE_DECODE_M, STABLE_PREFILL_M)}
+    for o, u, n in INT8_SHAPES:
+        w = weight(o, u)
+        head = n == 1
+        full_m = 20 if head else STABLE_PREFILL_M
+        x = randn(full_m, u)
+        full = st.stable_dense(x, w)
+        check(st.last_path() == "cuda", "stable_dense did not launch")
+        check(torch.equal(st.stable_dense(x, w), full),
+              f"S1 does not repeat bit for bit at ({full_m}, {o}, {u})")
+        err["dense"] = max(err["dense"], stable_close(
+            torch, full, st.stable_dense_torch(x, w), f"S1 ({full_m}, {o}, "
+            f"{u})"))
+        for r0, m in ((0, 1), (0, 4), (full_m // 2, 4), (full_m - 4, 4),
+                      (full_m - 1, 1)):
+            check(torch.equal(st.stable_dense(x[r0:r0 + m], w),
+                              full[r0:r0 + m]),
+                  f"S1 rows {r0}..{r0 + m} differ from the same rows inside "
+                  f"M = {full_m} at ({o}, {u})")
+        lib_inv[f"linear_{o}x{u}"] = bool(torch.equal(
+            F.linear(x[:4], w), F.linear(x, w)[:4]))
+        for m in (STABLE_DECODE_M, STABLE_PREFILL_M):
+            if head and m == STABLE_PREFILL_M:
+                continue
+            xm = x[:m].contiguous()
+            reps = 25 if m <= 20 else 3
+            k_ms = time_ms(torch, lambda: st.stable_dense(xm, w), flush,
+                           reps=reps, warm=1)
+            p_ms = time_ms(torch, lambda: st.stable_dense_torch(xm, w), flush,
+                           reps=3, warm=1)
+            l_ms = time_ms(torch, lambda: F.linear(xm, w), flush, reps=reps,
+                           warm=1)
+            bound, by = stable_dense_bound(m, o, u)
+            say(phase, kernel="dense", m=m, o=o, u=u,
+                tile=st.DENSE_TILES[st.dense_plan(m, o, st._sm_count(dev))],
+                ms=f"{k_ms:.6f}", plain_ms=f"{p_ms:.6f}",
+                library_ms=f"{l_ms:.6f}", bound_ms=f"{bound:.6f}",
+                bound_by=by, share=f"{bound / k_ms:.4f}",
+                f32_fma_bound_ms=f"{2 * m * o * u / F32_FLOP_PER_S * 1e3:.6f}")
+            acc = sums[m]
+            acc["ms"] += n * k_ms
+            acc["plain_ms"] += n * p_ms
+            acc["library_ms"] += n * l_ms
+            acc["bound_ms"] += n * bound
+            acc["ops_ms"] += n * 2 * m * o * u * 3 / TF32_FLOP_PER_S * 1e3
+        del w, x, full
+    # every instantiation gives every output the same bits; misaligned
+    # (scalar loads) and ragged inputs
+    x, w = randn(24, 4096), weight(1024, 4096)
+    outs = [st.dense_launch(x, w, tile=i) for i in range(len(st.DENSE_TILES))]
+    check(all(torch.equal(o_, outs[0]) for o_ in outs),
+          "S1's instantiations disagree")
+    xa, wa = randn(4, 4096), weight(1024, 4096)
+    xm_, wm_ = misaligned(torch, xa), misaligned(torch, wa)
+    check(torch.equal(st.stable_dense(xm_, wm_), st.stable_dense(xa, wa)),
+          "S1 on misaligned inputs differs from the aligned call")
+    xr, wr, br = randn(3, 30), weight(37, 30), randn(37)
+    err["dense"] = max(err["dense"], stable_close(
+        torch, st.stable_dense(xr, wr, br), st.stable_dense_torch(xr, wr, br),
+        "S1 ragged (3, 37, 30) with bias"))
+    for m in (STABLE_DECODE_M, STABLE_PREFILL_M):
+        acc = sums[m]
+        n_fw = STABLE_PRODUCTS - (1 if m == STABLE_PREFILL_M else 0)
+        say(phase, kernel="dense", forward_rows=m, products=n_fw,
+            ms=f"{acc['ms']:.6f}", plain_ms=f"{acc['plain_ms']:.6f}",
+            library_ms=f"{acc['library_ms']:.6f}",
+            bound_ms=f"{acc['bound_ms']:.6f}",
+            ops_bound_ms=f"{acc['ops_ms']:.6f}",
+            share=f"{acc['bound_ms'] / acc['ms']:.4f}")
+        rows[f"stable_dense_m{m}"] = {
+            "kernel": "dense", "rows": m, "max_abs_err": err["dense"],
+            "ms": acc["ms"], "plain_ms": acc["plain_ms"],
+            "bound_ms": acc["bound_ms"],
+            "bound_by": ("bytes" if acc["bound_ms"] > acc["ops_ms"]
+                         else "operations"),
+            "library_ms": acc["library_ms"]}
+
+    # S2: decode (T = 1 at the middle of a 32-token generate) and prefill
+    # (T = 256 from position 0) at Llama-3-8B's heads, D = 30 and 256 (MHA
+    # and ragged), misaligned rings; times over one forward's 32 layers
+    b, h, kv, d = 4, 32, 8, 128
+    cases = [("t1", 1, STABLE_DECODE_SP), ("t256", 256, [0] * b)]
+    for label, t, sp_list in cases:
+        q, k, v = randn(b, h, t, d), randn(b, kv, MAX_SEQ, d), \
+            randn(b, kv, MAX_SEQ, d)
+        sp = torch.tensor(sp_list, dtype=torch.int32, device=dev)
+        out = st.stable_attention(q, k, v, sp)
+        check(st.last_path() == "cuda", "stable_attention did not launch")
+        check(torch.equal(st.stable_attention(q, k, v, sp), out),
+              f"S2 does not repeat bit for bit at T = {t}")
+        check(torch.equal(st.stable_attention(misaligned(torch, q),
+                                              misaligned(torch, k),
+                                              misaligned(torch, v), sp), out),
+              f"S2 on misaligned inputs differs at T = {t}")
+        err["attention"] = max(err["attention"], stable_close(
+            torch, out, st.stable_attention_torch(q, k, v, sp),
+            f"S2 at T = {t}"))
+        lib = library_attention(torch, F, q, k, v, sp)
+        k_ms = time_ms(torch, lambda: st.stable_attention(q, k, v, sp), flush)
+        p_ms = time_ms(torch, lambda: st.stable_attention_torch(q, k, v, sp),
+                       flush, reps=3, warm=1)
+        l_ms = time_ms(torch, lib, flush)
+        bound, by = stable_attention_bound(b, h, kv, t, d, sp_list)
+        say(phase, kernel="attention", t=t, start_pos=sp_list,
+            warps=st.attention_warps(h, kv),
+            smem_bytes=st.attention_smem_bytes(st.attention_warps(h, kv),
+                                               MAX_SEQ, d),
+            ms=f"{k_ms:.6f}", plain_ms=f"{p_ms:.6f}",
+            library_ms=f"{l_ms:.6f}", bound_ms=f"{bound:.6f}", bound_by=by,
+            share=f"{bound / k_ms:.4f}")
+        rows[f"stable_attention_{label}"] = {
+            "kernel": "attention", "rows": t, "max_abs_err": 0.0,
+            "ms": k_ms * STABLE_LAYERS, "plain_ms": p_ms * STABLE_LAYERS,
+            "bound_ms": bound * STABLE_LAYERS, "bound_by": by,
+            "library_ms": l_ms * STABLE_LAYERS}
+        if t > 1:  # a T = 1 query inside T = 256: the kernel and the library
+            inv, lib_rows = True, True
+            full_lib = lib()
+            for i in (0, 17, 128, 255):
+                qi = q[:, :, i:i + 1].contiguous()
+                inv &= torch.equal(st.stable_attention(qi, k, v, sp + i),
+                                   out[:, :, i:i + 1])
+                lib_rows &= torch.equal(
+                    library_attention(torch, F, qi, k, v, sp + i)(),
+                    full_lib[:, :, i:i + 1])
+            check(inv, "S2: a T = 1 query differs from the same row inside "
+                  "T = 256")
+            lib_inv["sdpa_f32_mask"] = bool(lib_rows)
+        del q, k, v, out
+    for bb, hh, kk, t, s, dd, sp_list in ((2, 6, 6, 3, 70, 30, [0, 40]),
+                                          (2, 8, 2, 5, 333, 256, [100, 330])):
+        q, k, v = randn(bb, hh, t, dd), randn(bb, kk, s, dd), \
+            randn(bb, kk, s, dd)
+        sp = torch.tensor(sp_list, dtype=torch.int32, device=dev)
+        out = st.stable_attention(q, k, v, sp)
+        check(torch.equal(st.stable_attention(q, k, v, sp), out),
+              f"S2 does not repeat bit for bit at D = {dd}")
+        err["attention"] = max(err["attention"], stable_close(
+            torch, out, st.stable_attention_torch(q, k, v, sp),
+            f"S2 at D = {dd}, H = {hh}, KV = {kk}"))
+    for label in ("t1", "t256"):
+        rows[f"stable_attention_{label}"]["max_abs_err"] = err["attention"]
+
+    # S3: rows of 4096 at M = 4 (decode: 65 a forward) and 1024 (a
+    # prefill's 64 layer norms), a misaligned copy, a ragged 4095
+    n_norm = 4096
+    gamma = torch.rand(n_norm, device=dev, generator=gen) + 0.5
+    x = randn(STABLE_PREFILL_M, n_norm)
+    full = st.stable_rms_norm(x, gamma, STABLE_EPS)
+    check(torch.equal(st.stable_rms_norm(x, gamma, STABLE_EPS), full),
+          "S3 does not repeat bit for bit")
+    check(torch.equal(st.stable_rms_norm(misaligned(torch, x), gamma,
+                                         STABLE_EPS), full),
+          "S3 on a misaligned x differs")
+    err["norm"] = stable_close(torch, full, st.stable_rms_norm_torch(
+        x, gamma, STABLE_EPS), "S3 at 1024 rows")
+    xr, gr = randn(5, 4095), torch.rand(4095, device=dev, generator=gen)
+    err["norm"] = max(err["norm"], stable_close(
+        torch, st.stable_rms_norm(xr, gr, STABLE_EPS),
+        st.stable_rms_norm_torch(xr, gr, STABLE_EPS), "S3 ragged rows"))
+    for r0 in (0, 510, 1020):
+        check(torch.equal(st.stable_rms_norm(x[r0:r0 + 4], gamma,
+                                             STABLE_EPS), full[r0:r0 + 4]),
+              f"S3 rows {r0}..{r0 + 4} differ from the same rows inside 1024")
+    lib_inv["rms_norm"] = bool(torch.equal(
+        F.rms_norm(x[:4], (n_norm,), gamma, STABLE_EPS),
+        F.rms_norm(x, (n_norm,), gamma, STABLE_EPS)[:4]))
+    lib_inv["ops_nn_rms_norm"] = bool(torch.equal(
+        nn_ops.rms_norm(x[:4], gamma, eps=STABLE_EPS),
+        nn_ops.rms_norm(x, gamma, eps=STABLE_EPS)[:4]))
+    for m, n in ((STABLE_DECODE_M, STABLE_NORMS),
+                 (STABLE_PREFILL_M, STABLE_NORMS - 1)):
+        xm = x[:m].contiguous()
+        k_ms = time_ms(torch, lambda: st.stable_rms_norm(xm, gamma,
+                                                         STABLE_EPS), flush)
+        p_ms = time_ms(torch, lambda: st.stable_rms_norm_torch(
+            xm, gamma, STABLE_EPS), flush)
+        l_ms = time_ms(torch, lambda: F.rms_norm(xm, (n_norm,), gamma,
+                                                 STABLE_EPS), flush)
+        bound = 4 * (2 * m * n_norm + n_norm) / HBM_BYTES_PER_S * 1e3
+        say(phase, kernel="norm", m=m, n=n_norm, ms=f"{k_ms:.6f}",
+            plain_ms=f"{p_ms:.6f}", library_ms=f"{l_ms:.6f}",
+            bound_ms=f"{bound:.6f}", share=f"{bound / k_ms:.4f}",
+            forward_launches=n, forward_ms=f"{k_ms * n:.6f}")
+        rows[f"stable_rms_norm_m{m}"] = {
+            "kernel": "norm", "rows": m, "max_abs_err": err["norm"],
+            "ms": k_ms * n, "plain_ms": p_ms * n, "bound_ms": bound * n,
+            "bound_by": "bytes", "library_ms": l_ms * n}
+    say(phase, library_row_invariant=lib_inv)
+    say(phase, max_abs_err_dense=err["dense"],
+        max_abs_err_attention=err["attention"], max_abs_err_norm=err["norm"])
+    return rows
+
+
+def misaligned(torch, x):
+    """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
+    boundary: the kernels must take it with scalar loads, in the same
+    order."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = flat[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def baseline_phase(torch, st, Generator, ContinuousEngine, model, prompts,
+                   n_layers, vocab, pallas, pallas_prefill_logits):
+    """Serve baseline: the strict rung on ``llama3_8b`` (phase 4-5's
+    prompts, ring, buckets and 32 greedy tokens). Gates: S1-S3 launched
+    by every layer of every forward and nothing new after warmup; at the
+    first and sixth decode step every row's logits bit for bit a fresh
+    full prefill's of its prefix at bucket 256; the paged run's logits and
+    tokens the ring run's; multi-step (N = 8) and ``ContinuousEngine``
+    tokens the single-step tokens; a default ``Generator`` under
+    ``MXNET_SERVE_STRICT_PARITY=1`` serving the rung. Returns the launches
+    by (kernel, rows) of the timed single-step generate."""
+    import numpy as np
+
+    from mxnet_tpu_torch.ops.hopper.decode_attention import natural_block
+    from mxnet_tpu_torch.serve import KVCache
+
+    phase = "serve baseline"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(max_seq=MAX_SEQ, batch_buckets=(1, 4), prompt_buckets=(64, 256))
+    gen = Generator(model, decode_path="baseline", name="llama3_8b_baseline",
+                    **kw)
+    w = gen.warmup()
+    say(phase, warmup_s=f"{w['wall_s']:.3f}", signatures=w["signatures"])
+    st.reset_launch_count()
+    fc = ForwardCount(model)
+    try:
+        out, info = gen.generate(prompts, max_new_tokens=NEW_TOKENS)
+    finally:
+        fc.close()
+    counts, rows = st.launch_count(), st.row_launches()
+    steps = info["decode_steps"]
+    check(steps == NEW_TOKENS - 1 and fc.calls == 1 + steps,
+          f"{phase}: {steps} decode steps, {fc.calls} forwards")
+    check(all(len(o) == NEW_TOKENS for o in out), f"{phase}: short output")
+    forwards = fc.calls
+    want = {"dense": STABLE_PRODUCTS * forwards,
+            "attention": n_layers * forwards,
+            "norm": (2 * n_layers + 1) * forwards}
+    check(counts == want, f"{phase}: launches {counts}, expected {want}")
+    toks, lens, bb = gen._pad_prompts(prompts)
+    m_pre = toks.shape[0] * toks.shape[1]
+    want_rows = {("dense", m_pre): STABLE_PRODUCTS - 1,
+                 ("dense", bb): 1 + STABLE_PRODUCTS * steps,
+                 ("attention", toks.shape[1]): n_layers,
+                 ("attention", 1): n_layers * steps,
+                 ("norm", m_pre): 2 * n_layers,
+                 ("norm", bb): 1 + (2 * n_layers + 1) * steps}
+    check(rows == want_rows, f"{phase}: launches by (kernel, rows) "
+          f"{sorted(rows.items())}, expected {sorted(want_rows.items())}")
+    gen.assert_no_recompiles()
+    agree = sum(a == b for a, b in zip(out, pallas["out"]))
+    say(phase, prefill_ms=f"{info['prefill_ms']:.3f}",
+        decode_ms_per_token=f"{info['decode_ms'] / steps:.3f}",
+        tokens_s=f"{info['tokens_s']:.3f}", decode_steps=steps,
+        launches=counts, launches_by_kernel_and_rows=sorted(rows.items()),
+        rows_equal_to_pallas_tokens=f"{agree}/{len(out)}",
+        first_tokens=[o[:4] for o in out])
+
+    # decode against a fresh full prefill of each row's prefix, bit for bit
+    def fresh_prefill(seqs):
+        t = np.zeros_like(toks)
+        for i, sq in enumerate(seqs):
+            t[i, :len(sq)] = sq
+        n = np.array([len(sq) for sq in seqs], np.int32)
+        return gen.prefill(t, n, KVCache.alloc(model, bb, MAX_SEQ))[0]
+
+    logits, cache = gen.prefill(toks, lens, gen._fresh_cache(bb))
+    check(tuple(logits.shape) == (bb, vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{phase}: prefill logits {tuple(logits.shape)}")
+    lp = pallas_prefill_logits.to(logits.device)
+    say(phase, prefill_logit_gap_to_pallas=(
+        f"{float((logits - lp).abs().max()):.6e}"),
+        prefill_logit_rel_gap_to_pallas=f"{rel_gap(logits, lp):.3e}",
+        top1_equal_rows=int((logits.argmax(-1) == lp.argmax(-1)).sum()))
+    seqs = [list(p) for p in prompts] + [[int(toks[i, 0])]
+                                         for i in range(len(prompts), bb)]
+    pos = lens.copy()
+    ring = [logits.clone()]
+    ids_by_step = []
+    for k in range(1, PARITY_STEPS[-1] + 1):
+        ids = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        ids_by_step.append(ids)
+        for i in range(bb):
+            seqs[i].append(int(ids[i]))
+        logits, cache = gen.decode_step(ids, pos, cache)
+        pos = pos + 1
+        ring.append(logits.clone())
+        if k in PARITY_STEPS:
+            ref = fresh_prefill(seqs)
+            diff = float((logits - ref).abs().max())
+            say(phase, decode_step=k, prefix_lens=[len(sq) for sq in seqs],
+                max_abs_diff_to_full_prefill=diff)
+            check(torch.equal(logits, ref), f"{phase}: decode step {k}'s "
+                  f"logits differ from a full prefill's by up to {diff}")
+    for i in range(len(prompts)):
+        check(seqs[i][len(prompts[i]):] == out[i][:PARITY_STEPS[-1]],
+              f"{phase}: the parity run's tokens differ from the generate's "
+              f"in row {i}")
+    # paged: the same prefill and decode steps, then a generate
+    paged = Generator(model, decode_path="baseline", paged=True,
+                      name="llama3_8b_baseline_paged", **kw)
+    pl, pool = paged.prefill(toks, lens, paged._fresh_cache(bb))
+    check(torch.equal(pl, ring[0]), f"{phase}: paged prefill logits differ")
+    pos = lens.copy()
+    for k, ids in enumerate(ids_by_step, 1):
+        pl, pool = paged.decode_step(ids, pos, pool)
+        pos = pos + 1
+        check(torch.equal(pl, ring[k]), f"{phase}: paged decode step {k}'s "
+              "logits differ from the ring run's")
+    out_paged, _ = paged.generate(prompts, max_new_tokens=NEW_TOKENS)
+    check(out_paged == out, f"{phase}: paged tokens differ from the ring's")
+    del paged, pool
+    free_cuda(torch)
+    # multi-step: one CUDA graph a (bucket, N or 1, greedy or sampled)
+    multi = Generator(model, decode_path="baseline", multistep=True,
+                      decode_steps=DECODE_STEPS,
+                      name="llama3_8b_baseline_multi", **kw)
+    mw = multi.warmup()
+    n0 = st.launch_count()["dense"]
+    out_multi, minfo = multi.generate(prompts, max_new_tokens=NEW_TOKENS)
+    multi.assert_no_recompiles()
+    dense = st.launch_count()["dense"] - n0
+    check(out_multi == out, f"{phase}: multi-step tokens differ from "
+          "single-step's")
+    check(dense == STABLE_PRODUCTS * (1 + DECODE_STEPS
+                                      * minfo["decode_visits"]),
+          f"{phase}: multi-step launched S1 {dense} times in "
+          f"{minfo['decode_visits']} visits")
+    say(phase, multistep_captures=mw.get("captures"),
+        multistep_visits=minfo["decode_visits"],
+        multistep_decode_ms_per_token=(
+            f"{minfo['decode_ms'] / minfo['decode_steps']:.3f}"),
+        multistep_dense_launches=dense)
+    del multi
+    free_cuda(torch)
+    # the continuous engine: (1, 256) prefill chunks, 4 decode slots
+    with ContinuousEngine(model, max_seq=MAX_SEQ, num_slots=4,
+                          page_size=natural_block(), prefill_chunk=CB_CHUNK,
+                          decode_path="baseline",
+                          name="llama3_8b_baseline_cb") as eng:
+        futs = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        out_eng = [f.result(timeout=CB_WAIT)["tokens"] for f in futs]
+        eng.assert_no_recompiles()
+    check(out_eng == out, f"{phase}: engine tokens differ from the "
+          "Generator's")
+    free_cuda(torch)
+    # MXNET_SERVE_STRICT_PARITY=1: a default Generator serves the rung
+    os.environ["MXNET_SERVE_STRICT_PARITY"] = "1"
+    try:
+        strict = Generator(model, name="llama3_8b_strict", **kw)
+        out_strict, _ = strict.generate(prompts, max_new_tokens=NEW_TOKENS)
+    finally:
+        del os.environ["MXNET_SERVE_STRICT_PARITY"]
+    check(strict.decode_path == "baseline" and out_strict == out,
+          f"{phase}: the strict-parity Generator ({strict.decode_path}) "
+          "did not serve the baseline tokens")
+    del strict, gen
+    free_cuda(torch)
+    say(phase, paged_equal=True, multistep_equal=True, engine_equal=True,
+        strict_parity_equal=True,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        phase_seconds=f"{time.perf_counter() - t_phase:.3f}")
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
-                    help="run phases 1-3b, 6 and 8 only (builds and kernels)")
+                    help="run phases 1-3c, 6 and 8 only (builds and kernels)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -4354,6 +4858,7 @@ def main(argv=None):
     from mxnet_tpu_torch.ops.hopper import decode_attention as da
     from mxnet_tpu_torch.ops.hopper import flash_attention as fa
     from mxnet_tpu_torch.ops.hopper import int8_dense as i8
+    from mxnet_tpu_torch.ops.hopper import stable_ops as st
     from mxnet_tpu_torch.parallel import ShardedTrainer
     from mxnet_tpu_torch.resilience import faults
     from mxnet_tpu_torch.serve import (ContinuousEngine, Generator,
@@ -4392,13 +4897,15 @@ def main(argv=None):
     # 2. build: one nvcc per library, all started together (the flash
     # kernels build one library per dtype pair)
     t0 = time.perf_counter()
-    specs = ([("decode_attention", ()), ("conv1x1", ()), ("int8_dense", ())]
+    specs = ([("decode_attention", ()), ("conv1x1", ()), ("int8_dense", ()),
+              ("stable_ops", ())]
              + [fa.build_spec(p) for p in fa.DTYPE_PAIRS])
     _build.build_many(specs)
     da.build()
     fa.build()
     c1x1.build()
     i8.build()
+    st.build()
     spills = []  # gated kernels that spill
     for name, defines in specs:
         key = _build.variant_key(name, defines)
@@ -4414,10 +4921,11 @@ def main(argv=None):
             if any(w in line for w in ("Function properties", "registers",
                                        "spill")):
                 print(f"  ptxas: {line.strip()}", flush=True)
-            # the pair kernels, every int8 kernel, and the decode kernels for
-            # D <= 128 (NC = 1, the main path's; D > 128 instantiations may
-            # spill a few bytes)
-            gated = ("conv1x1_pair" in function or name == "int8_dense" or (
+            # the pair kernels, every int8 and stable kernel, and the decode
+            # kernels for D <= 128 (NC = 1, the main path's; D > 128
+            # instantiations may spill a few bytes)
+            gated = ("conv1x1_pair" in function
+                     or name in ("int8_dense", "stable_ops") or (
                 "decode_attention" in function and "ELi2EE" not in function))
             if ("spill" in line and gated and
                     " 0 bytes spill stores, 0 bytes spill loads" not in line):
@@ -4433,6 +4941,10 @@ def main(argv=None):
     t3b = time.perf_counter()
     ires = int8_phase(torch, F, i8, flush, dev)
     say("int8", phase_3b_seconds=f"{time.perf_counter() - t3b:.3f}")
+    # 3c. the strict rung's shape-stable kernels vs plain
+    t3c = time.perf_counter()
+    sres = stable_phase(torch, F, st, nn_ops, flush, dev)
+    say("stable", phase_3c_seconds=f"{time.perf_counter() - t3c:.3f}")
     if args.quick:
         flash_attributes_phase(fa)
         flash_phase(torch, fa, flush, dev)
@@ -4470,6 +4982,11 @@ def main(argv=None):
         largest_pallas_logit=f"{float(lp.abs().max()):.6e}",
         top1_equal_rows=int((li.argmax(-1) == lp.argmax(-1)).sum()),
         rows=lp.shape[0])
+    # serve baseline: the strict rung (before 5f, which changes the weights)
+    stable_rows = baseline_phase(torch, st, Generator, ContinuousEngine,
+                                 model, prompts, cfg["num_layers"],
+                                 cfg["vocab_size"], served["pallas"], lp)
+    torch.cuda.empty_cache()
     # 5a. multi-step decode through CUDA graphs; 5b. paged KV and prefix
     for rung in ("pallas", "int8"):
         served[rung]["multistep"] = multistep_phase(
@@ -4619,6 +5136,20 @@ def main(argv=None):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the strict rung's kernels at the rows serve baseline ran them (S1 at
+    # decode rows M = 4 and prefill rows M = 1024, S2 at T = 1 and 256, S3
+    # at 4 and 1024 rows): phase 3c's times over one forward; launches:
+    # that phase's single-step generate, by kernel and rows
+    for name, r in sres.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": STABLE_SOURCE,
+            "replaces": STABLE_REPLACES[r["kernel"]],
+            "launches": stable_rows.get((r["kernel"], r["rows"]), 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        check(kernels[-1]["launches"] > 0, f"serve baseline never launched "
+              f"{name}")
     for name in ("bf16", "f32"):
         r = pres[name]
         kernels.append({

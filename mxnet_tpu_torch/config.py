@@ -44,14 +44,16 @@ def get(name):
 
 register_flag(
     "MXNET_SERVE_STRICT_PARITY", False,
-    "Pin serve.Generator to the strict decode path (the 'baseline' rung), "
-    "overriding any decode_path argument or MXNET_SERVE_DECODE_PATH. The "
-    "port has no baseline rung yet, so a Generator built with this flag "
-    "set raises NotImplementedError.", _bool)
+    "Pin serve.Generator (and ContinuousEngine, SpeculativeGenerator) to "
+    "the strict decode path (the 'baseline' rung), overriding any "
+    "decode_path argument or MXNET_SERVE_DECODE_PATH: every product, the "
+    "attention and the norms run shape-stable kernels, so each decode "
+    "step's logits equal a full prefill's bit for bit. No global numeric "
+    "flag is set.", _bool)
 register_flag(
     "MXNET_SERVE_DECODE_PATH", "auto",
     "Default decode rung for serve.Generator when the constructor passes "
-    "none: auto (= pallas), baseline (strict ops; not ported yet), pallas "
+    "none: auto (= pallas), baseline (shape-stable kernels), pallas "
     "(hand-written CUDA decode-attention kernel), int8 (pallas + int8 "
     "KV-cache rings and, per MXNET_SERVE_DECODE_INT8_WEIGHTS, weights).",
     str)

@@ -8,8 +8,12 @@ head. Two paths, as in the JAX package:
 * the cache-free forward (training): causal attention over the whole
   sequence through the flash-attention kernel module, K/V heads expanded
   to the query heads;
-* the cache path (serving): attention over per-layer KV rings through the
-  decode-attention kernel module.
+* the cache path (serving): attention over per-layer KV rings. On the
+  ``pallas`` and ``int8`` rungs through the decode-attention kernel module
+  and library (or int8) products; on the strict ``baseline`` rung every
+  product, the attention and the norms through the shape-stable kernels of
+  ``ops/hopper/stable_ops``, so a T = 1 decode step's logits are bit for
+  bit those of a T = bucket prefill of the same prefix.
 
 Mixed dtypes compute as ``jnp`` promotes them: products through
 ``ops.nn.dense`` (``F.linear`` refuses a bf16 input against an f32 weight
@@ -68,10 +72,19 @@ def apply_rope(x, cos, sin):
     return torch.stack([r1, r2], dim=-1).reshape(x.shape)
 
 
+def _stable(cache):
+    """True on the strict ``baseline`` rung's cache path."""
+    return getattr(cache, "path", None) == "baseline"
+
+
 def _serving_dense(x, weight, cache):
-    """Projection by ``weight`` (out, in): on the int8 serving rung the
-    cache's pre-quantized side table (``ops.nn.quantized_dense``),
-    otherwise ``ops.nn.dense``."""
+    """Projection by ``weight`` (out, in): on the strict ``baseline`` rung
+    ``ops.nn.stable_dense`` (each output one fixed-order sum, whatever the
+    rows: the JAX package's cache path takes it for q/k/v/o, the FFN and
+    the head); on the int8 serving rung the cache's pre-quantized side
+    table (``ops.nn.quantized_dense``); otherwise ``ops.nn.dense``."""
+    if _stable(cache):
+        return _ops.stable_dense(x, weight)
     qw = getattr(cache, "quant_weights", None)
     entry = qw.get(id(weight)) if qw else None
     if entry is not None:
@@ -89,7 +102,11 @@ class RMSNorm(nn.Module):
         self._eps = epsilon
         self.gamma = nn.Parameter(torch.ones(units))
 
-    def forward(self, x):
+    def forward(self, x, stable=False):
+        """``stable=True`` (the strict cache path; last axis only) takes the
+        shape-stable route, ``ops.nn.stable_rms_norm``."""
+        if stable:
+            return _ops.stable_rms_norm(x, self.gamma, eps=self._eps)
         return _ops.rms_norm(x, self.gamma, axis=self._axis, eps=self._eps)
 
 
@@ -128,12 +145,8 @@ class LlamaAttention(nn.Module):
         if start_pos is None:
             raise MXNetError("cache= requires start_pos (the (B,) "
                              "absolute position of x[:, 0])")
-        path = getattr(cache, "path", "pallas")
-        if path == "baseline":
-            raise NotImplementedError(
-                "the baseline rung's stable_dense cache path is ported in a "
-                "later slice of the serving port")
-        return self._forward_cached_fast(x, cache, start_pos, path)
+        return self._forward_cached(x, cache, start_pos,
+                                    getattr(cache, "path", "pallas"))
 
     def _forward_full(self, x):
         """The cache-free forward: projections, RoPE from position 0, K/V
@@ -156,10 +169,14 @@ class LlamaAttention(nn.Module):
         out = out.transpose(1, 2).reshape(b, t, self._units)
         return _ops.dense(out, self.o_proj.weight)
 
-    def _forward_cached_fast(self, x, cache, start_pos, path):
-        """Serving rungs ("pallas"/"int8"): gemm (or int8) projections, the
-        new K/V rows written into the ring in place, and the decode-
-        attention kernel over the *unexpanded* GQA rings."""
+    def _forward_cached(self, x, cache, start_pos, path):
+        """The serving rungs: the projections (``_serving_dense``: library,
+        int8 or, on ``baseline``, shape-stable products), the new K/V rows
+        written into the ring in place, and ``cached_attention`` over the
+        *unexpanded* GQA rings: the decode-attention kernel on
+        ``pallas``/``int8``, the shape-stable mul+reduce on ``baseline``
+        (where the JAX package repeats the K/V heads at use; head h reads KV
+        head h // G here, the same values)."""
         b, t, _ = x.shape
 
         def proj(layer, heads):
@@ -203,7 +220,8 @@ class LlamaFFN(nn.Module):
         self.down_proj = nn.Linear(hidden_size, units, bias=False)
 
     def forward(self, x, cache=None):
-        # with a cache, the int8 rung's quantized side table applies
+        # with a cache, the serving rung's products apply (shape-stable on
+        # baseline, the int8 side table on int8)
         gate = _serving_dense(x, self.gate_proj.weight, cache)
         up = _serving_dense(x, self.up_proj.weight, cache)
         return _serving_dense(_ops.activation(gate, "silu") * up,
@@ -220,9 +238,10 @@ class LlamaBlock(nn.Module):
         self.ffn = LlamaFFN(units, hidden_size)
 
     def forward(self, x, cache=None, start_pos=None):
-        x = x + self.attention(self.attn_norm(x), cache=cache,
+        stable = _stable(cache)
+        x = x + self.attention(self.attn_norm(x, stable=stable), cache=cache,
                                start_pos=start_pos)
-        return x + self.ffn(self.ffn_norm(x), cache=cache)
+        return x + self.ffn(self.ffn_norm(x, stable=stable), cache=cache)
 
 
 class LlamaModel(nn.Module):
@@ -284,15 +303,18 @@ class LlamaModel(nn.Module):
         per position) and keeps a prefill from computing T x vocab logits
         it throws away."""
         x = self.embed(input_ids.to(torch.long))
+        stable = _stable(cache)
         if cache is None and self._remat and self._in_step:
             x = self._recompute_layers(x)
         else:
             for i, blk in enumerate(self._blocks):
                 x = blk(x, cache=None if cache is None else cache.layer(i),
                         start_pos=start_pos)
+                if stable:  # where the JAX package fences its layers
+                    x = _ops.fusion_fence(x)
         if last_idx is not None:
             x = _ops.gather_positions(x, last_idx)
-        x = self.norm(x)
+        x = self.norm(x, stable=stable)
         w = self.embed.weight if self._tie else self.lm_head.weight
         return _serving_dense(x, w, cache)
 

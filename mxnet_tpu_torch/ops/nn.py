@@ -19,6 +19,7 @@ from ..base import MXNetError
 from .hopper import decode_attention as _da
 from .hopper import flash_attention as _fa
 from .hopper import int8_dense as _i8
+from .hopper import stable_ops as _st
 from .hopper.int8_dense import int8_scale
 
 
@@ -66,6 +67,17 @@ def rms_norm(data, gamma, axis=-1, eps=1e-6):
     shape = [1] * data.dim()
     shape[axis] = data.shape[axis]
     return out * gamma.reshape(shape)
+
+
+def stable_rms_norm(data, gamma, eps=1e-6):
+    """RMSNorm along the last axis (``rms_norm``'s arithmetic) whose every
+    row is one fixed-order sum whatever the number of rows: the route the
+    strict ``baseline`` cache path takes, so a T = 1 decode step normalizes
+    a row exactly as a T = bucket prefill does. The kernel
+    ``ops.hopper.stable_ops`` (S3) on CUDA tensors, its plain version on the
+    CPU. (:func:`rms_norm` runs PyTorch's reductions, whose block layout on
+    the card follows the number of rows.)"""
+    return _st.stable_rms_norm(data, gamma, eps)
 
 
 def fully_connected(x, weight, bias=None, num_hidden=None, no_bias=False,
@@ -227,20 +239,54 @@ def quantized_dense(data, qweight, scale, bias=None):
 def cached_attention(query, key, value, start_pos, scale=None,
                      path="pallas", k_scale=None, v_scale=None):
     """Causal attention of ``query`` (B, H, T, D) — absolute positions
-    ``start_pos[b] + t`` — over *unexpanded* GQA rings (B, KV, S, D),
-    optionally int8 with (B, KV, S) ``k_scale``/``v_scale``, through the
-    decode-attention kernel module (``ops/hopper/decode_attention``).
+    ``start_pos[b] + t`` — over *unexpanded* GQA rings (B, KV, S, D); an
+    expanded ring (KV = H) is the same call. Positions past
+    ``start_pos[b] + t`` are masked.
 
-    Only the fast path of the JAX op is ported: its ``"baseline"``
-    mul+reduce formulation comes with the baseline rung in a later slice.
+    ``path`` selects the formulation, as in the JAX op:
+
+    * ``"baseline"``: the strict rung's shape-stable mul+reduce
+      (``p = e / sum(e)``, f32 rings; the bitwise prefill/decode contract):
+      ``ops/hopper/stable_ops`` (S2), head h reading KV head
+      ``h // (H // KV)`` where the JAX cache path repeats the heads first;
+    * any other value: the fast rungs' decode-attention kernel module
+      (``ops/hopper/decode_attention``), optionally over int8 rings with
+      (B, KV, S) ``k_scale``/``v_scale``; tolerance parity, not bitwise.
+
+    The port's default stays ``"pallas"`` (the JAX op's is
+    ``"baseline"``): every caller in the port names its path.
     """
     if path == "baseline":
-        raise NotImplementedError(
-            "cached_attention(path='baseline') is the strict rung's "
-            "mul+reduce formulation, ported with the baseline rung in a "
-            "later slice of the serving port")
+        if k_scale is not None or v_scale is not None:
+            raise MXNetError("cached_attention(path='baseline') takes f32 "
+                             "rings, not int8 ones with scales")
+        return _st.stable_attention(query, key, value, start_pos,
+                                    scale=scale)
     return _da.decode_attention(query, key, value, start_pos, scale=scale,
                                 k_scale=k_scale, v_scale=v_scale)
+
+
+def stable_dense(data, weight, bias=None):
+    """Shape-stable fully-connected: ``data`` (..., U) x ``weight`` (O, U)
+    (+ ``bias`` (O,)) -> (..., O), every output one fixed-order sum over U
+    whatever the leading shape (``mxnet_tpu.ops.nn.stable_dense``). On the
+    card cuBLAS picks its kernel and split-K by the number of rows, so a
+    ``F.linear`` row differs between T = 1 and T = bucket; this is
+    ``ops/hopper/stable_ops``' S1 on CUDA tensors and its plain mul+reduce
+    (chunked over O) on the CPU. Serving's strict rung only: training and
+    the fast rungs keep ``dense``'s library product."""
+    return _st.stable_dense(data, weight, bias)
+
+
+def fusion_fence(data):
+    """Identity. In the JAX package an XLA ``optimization_barrier`` that
+    keeps the serving decode path from fusing reductions across decoder
+    layers differently in the T = 1 and T = bucket executables. Eager
+    PyTorch, and a CUDA graph captured from it, run each op as its own
+    kernel and fuse nothing across layers, so the port's fence has nothing
+    to pin; the strict cache path still calls it between layers, where the
+    JAX package does."""
+    return data
 
 
 def attention(query, key, value, mask=None, causal=False, scale=None,

@@ -3,11 +3,12 @@
 
 :class:`KVCache` preallocates per-layer K/V rings to ``max_seq`` on the
 model's device and the decode step feeds exactly one new token through the
-model's cache path, so each generated token costs one T = 1 pass. Every
-decode step of every layer runs its attention through the hand-written
-CUDA decode-attention kernel (``ops/hopper/decode_attention``) on the GPU;
-prefill (T = prompt bucket) runs its plain PyTorch version, as the JAX
-package routes T > 1 to ``_xla_decode``. On the ``int8`` rung with int8
+model's cache path, so each generated token costs one T = 1 pass. On the
+``pallas`` and ``int8`` rungs every decode step of every layer runs its
+attention through the hand-written CUDA decode-attention kernel
+(``ops/hopper/decode_attention``) on the GPU; prefill (T = prompt bucket)
+runs its plain PyTorch version, as the JAX package routes T > 1 to
+``_xla_decode``. On the ``int8`` rung with int8
 weights (``MXNET_SERVE_DECODE_INT8_WEIGHTS``; ``auto`` is on for a model
 on the GPU) every projection and the LM head, prefill and decode, run the
 int8 x int8 kernel (``ops/hopper/int8_dense``) on per-channel int8
@@ -25,8 +26,20 @@ a radix trie (:class:`~.prefix_cache.PrefixCache`) over it, and
 ``decode_steps`` iterations per host visit (:class:`_MultiStepForward`):
 on a GPU each super-step is one replay of a CUDA graph captured per batch
 bucket, with sampling and stop/budget checks on the device and one
-(B, N) token block read back per visit. The strict ``baseline`` rung
-raises ``NotImplementedError`` until its slice lands.
+(B, N) token block read back per visit.
+
+The strict ``baseline`` rung (``decode_path="baseline"``, or any rung
+under ``MXNET_SERVE_STRICT_PARITY``) runs every product, the attention and
+the norms of the cache path through the shape-stable kernels of
+``ops/hopper/stable_ops`` (prefill and decode alike), so each decode
+step's logits equal, bit for bit, those of a full prefill of the same
+prefix, as in the JAX package. No global numeric or determinism flag is
+set: the contract comes from the kernels. Paged, the step is the ring step
+between exact-copy ``paged_kv_gather`` / ``paged_kv_scatter`` brackets,
+each its own eager op (the JAX package runs its brackets outside the ring
+executable for the same reason), so paged decode equals ring decode bit
+for bit. The multi-step super-step replays the same kernels inside a
+CUDA graph, and the speculative verify pass (T = k + 1) the same rows.
 
 :class:`SpeculativeGenerator` pairs a target ``Generator`` with a draft
 one: the draft proposes k tokens a round (with ``multistep`` its k+1
@@ -48,6 +61,7 @@ from ..base import MXNetError
 from ..ops import nn as _ops
 from ..ops.hopper import decode_attention as _da
 from ..ops.hopper import int8_dense as _i8
+from ..ops.hopper import stable_ops as _st
 from ..ops.nn import int8_scale
 from ..profiler import trace as _trace
 from ..resilience import faults as _faults
@@ -510,16 +524,23 @@ class _VerifyInputs(_StaticInputs):
         return out
 
 
-def _graph_counters(qweights):
-    """The kernel modules whose launches a serving :class:`GraphSession`
-    counts at its replays: the decode attention, and the int8 product
-    where the projections run on pre-quantized weights (``qweights``)."""
+def _graph_counters(path, qweights):
+    """The kernel counters a serving :class:`GraphSession` of rung ``path``
+    bumps at its replays: on ``baseline`` the shape-stable product,
+    attention and norm; otherwise the decode attention, and the int8
+    product where the projections run on pre-quantized weights
+    (``qweights``)."""
+    if path == "baseline":
+        return _st.COUNTERS
     return (_da, _i8) if qweights else (_da,)
 
 
-def _graph_route():
-    """The routing a captured graph keeps, for its key: the decode
-    attention's override and the int8 product's."""
+def _graph_route(path):
+    """The routing a captured graph of rung ``path`` keeps, for its key:
+    the stable kernels' override on ``baseline``; otherwise the decode
+    attention's and the int8 product's."""
+    if path == "baseline":
+        return (_st.forced_path(),)
     return _da.forced_path(), _i8.forced_path()
 
 
@@ -554,7 +575,8 @@ def _replay_super(session, step, inp, steps, flat, arrays, events=None,
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-    out = session.run((inp.lanes, steps, sampled, _graph_route()), body)
+    out = session.run((inp.lanes, steps, sampled, _graph_route(step._path)),
+                      body)
     if timed:
         e1.record()
         events.append((e0, e1))
@@ -647,8 +669,9 @@ class Generator:
         :func:`resolve_decode_path`): "pallas" routes every decode step's
         attention through the CUDA decode-attention kernel; "int8" adds
         int8 KV rings and, when ``MXNET_SERVE_DECODE_INT8_WEIGHTS`` asks
-        for it, int8 projection weights. "baseline" is not ported yet and
-        raises ``NotImplementedError``.
+        for it, int8 projection weights; "baseline" is the strict rung
+        (shape-stable kernels everywhere; each decode step's logits bit for
+        bit a full prefill's).
     paged : back the KV state with a :class:`~.kv_blocks.PagedKVPool` per
         batch bucket instead of contiguous rings (``None`` reads
         ``MXNET_SERVE_KV_PAGED``). Without the prefix cache the pool is
@@ -696,11 +719,6 @@ class Generator:
             raise MXNetError("prompt bucket exceeds max_seq")
         self.pad_id = int(pad_id)
         self.decode_path = resolve_decode_path(decode_path)
-        if self.decode_path == "baseline":
-            raise NotImplementedError(
-                "the strict 'baseline' decode rung (stable_dense and the "
-                "mul+reduce cached_attention) is ported in a later slice of "
-                "the serving port; use decode_path='pallas' or 'int8'")
         self._quant = "int8" if self.decode_path == "int8" else None
         self._qweights = {}
         if self._quant and _int8_weights_enabled(self.device):
@@ -746,7 +764,8 @@ class Generator:
                 paged=self._paged)
             self._msession = GraphSession(
                 f"{name}_multi", self.device,
-                counters=_graph_counters(self._qweights), owner=self.session)
+                counters=_graph_counters(self.decode_path, self._qweights),
+                owner=self.session)
             self._inputs = {}  # batch bucket -> _SuperInputs
 
     def _fresh_cache(self, batch_bucket):
@@ -1301,7 +1320,8 @@ class SpeculativeGenerator:
             all_logits=True, paged=self.target._paged)
         self._verify = GraphSession(
             f"{name}_verify", self.device,
-            counters=_graph_counters(self.target._qweights),
+            counters=_graph_counters(self.decode_path,
+                                     self.target._qweights),
             owner=self.target.session)
         self._vinputs = {}  # batch bucket -> _VerifyInputs
         self.metrics = self.target.session.metrics
@@ -1342,7 +1362,8 @@ class SpeculativeGenerator:
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-        logits, ids = self._verify.run((b, self.k + 1, _graph_route()), body)
+        logits, ids = self._verify.run(
+            (b, self.k + 1, _graph_route(self.decode_path)), body)
         if timed:
             e1.record()
             events.append((e0, e1))

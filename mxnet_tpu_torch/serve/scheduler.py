@@ -48,9 +48,13 @@ iterations (done lanes freeze, see ``generate._MultiStepForward``), and
 N - 1 iterations of a visit are wasted, in a visit in which every live
 lane finishes.
 
-The ``baseline`` rung raises ``NotImplementedError``, as the port's
-``Generator`` does. The int8 weight side table is the ``Generator``'s
-``{id(weight): (int8, scale)}`` dict.
+On the strict ``baseline`` rung every product, attention and norm of the
+step runs the shape-stable kernels of ``ops/hopper/stable_ops``, so the
+``(1, chunk)`` prefill chunks and the ``(num_slots, 1)`` decode compute
+each row as a ``Generator`` does, and the engine's greedy tokens are the
+baseline ``Generator``'s. Its page brackets are eager exact copies around
+the ring step, as the JAX engine runs them. The int8 weight side table is
+the ``Generator``'s ``{id(weight): (int8, scale)}`` dict.
 """
 from __future__ import annotations
 
@@ -145,9 +149,8 @@ class ContinuousEngine:
     prefill_chunk : tokens prefilled per scheduler iteration at the fixed
         ``(1, chunk)`` shape (``MXNET_SERVE_PREFILL_CHUNK``; 0 means one
         KV page).
-    decode_path : "pallas" or "int8" (see
-        :func:`~.generate.resolve_decode_path`); "baseline" raises
-        ``NotImplementedError``.
+    decode_path : "baseline", "pallas" or "int8" (see
+        :func:`~.generate.resolve_decode_path`).
     prefix_cache : a radix trie over the pool (``None`` reads
         ``MXNET_SERVE_PREFIX_CACHE``): admission skips the matched
         prefix's prefill, clean retirements adopt their prompt pages.
@@ -172,11 +175,6 @@ class ContinuousEngine:
             raise ServeError(f"num_slots must be >= 1, got {num_slots}")
         self.pad_id = int(pad_id)
         self.decode_path = resolve_decode_path(decode_path)
-        if self.decode_path == "baseline":
-            raise NotImplementedError(
-                "the strict 'baseline' decode rung is ported in a later "
-                "slice of the serving port; use decode_path='pallas' or "
-                "'int8'")
         self._quant = "int8" if self.decode_path == "int8" else None
         self._qweights = {}
         if self._quant and _int8_weights_enabled(self.device):
@@ -239,7 +237,8 @@ class ContinuousEngine:
                 quant=self._quant, quant_weights=self._qweights, paged=True)
             self._msession = GraphSession(
                 f"{name}_multi", self.device,
-                counters=_graph_counters(self._qweights), owner=self.session)
+                counters=_graph_counters(self.decode_path,
+                                         self._qweights), owner=self.session)
             self._inputs = _SuperInputs(self.num_slots,
                                         self.pool.pages_per_slot,
                                         self.decode_steps, self.device)

@@ -3,8 +3,10 @@ against the JAX package's (``mxnet_tpu/serve/scheduler.py``).
 
 Greedy tokens are held to the JAX engine on the same weights (copied
 through numpy with ``load_reference_params``), on the ``pallas`` and
-``int8`` rungs (never the JAX ``baseline`` rung), single-step and
-multi-step at N = 8 and N = 1, with prompts shorter than, equal to and
+``int8`` rungs (not against the JAX ``baseline`` rung, whose compiler
+options the installed JAX refuses; the port's ``baseline`` engine is held
+to its own baseline ``Generator`` in ``test_torch_stable.py``),
+single-step and multi-step at N = 8 and N = 1, with prompts shorter than, equal to and
 longer than one prefill chunk, and through a prefix-cache hit. The rest
 holds the engine's serving contract on the CPU: admit/retire churn with no
 new signature and every page recycled, mid-decode deadlines, pool
@@ -430,8 +432,6 @@ def test_mixed_greedy_and_sampled_lanes():
 
 def test_drain_resume_and_refusals():
     _, port, vocab = _models()
-    with pytest.raises(NotImplementedError, match="baseline"):
-        ContinuousEngine(port, decode_path="baseline", **ENG_KW)
     with _engine(port) as eng:
         with pytest.raises(MXNetError, match="empty prompt"):
             eng.submit([])

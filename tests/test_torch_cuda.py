@@ -31,7 +31,8 @@ from mxnet_tpu_torch.ops.hopper import conv1x1 as c1x1
 from mxnet_tpu_torch.ops.hopper import decode_attention as da
 from mxnet_tpu_torch.ops.hopper import flash_attention as fa
 from mxnet_tpu_torch.ops.hopper import int8_dense as i8
-from mxnet_tpu_torch.serve import Generator
+from mxnet_tpu_torch.ops.hopper import stable_ops as st
+from mxnet_tpu_torch.serve import Generator, KVCache
 
 pytestmark = pytest.mark.cuda
 
@@ -2365,3 +2366,237 @@ def test_cuda_int8_dense_misaligned_weight_at_decode_takes_mma_sync():
         assert {k: r1[k] - r0[k] for k in r1} == {"wgmma": 0, "decode": 0,
                                                    "mma_sync": 1}
         assert torch.equal(out, i8.int8_dense_torch(*args))
+
+
+# ---------------------------------------------------------------------------
+# The strict baseline rung's shape-stable kernels (ops.hopper.stable_ops):
+# each against its plain version within STABLE_REL of the largest |output|
+# (the same f32 sums in another order), bit for bit across repeats, across
+# S1's instantiations and across the rows that share a call
+# ---------------------------------------------------------------------------
+
+STABLE_REL = 1e-5
+# (M, O, U, bias): Llama-3-8B's projections at decode (4), verify (20) and
+# prefill (1024) rows, a ragged U, a bias
+STABLE_DENSE_CASES = [(4, 1024, 4096, False), (1, 4096, 4096, False),
+                      (4, 14336, 4096, False), (4, 4096, 14336, False),
+                      (20, 4096, 4096, False), (1024, 1024, 4096, False),
+                      (3, 37, 30, True), (40, 100, 1001, True)]
+
+
+def _stable_close(out, ref):
+    err = float((out - ref).abs().max())
+    assert err <= STABLE_REL * float(ref.abs().max()), err
+
+
+def _dense_inputs(m, o, u, bias, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, u, device=dev, generator=g)
+    w = (torch.rand(o, u, device=dev, generator=g) - 0.5) * 0.14
+    b = torch.randn(o, device=dev, generator=g) if bias else None
+    return x, w, b
+
+
+@pytest.mark.parametrize("case", STABLE_DENSE_CASES,
+                         ids=lambda c: "x".join(map(str, c[:3])))
+def test_cuda_stable_dense_matches_plain(case):
+    """S1 against ``stable_dense_torch``, aligned and on a misaligned copy
+    of x and w (scalar loads: the same bits), and two calls bit for bit;
+    each call counts one launch at its rows."""
+    dev = _need_cuda()
+    m, o, u, bias = case
+    x, w, b = _dense_inputs(m, o, u, bias, dev)
+    st.reset_launch_count()
+    out = st.stable_dense(x, w, b)
+    assert st.last_path() == "cuda"
+    assert st.launch_count()["dense"] == 1
+    assert st.row_launches() == {("dense", m): 1}
+    _stable_close(out, st.stable_dense_torch(x, w, b))
+    assert torch.equal(st.stable_dense(x, w, b), out)
+    assert torch.equal(st.stable_dense(_misaligned(x), _misaligned(w), b),
+                       out)
+
+
+@pytest.mark.parametrize("u", [4096, 1001])
+def test_cuda_stable_dense_instantiations_agree_bitwise(u):
+    """Every S1 instantiation (decode tiles of 1, 4 and 8 rows by 1 or 2
+    channels, the prefill 8 x 8 tile) gives every output the same bits."""
+    dev = _need_cuda()
+    x, w, _ = _dense_inputs(24, 300, u, False, dev, seed=1)
+    outs = [st.dense_launch(x, w, tile=i) for i in range(len(st.DENSE_TILES))]
+    for i, out in enumerate(outs[1:], 1):
+        assert torch.equal(out, outs[0]), st.DENSE_TILES[i]
+
+
+@pytest.mark.parametrize("ou", [(1024, 4096), (4096, 14336), (14336, 4096)],
+                         ids=["kv", "down", "gate"])
+def test_cuda_stable_dense_row_invariant_at_llama_shapes(ou):
+    """Rows at M = 1 and 4 (decode tiles) equal, bit for bit, the same rows
+    inside an M = 1024 call (the prefill tile) at its first, middle and
+    last places."""
+    dev = _need_cuda()
+    o, u = ou
+    x, w, _ = _dense_inputs(1024, o, u, False, dev, seed=2)
+    full = st.stable_dense(x, w)
+    for r0, m in ((0, 1), (0, 4), (510, 4), (1020, 4), (1023, 1)):
+        assert torch.equal(st.stable_dense(x[r0:r0 + m], w),
+                           full[r0:r0 + m]), (r0, m)
+
+
+def _attention_inputs(b, h, kv, t, s, d, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, t, d, device=dev, generator=g)
+    k = torch.randn(b, kv, s, d, device=dev, generator=g)
+    v = torch.randn(b, kv, s, d, device=dev, generator=g)
+    return q, k, v
+
+
+# (B, H, KV, T, S, D, start_pos): Llama-3-8B's decode and prefill, MHA, a
+# ragged D, D = 256, positions past the ring's end
+STABLE_ATTN_CASES = [
+    (4, 32, 8, 1, 1024, 128, [0, 16, 300, 1023]),
+    (4, 32, 8, 256, 1024, 128, [0, 0, 0, 0]),
+    (2, 6, 6, 3, 70, 30, [0, 40]),
+    (2, 8, 2, 5, 333, 256, [100, 330]),
+]
+
+
+@pytest.mark.parametrize("case", STABLE_ATTN_CASES,
+                         ids=["decode", "prefill", "mha_d30", "d256"])
+def test_cuda_stable_attention_matches_plain(case):
+    """S2 against ``stable_attention_torch`` and two calls bit for bit;
+    one launch counted at its T."""
+    dev = _need_cuda()
+    b, h, kv, t, s, d, sp = case
+    q, k, v = _attention_inputs(b, h, kv, t, s, d, dev)
+    sp = torch.tensor(sp, dtype=torch.int32, device=dev)
+    st.reset_launch_count()
+    out = st.stable_attention(q, k, v, sp)
+    assert st.last_path() == "cuda"
+    assert st.row_launches() == {("attention", t): 1}
+    _stable_close(out, st.stable_attention_torch(q, k, v, sp))
+    assert torch.equal(st.stable_attention(q, k, v, sp), out)
+    assert torch.equal(
+        st.stable_attention(_misaligned(q), _misaligned(k), _misaligned(v),
+                            sp), out)
+
+
+def test_cuda_stable_attention_row_invariant_at_llama_shapes():
+    """A T = 1 query at position p equals, bit for bit, the same query row
+    inside a T = 256 prefill from position 0 over the same ring (first,
+    middle and last rows)."""
+    dev = _need_cuda()
+    q, k, v = _attention_inputs(4, 32, 8, 256, 1024, 128, dev, seed=3)
+    zero = torch.zeros(4, dtype=torch.int32, device=dev)
+    full = st.stable_attention(q, k, v, zero)
+    for t in (0, 17, 128, 255):
+        one = st.stable_attention(q[:, :, t:t + 1].contiguous(), k, v,
+                                  zero + t)
+        assert torch.equal(one, full[:, :, t:t + 1]), t
+
+
+def test_cuda_stable_rms_norm_matches_plain_and_row_invariant():
+    """S3 against ``stable_rms_norm_torch`` on rows of 4096 (aligned and
+    misaligned: the same bits) and a ragged 4095; 4 rows equal the same
+    rows inside a 1024-row call bit for bit."""
+    dev = _need_cuda()
+    g = torch.Generator(device=dev).manual_seed(4)
+    for n in (4096, 4095):
+        x = torch.randn(1024, n, device=dev, generator=g)
+        gamma = torch.rand(n, device=dev, generator=g) + 0.5
+        st.reset_launch_count()
+        full = st.stable_rms_norm(x, gamma, 1e-5)
+        assert st.row_launches() == {("norm", 1024): 1}
+        _stable_close(full, st.stable_rms_norm_torch(x, gamma, 1e-5))
+        assert torch.equal(st.stable_rms_norm(x, gamma, 1e-5), full)
+        assert torch.equal(st.stable_rms_norm(_misaligned(x), gamma, 1e-5),
+                           full)
+        for r0 in (0, 510, 1020):
+            assert torch.equal(st.stable_rms_norm(x[r0:r0 + 4], gamma, 1e-5),
+                               full[r0:r0 + 4]), (n, r0)
+
+
+def test_cuda_stable_refusals_and_forced_paths():
+    """The wrappers raise for what the kernels do not take (non-f32, an
+    oversized ring, mismatched heads) and, under ``force_path("cuda")``,
+    for CPU tensors; ``force_path("torch")`` takes the plain versions on
+    the card and counts nothing."""
+    dev = _need_cuda()
+    x, w, _ = _dense_inputs(4, 64, 128, False, dev)
+    with pytest.raises(MXNetError, match="float32"):
+        st.stable_dense(x.double(), w.double())
+    q, k, v = _attention_inputs(1, 4, 3, 1, 16, 8, dev)
+    sp = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(MXNetError, match="multiple of KV"):
+        st.stable_attention(q, k, v, sp)
+    q, k, v = _attention_inputs(1, 8, 1, 1, 40000, 128, dev)
+    with pytest.raises(MXNetError, match="shared memory"):
+        st.stable_attention(q, k, v, sp)
+    st.force_path("cuda")
+    try:
+        with pytest.raises(MXNetError, match="force_path"):
+            st.stable_dense(x.cpu(), w.cpu())
+        with pytest.raises(MXNetError, match="force_path"):
+            st.stable_rms_norm(x.cpu(), torch.ones(128))
+        with pytest.raises(MXNetError, match="force_path"):
+            st.stable_attention(q.cpu(), k.cpu(), v.cpu(), sp.cpu())
+    finally:
+        st.force_path(None)
+    st.reset_launch_count()
+    st.force_path("torch")
+    try:
+        out = st.stable_dense(x, w)
+        assert st.last_path() == "torch"
+    finally:
+        st.force_path(None)
+    assert st.launch_count() == {"dense": 0, "attention": 0, "norm": 0}
+    _stable_close(st.stable_dense(x, w), out)
+
+
+def test_cuda_baseline_generator_decode_equals_prefill():
+    """``Generator(decode_path="baseline")`` at ``llama_serve_12l_test``
+    width on the card: each of 16 decode steps' logits bit for bit a fresh
+    full prefill's, with every layer launching S1 7 times (and the head
+    once), S2 and S3 (2 a layer and the final norm) a forward; the multi-
+    step generator (a CUDA graph) gives the same greedy tokens and counts
+    its replays' launches."""
+    dev = _need_cuda()
+    trandom.seed(0)
+    model = get_llama("llama_serve_12l_test", device=dev)
+    layers = len(model._blocks)
+    kw = dict(max_seq=64, batch_buckets=(2,), prompt_buckets=(32,),
+              decode_path="baseline")
+    gen = Generator(model, **kw)
+    prompts = [[5, 9, 200, 31, 7], [3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13]]
+    toks = np.zeros((2, 32), np.int32)
+    lens = np.array([len(p) for p in prompts], np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    logits, cache = gen.prefill(toks, lens, KVCache.alloc(model, 2, 64))
+    seqs = [list(p) for p in prompts]
+    st.reset_launch_count()
+    for _ in range(16):
+        ids = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        for i in range(2):
+            seqs[i].append(int(ids[i]))
+        logits, cache = gen.decode_step(
+            ids, np.array([len(s_) - 1 for s_ in seqs], np.int32), cache)
+        ref_toks = np.zeros((2, 32), np.int32)
+        for i, s_ in enumerate(seqs):
+            ref_toks[i, :len(s_)] = s_
+        ref, _ = gen.prefill(ref_toks, np.array([len(s_) for s_ in seqs],
+                                                np.int32),
+                             KVCache.alloc(model, 2, 64))
+        assert torch.equal(logits, ref)
+    assert st.launch_count() == {"dense": 32 * (7 * layers + 1),
+                                 "attention": 32 * layers,
+                                 "norm": 32 * (2 * layers + 1)}
+    want, _ = gen.generate(prompts, max_new_tokens=12)
+    multi = Generator(model, multistep=True, decode_steps=4, **kw)
+    multi.warmup()
+    n0 = st.launch_count()["dense"]
+    out, info = multi.generate(prompts, max_new_tokens=12)
+    multi.assert_no_recompiles()
+    assert out == want
+    assert st.launch_count()["dense"] - n0 == (
+        (7 * layers + 1) * (1 + 4 * info["decode_visits"]))

@@ -8,8 +8,11 @@ trie are host code copied from the JAX package; their invariants are the
 JAX tests' (``tests/test_kv_blocks.py``, ``tests/test_prefix_cache.py``).
 The paged and prefix ``Generator``s are held to the ring ``Generator`` and
 to the JAX package's paged and prefix ``Generator``s by greedy tokens, on
-the ``pallas`` and ``int8`` rungs (never the JAX ``baseline`` rung). The
-weights come from the JAX model through ``load_reference_params``.
+the ``pallas`` and ``int8`` rungs (not against the JAX ``baseline`` rung,
+whose compiler options the installed JAX refuses; the port's paged
+``baseline`` rung is held to its ring run bit for bit in
+``test_torch_stable.py``). The weights come from the JAX model through
+``load_reference_params``.
 """
 import numpy as np
 import pytest

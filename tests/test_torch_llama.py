@@ -4,8 +4,10 @@ Weights come from the JAX model (``mx.random.seed(0)``, default init) and
 are carried across with ``load_reference_params``; token inputs come from
 numpy. Both ``Generator``s run the same rung on the CPU: the JAX package's
 ``pallas`` rung takes its ``_xla_decode`` fallback there, the port's its
-plain ``decode_attention_torch``. Never the JAX ``baseline`` rung (its
-deterministic compiler options are refused by the installed JAX).
+plain ``decode_attention_torch``. No test here holds the port to the JAX
+``Generator``'s ``baseline`` rung (its deterministic compiler options are
+refused by the installed JAX); the port's own ``baseline`` rung is held to
+the JAX eager cache path in ``test_torch_stable.py``.
 
 Tolerances (max abs over all logits): 1e-4 on ``pallas``, where only the
 order of f32 sums differs (measured ~1e-6 on these configs); 1e-2 on
@@ -192,18 +194,22 @@ def test_bucket_overflow_is_rejected():
 
 
 def test_unported_options_raise(monkeypatch):
-    """Only the strict ``baseline`` rung is still unported: paged KV, the
-    prefix cache and multi-step decode construct and serve."""
+    """Every serving option constructs and serves (the name stays from
+    when some raised): paged KV, the prefix cache, multi-step decode, the
+    strict ``baseline`` rung, and ``MXNET_SERVE_STRICT_PARITY``, which pins
+    a default Generator to ``baseline``."""
     _, port, _ = _models("llama_tiny_test")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Generator(port, decode_path="baseline")
-    for kw in ({"paged": True}, {"prefix_cache": True}, {"multistep": True}):
+    for kw in ({"paged": True}, {"prefix_cache": True}, {"multistep": True},
+               {"decode_path": "baseline"}):
         out, _ = Generator(port, **GEN_KW, **kw).generate([[1, 2, 3]],
                                                           max_new_tokens=3)
         assert len(out[0]) == 3, kw
+    base, _ = Generator(port, decode_path="baseline", **GEN_KW).generate(
+        [[1, 2, 3]], max_new_tokens=3)
     monkeypatch.setenv("MXNET_SERVE_STRICT_PARITY", "1")
-    with pytest.raises(NotImplementedError, match="baseline"):
-        Generator(port)
+    strict = Generator(port, **GEN_KW)
+    assert strict.decode_path == "baseline"
+    assert strict.generate([[1, 2, 3]], max_new_tokens=3)[0] == base
     monkeypatch.delenv("MXNET_SERVE_STRICT_PARITY")
     monkeypatch.setenv("MXNET_SERVE_DECODE_PATH", "int8")
     assert Generator(port, **GEN_KW).decode_path == "int8"

@@ -5,7 +5,9 @@ On the CPU the super-step runs its body as a plain loop of N iterations
 (the GPU replays the same body as a CUDA graph; ``test_torch_cuda.py``
 holds the two together on the card). Greedy tokens are held to the JAX
 package's multi-step ``Generator`` on the ``pallas`` and ``int8`` rungs
-(never its ``baseline`` rung) at N = 8 and N = 1, and to the port's own
+(not its ``baseline`` rung, whose compiler options the installed JAX
+refuses; the port's baseline super-step is held to its single step in
+``test_torch_stable.py``) at N = 8 and N = 1, and to the port's own
 single-step ``Generator``. Sampled draws cannot match JAX's threefry
 bits, so the sampled branch is held to its own properties: a counter-based
 stream (N = 8 and N = 1 give the same tokens), the top-k rule, and the

@@ -122,10 +122,27 @@ def test_quantized_dense_weight_only():
 
 
 def test_cached_attention_baseline_not_ported():
+    """The baseline mul+reduce ``cached_attention`` is ported (the name
+    stays from when it raised): over unexpanded GQA rings it equals the JAX
+    op over the expanded rings the JAX cache path gives it, to 1e-5 of the
+    largest |output|, and it refuses int8 rings."""
+    rng = np.random.RandomState(9)
+    q = rng.randn(2, 4, 3, 8).astype(np.float32)
+    k = rng.randn(2, 2, 16, 8).astype(np.float32)
+    v = rng.randn(2, 2, 16, 8).astype(np.float32)
+    sp = np.array([0, 9], np.int32)
+    ref = _np(jops.cached_attention(
+        mnp.array(q), mnp.array(np.repeat(k, 2, axis=1)),
+        mnp.array(np.repeat(v, 2, axis=1)), mnp.array(sp)))
+    out = tops.cached_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), torch.from_numpy(sp),
+                                path="baseline").numpy()
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
     z = torch.zeros(1, 2, 1, 4)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(MXNetError, match="int8"):
         tops.cached_attention(z, z, z, torch.zeros(1, dtype=torch.int32),
-                              path="baseline")
+                              path="baseline", k_scale=z[..., 0],
+                              v_scale=z[..., 0])
 
 
 def test_relu_activation():

@@ -2,8 +2,10 @@
 the JAX package's, and against the port's own greedy ``Generator``.
 
 Greedy tokens and the round statistics are held to the JAX
-``SpeculativeGenerator`` on the ``pallas`` and ``int8`` rungs (never its
-``baseline`` rung), with and without ``multistep``, on rings and on paged
+``SpeculativeGenerator`` on the ``pallas`` and ``int8`` rungs (not its
+``baseline`` rung, whose compiler options the installed JAX refuses; the
+port's baseline target is held to its own ``Generator`` in
+``test_torch_stable.py``), with and without ``multistep``, on rings and on paged
 pools with the prefix cache on (the second pass of the same prompts hits
 the trie of both the draft and the target). The verify pass's
 all-position logits (``_CacheForward(all_logits=True)``) are held to the
