@@ -69,24 +69,33 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    within STABLE_REL of the largest |output| and two calls bit for bit:
    S1 (``stable_dense``) at every Llama-3-8B projection shape at 1024 rows
    (the head at 20), rows at M = 1 and 4 bit for bit the same rows inside
-   that call (first, middle and last places), every instantiation of the
-   kernel bit for bit the others, a misaligned copy (scalar loads) bit for
-   bit the aligned call, a ragged U with a bias; S2 (the mul+reduce
+   that call (first, middle and last places), the ring-fed prefill tile
+   bit for bit every other instantiation (the first prefill tile, which
+   loads from global memory, and each decode tile) at M = 256 and 1024 at
+   the four layer shapes and at a ragged (1000, 37, 4095) with a bias,
+   every instantiation bit for bit the others at M = 24, misaligned copies
+   (scalar loads, 4-byte copies) bit for bit the aligned call at decode
+   and prefill rows, a ragged U with a bias; S2 (the mul+reduce
    ``cached_attention``) at B = 4, H = 32, KV = 8, D = 128 over a
-   1024-position ring at T = 1 (the middle of a generate) and T = 256
-   (from position 0), a T = 1 query bit for bit the same row inside T =
-   256, misaligned rings, MHA at D = 30 and GQA at D = 256; S3 (the row
+   1024-position ring at T = 1 (the middle of a generate; the heads
+   kernel) and T = 256 (the rows kernel), the rows kernel bit for bit the
+   heads kernel at T = 256 from position 0 and from mid-ring and at MHA
+   D = 30, GQA D = 256 and D = 30 (aligned and misaligned), a T = 1 query
+   bit for bit the same row inside T = 256, misaligned rings; S3 (the row
    norm) at 1024 rows of 4096 (4 rows bit for bit inside them), misaligned
-   and a ragged 4095. No kernel may spill. Times: S1 at M = 4 and 1024 for
-   each shape and over one forward (225 products at decode rows, a
-   prefill's 224 at 1024), S2 at T = 1 and 256 over one forward's 32
-   layers, S3 at 4 and 1024 rows over one forward's 65 and 64, each beside
-   its bound (bytes at 3.35 TB/s or its f32 products at three TF32
-   passes), its plain version and the library call for the same function
-   (f32 ``F.linear``; f32 ``scaled_dot_product_attention`` on the expanded
-   heads with a boolean mask; ``F.rms_norm``); and whether each library
-   call, and the port's own ``ops.nn.rms_norm``, is itself row-invariant
-   at these shapes (printed, no gate).
+   and a ragged 4095. No kernel may spill. Times: S1 at M = 4, 256 and
+   1024 for each shape and over one forward (225 products at decode rows,
+   a prefill's 224 above), at prefill rows the first prefill tile beside
+   the plan's, S2 at T = 1 and 256 over one forward's 32 layers (at 256
+   the heads kernel beside the rows kernel), S3 at 4 and 1024 rows over
+   one forward's 65 and 64, each beside its bound (bytes at 3.35 TB/s or
+   its f32 products at three TF32 passes; S1 also beside its f32 FMAs at
+   67 TFLOP/s, the bound of a design that keeps the f32 FMA chains), its
+   plain version and the library call for the same function (f32
+   ``F.linear``; f32 ``scaled_dot_product_attention`` on the expanded heads
+   with a boolean mask; ``F.rms_norm``); and whether each library call,
+   and the port's own ``ops.nn.rms_norm``, is itself row-invariant at these
+   shapes (printed, no gate).
 4. serve pallas / 5. serve int8: Llama-3-8B at full width and depth with
    seeded random weights, served by ``Generator`` (warmup, then 4 prompts x
    32 greedy tokens): every decode step of every layer must launch the
@@ -119,16 +128,19 @@ serve baseline (after 5, before 5a): the strict rung on the same model
    and prompts (``Generator(decode_path="baseline")``, buckets (1, 4) x
    (64, 256), 32 greedy tokens): every forward launches S1 225 times, S2 32
    and S3 65 (by rows: a prefill's layer products at 1024 rows, its head
-   and every decode step at 4), nothing is new after warmup; at decode
+   and every decode step at 4; S2's prefill on its rows kernel, its decode
+   steps on the heads kernel), nothing is new after warmup; at decode
    steps 1 and 6 every row's logits are bit for bit those of a fresh full
    prefill of its prefix at bucket 256; a paged ``Generator``'s prefill
    and decode logits are bit for bit the ring run's and its tokens the
    same; a multi-step (N = 8, CUDA graphs) run and a ``ContinuousEngine``
    ((1, 256) prefill chunks, 4 slots) give the single-step tokens; with
    ``MXNET_SERVE_STRICT_PARITY=1`` a default ``Generator`` serves the rung
-   and its tokens. Printed: decode ms a token, prefill ms, the phase's
-   seconds, the tokens' agreement with the ``pallas`` rung and the prefill
-   logits' gap to it (no gate: other products give other last bits).
+   and its tokens. Printed: decode ms a token, prefill ms (beside
+   STABLE_FIRST_PREFILL_MS, the first stable kernels' reading), the
+   phase's seconds, the tokens' agreement with the ``pallas`` rung and the
+   prefill logits' gap to it (no gate: other products give other last
+   bits).
 5a. multistep pallas / multistep int8: the same model and prompts through
    ``Generator(multistep=True, decode_steps=8)``, batch buckets (1, 4):
    ``warmup()`` captures every super-step CUDA graph (its signatures,
@@ -595,6 +607,11 @@ STABLE_REL = 1e-5
 STABLE_EPS = 1e-5           # Llama's norm epsilon
 STABLE_DECODE_M = 4         # decode rows: the batch bucket
 STABLE_PREFILL_M = 4 * 256  # prefill rows: batch x prompt bucket
+STABLE_CHUNK_M = 256        # the engine's prefill chunk (1, 256)
+# serve baseline's prefill ms with S1's first prefill tile (global loads)
+# and S2's heads kernel at every T, on one H100 80GB HBM3 at 700.00 W: the
+# reading the ring-fed tile and the rows kernel are set beside
+STABLE_FIRST_PREFILL_MS = 802.6
 STABLE_LAYERS = 32
 STABLE_PRODUCTS = 7 * 32 + 1   # S1 launches a forward (the head included)
 STABLE_NORMS = 2 * 32 + 1      # S3 launches a forward (the final norm too)
@@ -4445,12 +4462,18 @@ def stable_phase(torch, F, st, nn_ops, flush, dev):
     def weight(o, u):
         return (torch.rand(o, u, device=dev, generator=gen) - 0.5) * 0.14
 
-    # S1 at every projection shape: decode (1, 4), verify (20) and prefill
-    # (1024) rows; sums over one forward at M = 4 (225 products) and 1024
-    # (the 224 layer products; a prefill's head runs at M = 4)
+    # S1 at every projection shape: decode (1, 4), verify (20), the
+    # engine's chunk (256) and prefill (1024) rows; sums over one forward at
+    # M = 4 (225 products), 256 and 1024 (the 224 layer products; a
+    # prefill's head runs at M = 4). At prefill rows the plan's ring-fed
+    # tile is held bit for bit to every other instantiation (the first
+    # prefill tile, which loads from global memory, and the decode tiles)
+    # and timed beside the first prefill tile
     sums = {m: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                "bound_ms": 0.0, "ops_ms": 0.0}
-            for m in (STABLE_DECODE_M, STABLE_PREFILL_M)}
+                "bound_ms": 0.0, "ops_ms": 0.0, "fma_ms": 0.0,
+                "global_tile_ms": 0.0}
+            for m in (STABLE_DECODE_M, STABLE_CHUNK_M, STABLE_PREFILL_M)}
+    others = [i for i in range(len(st.DENSE_TILES)) if i != st.PREFILL_TILE]
     for o, u, n in INT8_SHAPES:
         w = weight(o, u)
         head = n == 1
@@ -4469,10 +4492,19 @@ def stable_phase(torch, F, st, nn_ops, flush, dev):
                               full[r0:r0 + m]),
                   f"S1 rows {r0}..{r0 + m} differ from the same rows inside "
                   f"M = {full_m} at ({o}, {u})")
+        if not head:
+            for m in (STABLE_CHUNK_M, STABLE_PREFILL_M):
+                xm = x[:m].contiguous()
+                new = st.dense_launch(xm, w, tile=st.PREFILL_TILE)
+                for i in others:
+                    check(torch.equal(st.dense_launch(xm, w, tile=i), new),
+                          f"S1's prefill tile differs from instantiation "
+                          f"{i} {st.DENSE_TILES[i]} at ({m}, {o}, {u})")
+            del new
         lib_inv[f"linear_{o}x{u}"] = bool(torch.equal(
             F.linear(x[:4], w), F.linear(x, w)[:4]))
-        for m in (STABLE_DECODE_M, STABLE_PREFILL_M):
-            if head and m == STABLE_PREFILL_M:
+        for m in sums:
+            if head and m != STABLE_DECODE_M:
                 continue
             xm = x[:m].contiguous()
             reps = 25 if m <= 20 else 3
@@ -4482,22 +4514,29 @@ def stable_phase(torch, F, st, nn_ops, flush, dev):
                            reps=3, warm=1)
             l_ms = time_ms(torch, lambda: F.linear(xm, w), flush, reps=reps,
                            warm=1)
+            g_ms = (time_ms(torch, lambda: st.dense_launch(
+                xm, w, tile=st.GLOBAL_PREFILL_TILE), flush, reps=reps,
+                warm=1) if m > st.DECODE_ROWS else 0.0)
             bound, by = stable_dense_bound(m, o, u)
+            fma = 2 * m * o * u / F32_FLOP_PER_S * 1e3
             say(phase, kernel="dense", m=m, o=o, u=u,
                 tile=st.DENSE_TILES[st.dense_plan(m, o, st._sm_count(dev))],
-                ms=f"{k_ms:.6f}", plain_ms=f"{p_ms:.6f}",
-                library_ms=f"{l_ms:.6f}", bound_ms=f"{bound:.6f}",
-                bound_by=by, share=f"{bound / k_ms:.4f}",
-                f32_fma_bound_ms=f"{2 * m * o * u / F32_FLOP_PER_S * 1e3:.6f}")
+                ms=f"{k_ms:.6f}", global_tile_ms=f"{g_ms:.6f}",
+                plain_ms=f"{p_ms:.6f}", library_ms=f"{l_ms:.6f}",
+                bound_ms=f"{bound:.6f}", bound_by=by,
+                share=f"{bound / k_ms:.4f}", f32_fma_bound_ms=f"{fma:.6f}",
+                f32_fma_share=f"{fma / k_ms:.4f}")
             acc = sums[m]
             acc["ms"] += n * k_ms
             acc["plain_ms"] += n * p_ms
             acc["library_ms"] += n * l_ms
+            acc["global_tile_ms"] += n * g_ms
             acc["bound_ms"] += n * bound
             acc["ops_ms"] += n * 2 * m * o * u * 3 / TF32_FLOP_PER_S * 1e3
+            acc["fma_ms"] += n * fma
         del w, x, full
     # every instantiation gives every output the same bits; misaligned
-    # (scalar loads) and ragged inputs
+    # (scalar loads, 4-byte copies) and ragged inputs
     x, w = randn(24, 4096), weight(1024, 4096)
     outs = [st.dense_launch(x, w, tile=i) for i in range(len(st.DENSE_TILES))]
     check(all(torch.equal(o_, outs[0]) for o_ in outs),
@@ -4506,19 +4545,41 @@ def stable_phase(torch, F, st, nn_ops, flush, dev):
     xm_, wm_ = misaligned(torch, xa), misaligned(torch, wa)
     check(torch.equal(st.stable_dense(xm_, wm_), st.stable_dense(xa, wa)),
           "S1 on misaligned inputs differs from the aligned call")
+    xa = randn(STABLE_PREFILL_M, 4096)
+    check(torch.equal(st.stable_dense(misaligned(torch, xa),
+                                      misaligned(torch, wa)),
+                      st.stable_dense(xa, wa)),
+          "S1's prefill tile on misaligned inputs differs from the aligned "
+          "call")
     xr, wr, br = randn(3, 30), weight(37, 30), randn(37)
     err["dense"] = max(err["dense"], stable_close(
         torch, st.stable_dense(xr, wr, br), st.stable_dense_torch(xr, wr, br),
         "S1 ragged (3, 37, 30) with bias"))
-    for m in (STABLE_DECODE_M, STABLE_PREFILL_M):
+    xr, wr, br = randn(1000, 4095), weight(37, 4095), randn(37)
+    ragged = st.stable_dense(xr, wr, br)
+    err["dense"] = max(err["dense"], stable_close(
+        torch, ragged, st.stable_dense_torch(xr, wr, br),
+        "S1 ragged (1000, 37, 4095) with bias"))
+    for i in others:
+        check(torch.equal(st.dense_launch(xr, wr, br, tile=i), ragged),
+              f"S1's prefill tile differs from instantiation {i} at (1000, "
+              "37, 4095)")
+    del x, w, xa, wa, xr, wr, ragged, outs
+    for m in sums:
         acc = sums[m]
-        n_fw = STABLE_PRODUCTS - (1 if m == STABLE_PREFILL_M else 0)
+        n_fw = STABLE_PRODUCTS - (1 if m > st.DECODE_ROWS else 0)
         say(phase, kernel="dense", forward_rows=m, products=n_fw,
-            ms=f"{acc['ms']:.6f}", plain_ms=f"{acc['plain_ms']:.6f}",
+            ms=f"{acc['ms']:.6f}", global_tile_ms=f"{acc['global_tile_ms']:.6f}",
+            plain_ms=f"{acc['plain_ms']:.6f}",
             library_ms=f"{acc['library_ms']:.6f}",
             bound_ms=f"{acc['bound_ms']:.6f}",
             ops_bound_ms=f"{acc['ops_ms']:.6f}",
-            share=f"{acc['bound_ms'] / acc['ms']:.4f}")
+            f32_fma_bound_ms=f"{acc['fma_ms']:.6f}",
+            share=f"{acc['bound_ms'] / acc['ms']:.4f}",
+            f32_fma_share=f"{acc['fma_ms'] / acc['ms']:.4f}",
+            over_library=f"{acc['ms'] / acc['library_ms']:.4f}")
+        if m == STABLE_CHUNK_M:
+            continue
         rows[f"stable_dense_m{m}"] = {
             "kernel": "dense", "rows": m, "max_abs_err": err["dense"],
             "ms": acc["ms"], "plain_ms": acc["plain_ms"],
@@ -4528,9 +4589,13 @@ def stable_phase(torch, F, st, nn_ops, flush, dev):
             "library_ms": acc["library_ms"]}
 
     # S2: decode (T = 1 at the middle of a 32-token generate) and prefill
-    # (T = 256 from position 0) at Llama-3-8B's heads, D = 30 and 256 (MHA
-    # and ragged), misaligned rings; times over one forward's 32 layers
+    # (T = 256 from position 0; the rows kernel) at Llama-3-8B's heads, the
+    # rows kernel bit for bit the heads kernel at T = 256 from position 0
+    # and from mid-ring, at D = 30 and 256 (MHA and ragged) and on
+    # misaligned rings; times over one forward's 32 layers (at T = 256 the
+    # heads kernel's beside the rows kernel's)
     b, h, kv, d = 4, 32, 8, 128
+    sc = 1.0 / math.sqrt(d)
     cases = [("t1", 1, STABLE_DECODE_SP), ("t256", 256, [0] * b)]
     for label, t, sp_list in cases:
         q, k, v = randn(b, h, t, d), randn(b, kv, MAX_SEQ, d), \
@@ -4547,19 +4612,46 @@ def stable_phase(torch, F, st, nn_ops, flush, dev):
         err["attention"] = max(err["attention"], stable_close(
             torch, out, st.stable_attention_torch(q, k, v, sp),
             f"S2 at T = {t}"))
+        route = st.attention_route(b, h, kv, t, MAX_SEQ, d,
+                                   st._sm_count(dev))
+        h_ms = 0.0
+        if route == "rows":
+            check(torch.equal(st.attention_launch(q, k, v, sp, sc,
+                                                  route="heads"), out),
+                  f"S2's rows kernel differs from the heads kernel at T = "
+                  f"{t} from position 0")
+            mid = sp + torch.tensor([300, 517, 700, 3], dtype=torch.int32,
+                                    device=dev)
+            check(torch.equal(
+                st.attention_launch(q, k, v, mid, sc, route="rows"),
+                st.attention_launch(q, k, v, mid, sc, route="heads")),
+                f"S2's rows kernel differs from the heads kernel at T = {t} "
+                "from mid-ring")
+            h_ms = time_ms(torch, lambda: st.attention_launch(
+                q, k, v, sp, sc, route="heads"), flush)
         lib = library_attention(torch, F, q, k, v, sp)
         k_ms = time_ms(torch, lambda: st.stable_attention(q, k, v, sp), flush)
         p_ms = time_ms(torch, lambda: st.stable_attention_torch(q, k, v, sp),
                        flush, reps=3, warm=1)
         l_ms = time_ms(torch, lib, flush)
         bound, by = stable_attention_bound(b, h, kv, t, d, sp_list)
-        say(phase, kernel="attention", t=t, start_pos=sp_list,
-            warps=st.attention_warps(h, kv),
-            smem_bytes=st.attention_smem_bytes(st.attention_warps(h, kv),
-                                               MAX_SEQ, d),
-            ms=f"{k_ms:.6f}", plain_ms=f"{p_ms:.6f}",
-            library_ms=f"{l_ms:.6f}", bound_ms=f"{bound:.6f}", bound_by=by,
-            share=f"{bound / k_ms:.4f}")
+        if route == "rows":
+            tq, gb = st.attention_rows_plan(h, kv, t, MAX_SEQ, d)
+            plan = dict(route=route, tq=tq, gb=gb,
+                        smem_bytes=st.attention_rows_smem_bytes(
+                            tq * gb, MAX_SEQ, d))
+        else:
+            plan = dict(route=route, warps=st.attention_warps(h, kv),
+                        smem_bytes=st.attention_smem_bytes(
+                            st.attention_warps(h, kv), MAX_SEQ, d))
+        say(phase, kernel="attention", t=t, start_pos=sp_list, **plan,
+            ms=f"{k_ms:.6f}", heads_kernel_ms=f"{h_ms:.6f}",
+            plain_ms=f"{p_ms:.6f}", library_ms=f"{l_ms:.6f}",
+            bound_ms=f"{bound:.6f}", bound_by=by,
+            share=f"{bound / k_ms:.4f}",
+            forward_ms=f"{k_ms * STABLE_LAYERS:.6f}",
+            forward_heads_kernel_ms=f"{h_ms * STABLE_LAYERS:.6f}",
+            forward_library_ms=f"{l_ms * STABLE_LAYERS:.6f}")
         rows[f"stable_attention_{label}"] = {
             "kernel": "attention", "rows": t, "max_abs_err": 0.0,
             "ms": k_ms * STABLE_LAYERS, "plain_ms": p_ms * STABLE_LAYERS,
@@ -4580,13 +4672,24 @@ def stable_phase(torch, F, st, nn_ops, flush, dev):
             lib_inv["sdpa_f32_mask"] = bool(lib_rows)
         del q, k, v, out
     for bb, hh, kk, t, s, dd, sp_list in ((2, 6, 6, 3, 70, 30, [0, 40]),
-                                          (2, 8, 2, 5, 333, 256, [100, 330])):
+                                          (2, 8, 2, 5, 333, 256, [100, 330]),
+                                          (2, 8, 2, 40, 333, 256, [0, 310]),
+                                          (2, 32, 8, 20, 1024, 30,
+                                           [1000, 77])):
         q, k, v = randn(bb, hh, t, dd), randn(bb, kk, s, dd), \
             randn(bb, kk, s, dd)
         sp = torch.tensor(sp_list, dtype=torch.int32, device=dev)
         out = st.stable_attention(q, k, v, sp)
         check(torch.equal(st.stable_attention(q, k, v, sp), out),
               f"S2 does not repeat bit for bit at D = {dd}")
+        heads = st.attention_launch(q, k, v, sp, 1.0 / math.sqrt(dd),
+                                    route="heads")
+        check(torch.equal(out, heads) and torch.equal(
+            st.attention_launch(misaligned(torch, q), misaligned(torch, k),
+                                misaligned(torch, v), sp,
+                                1.0 / math.sqrt(dd), route="rows"), heads),
+              f"S2's rows kernel differs from the heads kernel at D = {dd}, "
+              f"H = {hh}, KV = {kk}, T = {t}")
         err["attention"] = max(err["attention"], stable_close(
             torch, out, st.stable_attention_torch(q, k, v, sp),
             f"S2 at D = {dd}, H = {hh}, KV = {kk}"))
@@ -4685,6 +4788,7 @@ def baseline_phase(torch, st, Generator, ContinuousEngine, model, prompts,
     finally:
         fc.close()
     counts, rows = st.launch_count(), st.row_launches()
+    routes = st.route_launches()
     steps = info["decode_steps"]
     check(steps == NEW_TOKENS - 1 and fc.calls == 1 + steps,
           f"{phase}: {steps} decode steps, {fc.calls} forwards")
@@ -4704,12 +4808,19 @@ def baseline_phase(torch, st, Generator, ContinuousEngine, model, prompts,
                  ("norm", bb): 1 + (2 * n_layers + 1) * steps}
     check(rows == want_rows, f"{phase}: launches by (kernel, rows) "
           f"{sorted(rows.items())}, expected {sorted(want_rows.items())}")
+    # S2's prefill (bb x 256 rows) takes the rows kernel, each decode step
+    # the heads kernel
+    want_routes = {"rows": n_layers, "heads": n_layers * steps}
+    check(routes == want_routes, f"{phase}: S2 launches by kernel {routes}, "
+          f"expected {want_routes}")
     gen.assert_no_recompiles()
     agree = sum(a == b for a, b in zip(out, pallas["out"]))
     say(phase, prefill_ms=f"{info['prefill_ms']:.3f}",
+        first_kernels_prefill_ms=STABLE_FIRST_PREFILL_MS,
         decode_ms_per_token=f"{info['decode_ms'] / steps:.3f}",
         tokens_s=f"{info['tokens_s']:.3f}", decode_steps=steps,
         launches=counts, launches_by_kernel_and_rows=sorted(rows.items()),
+        attention_launches_by_kernel=routes,
         rows_equal_to_pallas_tokens=f"{agree}/{len(out)}",
         first_tokens=[o[:4] for o in out])
 

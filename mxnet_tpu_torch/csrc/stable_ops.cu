@@ -50,8 +50,11 @@
 //    are exact zeros there.
 //
 // The decode and prefill instantiations of S1 differ only in how many
-// rows and output channels a warp carries and how many loads it keeps in
-// flight; each output element's chain and butterfly are the same code.
+// rows and output channels a warp carries and where its operands come
+// from (global memory, or a ring of shared-memory stages at prefill rows);
+// each output element's chain and butterfly are the same. S2's two kernels (a
+// block a query time at T = 1, a block of up to 32 query rows above) give
+// each row the same arithmetic.
 //
 // Bound. S1 at decode rows (M = 4) is a weight stream (f32 weights, 30 GB
 // for one Llama-3-8B forward, 8.96 ms at 3.35 TB/s); at prefill rows (M =
@@ -61,11 +64,15 @@
 // by bytes, S2 at prefill by its f32 products. The design's answer: S1
 // keeps every output's chain inside one warp and fills the card with warps
 // (one or two output channels a warp at decode rows, several loads in
-// flight a lane; at prefill rows an 8 x 8 tile a lane of 8 warps whose
-// shared rows meet in L1); S2 keeps a block's K/V tiles in shared memory
-// for the query heads of one KV head, each tile arriving by cp.async while
-// the one before it is read; S3 is one warp a row with 8 loads a lane in
-// flight.
+// flight a lane). At prefill rows the canonical order gives each operand
+// element to one lane only, so nothing is broadcast: a lane's 8 x 8 tile
+// reads 16 floats for 64 FMAs, from chunks of x and w that a block of 32 x
+// 32 outputs stages by cp.async in a ring of shared memory, its 16 warps
+// joined by per-stage mbarriers and not by a block barrier. S2 keeps K/V
+// tiles in shared memory, each arriving by cp.async while the one before it
+// is read, for the query heads of one KV head at T = 1 and for up to 32
+// (query time, head) rows of one KV head above, so a staged tile serves
+// them all. S3 is one warp a row with 8 loads a lane in flight.
 // Never build this file with --use_fast_math.
 
 #include <cuda_runtime.h>
@@ -218,11 +225,233 @@ cudaError_t launch_dense(const void* x, const void* w, const void* bias, void* o
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// S1 at prefill rows: the same chains, fed from a shared-memory ring
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxDevices = 64;
+constexpr int kChunk = 128;  // positions a chunk: one lane-class period (32 lanes x 4)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most one of this thread's copy groups is in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// arrive on `bar` once this thread's earlier cp.async copies have landed
+// (the barrier's expected count is not raised)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// spin until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// A block of WM x WO warps covers BM = WM * TM rows by BN = WO * TO output
+// channels; each warp keeps dense_tile's TM x TO tile a lane, lane l owning
+// the positions 128 i + 4 l + j, and chains each accumulator in increasing
+// u, so every output has dense_tile's bits. The block's x and w rows arrive
+// a chunk (128 positions, 512 bytes a row) at a time by cp.async (16-byte
+// pieces when VEC, else 4-byte ones: VEC is a template argument, so the
+// aligned kernel carries no path it does not run) into a ring of STAGES
+// stages; each
+// lane reads its float4 of a row from there (32 lanes, 512 contiguous
+// bytes: no bank conflict). No barrier joins the block: a stage's `full`
+// mbarrier completes once every thread's copies into it have landed, its
+// `empty` one once every warp has read it, and a thread refills the stage
+// of chunk c - LAG (with chunk c - LAG + STAGES) after it has read chunk c.
+// So the warps drift up to LAG chunks apart, and one warp's shared-memory
+// reads overlap another's FMAs (with a __syncthreads a chunk the reads and
+// the FMAs ran one after the other). Rows past M and channels past O are
+// not copied and their outputs not stored; positions past U are skipped.
+template <int TM, int TO, int WM, int WO, int STAGES, int LAG, bool VEC>
+__global__ void __launch_bounds__(WM* WO * 32, 1)
+    stable_dense_ring_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                             const float* __restrict__ bias, float* __restrict__ out, int M,
+                             int O, int U) {
+  constexpr int BM = WM * TM, BN = WO * TO, kThreads = WM * WO * 32;
+  constexpr int kStage = (BM + BN) * kChunk;  // floats a stage
+  static_assert(((BM + BN) * 32) % kThreads == 0, "whole float4 copies a thread");
+  static_assert(LAG >= 1 && LAG < STAGES, "a refill waits for an earlier chunk");
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mb = blockIdx.x * BM, ob = blockIdx.y * BN;
+  const int rw = (warp / WO) * TM, cw = (warp % WO) * TO;  // the warp's tile in the block
+  const int chunks = (U + kChunk - 1) / kChunk;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], kThreads);  // every thread's copies
+      mbar_init(&empty[i], WM * WO);  // every warp's reads
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto fill = [&](int c) {  // this thread's share of chunk c, then its arrival
+    float* dst = ring + (c % STAGES) * kStage;
+    const int u0 = c * kChunk, len = min(kChunk, U - u0);
+    if (VEC) {  // a warp copies one row's 512 bytes as 32 16-byte pieces
+#pragma unroll
+      for (int it = 0; it < (BM + BN) * 32 / kThreads; ++it) {
+        const int idx = threadIdx.x + it * kThreads;
+        const int r = idx >> 5, q = (idx & 31) * 4;
+        const bool is_x = r < BM;
+        const int row = is_x ? mb + r : ob + r - BM;
+        if (q < len && row < (is_x ? M : O))
+          cp_async16(dst + r * kChunk + q, (is_x ? x : w) + static_cast<size_t>(row) * U + u0 + q);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < (BM + BN) * kChunk; idx += kThreads) {
+        const int r = idx / kChunk, q = idx % kChunk;
+        const bool is_x = r < BM;
+        const int row = is_x ? mb + r : ob + r - BM;
+        if (q < len && row < (is_x ? M : O))
+          cp_async4(dst + r * kChunk + q, (is_x ? x : w) + static_cast<size_t>(row) * U + u0 + q);
+      }
+    }
+    cp_async_arrive(&full[c % STAGES]);
+  };
+
+  for (int c = 0; c < STAGES - LAG && c < chunks; ++c) fill(c);
+  float acc[TM][TO];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int o = 0; o < TO; ++o) acc[i][o] = 0.0f;
+  for (int c = 0; c < chunks; ++c) {
+    const int st = c % STAGES;
+    mbar_wait(&full[st], (c / STAGES) & 1);
+    const float4* xs = reinterpret_cast<const float4*>(ring + st * kStage + rw * kChunk);
+    const float4* ws = reinterpret_cast<const float4*>(ring + st * kStage + (BM + cw) * kChunk);
+    float4 xv[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) xv[i] = xs[i * (kChunk / 4) + lane];
+    const int live = U - (c * kChunk + 4 * lane);  // the lane's positions inside U
+    if (live >= 4) {
+#pragma unroll
+      for (int o = 0; o < TO; ++o) {
+        const float4 wv = ws[o * (kChunk / 4) + lane];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+            acc[i][o] = __fmaf_rn(part(xv[i], j), part(wv, j), acc[i][o]);
+      }
+    } else if (!VEC && live > 0) {  // U % 4 != 0: the row's last group
+#pragma unroll
+      for (int o = 0; o < TO; ++o) {
+        const float4 wv = ws[o * (kChunk / 4) + lane];
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          if (j < live)
+#pragma unroll
+            for (int i = 0; i < TM; ++i)
+              acc[i][o] = __fmaf_rn(part(xv[i], j), part(wv, j), acc[i][o]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // the warp has read chunk c
+    const int r = c + STAGES - LAG;          // refills the stage of chunk c - LAG
+    if (r < chunks) {
+      if (c >= LAG) mbar_wait(&empty[(c - LAG) % STAGES], ((c - LAG) / STAGES) & 1);
+      fill(r);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int o = 0; o < TO; ++o) {
+      float s = warp_sum(acc[i][o]);
+      const int m = mb + rw + i, oc = ob + cw + o;
+      if (lane == ((i * TO + o) & 31) && m < M && oc < O) {
+        if (bias != nullptr) s = __fadd_rn(s, __ldg(bias + oc));
+        out[static_cast<size_t>(m) * O + oc] = s;
+      }
+    }
+}
+
+template <int TM, int TO, int WM, int WO, int STAGES, int LAG, bool VEC>
+cudaError_t launch_dense_ring_as(const void* x, const void* w, const void* bias, void* out,
+                                 int M, int O, int U, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(float) * STAGES * (WM * TM + WO * TO) * kChunk;
+  // raised once per instantiation and device, not again during a graph
+  // capture that follows
+  static bool raised[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices || !raised[device]) {
+    err = cudaFuncSetAttribute(stable_dense_ring_kernel<TM, TO, WM, WO, STAGES, LAG, VEC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    if (device < kMaxDevices) raised[device] = true;
+  }
+  const dim3 grid((M + WM * TM - 1) / (WM * TM), (O + WO * TO - 1) / (WO * TO));
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  stable_dense_ring_kernel<TM, TO, WM, WO, STAGES, LAG, VEC>
+      <<<grid, WM * WO * 32, smem, stream>>>(static_cast<const float*>(x),
+                                             static_cast<const float*>(w),
+                                             static_cast<const float*>(bias),
+                                             static_cast<float*>(out), M, O, U);
+  return cudaGetLastError();
+}
+
+template <int TM, int TO, int WM, int WO, int STAGES, int LAG>
+cudaError_t launch_dense_ring(const void* x, const void* w, const void* bias, void* out, int M,
+                              int O, int U, int vec, cudaStream_t stream) {
+  return vec ? launch_dense_ring_as<TM, TO, WM, WO, STAGES, LAG, true>(x, w, bias, out, M, O, U,
+                                                                       stream)
+             : launch_dense_ring_as<TM, TO, WM, WO, STAGES, LAG, false>(x, w, bias, out, M, O,
+                                                                        U, stream);
+}
+
 // The instantiations, by the index the wrapper's dense_plan gives:
 //   0..5 decode rows (one warp row, 8 warps of output channels):
 //        (TM, TO) = (1, 1), (1, 2), (4, 1), (4, 2), (8, 1), (8, 2)
-//   6    prefill rows: an 8 x 8 tile a warp, 2 x 4 warps.
-constexpr int kDenseTiles = 7;
+//   6    the first prefill tile (loads from global memory): an 8 x 8 tile
+//        a lane, 2 x 4 warps; kept to hold the others to, no plan picks it
+//   7    prefill rows: stable_dense_ring_kernel, an 8 x 8 tile a lane, 4 x 4
+//        warps (32 x 32 a block), 6 stages, refills 3 chunks behind
+constexpr int kDenseTiles = 8;
 
 // ---------------------------------------------------------------------------
 // S2: stable attention
@@ -240,23 +469,6 @@ __host__ __device__ inline size_t attention_smem(int warps, int S, int D) {
   return sizeof(float) *
          (2 * static_cast<size_t>(kTile) * (D + 1) + 2 * static_cast<size_t>(kTile) * D +
           static_cast<size_t>(warps) * D + static_cast<size_t>(warps) * S);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// Wait until at most one of this thread's copy groups is in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
 // Copies of `rows` ring rows (contiguous, D floats each) into a K tile,
@@ -405,7 +617,6 @@ cudaError_t launch_attention(const void* q, const void* k, const void* v, const 
                              float scale, int vec, cudaStream_t stream) {
   // raised once per instantiation and device, not again during a graph
   // capture that follows
-  constexpr int kMaxDevices = 64;
   static size_t smem_allowed[kMaxDevices] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -423,6 +634,272 @@ cudaError_t launch_attention(const void* q, const void* k, const void* v, const 
   stable_attention_kernel<ND><<<grid, warps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(sp), static_cast<float*>(out), H, T, KV, S, D, G, scale, vec);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// S2 at T > 1: several query rows a block
+// ---------------------------------------------------------------------------
+
+constexpr int kRowWarps = 8;                     // warps of a rows block
+constexpr int kRowsMax = 32;                     // query rows a block
+constexpr int kRowsPerWarp = kRowsMax / kRowWarps;
+
+__host__ __device__ inline int ceil4(int v) { return (v + 3) & ~3; }
+
+// Dynamic shared memory of one rows block of `rows` query rows: two K tiles
+// (rows of ceil4(D) + 4 floats, so a lane's float4 of its own position
+// meets no other lane's bank), two V tiles and the query rows (ceil4(D)
+// floats a row), and the rows' scores (ceil4(S) a row).
+__host__ __device__ inline size_t attention_rows_smem(int rows, int S, int D) {
+  const size_t dk = ceil4(D) + 4, dv = ceil4(D);
+  return sizeof(float) * (2 * kTile * dk + 2 * kTile * dv + static_cast<size_t>(rows) * dv +
+                          static_cast<size_t>(rows) * ceil4(S));
+}
+
+// Copies of `n` ring rows (D floats each, contiguous) into a tile of rows
+// `stride` floats apart: 16-byte copies when vec, else 4-byte ones.
+__device__ __forceinline__ void copy_rows(float* tile, const float* src, int n, int D, int stride,
+                                          bool vec) {
+  if (vec) {
+    const int d4 = D >> 2;
+    for (int idx = threadIdx.x; idx < n * d4; idx += blockDim.x) {
+      const int r = idx / d4, c = idx - r * d4;
+      cp_async16(tile + r * stride + 4 * c, src + static_cast<size_t>(r) * D + 4 * c);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < n * D; idx += blockDim.x) {
+      const int r = idx / D;
+      cp_async4(tile + r * stride + (idx - r * D), src + idx);
+    }
+  }
+}
+
+// Grid (ceil(T / tq), B * KV, ceil(G / gb)); a block carries the rows r =
+// ti * gb + gi (ti < tq, gi < gb): query head kvh * G + blockIdx.z * gb + gi
+// at time t0 + ti of batch row b, each with its own live length n_r =
+// min(start_pos[b] + t + 1, S). A K or V tile (32 positions) staged once
+// serves all of them. Each row's arithmetic is stable_attention_kernel's:
+//  pass 1: lane j of every warp owns position j of the tile and chains each
+//          of its warp's rows' scores over d = 0..D-1 (q broadcast from
+//          shared memory), then times scale;
+//  pass 2: a warp a row: the exact max, lane l's sum of e_j over j = l,
+//          l + 32, ... < n_r, the butterfly, p_j = e_j / sum;
+//  pass 3: lane l owns d = 4 l .. 4 l + 3 (+ 128 h); each v[j, d] read once
+//          serves the warp's rows, each chaining j = 0..n_r-1 in order.
+// Positions at or past a row's n_r never enter its arithmetic (the block's
+// tiles run to the largest n_r); the barriers are uniform. The row blocks
+// with the longest rows start first.
+template <int ND4>
+__global__ void __launch_bounds__(kRowWarps * 32)
+    stable_attention_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const int* __restrict__ start_pos,
+                                 float* __restrict__ out, int H, int T, int KV, int S, int D,
+                                 int G, int tq, int gb, float scale, int vec) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t0 = (gridDim.x - 1 - blockIdx.x) * tq;
+  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
+  const int g0 = blockIdx.z * gb;
+  const int rows = tq * gb;
+  const int dk = ceil4(D) + 4, dv = ceil4(D), sp4 = ceil4(S);
+  const int kstride = kTile * dk, vstride = kTile * dv;
+  float* kt = smem;                  // 2 x kTile x dk
+  float* vt = kt + 2 * kstride;      // 2 x kTile x dv
+  float* qs = vt + 2 * vstride;      // rows x dv
+  float* ps = qs + rows * dv;        // rows x sp4
+  const int spb = start_pos[b];
+  const float* kring = k + (static_cast<size_t>(b) * KV + kvh) * S * D;
+  const float* vring = v + (static_cast<size_t>(b) * KV + kvh) * S * D;
+
+  // the warp's rows r = warp + kRowWarps * i: their live lengths (-1: not a
+  // row of this call; 0: no live position, the output NaN as in the JAX
+  // formula), output offsets, and the shared-memory row they read (row 0
+  // for r past the block: computed, never stored)
+  int nr[kRowsPerWarp], ro[kRowsPerWarp];
+  size_t orow[kRowsPerWarp];
+  const int n_max = min(spb + min(t0 + tq, T), S);  // the block's longest row
+  int n_min = n_max;  // the warp's shortest real row (n_max if none)
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = warp + kRowWarps * i;
+    const int t = t0 + r / gb, g = g0 + r % gb;
+    const bool real = r < rows && t < T && g < G;
+    nr[i] = real ? max(min(spb + t + 1, S), 0) : -1;
+    orow[i] = real ? ((static_cast<size_t>(b) * H + kvh * G + g) * T + t) * D : 0;
+    ro[i] = r < rows ? r : 0;
+    if (nr[i] > 0) n_min = min(n_min, nr[i]);
+  }
+  const int tiles = n_max > 0 ? (n_max + kTile - 1) / kTile : 0;
+
+  if (tiles > 0) copy_rows(kt, kring, min(kTile, n_max), D, dk, vec != 0);
+  cp_async_commit();
+  for (int idx = threadIdx.x; idx < rows * D; idx += blockDim.x) {
+    const int r = idx / D, d = idx - r * D;
+    const int t = min(t0 + r / gb, T - 1), g = min(g0 + r % gb, G - 1);
+    qs[r * dv + d] = __ldg(q + ((static_cast<size_t>(b) * H + kvh * G + g) * T + t) * D + d);
+  }
+
+  // pass 1: the scores of positions below n_max
+  for (int c = 0; c < tiles; ++c) {
+    if (c + 1 < tiles)
+      copy_rows(kt + ((c + 1) & 1) * kstride, kring + static_cast<size_t>(c + 1) * kTile * D,
+                min(kTile, n_max - (c + 1) * kTile), D, dk, vec != 0);
+    cp_async_commit();
+    cp_async_wait_one();  // tile c has landed (this thread's copies)
+    __syncthreads();      // ... and every thread's (and the query rows)
+    const int j = c * kTile + lane;
+    const float* kr = kt + (c & 1) * kstride + lane * dk;
+    float s[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) s[i] = 0.0f;
+    if ((D & 3) == 0) {
+      for (int d = 0; d < D; d += 4) {
+        const float4 kv4 = *reinterpret_cast<const float4*>(kr + d);
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+          const float4 q4 = *reinterpret_cast<const float4*>(qs + ro[i] * dv + d);
+          s[i] = __fmaf_rn(q4.x, kv4.x, s[i]);
+          s[i] = __fmaf_rn(q4.y, kv4.y, s[i]);
+          s[i] = __fmaf_rn(q4.z, kv4.z, s[i]);
+          s[i] = __fmaf_rn(q4.w, kv4.w, s[i]);
+        }
+      }
+    } else {
+      for (int d = 0; d < D; ++d) {
+        const float kd = kr[d];
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i) s[i] = __fmaf_rn(qs[ro[i] * dv + d], kd, s[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i)
+      if (j < nr[i]) ps[ro[i] * sp4 + j] = __fmul_rn(s[i], scale);
+    __syncthreads();  // tile c is read before its buffer is refilled
+  }
+  if (tiles > 0) copy_rows(vt, vring, min(kTile, n_max), D, dv, vec != 0);
+  cp_async_commit();
+
+  // pass 2: p_j = e_j / sum_j e_j, e_j = exp(s_j - max), a warp a row (its
+  // own rows: the scores it wrote)
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int n = nr[i];
+    if (n <= 0) continue;  // warp-uniform
+    float* pr = ps + ro[i] * sp4;
+    float m_lane = -INFINITY;
+    for (int j = lane; j < n; j += 32) m_lane = fmaxf(m_lane, pr[j]);
+    const float m = warp_max(m_lane);
+    float l_lane = 0.0f;
+    for (int j = lane; j < n; j += 32) {
+      const float e = expf(__fsub_rn(pr[j], m));
+      pr[j] = e;
+      l_lane = __fadd_rn(l_lane, e);
+    }
+    const float l = warp_sum(l_lane);
+    for (int j = lane; j < n; j += 32) pr[j] = __fdiv_rn(pr[j], l);
+  }
+  __syncwarp();
+
+  // pass 3: out[d] = sum_j p_j v_j[d], one chain a (row, d)
+  float4 acc[kRowsPerWarp][ND4];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+    for (int h = 0; h < ND4; ++h) acc[i][h] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int c = 0; c < tiles; ++c) {
+    if (c + 1 < tiles)
+      copy_rows(vt + ((c + 1) & 1) * vstride, vring + static_cast<size_t>(c + 1) * kTile * D,
+                min(kTile, n_max - (c + 1) * kTile), D, dv, vec != 0);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const int j0 = c * kTile, rows_c = min(kTile, n_max - j0);
+    const float* vtile = vt + (c & 1) * vstride;
+    for (int jj = 0; jj < rows_c; jj += 4) {
+      float4 vv[4][ND4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int h = 0; h < ND4; ++h) {
+          const int d = 4 * lane + 128 * h;
+          vv[e][h] = d < dv ? *reinterpret_cast<const float4*>(vtile + (jj + e) * dv + d)
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      if (j0 + jj + 4 <= n_min) {  // all four positions live for every real row
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+          const float4 p4 = *reinterpret_cast<const float4*>(ps + ro[i] * sp4 + j0 + jj);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int h = 0; h < ND4; ++h) {
+              const float p = part(p4, e);
+              acc[i][h].x = __fmaf_rn(p, vv[e][h].x, acc[i][h].x);
+              acc[i][h].y = __fmaf_rn(p, vv[e][h].y, acc[i][h].y);
+              acc[i][h].z = __fmaf_rn(p, vv[e][h].z, acc[i][h].z);
+              acc[i][h].w = __fmaf_rn(p, vv[e][h].w, acc[i][h].w);
+            }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+          const int live = nr[i] - (j0 + jj);  // this row's positions among the four
+          const float4 p4 = *reinterpret_cast<const float4*>(ps + ro[i] * sp4 + j0 + jj);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int h = 0; h < ND4; ++h) {
+              const float p = part(p4, e);
+              if (e < live) {
+                acc[i][h].x = __fmaf_rn(p, vv[e][h].x, acc[i][h].x);
+                acc[i][h].y = __fmaf_rn(p, vv[e][h].y, acc[i][h].y);
+                acc[i][h].z = __fmaf_rn(p, vv[e][h].z, acc[i][h].z);
+                acc[i][h].w = __fmaf_rn(p, vv[e][h].w, acc[i][h].w);
+              }
+            }
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    if (nr[i] < 0) continue;
+#pragma unroll
+    for (int h = 0; h < ND4; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 4 * lane + 128 * h + e;
+        if (d < D)
+          out[orow[i] + d] = nr[i] == 0 ? __int_as_float(0x7fffffff) : part(acc[i][h], e);
+      }
+  }
+}
+
+template <int ND4>
+cudaError_t launch_attention_rows(const void* q, const void* k, const void* v, const void* sp,
+                                  void* out, int B, int H, int T, int KV, int S, int D, int tq,
+                                  int gb, float scale, int vec, cudaStream_t stream) {
+  static size_t smem_allowed[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = attention_rows_smem(tq * gb, S, D);
+  if (device >= kMaxDevices || smem > smem_allowed[device]) {
+    err = cudaFuncSetAttribute(stable_attention_rows_kernel<ND4>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    if (device < kMaxDevices) smem_allowed[device] = smem;
+  }
+  const int G = H / KV;
+  const dim3 grid((T + tq - 1) / tq, B * KV, (G + gb - 1) / gb);
+  stable_attention_rows_kernel<ND4><<<grid, kRowWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(sp), static_cast<float*>(out), H, T, KV, S, D, G, tq, gb, scale,
+      vec);
   return cudaGetLastError();
 }
 
@@ -522,6 +999,7 @@ int mxtt_stable_dense(const void* x, const void* w, const void* bias, void* out,
     case 4: err = launch_dense<8, 1, 1, 8, 2>(x, w, bias, out, M, O, U, vec, st); break;
     case 5: err = launch_dense<8, 2, 1, 8, 2>(x, w, bias, out, M, O, U, vec, st); break;
     case 6: err = launch_dense<8, 8, 2, 4, 1>(x, w, bias, out, M, O, U, vec, st); break;
+    case 7: err = launch_dense_ring<8, 8, 4, 4, 6, 3>(x, w, bias, out, M, O, U, vec, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
@@ -530,9 +1008,9 @@ int mxtt_stable_dense(const void* x, const void* w, const void* bias, void* out,
 // Rows, output channels and threads a block of instantiation `tile` covers
 // (rows, cols, threads), for the wrapper's plan check.
 int mxtt_stable_dense_tile(int tile, int* rows, int* cols, int* threads) {
-  static const int kRows[kDenseTiles] = {1, 1, 4, 4, 8, 8, 16};
-  static const int kCols[kDenseTiles] = {8, 16, 8, 16, 8, 16, 32};
-  static const int kThreads[kDenseTiles] = {256, 256, 256, 256, 256, 256, 256};
+  static const int kRows[kDenseTiles] = {1, 1, 4, 4, 8, 8, 16, 32};
+  static const int kCols[kDenseTiles] = {8, 16, 8, 16, 8, 16, 32, 32};
+  static const int kThreads[kDenseTiles] = {256, 256, 256, 256, 256, 256, 256, 512};
   if (tile < 0 || tile >= kDenseTiles) return static_cast<int>(cudaErrorInvalidValue);
   *rows = kRows[tile];
   *cols = kCols[tile];
@@ -569,6 +1047,33 @@ long long mxtt_stable_attention_smem_bytes(int warps, int S, int D) {
   return static_cast<long long>(attention_smem(warps, S, D));
 }
 
+// S2 with several query rows a block (for T > 1): the arguments of
+// mxtt_stable_attention, with `tq` query times and `gb` query heads of one
+// KV head a block (tq * gb <= 32, gb <= H / KV) in place of `warps`;
+// attention_rows_smem must fit. vec = 1 needs k and v 16-byte aligned and
+// D % 4 == 0 (K and V tiles by 16-byte copies).
+int mxtt_stable_attention_rows(const void* q, const void* k, const void* v,
+                               const void* start_pos, void* out, int B, int H, int T, int KV,
+                               int S, int D, int tq, int gb, float scale, int vec, void* stream) {
+  if (B < 1 || H < 1 || T < 1 || KV < 1 || S < 1 || D < 1 || D > kMaxD || H % KV || tq < 1 ||
+      gb < 1 || gb > H / KV || tq * gb > kRowsMax || B * KV > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (D <= 128)
+    err = launch_attention_rows<1>(q, k, v, start_pos, out, B, H, T, KV, S, D, tq, gb, scale, vec,
+                                   st);
+  else
+    err = launch_attention_rows<2>(q, k, v, start_pos, out, B, H, T, KV, S, D, tq, gb, scale, vec,
+                                   st);
+  return static_cast<int>(err);
+}
+
+// Dynamic shared memory of one rows block of `rows` query rows, in bytes.
+long long mxtt_stable_attention_rows_smem_bytes(int rows, int S, int D) {
+  return static_cast<long long>(attention_rows_smem(rows, S, D));
+}
+
 // x (M, N), gamma (N,), out (M, N): f32, contiguous. vec = 1 needs N % 4 ==
 // 0 and x, gamma and out 16-byte aligned.
 int mxtt_stable_rms_norm(const void* x, const void* gamma, void* out, int M, int N, float eps,
@@ -582,8 +1087,9 @@ int mxtt_stable_rms_norm(const void* x, const void* gamma, void* out, int M, int
 }
 
 // Registers, local (spilled) bytes a thread and the block limit of kernel
-// `which`: 0..6 the stable_dense instantiations, 7..10 the attention
-// kernels at ND = 1, 2, 4, 8, 11 the row norm.
+// `which`: 0..kDenseTiles-1 the stable_dense instantiations (7 its aligned
+// kernel), then the attention kernels at ND = 1, 2, 4, 8, the rows kernels
+// at ND4 = 1, 2, instantiation 7's unaligned kernel, and the row norm.
 int mxtt_stable_kernel_attributes(int which, int* regs, int* local_bytes, int* max_threads) {
   const void* fns[] = {
       reinterpret_cast<const void*>(stable_dense_kernel<1, 1, 1, 8, 4>),
@@ -593,10 +1099,14 @@ int mxtt_stable_kernel_attributes(int which, int* regs, int* local_bytes, int* m
       reinterpret_cast<const void*>(stable_dense_kernel<8, 1, 1, 8, 2>),
       reinterpret_cast<const void*>(stable_dense_kernel<8, 2, 1, 8, 2>),
       reinterpret_cast<const void*>(stable_dense_kernel<8, 8, 2, 4, 1>),
+      reinterpret_cast<const void*>(stable_dense_ring_kernel<8, 8, 4, 4, 6, 3, true>),
       reinterpret_cast<const void*>(stable_attention_kernel<1>),
       reinterpret_cast<const void*>(stable_attention_kernel<2>),
       reinterpret_cast<const void*>(stable_attention_kernel<4>),
       reinterpret_cast<const void*>(stable_attention_kernel<8>),
+      reinterpret_cast<const void*>(stable_attention_rows_kernel<1>),
+      reinterpret_cast<const void*>(stable_attention_rows_kernel<2>),
+      reinterpret_cast<const void*>(stable_dense_ring_kernel<8, 8, 4, 4, 6, 3, false>),
       reinterpret_cast<const void*>(stable_rms_norm_kernel)};
   if (which < 0 || which >= static_cast<int>(sizeof(fns) / sizeof(fns[0])))
     return static_cast<int>(cudaErrorInvalidValue);

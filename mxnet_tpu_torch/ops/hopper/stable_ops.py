@@ -49,7 +49,8 @@ import torch
 from ...base import MXNetError
 
 _MAX_D = 256
-_MAX_WARPS = 8          # query heads an attention block carries
+_MAX_WARPS = 8          # query heads an attention block carries (T = 1)
+_ROWS_MAX = 32          # query rows an attention block carries (T > 1)
 _SMEM_LIMIT = 232448    # dynamic shared memory a block may take (H100)
 _PLAIN_BYTES = 1 << 28  # the plain versions' product tensors, at most
 
@@ -57,6 +58,7 @@ _LAST_PATH = None  # "cuda" | "torch": the version the last call took
 _FORCE_PATH = None
 _COUNT_LOCK = threading.Lock()
 _ROW_LAUNCHES = {}  # eager launches by (kernel, rows)
+_ROUTE_LAUNCHES = {}  # eager S2 launches by route ("heads", "rows")
 _LIB = None
 _SM_COUNT = {}  # device index -> multiprocessors
 
@@ -88,7 +90,7 @@ class _Counter:
         with _COUNT_LOCK:
             self._launches = 0
 
-    def _launched(self, rows):
+    def _launched(self, rows, route=None):
         capturing = torch.cuda.is_current_stream_capturing()
         with _COUNT_LOCK:
             if capturing:
@@ -97,6 +99,8 @@ class _Counter:
                 self._launches += 1
                 key = (self.name, int(rows))
                 _ROW_LAUNCHES[key] = _ROW_LAUNCHES.get(key, 0) + 1
+                if route is not None:
+                    _ROUTE_LAUNCHES[route] = _ROUTE_LAUNCHES.get(route, 0) + 1
 
 
 DENSE = _Counter("dense")
@@ -136,6 +140,7 @@ def reset_launch_count() -> None:
         c.reset()
     with _COUNT_LOCK:
         _ROW_LAUNCHES.clear()
+        _ROUTE_LAUNCHES.clear()
 
 
 def row_launches() -> dict:
@@ -144,6 +149,13 @@ def row_launches() -> dict:
     split by rows)."""
     with _COUNT_LOCK:
         return dict(_ROW_LAUNCHES)
+
+
+def route_launches() -> dict:
+    """Eager S2 launches since the last reset by kernel: ``"heads"`` or
+    ``"rows"`` (:func:`attention_route`)."""
+    with _COUNT_LOCK:
+        return dict(_ROUTE_LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -213,19 +225,24 @@ def stable_rms_norm_torch(x, gamma, eps=1e-6):
 # ---------------------------------------------------------------------------
 
 # stable_ops.cu's S1 instantiations: index -> (rows, output channels) a
-# warp; 0-5 have one warp row and 8 warps of channels, 6 (prefill rows) an
-# 8 x 8 tile a warp and 2 x 4 warps
-DENSE_TILES = ((1, 1), (1, 2), (4, 1), (4, 2), (8, 1), (8, 2), (8, 8))
-PREFILL_TILE = 6
+# lane (a warp's tile), and (warp rows, warp columns) a block. 0-5 (decode
+# rows) have one warp row and 8 warps of channels; 6 is the first prefill
+# tile (loads from global memory), kept to hold the others to and picked by
+# no plan; 7 the prefill tile fed from a ring of shared-memory stages
+DENSE_TILES = ((1, 1), (1, 2), (4, 1), (4, 2), (8, 1), (8, 2), (8, 8),
+               (8, 8))
+DENSE_WARPS = ((1, 8),) * 6 + ((2, 4), (4, 4))
+GLOBAL_PREFILL_TILE = 6
+PREFILL_TILE = 7
 DECODE_ROWS = 32  # S1 takes the prefill tile above this many rows
 
 
 def dense_plan(m, o, sm_count) -> int:
     """The S1 instantiation for M = ``m`` rows against O = ``o`` output
     channels: one output channel a warp, or two where that still gives
-    every SM four blocks, at decode rows (M <= 32); the 8 x 8 tile above.
-    Every instantiation gives each output the same bits (see the source),
-    so the plan is free to follow M."""
+    every SM four blocks, at decode rows (M <= 32); the ring-fed prefill
+    tile above. Every instantiation gives each output the same bits (see
+    the source), so the plan is free to follow M."""
     if m > DECODE_ROWS:
         return PREFILL_TILE
     rows = 0 if m == 1 else 2 if m <= 4 else 4
@@ -233,16 +250,65 @@ def dense_plan(m, o, sm_count) -> int:
     return rows + int(two)
 
 
+def dense_grid(tile, m, o):
+    """The grid (row blocks, channel blocks) of S1's instantiation ``tile``
+    at M = ``m``, O = ``o``."""
+    (tm, to), (wm, wo) = DENSE_TILES[tile], DENSE_WARPS[tile]
+    return math.ceil(m / (wm * tm)), math.ceil(o / (wo * to))
+
+
+def dense_warp_tiles(tile, bx, by):
+    """The (row, channel) origins of the warps of block (``bx``, ``by``) of
+    instantiation ``tile``: warp w at rows ``(bx * WM + w // WO) * TM`` and
+    channels ``(by * WO + w % WO) * TO`` (the kernels' map; each warp
+    stores the outputs of its tile that lie inside M x O)."""
+    (tm, to), (wm, wo) = DENSE_TILES[tile], DENSE_WARPS[tile]
+    return [((bx * wm + w // wo) * tm, (by * wo + w % wo) * to)
+            for w in range(wm * wo)]
+
+
 def attention_warps(h, kv) -> int:
-    """Query heads (warps) an S2 block carries: one KV head's G = H / KV
-    heads, at most 8 (larger groups take several blocks)."""
+    """Query heads (warps) an S2 block carries at T = 1: one KV head's G =
+    H / KV heads, at most 8 (larger groups take several blocks)."""
     return min(h // kv, _MAX_WARPS)
 
 
 def attention_smem_bytes(warps, s, d) -> int:
-    """Dynamic shared memory of one S2 block: two K tiles (32 x (D + 1)),
-    two V tiles (32 x D), the warps' query rows and their S scores."""
+    """Dynamic shared memory of one S2 block at T = 1: two K tiles (32 x
+    (D + 1)), two V tiles (32 x D), the warps' query rows and their S
+    scores."""
     return 4 * (2 * 32 * (d + 1) + 2 * 32 * d + warps * d + warps * s)
+
+
+def _ceil4(v):
+    return (v + 3) // 4 * 4
+
+
+def attention_rows_smem_bytes(rows, s, d) -> int:
+    """Dynamic shared memory of one S2 rows block (T > 1) of ``rows`` query
+    rows: two K tiles (32 x (ceil4(D) + 4)), two V tiles (32 x ceil4(D)),
+    the query rows (ceil4(D) each) and their scores (ceil4(S) each)."""
+    dv = _ceil4(d)
+    return 4 * (2 * 32 * (dv + 4) + 2 * 32 * dv + rows * dv
+                + rows * _ceil4(s))
+
+
+def attention_rows_plan(h, kv, t, s, d):
+    """``(tq, gb)`` for S2 at T = ``t`` > 1: a block carries ``tq``
+    consecutive query times of ``gb`` query heads of one KV head (tq * gb
+    <= 32 rows), so a staged K/V tile serves tq * gb rows. The most rows
+    whose shared memory fits a block, heads first; ``None`` when not even
+    one row fits. Shapes only."""
+    g = h // kv
+    gb = min(g, _ROWS_MAX)
+    tq = max(1, min(t, _ROWS_MAX // gb))
+    while tq > 1 and attention_rows_smem_bytes(tq * gb, s, d) > _SMEM_LIMIT:
+        tq //= 2
+    while gb > 1 and attention_rows_smem_bytes(gb, s, d) > _SMEM_LIMIT:
+        gb //= 2
+    if attention_rows_smem_bytes(tq * gb, s, d) > _SMEM_LIMIT:
+        return None
+    return tq, gb
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +340,11 @@ def _lib():
         lib.mxtt_stable_attention.restype = i32
         lib.mxtt_stable_attention_smem_bytes.argtypes = [i32] * 3
         lib.mxtt_stable_attention_smem_bytes.restype = ctypes.c_longlong
+        lib.mxtt_stable_attention_rows.argtypes = ([ptr] * 5 + [i32] * 8
+                                                   + [f32, i32, ptr])
+        lib.mxtt_stable_attention_rows.restype = i32
+        lib.mxtt_stable_attention_rows_smem_bytes.argtypes = [i32] * 3
+        lib.mxtt_stable_attention_rows_smem_bytes.restype = ctypes.c_longlong
         lib.mxtt_stable_rms_norm.argtypes = [ptr] * 3 + [i32, i32, f32, i32,
                                                          ptr]
         lib.mxtt_stable_rms_norm.restype = i32
@@ -281,10 +352,10 @@ def _lib():
         lib.mxtt_stable_kernel_attributes.restype = i32
         lib.mxtt_error_string.argtypes = [i32]
         lib.mxtt_error_string.restype = ctypes.c_char_p
-        for i, (tm, to) in enumerate(DENSE_TILES):
+        for i, ((tm, to), (wm, wo)) in enumerate(zip(DENSE_TILES,
+                                                     DENSE_WARPS)):
             got = [ctypes.c_int() for _ in range(3)]
             lib.mxtt_stable_dense_tile(i, *got)
-            wm, wo = (2, 4) if i == PREFILL_TILE else (1, 8)
             want = (wm * tm, wo * to, 32 * wm * wo)
             if tuple(g.value for g in got) != want:
                 raise MXNetError(f"stable_ops.cu's dense tile {i} covers "
@@ -295,6 +366,10 @@ def _lib():
                     attention_smem_bytes(w, s, d):
                 raise MXNetError("stable_ops.cu's attention shared memory "
                                  "differs from the wrapper's")
+            if lib.mxtt_stable_attention_rows_smem_bytes(8 * w, s, d) != \
+                    attention_rows_smem_bytes(8 * w, s, d):
+                raise MXNetError("stable_ops.cu's rows attention shared "
+                                 "memory differs from the wrapper's")
         _LIB = lib
     return _LIB
 
@@ -307,11 +382,16 @@ def build() -> None:
 
 def kernel_attributes() -> dict:
     """Registers, spilled (local) bytes a thread and the block limit of
-    each kernel, by name: ``dense_t{i}`` for S1's instantiations,
-    ``attention_nd{n}`` for S2's (n = ceil(D / 32)), ``norm``."""
+    each kernel, by name: ``dense_t{i}`` for S1's instantiations (the
+    prefill tile's kernel for aligned rows, ``dense_t7_unaligned`` its
+    kernel for the others), ``attention_nd{n}`` for S2's heads kernel (n =
+    ceil(D / 32)), ``attention_rows_nd{n}`` for its rows kernel (n =
+    ceil(D / 128)), ``norm``."""
     lib = _lib()
     names = ([f"dense_t{i}" for i in range(len(DENSE_TILES))]
-             + [f"attention_nd{n}" for n in (1, 2, 4, 8)] + ["norm"])
+             + [f"attention_nd{n}" for n in (1, 2, 4, 8)]
+             + [f"attention_rows_nd{n}" for n in (1, 2)]
+             + [f"dense_t{PREFILL_TILE}_unaligned", "norm"])
     out = {}
     for i, name in enumerate(names):
         regs, local, threads = (ctypes.c_int() for _ in range(3))
@@ -411,6 +491,68 @@ def stable_dense(x, weight, bias=None):
     return out.reshape(*x.shape[:-1], o)
 
 
+def attention_route(b, h, kv, t, s, d, sm_count) -> str:
+    """S2's kernel for q (b, h, t, d) over rings of ``s`` positions:
+    ``"heads"`` (a block a query time, a warp a query head) at T = 1 and
+    wherever the rows kernel's grid would leave SMs idle; ``"rows"`` (a
+    block of several query times and heads, :func:`attention_rows_plan`)
+    where its grid has a block for every SM. Both give every row the same
+    bits, so the route is free to follow the shapes."""
+    if t == 1:
+        return "heads"
+    plan = attention_rows_plan(h, kv, t, s, d)
+    if plan is None:  # no rows block fits: neither does a heads block
+        return "rows"
+    tq, gb = plan
+    blocks = math.ceil(t / tq) * b * kv * math.ceil(h // kv / gb)
+    return "rows" if blocks >= sm_count else "heads"
+
+
+def attention_launch(q, k, v, sp, scale, route):
+    """S2's kernel ``route`` (``"heads"`` or ``"rows"``, at any T: every
+    route gives every row the same bits) on contiguous f32 CUDA ``q`` (B,
+    H, T, D) and rings ``k``/``v`` (B, KV, S, D), ``sp`` (B,) int32 on the
+    card. Returns (B, H, T, D). Uncounted: the tests and ``chip_smoke.py``
+    call it to hold one route against the other."""
+    b, h, t, d = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lib = _lib()
+    if route == "heads":
+        warps = attention_warps(h, kv)
+        smem = attention_smem_bytes(warps, s, d)
+        plan = f"warps {warps}"
+        vec = int(d % 4 == 0 and _aligned(v))
+    elif route == "rows":
+        tg = attention_rows_plan(h, kv, t, s, d)
+        smem = (attention_rows_smem_bytes(1, s, d) if tg is None
+                else attention_rows_smem_bytes(tg[0] * tg[1], s, d))
+        plan = f"(tq, gb) {tg}"
+        vec = int(d % 4 == 0 and _aligned(k, v))
+    else:
+        raise ValueError(f"attention_launch: route {route!r} not in "
+                         "('heads', 'rows')")
+    if smem > _SMEM_LIMIT:
+        raise MXNetError(f"stable_attention kernel: a ring of {s} positions "
+                         f"at D = {d} needs {smem} bytes of shared memory a "
+                         f"block, more than {_SMEM_LIMIT}")
+    with torch.cuda.device(q.device):
+        if route == "heads":
+            err = lib.mxtt_stable_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), sp.data_ptr(),
+                out.data_ptr(), b, h, t, kv, s, d, warps, scale, vec,
+                _stream(q.device))
+        else:
+            err = lib.mxtt_stable_attention_rows(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), sp.data_ptr(),
+                out.data_ptr(), b, h, t, kv, s, d, tg[0], tg[1], scale, vec,
+                _stream(q.device))
+    _raise_if(err, "stable_attention kernel",
+              f"q {tuple(q.shape)}, k {tuple(k.shape)}, route {route}, "
+              f"{plan}, vec {vec}, shared memory {smem} B")
+    return out
+
+
 def stable_attention(q, k, v, start_pos, scale=None):
     """S2: causal attention of ``q`` (B, H, T, D) at positions
     ``start_pos[b] + t`` over unexpanded ``k``/``v`` rings (B, KV, S, D),
@@ -433,26 +575,10 @@ def stable_attention(q, k, v, start_pos, scale=None):
         raise MXNetError(f"stable_attention: start_pos must be ({b},) on "
                          f"{q.device}, got {tuple(start_pos.shape)} on "
                          f"{start_pos.device}")
-    warps = attention_warps(h, kv)
-    smem = attention_smem_bytes(warps, s, d)
-    if smem > _SMEM_LIMIT:
-        raise MXNetError(f"stable_attention kernel: a ring of {s} positions "
-                         f"at D = {d} needs {smem} bytes of shared memory a "
-                         f"block, more than {_SMEM_LIMIT}")
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-    sp = start_pos.to(torch.int32).contiguous()
-    out = torch.empty_like(qc)
-    vec = int(d % 4 == 0 and _aligned(vc))
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        err = lib.mxtt_stable_attention(
-            qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), sp.data_ptr(),
-            out.data_ptr(), b, h, t, kv, s, d, warps, sc, vec,
-            _stream(q.device))
-    _raise_if(err, "stable_attention kernel",
-              f"q {tuple(q.shape)}, k {tuple(k.shape)}, warps {warps}, "
-              f"vec {vec}, shared memory {smem} B")
-    ATTENTION._launched(t)
+    route = attention_route(b, h, kv, t, s, d, _sm_count(q.device))
+    out = attention_launch(q.contiguous(), k.contiguous(), v.contiguous(),
+                           start_pos.to(torch.int32).contiguous(), sc, route)
+    ATTENTION._launched(t, route)
     return out
 
 

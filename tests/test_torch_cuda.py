@@ -2443,6 +2443,100 @@ def test_cuda_stable_dense_row_invariant_at_llama_shapes(ou):
                            full[r0:r0 + m]), (r0, m)
 
 
+def _other_dense_tiles():
+    return [i for i in range(len(st.DENSE_TILES)) if i != st.PREFILL_TILE]
+
+
+# (M, O, U): prefill rows at Llama-3-8B's q/o, k/v, gate/up and down
+# shapes, at the engine's chunk (256) and a 4 x 256 prefill (1024)
+STABLE_PREFILL_CASES = [(256, 4096, 4096), (1024, 1024, 4096),
+                        (256, 14336, 4096), (1024, 4096, 14336)]
+
+
+@pytest.mark.parametrize("case", STABLE_PREFILL_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_cuda_stable_dense_prefill_tile_bitwise(case):
+    """The ring-fed prefill tile (the plan's pick above DECODE_ROWS) gives
+    every output the bits of every other S1 instantiation, the first
+    prefill tile (global loads) and the decode tiles included, at prefill
+    rows of Llama-3-8B's projections."""
+    dev = _need_cuda()
+    m, o, u = case
+    assert st.dense_plan(m, o, torch.cuda.get_device_properties(
+        dev).multi_processor_count) == st.PREFILL_TILE
+    x, w, _ = _dense_inputs(m, o, u, False, dev, seed=5)
+    new = st.dense_launch(x, w, tile=st.PREFILL_TILE)
+    for i in _other_dense_tiles():
+        assert torch.equal(st.dense_launch(x, w, tile=i), new), i
+
+
+@pytest.mark.parametrize("case", [(1000, 37, 4095, True),
+                                  (33, 100, 1001, False),
+                                  (300, 200, 130, True)],
+                         ids=["1000x37x4095", "33x100x1001", "300x200x130"])
+def test_cuda_stable_dense_prefill_tile_ragged_and_misaligned(case):
+    """Ragged M, O and U (a partial last chunk, U % 4 != 0: 4-byte copies)
+    and misaligned x and w: the ring-fed tile equals every other
+    instantiation bit for bit, and the plain version within STABLE_REL."""
+    dev = _need_cuda()
+    m, o, u, bias = case
+    x, w, b = _dense_inputs(m, o, u, bias, dev, seed=6)
+    new = st.dense_launch(x, w, b, tile=st.PREFILL_TILE)
+    _stable_close(new, st.stable_dense_torch(x, w, b))
+    assert torch.equal(st.dense_launch(_misaligned(x), _misaligned(w), b,
+                                       tile=st.PREFILL_TILE), new)
+    for i in _other_dense_tiles():
+        assert torch.equal(st.dense_launch(x, w, b, tile=i), new), i
+
+
+# (B, H, KV, T, S, D, start_pos): Llama-3-8B's prefill from position 0 and
+# a T = 8 chunk from mid-ring, MHA at D = 30, D = 256 near the ring's end,
+# a group of 16 heads, rows past the ring's end
+STABLE_ROWS_CASES = [
+    (4, 32, 8, 256, 1024, 128, [0, 0, 0, 0]),
+    (4, 32, 8, 8, 1024, 128, [100, 517, 1000, 3]),
+    (2, 6, 6, 37, 70, 30, [0, 40]),
+    (2, 8, 2, 5, 333, 256, [100, 328]),
+    (1, 16, 1, 12, 200, 64, [50]),
+    (2, 4, 2, 40, 64, 128, [30, 0]),
+]
+
+
+@pytest.mark.parametrize("case", STABLE_ROWS_CASES,
+                         ids=["prefill", "mid_ring_t8", "mha_d30", "d256",
+                              "g16", "past_ring"])
+def test_cuda_stable_attention_rows_equal_heads_bitwise(case):
+    """S2's rows kernel (T > 1) equals the heads kernel (a block a query
+    time) bit for bit on every row, aligned and misaligned, and its plain
+    version within STABLE_REL."""
+    dev = _need_cuda()
+    b, h, kv, t, s, d, sp = case
+    q, k, v = _attention_inputs(b, h, kv, t, s, d, dev, seed=7)
+    sp = torch.tensor(sp, dtype=torch.int32, device=dev)
+    sc = 1.0 / d ** 0.5
+    rows = st.attention_launch(q, k, v, sp, sc, route="rows")
+    heads = st.attention_launch(q, k, v, sp, sc, route="heads")
+    assert torch.equal(rows, heads)
+    assert torch.equal(
+        st.attention_launch(_misaligned(q), _misaligned(k), _misaligned(v),
+                            sp, sc, route="rows"), rows)
+    _stable_close(rows, st.stable_attention_torch(q, k, v, sp, sc))
+
+
+def test_cuda_stable_kernels_do_not_spill():
+    """No S1, S2 or S3 instantiation keeps local (spilled) memory: every
+    S1 tile (the prefill tile's aligned and unaligned kernels), S2's heads
+    and rows kernels, S3."""
+    _need_cuda()
+    attrs = st.kernel_attributes()
+    want = ({f"dense_t{i}" for i in range(len(st.DENSE_TILES))}
+            | {f"dense_t{st.PREFILL_TILE}_unaligned", "attention_rows_nd1",
+               "attention_rows_nd2", "attention_nd1", "norm"})
+    assert want <= set(attrs), sorted(want - set(attrs))
+    for name, a in attrs.items():
+        assert a["local_bytes"] == 0, (name, a)
+
+
 def _attention_inputs(b, h, kv, t, s, d, dev, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(b, h, t, d, device=dev, generator=g)
