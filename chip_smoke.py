@@ -77,18 +77,23 @@ Phases, each printed on its own line; the first failed check exits non-zero:
    (scalar loads, 4-byte copies) bit for bit the aligned call at decode
    and prefill rows, a ragged U with a bias; S2 (the mul+reduce
    ``cached_attention``) at B = 4, H = 32, KV = 8, D = 128 over a
-   1024-position ring at T = 1 (the middle of a generate; the heads
-   kernel) and T = 256 (the rows kernel), the rows kernel bit for bit the
-   heads kernel at T = 256 from position 0 and from mid-ring and at MHA
-   D = 30, GQA D = 256 and D = 30 (aligned and misaligned), a T = 1 query
-   bit for bit the same row inside T = 256, misaligned rings; S3 (the row
-   norm) at 1024 rows of 4096 (4 rows bit for bit inside them), misaligned
-   and a ragged 4095. No kernel may spill. Times: S1 at M = 4, 256 and
+   1024-position ring at T = 1 (the middle of a generate, and a full ring
+   at positions 1000-1023; the decode kernel, a cluster of blocks a KV
+   head) and T = 256 (the rows kernel), the decode and rows kernels bit
+   for bit the heads kernel (T = 1 at both position sets, at every cluster
+   size that fits, and misaligned; T = 256 from position 0 and from
+   mid-ring; MHA D = 30, GQA D = 256 and D = 30, aligned and misaligned),
+   a T = 1 query bit for bit the same row inside T = 256, misaligned
+   rings; S3 (the row norm) at 1024 rows of 4096 (4 rows bit for bit
+   inside them), misaligned and a ragged 4095, the staged kernel (rows in
+   shared memory) bit for bit the warp-a-row kernel at 4 and 1024 rows,
+   ragged and misaligned. No kernel may spill. Times: S1 at M = 4, 256 and
    1024 for each shape and over one forward (225 products at decode rows,
    a prefill's 224 above), at prefill rows the first prefill tile beside
-   the plan's, S2 at T = 1 and 256 over one forward's 32 layers (at 256
-   the heads kernel beside the rows kernel), S3 at 4 and 1024 rows over
-   one forward's 65 and 64, each beside its bound (bytes at 3.35 TB/s or
+   the plan's, S2 at T = 1 and 256 over one forward's 32 layers (the heads
+   kernel beside the decode and rows kernels; the full ring a call), S3 at
+   4 and 1024 rows over one forward's 65 and 64 (the warp-a-row kernel
+   beside the staged one), each beside its bound (bytes at 3.35 TB/s or
    its f32 products at three TF32 passes; S1 also beside its f32 FMAs at
    67 TFLOP/s, the bound of a design that keeps the f32 FMA chains), its
    plain version and the library call for the same function (f32
@@ -129,7 +134,8 @@ serve baseline (after 5, before 5a): the strict rung on the same model
    (64, 256), 32 greedy tokens): every forward launches S1 225 times, S2 32
    and S3 65 (by rows: a prefill's layer products at 1024 rows, its head
    and every decode step at 4; S2's prefill on its rows kernel, its decode
-   steps on the heads kernel), nothing is new after warmup; at decode
+   steps on the decode kernel; every S3 launch on the staged kernel),
+   nothing is new after warmup; at decode
    steps 1 and 6 every row's logits are bit for bit those of a fresh full
    prefill of its prefix at bucket 256; a paged ``Generator``'s prefill
    and decode logits are bit for bit the ring run's and its tokens the
@@ -613,11 +619,14 @@ STABLE_CHUNK_M = 256        # the engine's prefill chunk (1, 256)
 # reading the ring-fed tile and the rows kernel are set beside
 STABLE_FIRST_PREFILL_MS = 802.6
 STABLE_LAYERS = 32
+STABLE_DECODE_SMEM = 232448 - 1024  # dynamic shared memory of a decode block
 STABLE_PRODUCTS = 7 * 32 + 1   # S1 launches a forward (the head included)
 STABLE_NORMS = 2 * 32 + 1      # S3 launches a forward (the final norm too)
 # phase 3c's decode positions: the middle of a 32-token generate of
 # phase 4-5's prompts
 STABLE_DECODE_SP = [n + NEW_TOKENS // 2 for n in PROMPT_LENS]
+# phase 3c's long-context decode positions: a full 1024-position ring
+STABLE_FULL_RING_SP = [1000, 1007, 1016, 1023]
 # serve baseline: the decode steps whose logits must equal a full
 # prefill's (the sixth is the last whose prefixes all fit bucket 256)
 PARITY_STEPS = (1, 6)
@@ -4588,15 +4597,19 @@ def stable_phase(torch, F, st, nn_ops, flush, dev):
                          else "operations"),
             "library_ms": acc["library_ms"]}
 
-    # S2: decode (T = 1 at the middle of a 32-token generate) and prefill
-    # (T = 256 from position 0; the rows kernel) at Llama-3-8B's heads, the
-    # rows kernel bit for bit the heads kernel at T = 256 from position 0
-    # and from mid-ring, at D = 30 and 256 (MHA and ragged) and on
-    # misaligned rings; times over one forward's 32 layers (at T = 256 the
-    # heads kernel's beside the rows kernel's)
+    # S2: decode (T = 1 at the middle of a 32-token generate, and over a
+    # full ring; the decode kernel) and prefill (T = 256 from position 0;
+    # the rows kernel) at Llama-3-8B's heads, the decode kernel bit for bit
+    # the heads kernel at every cluster size that fits, the rows kernel at
+    # T = 256 from position 0 and from mid-ring, both at D = 30 and 256
+    # (MHA and ragged) and on misaligned rings; times over one forward's 32
+    # layers (the heads kernel's beside the route's)
     b, h, kv, d = 4, 32, 8, 128
     sc = 1.0 / math.sqrt(d)
-    cases = [("t1", 1, STABLE_DECODE_SP), ("t256", 256, [0] * b)]
+    sms = st._sm_count(dev)
+    cases = [("t1", 1, STABLE_DECODE_SP), ("t1_full_ring", 1,
+                                           STABLE_FULL_RING_SP),
+             ("t256", 256, [0] * b)]
     for label, t, sp_list in cases:
         q, k, v = randn(b, h, t, d), randn(b, kv, MAX_SEQ, d), \
             randn(b, kv, MAX_SEQ, d)
@@ -4612,9 +4625,26 @@ def stable_phase(torch, F, st, nn_ops, flush, dev):
         err["attention"] = max(err["attention"], stable_close(
             torch, out, st.stable_attention_torch(q, k, v, sp),
             f"S2 at T = {t}"))
-        route = st.attention_route(b, h, kv, t, MAX_SEQ, d,
-                                   st._sm_count(dev))
+        route = st.attention_route(b, h, kv, t, MAX_SEQ, d, sms)
+        check(route == ("decode" if t == 1 else "rows"),
+              f"S2 at T = {t} took the {route} kernel")
         h_ms = 0.0
+        if route == "decode":
+            heads = st.attention_launch(q, k, v, sp, sc, route="heads")
+            check(torch.equal(heads, out), f"S2's decode kernel differs from "
+                  f"the heads kernel at positions {sp_list}")
+            gb = min(h // kv, 8)
+            for c in (1, 2, 4, 8):
+                if st.attention_decode_smem_bytes(MAX_SEQ, d, c, gb) > \
+                        STABLE_DECODE_SMEM:
+                    continue
+                check(torch.equal(st.attention_launch(
+                    q, k, v, sp, sc, route="decode", cluster=c), heads),
+                    f"S2's decode kernel on clusters of {c} differs from "
+                    f"the heads kernel at positions {sp_list}")
+            del heads
+            h_ms = time_ms(torch, lambda: st.attention_launch(
+                q, k, v, sp, sc, route="heads"), flush)
         if route == "rows":
             check(torch.equal(st.attention_launch(q, k, v, sp, sc,
                                                   route="heads"), out),
@@ -4640,11 +4670,17 @@ def stable_phase(torch, F, st, nn_ops, flush, dev):
             plan = dict(route=route, tq=tq, gb=gb,
                         smem_bytes=st.attention_rows_smem_bytes(
                             tq * gb, MAX_SEQ, d))
+        elif route == "decode":
+            cl, gb = st.attention_decode_plan(b, h, kv, t, MAX_SEQ, d, sms)
+            plan = dict(route=route, cluster=cl, gb=gb,
+                        smem_bytes=st.attention_decode_smem_bytes(
+                            MAX_SEQ, d, cl, gb))
         else:
             plan = dict(route=route, warps=st.attention_warps(h, kv),
                         smem_bytes=st.attention_smem_bytes(
                             st.attention_warps(h, kv), MAX_SEQ, d))
-        say(phase, kernel="attention", t=t, start_pos=sp_list, **plan,
+        say(phase, kernel="attention", t=t, label=label, start_pos=sp_list,
+            **plan,
             ms=f"{k_ms:.6f}", heads_kernel_ms=f"{h_ms:.6f}",
             plain_ms=f"{p_ms:.6f}", library_ms=f"{l_ms:.6f}",
             bound_ms=f"{bound:.6f}", bound_by=by,
@@ -4652,11 +4688,12 @@ def stable_phase(torch, F, st, nn_ops, flush, dev):
             forward_ms=f"{k_ms * STABLE_LAYERS:.6f}",
             forward_heads_kernel_ms=f"{h_ms * STABLE_LAYERS:.6f}",
             forward_library_ms=f"{l_ms * STABLE_LAYERS:.6f}")
-        rows[f"stable_attention_{label}"] = {
-            "kernel": "attention", "rows": t, "max_abs_err": 0.0,
-            "ms": k_ms * STABLE_LAYERS, "plain_ms": p_ms * STABLE_LAYERS,
-            "bound_ms": bound * STABLE_LAYERS, "bound_by": by,
-            "library_ms": l_ms * STABLE_LAYERS}
+        if label != "t1_full_ring":  # serve baseline runs no full ring
+            rows[f"stable_attention_{route}_t{t}"] = {
+                "kernel": "attention", "rows": t, "max_abs_err": 0.0,
+                "ms": k_ms * STABLE_LAYERS, "plain_ms": p_ms * STABLE_LAYERS,
+                "bound_ms": bound * STABLE_LAYERS, "bound_by": by,
+                "library_ms": l_ms * STABLE_LAYERS}
         if t > 1:  # a T = 1 query inside T = 256: the kernel and the library
             inv, lib_rows = True, True
             full_lib = lib()
@@ -4690,11 +4727,23 @@ def stable_phase(torch, F, st, nn_ops, flush, dev):
                                 1.0 / math.sqrt(dd), route="rows"), heads),
               f"S2's rows kernel differs from the heads kernel at D = {dd}, "
               f"H = {hh}, KV = {kk}, T = {t}")
+        q1 = q[:, :, -1:].contiguous()  # T = 1 at the rows' last positions
+        sp1 = sp + (t - 1)
+        heads1 = st.attention_launch(q1, k, v, sp1, 1.0 / math.sqrt(dd),
+                                     route="heads")
+        check(torch.equal(st.stable_attention(q1, k, v, sp1), heads1)
+              and torch.equal(st.attention_launch(
+                  misaligned(torch, q1), misaligned(torch, k),
+                  misaligned(torch, v), sp1, 1.0 / math.sqrt(dd),
+                  route="decode"), heads1),
+              f"S2's decode kernel differs from the heads kernel at D = "
+              f"{dd}, H = {hh}, KV = {kk}")
         err["attention"] = max(err["attention"], stable_close(
             torch, out, st.stable_attention_torch(q, k, v, sp),
             f"S2 at D = {dd}, H = {hh}, KV = {kk}"))
-    for label in ("t1", "t256"):
-        rows[f"stable_attention_{label}"]["max_abs_err"] = err["attention"]
+    for r in rows.values():
+        if r["kernel"] == "attention":
+            r["max_abs_err"] = err["attention"]
 
     # S3: rows of 4096 at M = 4 (decode: 65 a forward) and 1024 (a
     # prefill's 64 layer norms), a misaligned copy, a ragged 4095
@@ -4717,6 +4766,15 @@ def stable_phase(torch, F, st, nn_ops, flush, dev):
         check(torch.equal(st.stable_rms_norm(x[r0:r0 + 4], gamma,
                                              STABLE_EPS), full[r0:r0 + 4]),
               f"S3 rows {r0}..{r0 + 4} differ from the same rows inside 1024")
+    # the staged kernel (the plan's) bit for bit the warp-a-row kernel at
+    # decode and prefill rows, ragged and misaligned
+    for xs, gs, what in ((x[:STABLE_DECODE_M].contiguous(), gamma, "4 rows"),
+                         (x, gamma, "1024 rows"), (xr, gr, "ragged rows"),
+                         (misaligned(torch, x), gamma, "a misaligned x")):
+        check(torch.equal(st.norm_launch(xs, gs, STABLE_EPS, "staged"),
+                          st.norm_launch(xs, gs, STABLE_EPS, "warp")),
+              f"S3's staged kernel differs from the warp-a-row kernel at "
+              f"{what}")
     lib_inv["rms_norm"] = bool(torch.equal(
         F.rms_norm(x[:4], (n_norm,), gamma, STABLE_EPS),
         F.rms_norm(x, (n_norm,), gamma, STABLE_EPS)[:4]))
@@ -4726,18 +4784,24 @@ def stable_phase(torch, F, st, nn_ops, flush, dev):
     for m, n in ((STABLE_DECODE_M, STABLE_NORMS),
                  (STABLE_PREFILL_M, STABLE_NORMS - 1)):
         xm = x[:m].contiguous()
+        rpb = st.norm_plan(m, n_norm, sms)
+        check(rpb is not None, f"S3 at {m} rows has no staged plan")
         k_ms = time_ms(torch, lambda: st.stable_rms_norm(xm, gamma,
                                                          STABLE_EPS), flush)
+        w_ms = time_ms(torch, lambda: st.norm_launch(xm, gamma, STABLE_EPS,
+                                                     "warp"), flush)
         p_ms = time_ms(torch, lambda: st.stable_rms_norm_torch(
             xm, gamma, STABLE_EPS), flush)
         l_ms = time_ms(torch, lambda: F.rms_norm(xm, (n_norm,), gamma,
                                                  STABLE_EPS), flush)
         bound = 4 * (2 * m * n_norm + n_norm) / HBM_BYTES_PER_S * 1e3
-        say(phase, kernel="norm", m=m, n=n_norm, ms=f"{k_ms:.6f}",
+        say(phase, kernel="norm", m=m, n=n_norm, route="staged",
+            rows_a_block=rpb, ms=f"{k_ms:.6f}", warp_kernel_ms=f"{w_ms:.6f}",
             plain_ms=f"{p_ms:.6f}", library_ms=f"{l_ms:.6f}",
             bound_ms=f"{bound:.6f}", share=f"{bound / k_ms:.4f}",
-            forward_launches=n, forward_ms=f"{k_ms * n:.6f}")
-        rows[f"stable_rms_norm_m{m}"] = {
+            forward_launches=n, forward_ms=f"{k_ms * n:.6f}",
+            forward_warp_kernel_ms=f"{w_ms * n:.6f}")
+        rows[f"stable_rms_norm_staged_m{m}"] = {
             "kernel": "norm", "rows": m, "max_abs_err": err["norm"],
             "ms": k_ms * n, "plain_ms": p_ms * n, "bound_ms": bound * n,
             "bound_by": "bytes", "library_ms": l_ms * n}
@@ -4788,7 +4852,7 @@ def baseline_phase(torch, st, Generator, ContinuousEngine, model, prompts,
     finally:
         fc.close()
     counts, rows = st.launch_count(), st.row_launches()
-    routes = st.route_launches()
+    routes, norm_routes = st.route_launches(), st.norm_route_launches()
     steps = info["decode_steps"]
     check(steps == NEW_TOKENS - 1 and fc.calls == 1 + steps,
           f"{phase}: {steps} decode steps, {fc.calls} forwards")
@@ -4809,10 +4873,12 @@ def baseline_phase(torch, st, Generator, ContinuousEngine, model, prompts,
     check(rows == want_rows, f"{phase}: launches by (kernel, rows) "
           f"{sorted(rows.items())}, expected {sorted(want_rows.items())}")
     # S2's prefill (bb x 256 rows) takes the rows kernel, each decode step
-    # the heads kernel
-    want_routes = {"rows": n_layers, "heads": n_layers * steps}
+    # the decode kernel; every S3 launch the staged kernel
+    want_routes = {"rows": n_layers, "decode": n_layers * steps}
     check(routes == want_routes, f"{phase}: S2 launches by kernel {routes}, "
           f"expected {want_routes}")
+    check(norm_routes == {"staged": counts["norm"]}, f"{phase}: S3 launches "
+          f"by kernel {norm_routes}, expected all {counts['norm']} staged")
     gen.assert_no_recompiles()
     agree = sum(a == b for a, b in zip(out, pallas["out"]))
     say(phase, prefill_ms=f"{info['prefill_ms']:.3f}",
@@ -4821,6 +4887,7 @@ def baseline_phase(torch, st, Generator, ContinuousEngine, model, prompts,
         tokens_s=f"{info['tokens_s']:.3f}", decode_steps=steps,
         launches=counts, launches_by_kernel_and_rows=sorted(rows.items()),
         attention_launches_by_kernel=routes,
+        norm_launches_by_kernel=norm_routes,
         rows_equal_to_pallas_tokens=f"{agree}/{len(out)}",
         first_tokens=[o[:4] for o in out])
 

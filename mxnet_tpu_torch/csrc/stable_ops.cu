@@ -52,9 +52,12 @@
 // The decode and prefill instantiations of S1 differ only in how many
 // rows and output channels a warp carries and where its operands come
 // from (global memory, or a ring of shared-memory stages at prefill rows);
-// each output element's chain and butterfly are the same. S2's two kernels (a
-// block a query time at T = 1, a block of up to 32 query rows above) give
-// each row the same arithmetic.
+// each output element's chain and butterfly are the same. S2's three kernels
+// (the heads kernel, a block a query time; the rows kernel, a block of up
+// to 32 query rows, for T > 1; the decode kernel, a cluster of up to 8
+// blocks a query time and KV head, for T = 1) give each row the same
+// arithmetic, and so do S3's two (a warp a row; rows staged in shared
+// memory).
 //
 // Bound. S1 at decode rows (M = 4) is a weight stream (f32 weights, 30 GB
 // for one Llama-3-8B forward, 8.96 ms at 3.35 TB/s); at prefill rows (M =
@@ -72,7 +75,16 @@
 // tiles in shared memory, each arriving by cp.async while the one before it
 // is read, for the query heads of one KV head at T = 1 and for up to 32
 // (query time, head) rows of one KV head above, so a staged tile serves
-// them all. S3 is one warp a row with 8 loads a lane in flight.
+// them all. At T = 1 a cluster of blocks shares one KV head's work: each
+// block stages a slice of the live K rows at once and scores it, the
+// blocks exchange maxima and e_j through distributed shared memory, and
+// each computes a slice of the output columns from its V columns, so K
+// and V are read once with every byte of a block's slice in flight
+// together (the heads kernel walked the ring a 32-position tile at a
+// time, two round trips a tile). S3 stages each row (one bulk copy a row)
+// and gamma in shared memory, so x is read once; a warp a row with 8
+// loads a lane in flight (the first S3 kernel) takes rows too long to
+// stage.
 // Never build this file with --use_fast_math.
 
 #include <cuda_runtime.h>
@@ -279,6 +291,60 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// arrive, and expect `bytes` more of the bulk copies' before the phase completes
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned),
+// completion counted on `bar` in bytes
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Wait until every one of this thread's copy groups has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address of `p` in the shared memory of block `rank` of this cluster
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, unsigned rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(const float* p, unsigned rank) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(cluster_addr(p, rank)) : "memory");
+  return v;
+}
+
+// four floats from 16-byte aligned `p` in block `rank`'s shared memory
+__device__ __forceinline__ float4 ld_cluster_f32x4(const float* p, unsigned rank) {
+  float x, y, z, w;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x), "=f"(y), "=f"(z), "=f"(w)
+               : "r"(cluster_addr(p, rank))
+               : "memory");
+  return make_float4(x, y, z, w);
 }
 
 // A block of WM x WO warps covers BM = WM * TM rows by BN = WO * TO output
@@ -904,6 +970,310 @@ cudaError_t launch_attention_rows(const void* q, const void* k, const void* v, c
 }
 
 // ---------------------------------------------------------------------------
+// S2 at T = 1: a cluster of blocks a (batch row, KV head, query time)
+// ---------------------------------------------------------------------------
+
+constexpr int kDecWarps = 8;       // warps of a decode block
+constexpr int kDecClusterMax = 8;  // blocks a cluster (the portable size)
+constexpr int kDecHeads = 8;       // query heads a cluster carries, at most
+constexpr int kDecChunk = 64;      // K rows region A holds (a chunk of a block's slice)
+constexpr int kDecOuts = kDecHeads * kMaxD / (kDecWarps * 32);  // pass 3 outputs a thread
+
+// Block `rank` of a cluster of C takes positions [rank s, rank s + s) of
+// the n live ones and output columns [rank c, rank c + c) of D, each cut
+// at n or D, with s = dec_pos_span(n, C), c = dec_col_span(D, C):
+// multiples of 4, so every slice starts 16-byte aligned.
+__host__ __device__ inline int dec_pos_span(int n, int C) { return ceil4((n + C - 1) / C); }
+__host__ __device__ inline int dec_col_span(int D, int C) { return ceil4((D + C - 1) / C); }
+
+// K rows region A holds: a chunk of up to kDecChunk rows of the block's
+// slice (pitch ceil4(D) + 4 floats); in pass 3 it holds the V columns of
+// dec_v_chunk(S, D, C) positions at a time (pitch dec_col_span, a multiple
+// of 4 positions). Both are shapes only, so two or three blocks fit an SM.
+__host__ __device__ inline int dec_k_chunk(int S, int C) {
+  const int span = dec_pos_span(S, C);
+  return span < kDecChunk ? span : kDecChunk;
+}
+__host__ __device__ inline size_t dec_region(int S, int D, int C) {
+  return static_cast<size_t>(dec_k_chunk(S, C)) * (ceil4(D) + 4);
+}
+__host__ __device__ inline int dec_v_chunk(int S, int D, int C) {
+  return static_cast<int>(dec_region(S, D, C) / dec_col_span(D, C)) & ~3;
+}
+
+// Dynamic shared memory of one decode block carrying gb query heads:
+// region A, the heads' scores / e_j at every position (pitch ceil4(S) +
+// 4), their query rows (ceil4(D)) and their p_j (pitch ceil4(S) + 4).
+__host__ __device__ inline size_t attention_decode_smem(int S, int D, int C, int gb) {
+  return sizeof(float) * (dec_region(S, D, C) + 2 * static_cast<size_t>(gb) * (ceil4(S) + 4) +
+                          static_cast<size_t>(gb) * ceil4(D));
+}
+
+// Grid (C, B * KV, T * ceil(G / gb)), clusters of C blocks along x: the
+// cluster carries query heads g0 .. g0 + gb - 1 of KV head kvh at time t of
+// batch row b (gb <= kDecHeads), whose live length n = min(start_pos[b] + t + 1,
+// S) every block reads. Each row's arithmetic is stable_attention_kernel's:
+//  pass 1: block `rank` stages its slice of the live K rows by cp.async
+//          (up to kDecChunk rows at a time, all in flight at once; one
+//          chunk at the middle of a generate) and chains each score of its positions
+//          over d = 0..D-1 (a warp 32 positions of one head, lane =
+//          position, q broadcast), then times
+//          scale; the block's max a head goes to the cluster, whose blocks
+//          read each other's from shared memory (DSMEM): a max is exact in
+//          any order;
+//  softmax: e_j = exp(s_j - m) on the block's positions; behind a cluster
+//          barrier every block gathers the others' e_j (DSMEM), so each
+//          holds all n, and forms l in the canonical order (warp h: lane l
+//          sums j = l, l + 32, ... in increasing j, then the butterfly):
+//          every block holds the same bits; p_j = e_j / l;
+//  pass 3: block `rank` takes its slice of the output columns; its V
+//          columns of the live rows land in region A, dec_v_chunk positions
+//          at a time (the first by cp.async issued once K's rows are read,
+//          while the softmax runs), and each output element is one fma
+//          chain over j = 0..n-1 in increasing j, carried across chunks.
+// So K and V are read once, and every output has the heads kernel's bits.
+// Positions past n are never read.
+__global__ void __launch_bounds__(kDecWarps * 32, 2)
+    stable_attention_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                   const float* __restrict__ v, const int* __restrict__ start_pos,
+                                   float* __restrict__ out, int H, int T, int KV, int S, int D,
+                                   int G, int gb, float scale, int vec) {
+  extern __shared__ float4 smem4[];
+  float* ka = reinterpret_cast<float*>(smem4);         // region A
+  const int dk = ceil4(D) + 4, pp = ceil4(S) + 4, dq = ceil4(D);
+  const int C = gridDim.x, rank = blockIdx.x;
+  float* ps = ka + dec_region(S, D, C);                 // gb x pp: s_j, then e_j
+  float* qs = ps + static_cast<size_t>(gb) * pp;        // gb x dq
+  float* pd = qs + static_cast<size_t>(gb) * dq;        // gb x pp: p_j
+  __shared__ float wmax[kDecWarps][kDecHeads];
+  __shared__ float bmax[kDecHeads], mrow[kDecHeads];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
+  const int t = blockIdx.z % T, g0 = (blockIdx.z / T) * gb;
+  const int nh = min(gb, G - g0);  // the cluster's heads
+  const int cspan = dec_col_span(D, C);
+  const int d0 = min(rank * cspan, D), nd = min(d0 + cspan, D) - d0;
+  const size_t ostride = static_cast<size_t>(T) * D;  // from one head's row to the next's
+  const size_t obase = ((static_cast<size_t>(b) * H + kvh * G + g0) * T + t) * D;
+  const int n = min(start_pos[b] + t + 1, S);  // the same for every block of the cluster
+
+  if (n <= 0) {  // no live position: the JAX formula's max is -inf, its output NaN
+    for (int idx = threadIdx.x; idx < nh * nd; idx += blockDim.x) {
+      const int i = idx / nd;
+      out[obase + i * ostride + d0 + idx - i * nd] = __int_as_float(0x7fffffff);
+    }
+    return;
+  }
+  const int pspan = dec_pos_span(n, C);
+  const int j0 = min(rank * pspan, n), L = min(j0 + pspan, n) - j0;
+  const int kchunk = dec_k_chunk(S, C), vchunk = dec_v_chunk(S, D, C);
+  const float* kring = k + (static_cast<size_t>(b) * KV + kvh) * S * D;
+  const float* vring = v + (static_cast<size_t>(b) * KV + kvh) * S * D;
+  // V's columns of positions [p0, p1) into region A (pitch cspan)
+  auto copy_v = [&](int p0, int p1) {
+    if (vec) {  // rows of the ring 16-byte aligned, d0 and nd multiples of 4
+      const int c4 = nd >> 2;
+      for (int idx = threadIdx.x; idx < (p1 - p0) * c4; idx += blockDim.x) {
+        const int j = idx / c4, c = idx - j * c4;
+        cp_async16(ka + j * cspan + 4 * c,
+                   vring + static_cast<size_t>(p0 + j) * D + d0 + 4 * c);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < (p1 - p0) * nd; idx += blockDim.x) {
+        const int j = idx / nd, c = idx - j * nd;
+        cp_async4(ka + j * cspan + c, vring + static_cast<size_t>(p0 + j) * D + d0 + c);
+      }
+    }
+    cp_async_commit();
+  };
+  copy_rows(ka, kring + static_cast<size_t>(j0) * D, min(L, kchunk), D, dk, vec != 0);
+  cp_async_commit();
+  for (int idx = threadIdx.x; idx < nh * D; idx += blockDim.x) {
+    const int i = idx / D, d = idx - i * D;
+    qs[i * dq + d] = __ldg(q + obase + i * ostride + d);
+  }
+  if (lane < kDecHeads) wmax[warp][lane] = -INFINITY;
+
+  // pass 1: the scores of the block's positions, kchunk K rows at a time,
+  // a task (32 positions of one head) a warp at a time; each warp keeps its
+  // max a head
+  for (int r0 = 0; r0 < L; r0 += kchunk) {
+    const int rows = min(kchunk, L - r0);
+    if (r0 > 0) {  // the chunk before is read: copy this one
+      __syncthreads();
+      copy_rows(ka, kring + static_cast<size_t>(j0 + r0) * D, rows, D, dk, vec != 0);
+      cp_async_commit();
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    const int pblocks = (rows + 31) >> 5;
+    for (int task = warp; task < pblocks * nh; task += kDecWarps) {  // warp-uniform
+      const int i = task / pblocks, jj = (task - i * pblocks) * 32 + lane;
+      const float* kr = ka + min(jj, rows - 1) * dk;
+      const float* qr = qs + i * dq;
+      float s = 0.0f;
+      if ((D & 3) == 0) {
+#pragma unroll 4
+        for (int d = 0; d < D; d += 4) {
+          const float4 k4 = *reinterpret_cast<const float4*>(kr + d);
+          const float4 q4 = *reinterpret_cast<const float4*>(qr + d);
+          s = __fmaf_rn(q4.x, k4.x, s);
+          s = __fmaf_rn(q4.y, k4.y, s);
+          s = __fmaf_rn(q4.z, k4.z, s);
+          s = __fmaf_rn(q4.w, k4.w, s);
+        }
+      } else {
+        for (int d = 0; d < D; ++d) s = __fmaf_rn(qr[d], kr[d], s);
+      }
+      const float sc = __fmul_rn(s, scale);
+      if (jj < rows) ps[i * pp + j0 + r0 + jj] = sc;
+      const float m = warp_max(jj < rows ? sc : -INFINITY);
+      if (lane == 0) wmax[warp][i] = fmaxf(wmax[warp][i], m);
+    }
+  }
+  __syncthreads();  // every K row is read (region A takes V's columns); every warp's maxima
+  copy_v(0, min(vchunk, n));  // V's first positions land while the softmax runs
+  if (threadIdx.x < nh) {
+    float m = wmax[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < kDecWarps; ++w) m = fmaxf(m, wmax[w][threadIdx.x]);
+    bmax[threadIdx.x] = m;
+  }
+  cluster_arrive_release();
+  cluster_wait();  // every block's maxima
+  if (warp < nh) {
+    const float m = warp_max(lane < C ? ld_cluster_f32(&bmax[warp], lane) : -INFINITY);
+    if (lane == 0) mrow[warp] = m;
+  }
+  __syncthreads();
+
+  // e_j = exp(s_j - m) on the block's positions
+  for (int idx = threadIdx.x; idx < nh * L; idx += blockDim.x) {
+    const int i = idx / L;
+    float* pj = ps + i * pp + j0 + idx - i * L;
+    *pj = expf(__fsub_rn(*pj, mrow[i]));
+  }
+  cluster_arrive_release();
+  cluster_wait();  // every block's e_j
+  {  // the other blocks' e_j, 16 bytes a read, four reads in flight a thread
+    const int nq = (n + 3) >> 2, items = nh * nq;
+    for (int f0 = threadIdx.x; f0 < items; f0 += 4 * blockDim.x) {
+      float4 got[4];
+      int at[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int f = f0 + u * blockDim.x, i = f / nq, j = 4 * (f - i * nq);
+        const int c = j / pspan;  // the block whose slice holds position j
+        at[u] = f < items && c != rank ? i * pp + j : -1;
+        if (at[u] >= 0) got[u] = ld_cluster_f32x4(ps + at[u], c);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (at[u] >= 0) *reinterpret_cast<float4*>(ps + at[u]) = got[u];
+    }
+  }
+  __syncthreads();           // every position's e_j is here
+  cluster_arrive_release();  // this block has read the others' e_j
+  if (warp < nh) {           // warp h: head h's l in the canonical order, p_j = e_j / l
+    const float* pr = ps + warp * pp;
+    float l = 0.0f;
+    for (int j = lane; j < n; j += 32) l = __fadd_rn(l, pr[j]);
+    l = warp_sum(l);
+    float* pw = pd + warp * pp;
+    for (int j = lane; j < n; j += 32) pw[j] = __fdiv_rn(pr[j], l);
+  }
+
+  // pass 3: out[d] = sum_j p_j v_j[d], one chain an output element (a
+  // thread's outputs o = threadIdx.x + u * blockDim.x), over vchunk
+  // positions of V's columns at a time
+  float acc[kDecOuts];
+#pragma unroll
+  for (int u = 0; u < kDecOuts; ++u) acc[u] = 0.0f;
+  for (int p0 = 0; p0 < n; p0 += vchunk) {
+    const int p1 = min(p0 + vchunk, n);
+    if (p0 > 0) {  // the chunk before is read: copy this one
+      __syncthreads();
+      copy_v(p0, p1);
+    }
+    cp_async_wait_all();  // V's columns (this thread's copies)
+    __syncthreads();      // ... and every thread's (and, first, the p_j)
+#pragma unroll
+    for (int u = 0; u < kDecOuts; ++u) {
+      const int o = threadIdx.x + u * blockDim.x;
+      if (o < nh * nd) {
+        const int i = o / nd, dd = o - i * nd;
+        const float* pr = pd + i * pp + p0;  // p_j of the chunk's positions
+        const float* vc = ka + dd;              // position p0 + j at vc[j * cspan]
+        float a = acc[u];
+        int j = 0;
+#pragma unroll 4
+        for (; j + 4 <= p1 - p0; j += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(pr + j);
+          const float v0 = vc[j * cspan], v1 = vc[(j + 1) * cspan];
+          const float v2 = vc[(j + 2) * cspan], v3 = vc[(j + 3) * cspan];
+          a = __fmaf_rn(p4.x, v0, a);
+          a = __fmaf_rn(p4.y, v1, a);
+          a = __fmaf_rn(p4.z, v2, a);
+          a = __fmaf_rn(p4.w, v3, a);
+        }
+        for (; j < p1 - p0; ++j) a = __fmaf_rn(pr[j], vc[j * cspan], a);
+        acc[u] = a;
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kDecOuts; ++u) {
+    const int o = threadIdx.x + u * blockDim.x;
+    if (o < nh * nd) {
+      const int i = o / nd;
+      out[obase + i * ostride + d0 + o - i * nd] = acc[u];
+    }
+  }
+  cluster_wait();  // no block leaves while another may read its e_j
+}
+
+cudaError_t launch_attention_decode(const void* q, const void* k, const void* v, const void* sp,
+                                    void* out, int B, int H, int T, int KV, int S, int D, int C,
+                                    int gb, float scale, int vec, cudaStream_t stream) {
+  static size_t smem_allowed[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = attention_decode_smem(S, D, C, gb);
+  if (device >= kMaxDevices || smem > smem_allowed[device]) {
+    err = cudaFuncSetAttribute(stable_attention_decode_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    // the whole of L1 as shared memory, so two blocks fit an SM
+    err = cudaFuncSetAttribute(stable_attention_decode_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    if (device < kMaxDevices) smem_allowed[device] = smem;
+  }
+  const int G = H / KV;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, B * KV, T * ((G + gb - 1) / gb));
+  cfg.blockDim = dim3(kDecWarps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, stable_attention_decode_kernel, static_cast<const float*>(q),
+                           static_cast<const float*>(k), static_cast<const float*>(v),
+                           static_cast<const int*>(sp), static_cast<float*>(out), H, T, KV, S, D,
+                           G, gb, scale, vec);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // S3: stable row norm
 // ---------------------------------------------------------------------------
 
@@ -976,6 +1346,145 @@ __global__ void __launch_bounds__(kNormWarps * 32)
     for (int u = lane; u < N; u += 32)
       yr[u] = __fmul_rn(__fmul_rn(__ldg(xr + u), r), __ldg(gamma + u));
   }
+}
+
+// S3 with its rows staged once in shared memory (the plan's kernel; the
+// warp-a-row kernel above takes only rows too long to stage)
+constexpr int kNormStagedWarps = 8;  // warps of a staged block
+constexpr int kNormRowsMax = 8;      // rows a staged block: one summing warp each
+// aligned rows arrive by one 1-D bulk copy a row (else by every thread's
+// 16-byte cp.async)
+constexpr bool kNormBulkCopy = true;
+
+// Dynamic shared memory of a staged block of `rows` rows of N: gamma and
+// the rows, ceil4(N) floats each.
+__host__ __device__ inline size_t norm_staged_smem(int rows, int N) {
+  return sizeof(float) * (static_cast<size_t>(rows) + 1) * ceil4(N);
+}
+
+// Grid ceil(M / rows). The block stages gamma and its rows of x (rows m0 =
+// blockIdx.x * rows ..., M at most) with all their bytes in flight at once:
+// `copy` 2 one bulk copy a row, each on its own mbarrier counted in bytes,
+// 1 every thread's 16-byte cp.async (both: x and gamma 16-byte aligned and
+// N % 4 == 0), 0 4-byte cp.async. Warps w, w + rows, ... take row w: the
+// first forms the row's sum of squares from shared memory in the canonical
+// order (lane l chains the float4 at index 32 i + l for i = 0, 1, ...,
+// conflict-free, the partial group N / 4 last: it is lane (N / 4) % 32's;
+// then the butterfly), so every row has stable_rms_norm_kernel's bits; the
+// row's warps then write (x r) gamma from the staged row (float4 stores
+// when vec). With bulk copies a row's warps start as soon as that row has
+// landed, so one row's stores overlap the others' copies. x is read from
+// global memory once.
+__global__ void __launch_bounds__(kNormStagedWarps * 32)
+    stable_rms_norm_staged_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+                                  float* __restrict__ out, int M, int N, int rows, float eps,
+                                  int copy, int vec) {
+  extern __shared__ float4 smem4[];
+  const int pitch = ceil4(N);
+  float* gs = reinterpret_cast<float*>(smem4);  // gamma
+  float* xs = gs + pitch;                       // rows x pitch
+  __shared__ __align__(8) uint64_t full[kNormRowsMax + 1];  // gamma's, then each row's
+  __shared__ float rs[kNormRowsMax];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = blockIdx.x * rows, nr = min(rows, M - m0);
+  // staged row r: gamma (r = 0) or row m0 + r - 1 of x
+  auto dst_row = [&](int r) { return r == 0 ? gs : xs + (r - 1) * pitch; };
+  auto src_row = [&](int r) {
+    return r == 0 ? gamma : x + static_cast<size_t>(m0 + r - 1) * N;
+  };
+  if (copy == 2) {
+    if (threadIdx.x <= nr) mbar_init(&full[threadIdx.x], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x <= nr) {  // lane r of warp 0: staged row r on its own barrier
+      const unsigned bytes = 4u * static_cast<unsigned>(N);
+      mbar_expect_tx(&full[threadIdx.x], bytes);
+      bulk_copy(dst_row(threadIdx.x), src_row(threadIdx.x), bytes, &full[threadIdx.x]);
+    }
+  } else {
+    const int per = copy == 1 ? N >> 2 : N;  // copies a row
+    for (int idx = threadIdx.x; idx < (nr + 1) * per; idx += blockDim.x) {
+      const int r = idx / per, c = idx - r * per;
+      if (copy == 1)
+        cp_async16(dst_row(r) + 4 * c, src_row(r) + 4 * c);
+      else
+        cp_async4(dst_row(r) + c, src_row(r) + c);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  const int r = warp % rows;  // this warp's row
+  if (r >= nr) return;        // a whole warp; only named barriers of live rows follow
+  const int wi = warp / rows, wn = (kNormStagedWarps - 1 - r) / rows + 1;  // of wn warps
+  const int n4 = N >> 2;
+  const float* xr = xs + r * pitch;
+  if (copy == 2) mbar_wait(&full[r + 1], 0);
+  if (wi == 0) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    float s = 0.0f;
+#pragma unroll 8
+    for (int c = lane; c < n4; c += 32) {
+      const float4 xv = x4[c];
+      s = __fadd_rn(s, __fmul_rn(xv.x, xv.x));
+      s = __fadd_rn(s, __fmul_rn(xv.y, xv.y));
+      s = __fadd_rn(s, __fmul_rn(xv.z, xv.z));
+      s = __fadd_rn(s, __fmul_rn(xv.w, xv.w));
+    }
+    if ((N & 3) && lane == (n4 & 31))
+      for (int u = 4 * n4; u < N; ++u) s = __fadd_rn(s, __fmul_rn(xr[u], xr[u]));
+    const float ms = __fdiv_rn(warp_sum(s), static_cast<float>(N));
+    if (lane == 0) rs[r] = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(ms, eps)));
+  }
+  if (wn > 1)  // the row's warps wait for its r (named barrier 1 + r)
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + r), "r"(32 * wn) : "memory");
+  else
+    __syncwarp();
+  if (copy == 2) mbar_wait(&full[0], 0);  // gamma
+  const float rr = rs[r];
+  float* yr = out + static_cast<size_t>(m0 + r) * N;
+  if (vec) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    const float4* g4 = reinterpret_cast<const float4*>(gs);
+    for (int c = lane + 32 * wi; c < n4; c += 32 * wn) {
+      const float4 xv = x4[c], gv = g4[c];
+      float4 y;
+      y.x = __fmul_rn(__fmul_rn(xv.x, rr), gv.x);
+      y.y = __fmul_rn(__fmul_rn(xv.y, rr), gv.y);
+      y.z = __fmul_rn(__fmul_rn(xv.z, rr), gv.z);
+      y.w = __fmul_rn(__fmul_rn(xv.w, rr), gv.w);
+      reinterpret_cast<float4*>(yr)[c] = y;
+    }
+  } else {
+    for (int u = lane + 32 * wi; u < N; u += 32 * wn)
+      yr[u] = __fmul_rn(__fmul_rn(xr[u], rr), gs[u]);
+  }
+}
+
+cudaError_t launch_norm_staged(const void* x, const void* gamma, void* out, int M, int N, int rows,
+                               float eps, int vec, cudaStream_t stream) {
+  static size_t smem_allowed[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = norm_staged_smem(rows, N);
+  if (device >= kMaxDevices || smem > smem_allowed[device]) {
+    err = cudaFuncSetAttribute(stable_rms_norm_staged_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(stable_rms_norm_staged_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    if (device < kMaxDevices) smem_allowed[device] = smem;
+  }
+  const int copy = vec ? (kNormBulkCopy ? 2 : 1) : 0;
+  stable_rms_norm_staged_kernel<<<(M + rows - 1) / rows, kNormStagedWarps * 32, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(gamma), static_cast<float*>(out), M,
+      N, rows, eps, copy, vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1074,6 +1583,29 @@ long long mxtt_stable_attention_rows_smem_bytes(int rows, int S, int D) {
   return static_cast<long long>(attention_rows_smem(rows, S, D));
 }
 
+// S2 on clusters of `cluster` blocks (1..kDecClusterMax) each carrying
+// `gb` query heads of one KV head (gb <= min(H / KV, kDecHeads)) at one query time:
+// the arguments of mxtt_stable_attention otherwise; attention_decode_smem
+// must fit. vec = 1 needs k and v 16-byte aligned and D % 4 == 0 (16-byte
+// copies).
+int mxtt_stable_attention_decode(const void* q, const void* k, const void* v,
+                                 const void* start_pos, void* out, int B, int H, int T, int KV,
+                                 int S, int D, int cluster, int gb, float scale, int vec,
+                                 void* stream) {
+  if (B < 1 || H < 1 || T < 1 || KV < 1 || S < 1 || D < 1 || D > kMaxD || H % KV ||
+      cluster < 1 || cluster > kDecClusterMax || gb < 1 || gb > kDecHeads || gb > H / KV ||
+      B * KV > 65535 || T * ((H / KV + gb - 1) / gb) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(launch_attention_decode(q, k, v, start_pos, out, B, H, T, KV, S, D,
+                                                  cluster, gb, scale, vec, st));
+}
+
+// Dynamic shared memory of one decode block, in bytes.
+long long mxtt_stable_attention_decode_smem_bytes(int S, int D, int cluster, int gb) {
+  return static_cast<long long>(attention_decode_smem(S, D, cluster, gb));
+}
+
 // x (M, N), gamma (N,), out (M, N): f32, contiguous. vec = 1 needs N % 4 ==
 // 0 and x, gamma and out 16-byte aligned.
 int mxtt_stable_rms_norm(const void* x, const void* gamma, void* out, int M, int N, float eps,
@@ -1086,10 +1618,26 @@ int mxtt_stable_rms_norm(const void* x, const void* gamma, void* out, int M, int
   return static_cast<int>(cudaGetLastError());
 }
 
+// S3 on the staged kernel, `rows` rows a block (1..kNormRowsMax); the
+// arguments of mxtt_stable_rms_norm otherwise. norm_staged_smem must fit.
+int mxtt_stable_rms_norm_staged(const void* x, const void* gamma, void* out, int M, int N,
+                                int rows, float eps, int vec, void* stream) {
+  if (M < 1 || N < 1 || rows < 1 || rows > kNormRowsMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_norm_staged(x, gamma, out, M, N, rows, eps, vec,
+                                             static_cast<cudaStream_t>(stream)));
+}
+
+// Dynamic shared memory of a staged norm block of `rows` rows of N, in bytes.
+long long mxtt_stable_rms_norm_staged_smem_bytes(int rows, int N) {
+  return static_cast<long long>(norm_staged_smem(rows, N));
+}
+
 // Registers, local (spilled) bytes a thread and the block limit of kernel
 // `which`: 0..kDenseTiles-1 the stable_dense instantiations (7 its aligned
 // kernel), then the attention kernels at ND = 1, 2, 4, 8, the rows kernels
-// at ND4 = 1, 2, instantiation 7's unaligned kernel, and the row norm.
+// at ND4 = 1, 2, instantiation 7's unaligned kernel, the row norm, the
+// decode attention kernel and the staged row norm.
 int mxtt_stable_kernel_attributes(int which, int* regs, int* local_bytes, int* max_threads) {
   const void* fns[] = {
       reinterpret_cast<const void*>(stable_dense_kernel<1, 1, 1, 8, 4>),
@@ -1107,7 +1655,9 @@ int mxtt_stable_kernel_attributes(int which, int* regs, int* local_bytes, int* m
       reinterpret_cast<const void*>(stable_attention_rows_kernel<1>),
       reinterpret_cast<const void*>(stable_attention_rows_kernel<2>),
       reinterpret_cast<const void*>(stable_dense_ring_kernel<8, 8, 4, 4, 6, 3, false>),
-      reinterpret_cast<const void*>(stable_rms_norm_kernel)};
+      reinterpret_cast<const void*>(stable_rms_norm_kernel),
+      reinterpret_cast<const void*>(stable_attention_decode_kernel),
+      reinterpret_cast<const void*>(stable_rms_norm_staged_kernel)};
   if (which < 0 || which >= static_cast<int>(sizeof(fns) / sizeof(fns[0])))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;

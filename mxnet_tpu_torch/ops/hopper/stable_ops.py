@@ -36,7 +36,9 @@ kernel's launches the card ran (eager calls and, through
 captured counts in ``captured_count()`` instead), so a
 ``serve.engine.GraphSession`` takes them as counters. :func:`launch_count`
 reads all three; :func:`row_launches` counts eager launches by kernel and
-rows (M for S1 and S3, T for S2).
+rows (M for S1 and S3, T for S2); :func:`route_launches` S2's by kernel
+(``"decode"``, ``"heads"``, ``"rows"``) and :func:`norm_route_launches`
+S3's (``"staged"``, ``"warp"``).
 """
 from __future__ import annotations
 
@@ -52,13 +54,21 @@ _MAX_D = 256
 _MAX_WARPS = 8          # query heads an attention block carries (T = 1)
 _ROWS_MAX = 32          # query rows an attention block carries (T > 1)
 _SMEM_LIMIT = 232448    # dynamic shared memory a block may take (H100)
+# what the kernels with static shared memory (barriers, per-warp maxima)
+# leave for their dynamic part
+_STATIC_SLACK = 1024
+_CLUSTER_MAX = 8        # blocks a decode cluster (the portable size)
+_DEC_HEADS = 8          # query heads a decode cluster carries
+_DEC_CHUNK = 64         # K rows a decode block stages at a time
+_NORM_ROWS_MAX = 8      # rows a staged norm block
 _PLAIN_BYTES = 1 << 28  # the plain versions' product tensors, at most
 
 _LAST_PATH = None  # "cuda" | "torch": the version the last call took
 _FORCE_PATH = None
 _COUNT_LOCK = threading.Lock()
 _ROW_LAUNCHES = {}  # eager launches by (kernel, rows)
-_ROUTE_LAUNCHES = {}  # eager S2 launches by route ("heads", "rows")
+_ROUTE_LAUNCHES = {}  # eager S2 launches by route ("decode", "heads", "rows")
+_NORM_ROUTE_LAUNCHES = {}  # eager S3 launches by route ("staged", "warp")
 _LIB = None
 _SM_COUNT = {}  # device index -> multiprocessors
 
@@ -68,8 +78,9 @@ class _Counter:
     replays) and what went into graphs being captured. Updates take the
     module's lock: every serving thread launches."""
 
-    def __init__(self, name):
+    def __init__(self, name, routes=None):
         self.name = name
+        self._routes = routes  # eager launches by route, where it has routes
         self._launches = 0
         self._captured = 0
 
@@ -99,13 +110,13 @@ class _Counter:
                 self._launches += 1
                 key = (self.name, int(rows))
                 _ROW_LAUNCHES[key] = _ROW_LAUNCHES.get(key, 0) + 1
-                if route is not None:
-                    _ROUTE_LAUNCHES[route] = _ROUTE_LAUNCHES.get(route, 0) + 1
+                if self._routes is not None:
+                    self._routes[route] = self._routes.get(route, 0) + 1
 
 
 DENSE = _Counter("dense")
-ATTENTION = _Counter("attention")
-NORM = _Counter("norm")
+ATTENTION = _Counter("attention", _ROUTE_LAUNCHES)
+NORM = _Counter("norm", _NORM_ROUTE_LAUNCHES)
 COUNTERS = (DENSE, ATTENTION, NORM)
 
 
@@ -141,6 +152,7 @@ def reset_launch_count() -> None:
     with _COUNT_LOCK:
         _ROW_LAUNCHES.clear()
         _ROUTE_LAUNCHES.clear()
+        _NORM_ROUTE_LAUNCHES.clear()
 
 
 def row_launches() -> dict:
@@ -152,10 +164,18 @@ def row_launches() -> dict:
 
 
 def route_launches() -> dict:
-    """Eager S2 launches since the last reset by kernel: ``"heads"`` or
-    ``"rows"`` (:func:`attention_route`)."""
+    """Eager S2 launches since the last reset by kernel: ``"decode"``,
+    ``"heads"`` or ``"rows"`` (:func:`attention_route`)."""
     with _COUNT_LOCK:
         return dict(_ROUTE_LAUNCHES)
+
+
+def norm_route_launches() -> dict:
+    """Eager S3 launches since the last reset by kernel: ``"staged"`` (rows
+    staged in shared memory, :func:`norm_plan`) or ``"warp"`` (a warp a
+    row, for rows too long to stage)."""
+    with _COUNT_LOCK:
+        return dict(_NORM_ROUTE_LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -311,6 +331,77 @@ def attention_rows_plan(h, kv, t, s, d):
     return tq, gb
 
 
+def decode_position_slice(n, cluster, rank):
+    """Positions ``[j0, j1)`` of the ``n`` live ones that block ``rank`` of
+    a decode cluster stages and scores: spans of ``ceil4(ceil(n /
+    cluster))`` (the kernel's ``dec_pos_span``), cut at n."""
+    span = _ceil4(-(-n // cluster))
+    j0 = min(rank * span, n)
+    return j0, min(j0 + span, n)
+
+
+def decode_column_slice(d, cluster, rank):
+    """Output columns ``[d0, d1)`` of D that block ``rank`` of a decode
+    cluster computes in pass 3 (``dec_col_span``), cut at D."""
+    span = _ceil4(-(-d // cluster))
+    d0 = min(rank * span, d)
+    return d0, min(d0 + span, d)
+
+
+def attention_decode_smem_bytes(s, d, cluster, gb) -> int:
+    """Dynamic shared memory of one decode block: region A (a chunk of up
+    to 64 of the block's K rows, ``ceil4(D) + 4`` floats each; in pass 3
+    the V columns of as many positions as fit), the ``gb`` heads' e_j and
+    p_j (``ceil4(S) + 4`` each) and query rows (``ceil4(D)``)."""
+    kr = min(_DEC_CHUNK, _ceil4(-(-s // cluster))) * (_ceil4(d) + 4)
+    return 4 * (kr + 2 * gb * (_ceil4(s) + 4) + gb * _ceil4(d))
+
+
+def attention_decode_plan(b, h, kv, t, s, d, sm_count):
+    """``(cluster, gb)`` for S2's decode kernel at q (b, h, t, d) over rings
+    of ``s`` positions: a cluster carries ``gb`` = min(G, 8) query heads of
+    one KV head at one query time, its ``cluster`` blocks splitting the
+    positions in pass 1 and the output columns in pass 3. The largest
+    cluster (8, 4, 2 or 1; at most one block a 32 positions of the ring)
+    whose block fits the shared memory and whose grid has at most a block
+    an SM (on an H100, Llama-3-8B's B = 4 decode took 18.7 µs a call on
+    clusters of 4 and 22.3 on clusters of 8), else the smallest that fits;
+    ``None`` when no block fits (the call then takes the heads kernel).
+    Shapes only."""
+    g = h // kv
+    gb = min(g, _DEC_HEADS)
+    clusters = b * kv * t * -(-g // gb)
+    fits = [c for c in (8, 4, 2, 1)
+            if c <= max(1, -(-s // 32)) and d <= _MAX_D
+            and attention_decode_smem_bytes(s, d, c, gb)
+            <= _SMEM_LIMIT - _STATIC_SLACK]
+    for c in fits:
+        if clusters * c <= sm_count:
+            return c, gb
+    return (fits[-1], gb) if fits else None
+
+
+def norm_smem_bytes(rows, n) -> int:
+    """Dynamic shared memory of a staged S3 block: gamma and ``rows`` rows
+    of x, ``ceil4(N)`` floats each."""
+    return 4 * (rows + 1) * _ceil4(n)
+
+
+def norm_plan(m, n, sm_count):
+    """Rows a block of S3's staged kernel at M = ``m`` rows of N = ``n``: a
+    block a row up to as many rows as SMs, then up to 8 rows a block (a
+    summing warp each) so that the SMs hold every row at once; fewer where
+    the staged rows would pass a block's shared memory; ``None`` when not
+    even one row fits (the call then takes the warp-a-row kernel). The
+    kernel's block i takes rows ``i * rows`` up to ``m``. Shapes only."""
+    rows = max(1, min(_NORM_ROWS_MAX, -(-m // sm_count)))
+    while rows > 1 and norm_smem_bytes(rows, n) > _SMEM_LIMIT - _STATIC_SLACK:
+        rows -= 1
+    if norm_smem_bytes(rows, n) > _SMEM_LIMIT - _STATIC_SLACK:
+        return None
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # The kernels
 # ---------------------------------------------------------------------------
@@ -348,6 +439,17 @@ def _lib():
         lib.mxtt_stable_rms_norm.argtypes = [ptr] * 3 + [i32, i32, f32, i32,
                                                          ptr]
         lib.mxtt_stable_rms_norm.restype = i32
+        lib.mxtt_stable_attention_decode.argtypes = ([ptr] * 5 + [i32] * 8
+                                                     + [f32, i32, ptr])
+        lib.mxtt_stable_attention_decode.restype = i32
+        lib.mxtt_stable_attention_decode_smem_bytes.argtypes = [i32] * 4
+        lib.mxtt_stable_attention_decode_smem_bytes.restype = \
+            ctypes.c_longlong
+        lib.mxtt_stable_rms_norm_staged.argtypes = ([ptr] * 3 + [i32] * 3
+                                                    + [f32, i32, ptr])
+        lib.mxtt_stable_rms_norm_staged.restype = i32
+        lib.mxtt_stable_rms_norm_staged_smem_bytes.argtypes = [i32] * 2
+        lib.mxtt_stable_rms_norm_staged_smem_bytes.restype = ctypes.c_longlong
         lib.mxtt_stable_kernel_attributes.argtypes = [i32, pi32, pi32, pi32]
         lib.mxtt_stable_kernel_attributes.restype = i32
         lib.mxtt_error_string.argtypes = [i32]
@@ -370,6 +472,17 @@ def _lib():
                     attention_rows_smem_bytes(8 * w, s, d):
                 raise MXNetError("stable_ops.cu's rows attention shared "
                                  "memory differs from the wrapper's")
+            for c in (1, 3, 8):
+                if lib.mxtt_stable_attention_decode_smem_bytes(s, d, c, w) \
+                        != attention_decode_smem_bytes(s, d, c, w):
+                    raise MXNetError("stable_ops.cu's decode attention "
+                                     "shared memory differs from the "
+                                     "wrapper's")
+        for rows, n in ((1, 4096), (8, 4096), (3, 4095)):
+            if lib.mxtt_stable_rms_norm_staged_smem_bytes(rows, n) != \
+                    norm_smem_bytes(rows, n):
+                raise MXNetError("stable_ops.cu's staged norm shared memory "
+                                 "differs from the wrapper's")
         _LIB = lib
     return _LIB
 
@@ -386,12 +499,14 @@ def kernel_attributes() -> dict:
     prefill tile's kernel for aligned rows, ``dense_t7_unaligned`` its
     kernel for the others), ``attention_nd{n}`` for S2's heads kernel (n =
     ceil(D / 32)), ``attention_rows_nd{n}`` for its rows kernel (n =
-    ceil(D / 128)), ``norm``."""
+    ceil(D / 128)), ``attention_decode`` for its decode kernel, ``norm`` (a
+    warp a row) and ``norm_staged`` for S3."""
     lib = _lib()
     names = ([f"dense_t{i}" for i in range(len(DENSE_TILES))]
              + [f"attention_nd{n}" for n in (1, 2, 4, 8)]
              + [f"attention_rows_nd{n}" for n in (1, 2)]
-             + [f"dense_t{PREFILL_TILE}_unaligned", "norm"])
+             + [f"dense_t{PREFILL_TILE}_unaligned", "norm",
+                "attention_decode", "norm_staged"])
     out = {}
     for i, name in enumerate(names):
         regs, local, threads = (ctypes.c_int() for _ in range(3))
@@ -493,13 +608,17 @@ def stable_dense(x, weight, bias=None):
 
 def attention_route(b, h, kv, t, s, d, sm_count) -> str:
     """S2's kernel for q (b, h, t, d) over rings of ``s`` positions:
-    ``"heads"`` (a block a query time, a warp a query head) at T = 1 and
-    wherever the rows kernel's grid would leave SMs idle; ``"rows"`` (a
-    block of several query times and heads, :func:`attention_rows_plan`)
-    where its grid has a block for every SM. Both give every row the same
-    bits, so the route is free to follow the shapes."""
+    ``"decode"`` (a cluster of blocks a query time and KV head,
+    :func:`attention_decode_plan`) at T = 1 wherever its plan fits;
+    ``"heads"`` (a block a query time, a warp a query head) at T = 1
+    otherwise and wherever the rows kernel's grid would leave SMs idle;
+    ``"rows"`` (a block of several query times and heads,
+    :func:`attention_rows_plan`) where its grid has a block for every SM.
+    All give every row the same bits, so the route is free to follow the
+    shapes."""
     if t == 1:
-        return "heads"
+        return ("decode" if attention_decode_plan(b, h, kv, t, s, d, sm_count)
+                else "heads")
     plan = attention_rows_plan(h, kv, t, s, d)
     if plan is None:  # no rows block fits: neither does a heads block
         return "rows"
@@ -508,12 +627,13 @@ def attention_route(b, h, kv, t, s, d, sm_count) -> str:
     return "rows" if blocks >= sm_count else "heads"
 
 
-def attention_launch(q, k, v, sp, scale, route):
-    """S2's kernel ``route`` (``"heads"`` or ``"rows"``, at any T: every
-    route gives every row the same bits) on contiguous f32 CUDA ``q`` (B,
-    H, T, D) and rings ``k``/``v`` (B, KV, S, D), ``sp`` (B,) int32 on the
-    card. Returns (B, H, T, D). Uncounted: the tests and ``chip_smoke.py``
-    call it to hold one route against the other."""
+def attention_launch(q, k, v, sp, scale, route, cluster=None):
+    """S2's kernel ``route`` (``"decode"``, ``"heads"`` or ``"rows"``, at
+    any T: every route gives every row the same bits) on contiguous f32
+    CUDA ``q`` (B, H, T, D) and rings ``k``/``v`` (B, KV, S, D), ``sp``
+    (B,) int32 on the card; ``cluster`` overrides the decode plan's cluster
+    size (1-8). Returns (B, H, T, D). Uncounted: the tests and
+    ``chip_smoke.py`` call it to hold one route against another."""
     b, h, t, d = q.shape
     kv, s = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -529,18 +649,34 @@ def attention_launch(q, k, v, sp, scale, route):
                 else attention_rows_smem_bytes(tg[0] * tg[1], s, d))
         plan = f"(tq, gb) {tg}"
         vec = int(d % 4 == 0 and _aligned(k, v))
+    elif route == "decode":
+        cg = attention_decode_plan(b, h, kv, t, s, d, _sm_count(q.device))
+        gb = min(h // kv, _DEC_HEADS)
+        c = cluster or (cg[0] if cg else 1)
+        if not 1 <= c <= _CLUSTER_MAX:
+            raise ValueError(f"attention_launch: cluster {c} not in 1.."
+                             f"{_CLUSTER_MAX}")
+        smem = attention_decode_smem_bytes(s, d, c, gb)
+        plan = f"(cluster, gb) {(c, gb)}"
+        vec = int(d % 4 == 0 and _aligned(k, v))
     else:
         raise ValueError(f"attention_launch: route {route!r} not in "
-                         "('heads', 'rows')")
-    if smem > _SMEM_LIMIT:
+                         "('decode', 'heads', 'rows')")
+    limit = _SMEM_LIMIT - (_STATIC_SLACK if route == "decode" else 0)
+    if smem > limit:
         raise MXNetError(f"stable_attention kernel: a ring of {s} positions "
                          f"at D = {d} needs {smem} bytes of shared memory a "
-                         f"block, more than {_SMEM_LIMIT}")
+                         f"block, more than {limit}")
     with torch.cuda.device(q.device):
         if route == "heads":
             err = lib.mxtt_stable_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), sp.data_ptr(),
                 out.data_ptr(), b, h, t, kv, s, d, warps, scale, vec,
+                _stream(q.device))
+        elif route == "decode":
+            err = lib.mxtt_stable_attention_decode(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), sp.data_ptr(),
+                out.data_ptr(), b, h, t, kv, s, d, c, gb, scale, vec,
                 _stream(q.device))
         else:
             err = lib.mxtt_stable_attention_rows(
@@ -594,17 +730,43 @@ def stable_rms_norm(x, gamma, eps=1e-6):
         raise MXNetError(f"stable_rms_norm: gamma {tuple(gamma.shape)} for "
                          f"rows of {n}")
     x2 = x.reshape(-1, n).contiguous()
-    g = gamma.contiguous()
-    out = torch.empty_like(x2)
     if x2.shape[0] == 0:
-        return out.reshape(x.shape)
-    vec = int(n % 4 == 0 and _aligned(x2, g, out))
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        err = lib.mxtt_stable_rms_norm(x2.data_ptr(), g.data_ptr(),
-                                       out.data_ptr(), x2.shape[0], n,
-                                       float(eps), vec, _stream(x.device))
-    _raise_if(err, "stable_rms_norm kernel",
-              f"x {tuple(x.shape)}, vec {vec}")
-    NORM._launched(x2.shape[0])
+        return torch.empty_like(x)
+    rows = norm_plan(x2.shape[0], n, _sm_count(x.device))
+    route = "warp" if rows is None else "staged"
+    out = norm_launch(x2, gamma.contiguous(), eps, route)
+    NORM._launched(x2.shape[0], route)
     return out.reshape(x.shape)
+
+
+def norm_launch(x2, gamma, eps, route, rows=None):
+    """S3's kernel ``route`` on contiguous f32 CUDA ``x2`` (M, N) and
+    ``gamma`` (N,): ``"staged"`` (:func:`norm_plan`'s rows a block, or
+    ``rows``) or ``"warp"`` (a warp a row); both give every row the same
+    bits. Returns (M, N). Uncounted: the tests and ``chip_smoke.py`` call
+    it to hold one kernel against the other."""
+    m, n = x2.shape
+    out = torch.empty_like(x2)
+    vec = int(n % 4 == 0 and _aligned(x2, gamma, out))
+    lib = _lib()
+    if route == "staged":
+        rows = rows or norm_plan(m, n, _sm_count(x2.device))
+        if rows is None or norm_smem_bytes(rows, n) > \
+                _SMEM_LIMIT - _STATIC_SLACK:
+            raise MXNetError(f"stable_rms_norm kernel: rows of {n} do not "
+                             "fit a staged block's shared memory")
+    elif route != "warp":
+        raise ValueError(f"norm_launch: route {route!r} not in ('staged', "
+                         "'warp')")
+    with torch.cuda.device(x2.device):
+        if route == "staged":
+            err = lib.mxtt_stable_rms_norm_staged(
+                x2.data_ptr(), gamma.data_ptr(), out.data_ptr(), m, n, rows,
+                float(eps), vec, _stream(x2.device))
+        else:
+            err = lib.mxtt_stable_rms_norm(
+                x2.data_ptr(), gamma.data_ptr(), out.data_ptr(), m, n,
+                float(eps), vec, _stream(x2.device))
+    _raise_if(err, "stable_rms_norm kernel",
+              f"x {tuple(x2.shape)}, route {route}, rows {rows}, vec {vec}")
+    return out

@@ -1,5 +1,5 @@
 """Build text-edited variants of the strict rung's S1 prefill tile side by
-side and time them, and S2's two kernels, on one card.
+side and time them, and S2's and S3's kernels, on one card.
 
     python -m mxnet_tpu_torch.stable_variants
 
@@ -26,7 +26,21 @@ one part of the work: ``copies_only`` (the ring fills, no FMA),
 S2 at T = 256 (B = 4, H = 32, KV = 8, a 1024-position ring, D = 128, from
 position 0, the strict rung's prefill): the rows kernel at the plans (tq,
 gb) of 8, 16 and 32 rows a block, and the heads kernel, each bit for bit the
-heads kernel's output.
+heads kernel's output. S2 at T = 1 (the same heads and ring; the decode
+step at the middle of a 32-token generate, positions 33-266, and over a
+full ring, positions 1000-1023): the decode kernel on clusters of 4 and 8
+blocks (the sizes whose blocks fit at this ring), each bit for bit the
+heads kernel, beside it.
+
+S2's decode diagnostics on clusters of 8 (each drops one part of the work,
+so its output differs): ``decode_no_pass3`` (no output chains),
+``decode_no_gather`` (no e_j read from the other blocks).
+
+S3 at 4 rows (a decode step) and 1024 rows (a prefill) of 4096: the staged
+kernel with its rows by one bulk copy each (``source``) and by every
+thread's 16-byte ``cp.async`` (``norm_cp_async16``), at 1024 rows also at
+1, 2, 4 and 8 rows a block, beside the warp-a-row kernel, each bit for bit
+the warp-a-row kernel's output.
 """
 from __future__ import annotations
 
@@ -51,6 +65,20 @@ VARIANTS = {
         "static_cast<size_t>(row) * U + u0 + q);", "          (void)row;")],
 }
 DIAGNOSTICS = ("copies_only", "no_copies")
+# S3's staged kernel with its rows by 16-byte cp.async, not bulk copies
+NORM_VARIANTS = {"norm_cp_async16": [(
+    "constexpr bool kNormBulkCopy = true;",
+    "constexpr bool kNormBulkCopy = false;")]}
+# S2's decode kernel, diagnostics that each drop one part of its work
+DECODE_DIAGNOSTICS = {
+    "decode_no_pass3": [(
+        "      if (o < nh * nd) {\n        const int i = o / nd, dd",
+        "      if (o < 0) {\n        const int i = o / nd, dd")],
+    "decode_no_gather": [(
+        "    for (int f0 = threadIdx.x; f0 < items; f0 += 4 * blockDim.x) {",
+        "    for (int f0 = threadIdx.x; f0 < 0; f0 += 4 * blockDim.x) {")],
+}
+_NOT_S1 = {**NORM_VARIANTS, **DECODE_DIAGNOSTICS}
 # (O, U, products in one forward): Llama-3-8B's layer products x 32
 SHAPES = [(4096, 4096, 64), (1024, 4096, 64), (14336, 4096, 64),
           (4096, 14336, 32)]
@@ -89,6 +117,12 @@ def _build(names_sources, out_dir):
                                               + [f32, i32, ptr])
         lib.mxtt_stable_attention_rows.argtypes = ([ptr] * 5 + [i32] * 8
                                                    + [f32, i32, ptr])
+        lib.mxtt_stable_attention_decode.argtypes = ([ptr] * 5 + [i32] * 8
+                                                     + [f32, i32, ptr])
+        lib.mxtt_stable_rms_norm.argtypes = [ptr] * 3 + [i32, i32, f32, i32,
+                                                         ptr]
+        lib.mxtt_stable_rms_norm_staged.argtypes = ([ptr] * 3 + [i32] * 3
+                                                    + [f32, i32, ptr])
         libs[name] = lib
     return libs
 
@@ -110,7 +144,7 @@ def main():
     source = (build.CSRC / "stable_ops.cu").read_text()
     t0 = time.perf_counter()
     libs = _build([(n, variant_source(source, subs))
-                   for n, subs in VARIANTS.items()],
+                   for n, subs in {**VARIANTS, **_NOT_S1}.items()],
                   build.BUILD_DIR.parent / "stable_variants")
     print(f"[variant] built={len(libs)} seconds="
           f"{time.perf_counter() - t0:.3f}", flush=True)
@@ -137,7 +171,8 @@ def main():
         dense(src, st.GLOBAL_PREFILL_TILE, x, w, ref)
         fma_ms = 2 * ROWS * o * u / F32_FLOP_PER_S * 1e3
         arms = [("first_tile", src, st.GLOBAL_PREFILL_TILE)] + [
-            (name, lib, st.PREFILL_TILE) for name, lib in libs.items()]
+            (name, lib, st.PREFILL_TILE) for name, lib in libs.items()
+            if name not in _NOT_S1]
         fields = {}
         for name, lib, tile in arms:
             out.zero_()
@@ -189,9 +224,95 @@ def main():
     print(f"[s2] b={b} h={h} kv={kv} t={t} s={s} d={d} "
           + " ".join(f"{k_}_ms={v_}" for k_, v_ in fields.items()),
           flush=True)
+    ok &= _decode_arms(torch, st, libs, flush, stream, gen)
+    ok &= _norm_arms(torch, st, libs, flush, stream, gen)
     print(f"[variant] matches={ok}", flush=True)
     print(f"nvidia-smi: {_nvidia_smi()}", flush=True)
     return 0 if ok else 1
+
+
+def _decode_arms(torch, st, libs, flush, stream, gen):
+    """S2 at T = 1 on Llama-3-8B's heads over a 1024-position ring: the
+    heads kernel and the decode kernel on clusters of 4 and 8 blocks (and
+    the diagnostics on 8), at phase 3c's positions and over a full ring;
+    returns whether every decode arm that keeps the work equals the heads
+    kernel bit for bit."""
+    src = libs["source"]
+    dev = torch.device("cuda", 0)
+    b, h, kv, s, d = 4, 32, 8, 1024, 128
+    q = torch.randn(b, h, 1, d, device=dev, generator=gen)
+    k = torch.randn(b, kv, s, d, device=dev, generator=gen)
+    v = torch.randn(b, kv, s, d, device=dev, generator=gen)
+    ref, out = torch.empty_like(q), torch.empty_like(q)
+    sc, gb, ok = 1.0 / d ** 0.5, min(h // kv, 8), True
+    for label, pos in (("mid_generate", [33, 80, 146, 266]),
+                       ("full_ring", [1000, 1007, 1016, 1023])):
+        sp = torch.tensor(pos, dtype=torch.int32, device=dev)
+        heads = lambda o_: src.mxtt_stable_attention(  # noqa: E731
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), sp.data_ptr(),
+            o_.data_ptr(), b, h, 1, kv, s, d, st.attention_warps(h, kv), sc,
+            1, stream)
+        heads(ref)
+        fields = {"heads": f"{_time_ms(torch, lambda: heads(out), flush):.6f}"}
+        arms = [(f"decode_cluster{c}", src, c) for c in (4, 8)] + [
+            (name, libs[name], 8) for name in DECODE_DIAGNOSTICS
+            if name in libs]
+        for name, lib, c in arms:
+            dec = lambda o_: lib.mxtt_stable_attention_decode(  # noqa: E731
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), sp.data_ptr(),
+                o_.data_ptr(), b, h, 1, kv, s, d, c, gb, sc, 1, stream)
+            out.zero_()
+            if dec(out):
+                raise RuntimeError(f"decode launch failed ({name})")
+            torch.cuda.synchronize()
+            match = bool(torch.equal(out, ref))
+            if name not in DECODE_DIAGNOSTICS:
+                ok &= match
+            fields[name] = (f"{_time_ms(torch, lambda: dec(out), flush):.6f}"
+                            + ("" if match or name in DECODE_DIAGNOSTICS
+                               else "(differs)"))
+        print(f"[s2] b={b} h={h} kv={kv} t=1 s={s} d={d} positions={label} "
+              + " ".join(f"{k_}_ms={v_}" for k_, v_ in fields.items()),
+              flush=True)
+    return ok
+
+
+def _norm_arms(torch, st, libs, flush, stream, gen):
+    """S3 at 4 and 1024 rows of 4096: the warp-a-row kernel and the staged
+    kernel of each copy style; returns whether every staged arm equals the
+    warp-a-row kernel bit for bit."""
+    dev = torch.device("cuda", 0)
+    n, ok = 4096, True
+    gamma = torch.rand(n, device=dev, generator=gen) + 0.5
+    for m in (4, 1024):
+        x = torch.randn(m, n, device=dev, generator=gen)
+        ref, out = torch.empty_like(x), torch.empty_like(x)
+        warp = lambda lib, o_: lib.mxtt_stable_rms_norm(  # noqa: E731
+            x.data_ptr(), gamma.data_ptr(), o_.data_ptr(), m, n, 1e-5, 1,
+            stream)
+        warp(libs["source"], ref)
+        fields = {"warp": f"{_time_ms(torch, lambda: warp(libs['source'], out), flush):.6f}"}
+        rows = st.norm_plan(m, n, st._sm_count(dev))
+        arms = [("staged_bulk", "source", rows)] + [
+            (f"staged_{name}", name, rows) for name in NORM_VARIANTS] + [
+            (f"staged_bulk_rows{r}", "source", r) for r in (1, 2, 4, 8)
+            if r != rows and m > 4]
+        for label, name, r in arms:
+            staged = lambda o_: libs[name].mxtt_stable_rms_norm_staged(  # noqa: E731
+                x.data_ptr(), gamma.data_ptr(), o_.data_ptr(), m, n, r,
+                1e-5, 1, stream)
+            out.zero_()
+            if staged(out):
+                raise RuntimeError(f"staged norm launch failed ({label})")
+            torch.cuda.synchronize()
+            match = bool(torch.equal(out, ref))
+            ok &= match
+            fields[label] = (f"{_time_ms(torch, lambda: staged(out), flush):.6f}"
+                             + ("" if match else "(differs)"))
+        print(f"[s3] m={m} n={n} rows_a_block={rows} "
+              + " ".join(f"{k_}_ms={v_}" for k_, v_ in fields.items()),
+              flush=True)
+    return ok
 
 
 if __name__ == "__main__":

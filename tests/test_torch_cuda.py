@@ -80,6 +80,11 @@ def _int8_branch_on_cpu(monkeypatch):
     monkeypatch.setattr(tops, "_int8_dot", lambda data: True)
 
 
+def _same_bits(a, b):
+    """``a`` and ``b`` hold the same bit patterns (NaNs included)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def _misaligned(x):
     """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
     boundary, so the kernel must stream it with scalar loads."""
@@ -2525,13 +2530,14 @@ def test_cuda_stable_attention_rows_equal_heads_bitwise(case):
 
 def test_cuda_stable_kernels_do_not_spill():
     """No S1, S2 or S3 instantiation keeps local (spilled) memory: every
-    S1 tile (the prefill tile's aligned and unaligned kernels), S2's heads
-    and rows kernels, S3."""
+    S1 tile (the prefill tile's aligned and unaligned kernels), S2's heads,
+    rows and decode kernels, S3's two kernels."""
     _need_cuda()
     attrs = st.kernel_attributes()
     want = ({f"dense_t{i}" for i in range(len(st.DENSE_TILES))}
             | {f"dense_t{st.PREFILL_TILE}_unaligned", "attention_rows_nd1",
-               "attention_rows_nd2", "attention_nd1", "norm"})
+               "attention_rows_nd2", "attention_nd1", "norm",
+               "attention_decode", "norm_staged"})
     assert want <= set(attrs), sorted(want - set(attrs))
     for name, a in attrs.items():
         assert a["local_bytes"] == 0, (name, a)
@@ -2610,6 +2616,100 @@ def test_cuda_stable_rms_norm_matches_plain_and_row_invariant():
                                full[r0:r0 + 4]), (n, r0)
 
 
+# (B, H, KV, S, D, start_pos) at T = 1: STABLE_ATTN_CASES' decode case,
+# phase 3c's positions (the middle of a 32-token generate), a full ring
+# (positions 1000-1023), one live position and none (NaN), MHA at D = 30,
+# D = 256, a group of 16 heads (two clusters a KV head) and a short ring
+STABLE_DECODE_CASES = [
+    (4, 32, 8, 1024, 128, [0, 16, 300, 1023]),
+    (4, 32, 8, 1024, 128, [33, 80, 146, 266]),
+    (4, 32, 8, 1024, 128, [1000, 1007, 1016, 1023]),
+    (2, 32, 8, 1024, 128, [0, -1]),
+    (2, 6, 6, 70, 30, [0, 40]),
+    (2, 8, 2, 333, 256, [100, 330]),
+    (1, 16, 1, 200, 64, [150]),
+    (3, 4, 2, 64, 128, [5, 63, 200]),
+]
+
+
+@pytest.mark.parametrize("case", STABLE_DECODE_CASES,
+                         ids=["decode", "phase3c", "full_ring", "n1_and_none",
+                              "mha_d30", "d256", "g16", "short_ring"])
+def test_cuda_stable_attention_decode_equals_heads_bitwise(case):
+    """S2's decode kernel (T = 1, the route's pick) equals the heads kernel
+    bit for bit on every row at every cluster size that fits (1, 2, 4 and
+    8 blocks), aligned and on misaligned rings (4-byte copies); no live
+    position gives the heads kernel's NaN; the plain version within
+    STABLE_REL where a position is live."""
+    dev = _need_cuda()
+    b, h, kv, s, d, sp = case
+    q, k, v = _attention_inputs(b, h, kv, 1, s, d, dev, seed=8)
+    sp = torch.tensor(sp, dtype=torch.int32, device=dev)
+    sc = 1.0 / d ** 0.5
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert st.attention_route(b, h, kv, 1, s, d, sms) == "decode"
+    heads = st.attention_launch(q, k, v, sp, sc, route="heads")
+    gb = min(h // kv, 8)
+    for cluster in (1, 2, 4, 8):
+        if st.attention_decode_smem_bytes(s, d, cluster, gb) > 231424:
+            continue
+        out = st.attention_launch(q, k, v, sp, sc, route="decode",
+                                  cluster=cluster)
+        assert _same_bits(out, heads), cluster
+    assert _same_bits(st.attention_launch(
+        _misaligned(q), _misaligned(k), _misaligned(v), sp, sc,
+        route="decode"), heads)
+    live = sp >= 0
+    assert bool(torch.isnan(heads[~live]).all())
+    _stable_close(heads[live], st.stable_attention_torch(q, k, v, sp,
+                                                         sc)[live])
+
+
+def test_cuda_stable_attention_decode_counts_and_t_above_one():
+    """``stable_attention`` at T = 1 launches the decode kernel (counted
+    under its route); the decode kernel run at T > 1 (a cluster a query
+    time) equals the heads kernel bit for bit too."""
+    dev = _need_cuda()
+    q, k, v = _attention_inputs(4, 32, 8, 1, 1024, 128, dev, seed=9)
+    sp = torch.tensor([33, 80, 146, 266], dtype=torch.int32, device=dev)
+    st.reset_launch_count()
+    out = st.stable_attention(q, k, v, sp)
+    assert st.route_launches() == {"decode": 1}
+    assert torch.equal(out, st.attention_launch(q, k, v, sp, 128 ** -0.5,
+                                                route="heads"))
+    q, k, v = _attention_inputs(2, 8, 2, 7, 100, 64, dev, seed=10)
+    sp = torch.tensor([0, 90], dtype=torch.int32, device=dev)
+    assert torch.equal(
+        st.attention_launch(q, k, v, sp, 0.125, route="decode"),
+        st.attention_launch(q, k, v, sp, 0.125, route="heads"))
+
+
+@pytest.mark.parametrize("mn", [(4, 4096), (1024, 4096), (4095, 4095),
+                                (5, 30)],
+                         ids=["decode", "prefill", "ragged", "short"])
+def test_cuda_stable_rms_norm_staged_equals_warp_bitwise(mn):
+    """S3's staged kernel (the plan's pick) equals the warp-a-row kernel bit
+    for bit at decode's 4 rows, a prefill's 1024, a ragged 4095 x 4095 and
+    short rows, at every rows-a-block from 1 to 8 and on a misaligned x
+    (4-byte copies, scalar stores); ``stable_rms_norm`` counts it under
+    ``"staged"``."""
+    dev = _need_cuda()
+    m, n = mn
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(m, n, device=dev, generator=g)
+    gamma = torch.rand(n, device=dev, generator=g) + 0.5
+    ref = st.norm_launch(x, gamma, 1e-5, "warp")
+    for rows in range(1, 9):
+        assert torch.equal(st.norm_launch(x, gamma, 1e-5, "staged",
+                                          rows=rows), ref), rows
+    assert torch.equal(st.norm_launch(_misaligned(x), gamma, 1e-5,
+                                      "staged"), ref)
+    st.reset_launch_count()
+    assert torch.equal(st.stable_rms_norm(x, gamma, 1e-5), ref)
+    assert st.norm_route_launches() == {"staged": 1}
+    _stable_close(ref, st.stable_rms_norm_torch(x, gamma, 1e-5))
+
+
 def test_cuda_stable_refusals_and_forced_paths():
     """The wrappers raise for what the kernels do not take (non-f32, an
     oversized ring, mismatched heads) and, under ``force_path("cuda")``,
@@ -2651,7 +2751,8 @@ def test_cuda_baseline_generator_decode_equals_prefill():
     """``Generator(decode_path="baseline")`` at ``llama_serve_12l_test``
     width on the card: each of 16 decode steps' logits bit for bit a fresh
     full prefill's, with every layer launching S1 7 times (and the head
-    once), S2 and S3 (2 a layer and the final norm) a forward; the multi-
+    once), S2 (the decode kernel at T = 1) and S3 (staged; 2 a layer and
+    the final norm) a forward; the multi-
     step generator (a CUDA graph) gives the same greedy tokens and counts
     its replays' launches."""
     dev = _need_cuda()
@@ -2685,6 +2786,11 @@ def test_cuda_baseline_generator_decode_equals_prefill():
     assert st.launch_count() == {"dense": 32 * (7 * layers + 1),
                                  "attention": 32 * layers,
                                  "norm": 32 * (2 * layers + 1)}
+    # the decode steps on the decode kernel, every norm staged
+    routes = st.route_launches()
+    assert routes["decode"] == 16 * layers
+    assert sum(routes.values()) == 32 * layers
+    assert st.norm_route_launches() == {"staged": 32 * (2 * layers + 1)}
     want, _ = gen.generate(prompts, max_new_tokens=12)
     multi = Generator(model, multistep=True, decode_steps=4, **kw)
     multi.warmup()
